@@ -1,0 +1,183 @@
+// Fused path-row gather+decrypt and encrypt+scatter for the Path-ORAM
+// bucket trees, hand-written for Hopper (sm_90a).
+//
+// gv_gather_decrypt replaces the TPU kernel
+//   grapevine_tpu/oblivious/pallas_gather.py:gather_decrypt_rows_tiled
+//   (_gather_tiled_kernel): fetch the rows at public bucket ids flat_b
+//   from (tree_idx, tree_val, nonces) and return them decrypted.
+// gv_scatter_encrypt replaces
+//   grapevine_tpu/oblivious/pallas_gather.py:scatter_encrypt_rows_tiled
+//   (_scatter_tiled_kernel): encrypt plaintext rows under (target bucket,
+//   write epoch) and write them into the trees in place, committing the
+//   nonce row in the same pass; non-owner rows go to the junk bucket
+//   n_padded - 1, which heap ids never address (their writes race there,
+//   as on the TPU, and that row is never read).
+//
+// What bounds them on an H100: device-memory bytes. Each row moves
+// (z + z*v) words in and out once; ChaCha8 costs ~26 int32 operations a
+// row word, which the card retires faster than its memory moves the
+// word, so the bytes decide (PERF.md has the measured times beside both
+// bounds). The design therefore keeps every extra byte off device memory:
+// one CTA per row builds that row's 16*nb keystream words in shared
+// memory (one thread per ChaCha block, j-major placement, conflict-free
+// stores) and then streams the row through once, coalesced, in 16-byte
+// vectors where the layout allows, XORing on the way. The keystream
+// never touches device memory, and the row's ciphertext is read once.
+//
+// Obliviousness: every global address depends only on flat_b and owner,
+// which are public (the round's transcript and its bucket-owner map), as
+// in the Pallas kernels. The only branch is on the row's public nonce
+// (epoch 0 marks a never-written bucket whose keystream is the identity).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "chacha.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// Keystream of one row into shared memory: ks[j * nb + c] = word j of
+// block c. Threads take blocks c = tid, tid + blockDim, ...
+__device__ __forceinline__ void row_keystream_smem(
+    const uint32_t* __restrict__ key, uint32_t bucket, uint32_t e_lo,
+    uint32_t e_hi, int rounds, int nb, uint32_t* ks) {
+  uint32_t k[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) k[i] = __ldg(key + i);
+  for (int c = threadIdx.x; c < nb; c += blockDim.x) {
+    uint32_t out[16];
+    gv_chacha_block(k, (uint32_t)c, bucket, e_lo, e_hi, rounds, out);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) ks[j * nb + c] = out[j];
+  }
+}
+
+// dst[m] = src[m] ^ (xor ? ks[m] : 0) for m in [0, n): 16-byte vectors
+// when `vec` (n % 4 == 0 and every pointer 16-byte aligned), else words.
+__device__ __forceinline__ void stream_row(
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+    const uint32_t* ks, bool xor_ks, int n, bool vec) {
+  if (vec) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    const uint4* k4 = reinterpret_cast<const uint4*>(ks);
+    for (int q = threadIdx.x; q < n / 4; q += blockDim.x) {
+      uint4 x = s4[q];
+      if (xor_ks) {
+        const uint4 y = k4[q];
+        x.x ^= y.x; x.y ^= y.y; x.z ^= y.z; x.w ^= y.w;
+      }
+      d4[q] = x;
+    }
+  } else {
+    for (int m = threadIdx.x; m < n; m += blockDim.x) {
+      dst[m] = src[m] ^ (xor_ks ? ks[m] : 0u);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) gather_decrypt_kernel(
+    const uint32_t* __restrict__ key, const uint32_t* __restrict__ tree_idx,
+    const uint32_t* __restrict__ tree_val, const uint32_t* __restrict__ nonces,
+    const int32_t* __restrict__ flat_b, uint32_t* __restrict__ out_idx,
+    uint32_t* __restrict__ out_val, int z, int zv, int rounds, bool vec) {
+  extern __shared__ __align__(16) uint32_t ks[];
+  const int64_t r = blockIdx.x;
+  const int64_t row = flat_b[r];
+  const uint32_t e_lo = nonces[2 * row];
+  const uint32_t e_hi = nonces[2 * row + 1];
+  const int nb = (z + zv + 15) / 16;
+  // uniform across the CTA: the nonce is one value per row
+  const bool written = rounds > 0 && (e_lo | e_hi) != 0u;
+  if (written) {
+    row_keystream_smem(key, (uint32_t)row, e_lo, e_hi, rounds, nb, ks);
+    __syncthreads();
+  }
+  stream_row(tree_idx + row * z, out_idx + r * z, ks, written, z, false);
+  stream_row(tree_val + row * zv, out_val + r * zv, ks + z, written, zv, vec);
+}
+
+__global__ void __launch_bounds__(kThreads) scatter_encrypt_kernel(
+    const uint32_t* __restrict__ key, uint32_t* __restrict__ tree_idx,
+    uint32_t* __restrict__ tree_val, uint32_t* __restrict__ nonces,
+    const int32_t* __restrict__ flat_b, const uint8_t* __restrict__ owner,
+    const uint32_t* __restrict__ epoch, const uint32_t* __restrict__ new_pidx,
+    const uint32_t* __restrict__ new_pval, int64_t junk, int z, int zv,
+    int rounds, bool vec) {
+  extern __shared__ __align__(16) uint32_t ks[];
+  const int64_t r = blockIdx.x;
+  const int64_t tgt = owner[r] ? (int64_t)flat_b[r] : junk;
+  const uint32_t e_lo = epoch[0];
+  const uint32_t e_hi = epoch[1];
+  const int nb = (z + zv + 15) / 16;
+  row_keystream_smem(key, (uint32_t)tgt, e_lo, e_hi, rounds, nb, ks);
+  __syncthreads();
+  stream_row(new_pidx + r * z, tree_idx + tgt * z, ks, true, z, false);
+  stream_row(new_pval + r * zv, tree_val + tgt * zv, ks + z, true, zv, vec);
+  if (threadIdx.x == 0) {
+    nonces[2 * tgt] = e_lo;
+    nonces[2 * tgt + 1] = e_hi;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+int smem_bytes(int z, int zv) { return 16 * ((z + zv + 15) / 16) * 4; }
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the cudaError_t of the launch (0 = launched).
+int gv_gather_decrypt(const void* key, const void* tree_idx,
+                      const void* tree_val, const void* nonces,
+                      const void* flat_b, void* out_idx, void* out_val,
+                      int64_t rows, int z, int zv, int rounds, void* stream) {
+  if (rows == 0) return 0;
+  const int smem = smem_bytes(z, zv);
+  cudaError_t err = allow_smem(gather_decrypt_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  // (z % 4 == 0) keeps ks + z 16-byte aligned for the vector path
+  const bool vec = (z % 4 == 0) && (zv % 4 == 0) && aligned16(tree_val) &&
+                   aligned16(out_val);
+  gather_decrypt_kernel<<<(unsigned)rows, kThreads, smem,
+                          (cudaStream_t)stream>>>(
+      (const uint32_t*)key, (const uint32_t*)tree_idx,
+      (const uint32_t*)tree_val, (const uint32_t*)nonces,
+      (const int32_t*)flat_b, (uint32_t*)out_idx, (uint32_t*)out_val, z, zv,
+      rounds, vec);
+  return (int)cudaGetLastError();
+}
+
+int gv_scatter_encrypt(const void* key, void* tree_idx, void* tree_val,
+                       void* nonces, const void* flat_b, const void* owner,
+                       const void* epoch, const void* new_pidx,
+                       const void* new_pval, int64_t rows, int64_t n_padded,
+                       int z, int zv, int rounds, void* stream) {
+  if (rows == 0) return 0;
+  const int smem = smem_bytes(z, zv);
+  cudaError_t err = allow_smem(scatter_encrypt_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = (z % 4 == 0) && (zv % 4 == 0) && aligned16(tree_val) &&
+                   aligned16(new_pval);
+  scatter_encrypt_kernel<<<(unsigned)rows, kThreads, smem,
+                           (cudaStream_t)stream>>>(
+      (const uint32_t*)key, (uint32_t*)tree_idx, (uint32_t*)tree_val,
+      (uint32_t*)nonces, (const int32_t*)flat_b, (const uint8_t*)owner,
+      (const uint32_t*)epoch, (const uint32_t*)new_pidx,
+      (const uint32_t*)new_pval, n_padded - 1, z, zv, rounds, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

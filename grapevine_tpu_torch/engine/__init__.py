@@ -1,0 +1,1 @@
+"""Port of the reference package's same-named subpackage."""

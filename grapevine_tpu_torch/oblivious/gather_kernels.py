@@ -1,0 +1,229 @@
+"""Fused path-row gather+decrypt and encrypt+scatter (counterpart of
+``grapevine_tpu/oblivious/pallas_gather.py``'s tiled kernels).
+
+Two functions, each with a hand-written Hopper kernel
+(``csrc/gather_kernels.cu``, ChaCha core in ``csrc/chacha.cuh``) and a
+plain PyTorch version beside it:
+
+- :func:`gather_decrypt_rows_tiled` — fetch the rows at public bucket ids
+  and decrypt them in one pass (``rounds=0``: a plain gather);
+- :func:`scatter_encrypt_rows_tiled` — encrypt plaintext rows under
+  (target bucket, write epoch) and write them, and the epoch nonce,
+  into the trees IN PLACE (the analog of the reference's buffer
+  donation / input-output aliasing); non-owner rows go to the junk
+  bucket ``n_padded - 1``.
+
+The names keep the reference's ``_tiled`` so that
+``bucket_cipher_impl="pallas_fused_tiled"`` names the same function in
+both packages. A wrapper takes its plain version only for tensors on the
+CPU (the analog of Pallas interpret mode); for CUDA tensors it launches
+the kernel or raises. Each launch adds one to :data:`LAUNCHES`.
+
+Build: the kernel library is compiled with ``nvcc`` into ``build/`` at
+the repository root on first use (a plain C interface bound with
+``ctypes``), keyed by a hash of the sources, and loaded once per process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from .bucket_cipher import row_keystream
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+LAUNCHES = {"gather_decrypt_rows_tiled": 0, "scatter_encrypt_rows_tiled": 0}
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("gather_kernels.cu", "chacha.cuh")
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile ``csrc/gather_kernels.cu`` into ``build/`` unless a library
+    built from the same sources and flags is already there."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update((_CSRC / name).read_bytes())
+    out = BUILD_DIR / f"libgv_kernels-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(_CSRC / "gather_kernels.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr, end="")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.gv_gather_decrypt.argtypes = [p] * 7 + [i64, i32, i32, i32, p]
+        lib.gv_gather_decrypt.restype = i32
+        lib.gv_scatter_encrypt.argtypes = [p] * 9 + [i64, i64, i32, i32, i32, p]
+        lib.gv_scatter_encrypt.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _device_of(*ts) -> str:
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return "cuda"
+    raise ValueError(f"tensors must share one CPU or CUDA device, got {kinds}")
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions (the reference the kernels are held against)
+# ----------------------------------------------------------------------
+
+
+def gather_decrypt_rows_plain(key, tree_idx, tree_val, nonces, flat_b, z, rounds):
+    """Index, then ``row_keystream``, then XOR → (pidx [R, z], pval [R, z*v])."""
+    rows = flat_b.long()
+    pidx = tree_idx.reshape(-1, z)[rows]
+    pval = tree_val[rows]
+    if rounds == 0:
+        return pidx, pval
+    ks = row_keystream(key, flat_b, nonces[rows], z + tree_val.shape[1], rounds)
+    return pidx ^ ks[:, :z], pval ^ ks[:, z:]
+
+
+def scatter_encrypt_rows_plain(key, tree_idx, tree_val, nonces, flat_b, owner,
+                               epoch, new_pidx, new_pval, z, rounds):
+    """``row_keystream``, then XOR, then ``index_copy_`` into the trees with
+    non-owner rows redirected to the junk bucket ``n_padded - 1``."""
+    n_padded = tree_val.shape[0]
+    tgt = torch.where(owner, flat_b, n_padded - 1)
+    r = tgt.shape[0]
+    ep = epoch[None, :].expand(r, 2)
+    ks = row_keystream(key, tgt, ep, z + tree_val.shape[1], rounds)
+    rows = tgt.long()
+    tree_idx.view(n_padded, z).index_copy_(0, rows, new_pidx ^ ks[:, :z])
+    tree_val.index_copy_(0, rows, new_pval ^ ks[:, z:])
+    nonces.index_copy_(0, rows, ep.contiguous())
+    return tree_idx, tree_val, nonces
+
+
+# ----------------------------------------------------------------------
+# wrappers
+# ----------------------------------------------------------------------
+
+
+def gather_decrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, z: int,
+                              rounds: int = 8):
+    """(pidx int32[R, z], pval int32[R, z*v]) — gathered AND decrypted.
+
+    ``key`` int32[8]; ``tree_idx`` int32[n*z]; ``tree_val`` int32[n, z*v];
+    ``nonces`` int32[n, 2]; ``flat_b`` int32[R] heap-bucket ids (public).
+    """
+    n, zv = tree_val.shape
+    r = flat_b.shape[0]
+    for name, t, shape in (("key", key, (8,)), ("tree_idx", tree_idx, (n * z,)),
+                           ("tree_val", tree_val, None),
+                           ("nonces", nonces, (n, 2)), ("flat_b", flat_b, (r,))):
+        _check(name, t, torch.int32, shape)
+    if rounds < 0 or rounds % 2:
+        raise ValueError(f"rounds must be a non-negative even count, got {rounds}")
+    if _device_of(key, tree_idx, tree_val, nonces, flat_b) == "cpu":
+        return gather_decrypt_rows_plain(key, tree_idx, tree_val, nonces,
+                                         flat_b, z, rounds)
+    lib = _load()
+    out_idx = torch.empty((r, z), dtype=torch.int32, device=tree_val.device)
+    out_val = torch.empty((r, zv), dtype=torch.int32, device=tree_val.device)
+    err = lib.gv_gather_decrypt(
+        key.data_ptr(), tree_idx.data_ptr(), tree_val.data_ptr(),
+        nonces.data_ptr(), flat_b.data_ptr(), out_idx.data_ptr(),
+        out_val.data_ptr(), r, z, zv, rounds,
+        torch.cuda.current_stream(tree_val.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gather_decrypt_rows_tiled launch failed: cudaError {err}")
+    LAUNCHES["gather_decrypt_rows_tiled"] += 1
+    return out_idx, out_val
+
+
+def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
+                               epoch, new_pidx, new_pval, z: int, rounds: int):
+    """Encrypt + write back owned path rows in ONE pass, in place.
+
+    ``owner`` bool[R] (False rows write the junk bucket); ``epoch``
+    int32[2] the write epoch; ``new_pidx`` int32[R, z], ``new_pval``
+    int32[R, z*v] plaintext rows. Updates ``tree_idx``, ``tree_val`` and
+    ``nonces`` in place and returns them."""
+    n, zv = tree_val.shape
+    r = flat_b.shape[0]
+    for name, t, shape in (("key", key, (8,)), ("tree_idx", tree_idx, (n * z,)),
+                           ("tree_val", tree_val, None),
+                           ("nonces", nonces, (n, 2)), ("flat_b", flat_b, (r,)),
+                           ("epoch", epoch, (2,)), ("new_pidx", new_pidx, (r, z)),
+                           ("new_pval", new_pval, (r, zv))):
+        _check(name, t, torch.int32, shape)
+    _check("owner", owner, torch.bool, (r,))
+    if rounds <= 0 or rounds % 2:
+        raise ValueError(f"rounds must be a positive even count, got {rounds}")
+    dev = _device_of(key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
+                     new_pidx, new_pval)
+    if dev == "cpu":
+        return scatter_encrypt_rows_plain(key, tree_idx, tree_val, nonces,
+                                          flat_b, owner, epoch, new_pidx,
+                                          new_pval, z, rounds)
+    lib = _load()
+    err = lib.gv_scatter_encrypt(
+        key.data_ptr(), tree_idx.data_ptr(), tree_val.data_ptr(),
+        nonces.data_ptr(), flat_b.data_ptr(), owner.data_ptr(),
+        epoch.data_ptr(), new_pidx.data_ptr(), new_pval.data_ptr(), r, n, z,
+        zv, rounds, torch.cuda.current_stream(tree_val.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"scatter_encrypt_rows_tiled launch failed: cudaError {err}")
+    LAUNCHES["scatter_encrypt_rows_tiled"] += 1
+    return tree_idx, tree_val, nonces

@@ -1,0 +1,226 @@
+"""Path-ORAM data model (port of the single-device parts of
+``grapevine_tpu/oram/path_oram.py``).
+
+The bucket tree lives in device memory as a flat slot-index plane
+``tree_idx[n*Z]`` and a value plane ``tree_val[n, Z*V]``, both
+ChaCha-encrypted at rest under per-bucket 64-bit write epochs
+(``nonces``). The position map, stash and tree-top cache are private
+working state. Threat model and algorithm as in the reference module.
+
+Port conventions: u32 planes are int32 tensors with the same bits
+(``u32.py``); the state is a NamedTuple with exactly the reference's
+leaf names (unused planes zero-length), so states compare leaf by leaf;
+random draws come from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..oblivious.bucket_cipher import row_keystream
+from ..u32 import SENTINEL, narrow, ult
+
+I32 = torch.int32
+
+#: u32-lane certified geometry (the reference's OramConfig bounds)
+MAX_U32_HEIGHT = 29
+MAX_U32_BLOCKS = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class OramConfig:
+    """Static geometry of one bucket tree (the reference's fields; the
+    port's slice runs a flat position map and per-round eviction, so the
+    reference's ``posmap`` and ``evict_*`` fields are not carried)."""
+
+    height: int  # leaves = 2**height
+    value_words: int  # u32 words per block value
+    bucket_slots: int = 4  # Z
+    stash_size: int = 96
+    #: ChaCha rounds for at-rest bucket encryption; 0 disables the cipher
+    cipher_rounds: int = 0
+    #: "jnp" (plain PyTorch cipher) or "pallas_fused_tiled" (the fused
+    #: gather/scatter kernels of oblivious/gather_kernels.py)
+    cipher_impl: str = "jnp"
+    #: logical block index space [0, n_blocks); None = leaves
+    n_blocks: int | None = None
+    #: tree-top cache depth k: heap buckets [0, 2^k − 1) live decrypted in
+    #: the private cache planes; only the bottom levels touch the trees
+    top_cache_levels: int = 0
+
+    def __post_init__(self):
+        k = self.top_cache_levels
+        if not (0 <= k <= self.height):
+            raise ValueError(
+                f"top_cache_levels must be in [0, height={self.height}] "
+                f"(at least the leaf level stays in the HBM tree), got {k}"
+            )
+        if self.height > MAX_U32_HEIGHT:
+            raise ValueError(
+                f"height {self.height} exceeds the u32-lane certified bound "
+                f"(height <= {MAX_U32_HEIGHT})"
+            )
+        if self.blocks > MAX_U32_BLOCKS:
+            raise ValueError(
+                f"blocks {self.blocks} exceeds the u32-lane certified bound "
+                f"(blocks <= {MAX_U32_BLOCKS})"
+            )
+
+    @property
+    def encrypted(self) -> bool:
+        return self.cipher_rounds > 0
+
+    @property
+    def cache_buckets(self) -> int:
+        return (1 << self.top_cache_levels) - 1
+
+    @property
+    def row_words(self) -> int:
+        return self.bucket_slots + self.bucket_slots * self.value_words
+
+    @property
+    def leaves(self) -> int:
+        return 1 << self.height
+
+    @property
+    def blocks(self) -> int:
+        return self.n_blocks if self.n_blocks is not None else self.leaves
+
+    @property
+    def n_buckets(self) -> int:
+        return (1 << (self.height + 1)) - 1
+
+    @property
+    def n_buckets_padded(self) -> int:
+        """One bucket past the heap: the junk bucket the fused scatter
+        redirects non-owner rows to; heap indices never address it."""
+        return 1 << (self.height + 1)
+
+    @property
+    def path_len(self) -> int:
+        return self.height + 1
+
+    @property
+    def dummy_index(self) -> int:
+        return self.blocks
+
+
+class OramState(NamedTuple):
+    """One tree's state; leaf names and shapes are the reference's."""
+
+    tree_idx: torch.Tensor  # int32[n_padded * Z]; SENTINEL = empty slot
+    tree_val: torch.Tensor  # int32[n_padded, Z*V]
+    cache_idx: torch.Tensor  # int32[cache_buckets * Z]
+    cache_val: torch.Tensor  # int32[cache_buckets, Z*V]
+    cache_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    tree_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    stash_idx: torch.Tensor  # int32[S]
+    stash_val: torch.Tensor  # int32[S, V]
+    stash_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    ebuf_idx: torch.Tensor  # int32[0] (delayed eviction only)
+    ebuf_val: torch.Tensor  # int32[0, V]
+    ebuf_leaf: torch.Tensor  # int32[0]
+    ebuf_paths: torch.Tensor  # int32[0]
+    ebuf_rounds: torch.Tensor  # int32 scalar
+    ebuf_gen: torch.Tensor  # int32 scalar (1)
+    fetch_tag: torch.Tensor  # int32[0]
+    posmap: torch.Tensor  # int32[blocks + 1] flat private table
+    overflow: torch.Tensor  # int32 scalar, sticky count of dropped blocks
+    nonces: torch.Tensor  # int32[n_padded, 2] (lo, hi) write epochs
+    cipher_key: torch.Tensor  # int32[8]
+    epoch: torch.Tensor  # int32[2] (lo, hi), next write epoch
+
+
+def random_u32(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Uniform u32 words (int32 bits) from ``gen``."""
+    return narrow(torch.randint(0, 1 << 32, shape, generator=gen,
+                                dtype=torch.int64, device=device))
+
+
+def random_below(gen: torch.Generator, high: int, shape, device) -> torch.Tensor:
+    """Uniform int32 values in [0, high) from ``gen``."""
+    return torch.randint(0, high, shape, generator=gen, dtype=torch.int64,
+                         device=device).to(I32)
+
+
+def init_oram(cfg: OramConfig, gen: torch.Generator, device) -> OramState:
+    """Empty tree; position map drawn uniformly over the leaves from
+    ``gen``; the all-zero tree is its own ciphertext (epoch 0)."""
+    z, v = cfg.bucket_slots, cfg.value_words
+    cb = cfg.cache_buckets
+
+    def full(shape, val):
+        return torch.full(shape, val, dtype=I32, device=device)
+
+    empty = full((0,), 0)
+    posmap = random_below(gen, cfg.leaves, (cfg.blocks + 1,), device)
+    cipher_key = random_u32(gen, (8,), device)
+    return OramState(
+        tree_idx=full((cfg.n_buckets_padded * z,), SENTINEL),
+        tree_val=full((cfg.n_buckets_padded, z * v), 0),
+        cache_idx=full((cb * z,), SENTINEL),
+        cache_val=full((cb, z * v), 0),
+        cache_leaf=empty,
+        tree_leaf=empty.clone(),
+        stash_idx=full((cfg.stash_size,), SENTINEL),
+        stash_val=full((cfg.stash_size, v), 0),
+        stash_leaf=empty.clone(),
+        ebuf_idx=empty.clone(),
+        ebuf_val=full((0, v), 0),
+        ebuf_leaf=empty.clone(),
+        ebuf_paths=empty.clone(),
+        ebuf_rounds=full((), 0),
+        ebuf_gen=full((), 1),
+        fetch_tag=empty.clone(),
+        posmap=posmap,
+        overflow=full((), 0),
+        nonces=full((cfg.n_buckets_padded, 2), 0),
+        cipher_key=cipher_key,
+        epoch=torch.tensor([1, 0], dtype=I32, device=device),
+    )
+
+
+def cipher_rows(cfg: OramConfig, key, buckets, epochs, pidx, pval):
+    """XOR bucket rows with their keystream (encrypt ≡ decrypt), plain
+    PyTorch path (``cipher_impl="jnp"``)."""
+    if not cfg.encrypted:
+        return pidx, pval
+    z = cfg.bucket_slots
+    ks = row_keystream(key, buckets, epochs, cfg.row_words, cfg.cipher_rounds)
+    return pidx ^ ks[:, :z], pval ^ ks[:, z:]
+
+
+def path_bucket_indices(cfg: OramConfig, leaf) -> torch.Tensor:
+    """Heap indices of the root→leaf path buckets: int32[..., path_len]."""
+    depths = torch.arange(cfg.path_len, dtype=I32, device=leaf.device)
+    return ((1 << depths) - 1) + (leaf[..., None] >> (cfg.height - depths))
+
+
+def path_slot_indices(cfg: OramConfig, path_b) -> torch.Tensor:
+    """Flat tree_idx slot indices for path buckets: [...] → [..., Z]."""
+    z = cfg.bucket_slots
+    return path_b[..., None] * z + torch.arange(z, dtype=I32, device=path_b.device)
+
+
+def _path_gather(tree, path_b):
+    """Fetch the path bucket rows (single device)."""
+    return tree[path_b.long()]
+
+
+def _path_scatter_(tree, path_b, new_vals, owner):
+    """Write the owned path rows back in place; rows with ``owner``
+    False are not written at all (the reference drops them out of
+    bounds). The owner mask selects a data-dependent row count: one
+    device sync on CUDA (this is the plain ``"jnp"`` path)."""
+    tree[path_b[owner].long()] = new_vals[owner]
+    return tree
+
+
+def working_leaves(posmap, cfg: OramConfig, idxs) -> torch.Tensor:
+    """Leaf per working-set entry; SENTINEL/dummy rows read the throwaway
+    entry ``posmap[blocks]`` (their value is never used)."""
+    safe = torch.where(ult(idxs, cfg.blocks), idxs, cfg.blocks)
+    return posmap[safe.long()]
