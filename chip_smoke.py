@@ -101,7 +101,11 @@ def kernel_checks(ecfg, gk, path_oram, round_mod):
 
         key = rnd(8)
         tree_idx, tree_val = rnd(n * z), rnd(n, zv)
-        nonces = rnd(n, 2) | 1  # every bucket written at least once
+        # about one bucket in eight never written (nonce (0, 0)): the
+        # gather's epoch-0 identity branch is held against the plain
+        # version at these shapes too
+        nonces = rnd(n, 2)
+        nonces[torch.randint(0, 8, (n,), generator=gen, device=dev) == 0] = 0
         leaves = torch.randint(0, cfg.leaves, (nops,), generator=gen,
                                device=dev).to(torch.int32)
         path_b = path_oram.path_bucket_indices(cfg, leaves)  # the round's paths
@@ -113,6 +117,12 @@ def kernel_checks(ecfg, gk, path_oram, round_mod):
         new_pidx, new_pval = rnd(r, z), rnd(r, zv)
         epoch = torch.tensor([5, 1], dtype=torch.int32, device=dev)
         g_args = (key, tree_idx, tree_val, nonces, flat_b)
+        uniq_b = torch.unique(flat_b)
+        uniq = int(uniq_b.numel())
+        uniq_written = int((nonces[uniq_b.long()] != 0).any(dim=1).sum())
+        unwritten = int((nonces[flat_b.long()] == 0).all(dim=1).sum())
+        if unwritten == 0:
+            raise AssertionError(f"no never-written bucket on the {tree} paths")
 
         # gather: kernel vs plain, then times
         ki, kv = gk.gather_decrypt_rows_tiled(*g_args, z=z, rounds=rounds)
@@ -146,24 +156,25 @@ def kernel_checks(ecfg, gk, path_oram, round_mod):
         # distinct fetched row (idx + val + nonce) once and writes R rows;
         # the scatter reads the owned plaintext rows and writes them and
         # their nonces (+ the ids and owner bits). Keystreams: one per
-        # distinct gathered row, one per owned written row; one XOR per
-        # output word.
+        # distinct gathered row that was ever written (nonce not (0, 0)),
+        # one per owned written row; one XOR per output word.
         w = z + zv
-        uniq = int(torch.unique(flat_b).numel())
         n_owned = int(owner.sum())
         g_bytes = 4 * (uniq * (w + 2) + r + r * w + 8)
         s_bytes = 4 * (n_owned * w + r + n_owned * (w + 2) + 10) + r
-        g_ops = keystream_ops(uniq, w, rounds) + r * w
+        g_ops = keystream_ops(uniq_written, w, rounds) + r * w
         s_ops = keystream_ops(n_owned, w, rounds) + n_owned * w
         shapes.append(dict(
             tree=tree, rows=r, row_words=w, calls_per_round=calls,
-            unique_rows=uniq, owned_rows=n_owned,
+            unique_rows=uniq, unique_written_rows=uniq_written,
+            never_written_rows=unwritten,
+            owned_rows=n_owned,
             gather=dict(ms=g_ms, plain_ms=g_plain, max_abs_err=g_err,
                         bytes=g_bytes, ops=g_ops),
             scatter=dict(ms=s_ms, plain_ms=s_plain, max_abs_err=s_err,
                          bytes=s_bytes, ops=s_ops),
         ))
-        del key, tree_idx, tree_val, nonces, new_pidx, new_pval
+        del key, tree_idx, tree_val, nonces, new_pidx, new_pval, uniq_b
         torch.cuda.empty_cache()
     return shapes
 
@@ -194,6 +205,8 @@ def kernel_entries(shapes, launches):
             per_shape.append(dict(tree=s["tree"], rows=s["rows"],
                                   row_words=s["row_words"], calls_per_round=c,
                                   unique_rows=s["unique_rows"],
+                                  unique_written_rows=s["unique_written_rows"],
+                                  never_written_rows=s["never_written_rows"],
                                   owned_rows=s["owned_rows"],
                                   ms=k["ms"], plain_ms=k["plain_ms"],
                                   bound_ms=max(b_ms, o_ms),

@@ -106,33 +106,34 @@ class GrapevineEngine:
 
     def handle_queries(self, reqs: list[QueryRequest], now: int) -> list[QueryResponse]:
         """Process requests in slot order, one padded batch per round."""
+        self._validate(reqs, now)
+        out: list[QueryResponse] = []
+        bs = self.ecfg.batch_size
+        for i in range(0, len(reqs), bs):
+            out.extend(self._round(reqs[i:i + bs], now)[0])
+        return out
+
+    def handle_queries_with_transcript(self, reqs: list[QueryRequest], now: int):
+        """One batch; returns (responses, transcript u32[B, 2D+1])."""
+        self._validate(reqs, now)
+        if len(reqs) > self.ecfg.batch_size:
+            raise ValueError("single batch only")
+        return self._round(reqs, now)
+
+    @staticmethod
+    def _validate(reqs, now) -> None:
         for r in reqs:  # all-or-nothing: nothing commits if any is malformed
             validate_request(r)
         if int(now) <= 0:
             raise ValueError("server clock must be positive")
-        out: list[QueryResponse] = []
-        bs = self.ecfg.batch_size
-        for i in range(0, len(reqs), bs):
-            chunk = reqs[i:i + bs]
-            batch = batch_to_device(pack_batch(chunk, bs, now), self.device)
-            with self._lock:
-                self.state, resp, _ = engine_round_step(self.ecfg, self.state, batch)
-                self.rounds += 1
-            out.extend(unpack_responses(resp, len(chunk)))
-        return out
 
-    def handle_queries_with_transcript(self, reqs, now):
-        """One batch; returns (responses, transcript u32[B, 2D+1])."""
-        for r in reqs:
-            validate_request(r)
-        bs = self.ecfg.batch_size
-        if len(reqs) > bs:
-            raise ValueError("single batch only")
-        batch = batch_to_device(pack_batch(reqs, bs, now), self.device)
+    def _round(self, chunk, now):
+        """One engine round over ≤B validated requests."""
+        batch = batch_to_device(pack_batch(chunk, self.ecfg.batch_size, now), self.device)
         with self._lock:
             self.state, resp, transcript = engine_round_step(self.ecfg, self.state, batch)
             self.rounds += 1
-        return unpack_responses(resp, len(reqs)), to_numpy(transcript)
+        return unpack_responses(resp, len(chunk)), to_numpy(transcript)
 
     def message_count(self) -> int:
         return self.ecfg.max_messages - int(self.state.free_top)

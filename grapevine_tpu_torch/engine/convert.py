@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..oram.path_oram import OramState
 from ..u32 import from_numpy, to_numpy as _t2n
 from .state import EngineConfig, EngineState
@@ -20,11 +21,12 @@ _ENGINE_LEAVES = ("freelist", "free_top", "recipients", "seq", "hash_key", "id_k
 
 
 def from_jax_state(ecfg: EngineConfig, leaves: dict, seed: int = 0,
-                   device="cpu") -> EngineState:
-    """Build the port's ``EngineState`` from flat numpy leaves (as
-    :func:`to_numpy` names them); the generator is seeded with ``seed``.
-    Every array is copied, so the source buffers are never written."""
-    dev = torch.device(device)
+                   device=None) -> EngineState:
+    """Build the port's ``EngineState`` on ``device`` (``None`` → the CUDA
+    card; raises without one) from flat numpy leaves (as :func:`to_numpy`
+    names them); the generator is seeded with ``seed``. Every array is
+    copied, so the source buffers are never written."""
+    dev = resolve_device(device)
 
     def tree(prefix):
         return OramState(**{

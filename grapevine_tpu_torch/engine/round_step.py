@@ -67,9 +67,6 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     ``now``/``now_hi`` (u64 clock lanes). Returns ``(state', responses,
     transcripts int32[B, 2D+1])``. The input ``state``'s tree tensors are
     updated in place (consumed, like a donated buffer)."""
-    # the dense phases' f32 matmul sums are exact only without TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
     rt = batch["req_type"]
     b = rt.shape[0]
     dev = rt.device

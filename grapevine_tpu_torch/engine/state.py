@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import GrapevineConfig
+from ..device import resolve_device
 from ..oram.path_oram import OramConfig, OramState, init_oram, random_u32
 from ..u32 import c32, rotl, shr
 from ..wire import constants as C
@@ -144,11 +145,12 @@ class EngineState(NamedTuple):
     rng: torch.Generator  # the engine's private random stream
 
 
-def init_engine(ecfg: EngineConfig, seed: int = 0, device="cpu") -> EngineState:
-    """Fresh engine state; every random draw comes from one generator on
-    ``device`` seeded with ``seed`` (the reference's jax.random key has
-    the same standing; the two give different numbers)."""
-    dev = torch.device(device)
+def init_engine(ecfg: EngineConfig, seed: int = 0, device=None) -> EngineState:
+    """Fresh engine state on ``device`` (``None`` → the CUDA card; raises
+    without one); every random draw comes from one generator on that
+    device seeded with ``seed`` (the reference's jax.random key has the
+    same standing; the two give different numbers)."""
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rec = init_oram(ecfg.rec, gen, dev)

@@ -4,10 +4,11 @@ admission machinery and the three phase callbacks).
 
 Same-key chains inside one round (ops on one recipient / bucket /
 record) are resolved in parallel with [B,B] masks; OR/sum aggregates over
-row vectors are float32 matrix products, exact while sums stay below
-2^24 — which holds only with TF32 off (``engine_round_step`` pins
-``torch.backends.cuda.matmul.allow_tf32 = False`` and the float32 matmul
-precision ``"highest"``).
+row vectors are matrix products. The reference's are float32, exact
+while sums stay below 2^24; here they are float64, exact below 2^53 on
+every device with no process-wide setting (TF32 and the float32 matmul
+precision touch only float32 products), so the port never changes a
+global flag. Every sum here is at most B, so both give the same integers.
 
 Admission couples ops across groups. When bus and recipient headroom
 cover the whole batch the vectorized fast path is exact; otherwise the
@@ -65,9 +66,14 @@ def _earlier(b: int, device, strict: bool = True):
     return iota[None, :] < iota[:, None] if strict else iota[None, :] <= iota[:, None]
 
 
+def _exact_matmul(m, u):
+    """Integer-valued product m @ u in float64 (exact below 2^53)."""
+    return torch.matmul(m.double(), u.double())
+
+
 def _bool_matmul(m, u):
-    """OR-aggregate u's rows over m's True columns (f32, exact < 2^24)."""
-    return torch.matmul(m.float(), u.float()) > 0.5
+    """OR-aggregate u's rows over m's True columns."""
+    return _exact_matmul(m, u) > 0.5
 
 
 def _narrow_sum(x, dim):
@@ -100,7 +106,7 @@ class _DenseGroups:
         return torch.any(self.m & flags[None, :], dim=1)
 
     def total_sum_rows(self, u):
-        return torch.matmul(self.m.float(), u.float()).to(I32)
+        return _exact_matmul(self.m, u).to(I32)
 
     def total_or_rows(self, u):
         return _bool_matmul(self.m, u)

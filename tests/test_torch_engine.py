@@ -136,7 +136,7 @@ def run_campaign(geo: str, seed: int, impl: str, n_rounds: int = 4):
     jecfg = JEcfg.from_config(JConfig(**kw))
     tecfg = EngineConfig.from_config(GrapevineConfig(**kw))
     jst = init_engine(jecfg, seed)
-    tst = from_jax_state(tecfg, jax_leaves(jst))
+    tst = from_jax_state(tecfg, jax_leaves(jst), device="cpu")
     created: list = []  # (msg_id bytes, sender, recipient) from the reference
     b = tecfg.batch_size
     for rnd, batch in enumerate(crud_batches(b, n_rounds, seed, lambda: created)):
@@ -193,7 +193,8 @@ def test_from_jax_state_round_trips():
     kw = dict(GEOMETRIES["g2"], vphases_impl="dense")
     jst = init_engine(JEcfg.from_config(JConfig(**kw)), 11)
     leaves = jax_leaves(jst)
-    tst = from_jax_state(EngineConfig.from_config(GrapevineConfig(**kw)), leaves, seed=5)
+    tst = from_jax_state(EngineConfig.from_config(GrapevineConfig(**kw)), leaves, seed=5,
+                         device="cpu")
     back = to_numpy(tst)
     assert back.keys() == leaves.keys()
     for k, v in leaves.items():
@@ -202,7 +203,7 @@ def test_from_jax_state_round_trips():
     assert isinstance(tst.rng, torch.Generator)
     with pytest.raises(ValueError):
         from_jax_state(EngineConfig.from_config(GrapevineConfig(
-            **GEOMETRIES["g1"])), leaves)
+            **GEOMETRIES["g1"])), leaves, device="cpu")
 
 
 def _requests(pkg_req, pkg_rec, plan, ids):
@@ -221,7 +222,8 @@ def test_facade_matches_jax_engine():
     kw = dict(GEOMETRIES["g1"], vphases_impl="dense")
     jeng = JEngine(JConfig(**kw), seed=21)
     teng = GrapevineEngine(GrapevineConfig(**kw), seed=21, device="cpu")
-    teng.state = from_jax_state(teng.ecfg, jax_leaves(jeng.state), seed=21)
+    teng.state = from_jax_state(teng.ecfg, jax_leaves(jeng.state), seed=21,
+                                device=teng.device)
     u = _users(4)
     z = bytes(16)
     R, CR, UP, DE = (C.REQUEST_TYPE_READ, C.REQUEST_TYPE_CREATE,
@@ -310,3 +312,32 @@ def test_admission_paths_match_jax(seed):
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
                                           f"slow {k} at free_top={free_top}")
+
+
+def test_dense_aggregates_exact_and_no_global_matmul_flags():
+    """The dense phases' aggregations are float64 products, exact past
+    float32's 2^24 with no process-wide matmul setting; an engine round
+    leaves the TF32 flag and the float32 matmul precision as it found
+    them."""
+    from grapevine_tpu_torch.engine import vphases as tv
+
+    g = tv._DenseGroups(torch.ones(2, 2, dtype=torch.bool))
+    u = torch.tensor([[2**24], [1]], dtype=torch.int32)
+    assert g.total_sum_rows(u).tolist() == [[2**24 + 1], [2**24 + 1]]
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        eng = GrapevineEngine(GrapevineConfig(**GEOMETRIES["g1"], vphases_impl="dense"),
+                              seed=2, device="cpu")
+        (resp,) = eng.handle_queries([QueryRequest(
+            request_type=C.REQUEST_TYPE_CREATE, auth_identity=_users(1)[0],
+            record=RequestRecord(msg_id=bytes(16), recipient=_users(2)[1],
+                                 payload=bytes(C.PAYLOAD_SIZE)))], NOW)
+        assert resp.status_code == C.STATUS_CODE_SUCCESS
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.set_float32_matmul_precision(flags[1])

@@ -48,15 +48,28 @@ def test_import_scan_sees_forbidden_imports(tmp_path):
 
 
 def test_engine_without_cuda_raises(monkeypatch):
+    """Every entry point that places state (the facade, ``init_engine``,
+    ``from_jax_state``) defaults to the card and raises without one."""
     from grapevine_tpu_torch.config import GrapevineConfig
     from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.engine.convert import from_jax_state, to_numpy
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
 
+    cfg = GrapevineConfig(max_messages=64, max_recipients=8)
+    ecfg = EngineConfig.from_config(cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        GrapevineEngine(GrapevineConfig(max_messages=64, max_recipients=8))
-    eng = GrapevineEngine(GrapevineConfig(max_messages=64, max_recipients=8),
-                          device="cpu")
+        GrapevineEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_engine(ecfg, 0)
+    eng = GrapevineEngine(cfg, device="cpu")
     assert eng.state.freelist.device.type == "cpu"
+    leaves = to_numpy(eng.state)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_state(ecfg, leaves)
+    st = init_engine(ecfg, 0, device="cpu")
+    assert st.rec.tree_val.device.type == "cpu"
+    assert from_jax_state(ecfg, leaves, device="cpu").mb.nonces.device.type == "cpu"
 
 
 @pytest.mark.parametrize("knob", [
