@@ -3,9 +3,10 @@
 
 ``pack_batch``/``unpack_responses`` convert between wire records and the
 columnar batch arrays; :class:`GrapevineEngine` owns the device state and
-serves ``handle_queries`` one padded batch per engine round, serially.
-Durability, the async pipeline, the flush cadence, expiry and the
-``attach_*`` telemetry hooks belong to later slices (ROADMAP.md queue A).
+serves ``handle_queries`` one padded batch per engine round, serially,
+with the delayed-eviction flush every ``evict_every`` rounds. Durability,
+the async pipeline, expiry and the ``attach_*`` telemetry hooks belong to
+later slices (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..device import resolve_device
 from ..u32 import SENTINEL, from_numpy, to_numpy
 from ..wire.records import QueryRequest, QueryResponse, Record
 from ..wire.validate import validate_request
-from .round_step import engine_round_step
+from .round_step import engine_flush_step, engine_round_step
 from .state import (
     ID_WORDS,
     KEY_WORDS,
@@ -103,6 +104,12 @@ class GrapevineEngine:
         self.state: EngineState = init_engine(self.ecfg, seed, self.device)
         self._lock = threading.Lock()
         self.rounds = 0
+        #: delayed eviction: the flush runs strictly every E rounds — a
+        #: pure function of the round count, never of buffer contents
+        self.evict_every = self.ecfg.evict_every
+        self._flush_step = engine_flush_step if self.evict_every > 1 else None
+        self._rounds_since_flush = 0
+        self.flushes = 0
 
     def handle_queries(self, reqs: list[QueryRequest], now: int) -> list[QueryResponse]:
         """Process requests in slot order, one padded batch per round."""
@@ -128,12 +135,41 @@ class GrapevineEngine:
             raise ValueError("server clock must be positive")
 
     def _round(self, chunk, now):
-        """One engine round over ≤B validated requests."""
+        """One engine round over ≤B validated requests; the window's
+        flush follows the E-th round once its responses are unpacked."""
         batch = batch_to_device(pack_batch(chunk, self.ecfg.batch_size, now), self.device)
         with self._lock:
             self.state, resp, transcript = engine_round_step(self.ecfg, self.state, batch)
             self.rounds += 1
-        return unpack_responses(resp, len(chunk)), to_numpy(transcript)
+            out = unpack_responses(resp, len(chunk)), to_numpy(transcript)
+            self._flush_window_locked(count_round=True)
+        return out
+
+    def _flush_window_locked(self, count_round: bool = False) -> bool:
+        """Flush when the window is due; the caller holds the lock.
+
+        ``count_round=True`` counts one round first and flushes only when
+        the window closes (the steady-state cadence); ``False`` flushes
+        any non-empty window (``flush_now``). Returns whether it
+        flushed."""
+        if self._flush_step is None:
+            return False
+        if count_round:
+            self._rounds_since_flush += 1
+        due = self.evict_every if count_round else 1
+        if self._rounds_since_flush < due:
+            return False
+        self.state = self._flush_step(self.ecfg, self.state)
+        self.flushes += 1
+        self._rounds_since_flush = 0
+        return True
+
+    def flush_now(self) -> bool:
+        """Flush a partial window now (operator/test hook, outside the
+        steady-state cadence). False when delayed eviction is off or the
+        window is empty."""
+        with self._lock:
+            return self._flush_window_locked()
 
     def message_count(self) -> int:
         return self.ecfg.max_messages - int(self.state.free_top)
@@ -142,10 +178,13 @@ class GrapevineEngine:
         return int(self.state.recipients)
 
     def health(self) -> dict:
-        """Aggregate state counters (never per-client)."""
+        """Aggregate state counters (never per-client). Under delayed
+        eviction also each tree's buffer occupancy against its capacity
+        (buffer overflow rides ``stash_overflow``) and the window
+        position."""
         with self._lock:
             st = self.state
-            return {
+            out = {
                 "messages": self.ecfg.max_messages - int(st.free_top),
                 "recipients": int(st.recipients),
                 "stash_overflow": int(st.rec.overflow) + int(st.mb.overflow),
@@ -156,3 +195,15 @@ class GrapevineEngine:
                 "rounds": self.rounds,
                 "device": str(self.device),
             }
+            if self.evict_every > 1:
+                out["evict_buffer_occupancy"] = {
+                    "rec": int((st.rec.ebuf_idx != SENTINEL).sum()),
+                    "mb": int((st.mb.ebuf_idx != SENTINEL).sum()),
+                }
+                out["evict_buffer_slots"] = {
+                    "rec": self.ecfg.rec.evict_buffer_slots,
+                    "mb": self.ecfg.mb.evict_buffer_slots,
+                }
+                out["evict_rounds_since_flush"] = self._rounds_since_flush
+                out["evict_flushes"] = self.flushes
+            return out

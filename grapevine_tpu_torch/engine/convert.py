@@ -2,7 +2,8 @@
 
 Leaf names are dotted paths over the reference's ``EngineState`` pytree
 (``"rec.tree_idx"``, ``"mb.epoch"``, ``"free_top"``, ...); values are
-numpy ``uint32`` arrays with the reference's shapes. The random stream
+numpy ``uint32`` arrays with the reference's shapes, the delayed-eviction
+planes (``ebuf_*``, ``fetch_tag``) included. The random stream
 (``rng``) is not a leaf: a JAX PRNG key and a ``torch.Generator`` have
 no common form, so a state taken across gets a fresh generator.
 """
@@ -41,10 +42,19 @@ def from_jax_state(ecfg: EngineConfig, leaves: dict, seed: int = 0,
         rng=gen,
     )
     for name, cfg, o in (("rec", ecfg.rec, st.rec), ("mb", ecfg.mb, st.mb)):
-        want = (cfg.n_buckets_padded, cfg.bucket_slots * cfg.value_words)
-        if tuple(o.tree_val.shape) != want:
-            raise ValueError(f"{name}.tree_val shape {tuple(o.tree_val.shape)} "
-                             f"does not match the geometry {want}")
+        delayed = cfg.delayed_eviction
+        want = {
+            "tree_val": (cfg.n_buckets_padded, cfg.bucket_slots * cfg.value_words),
+            # the delayed-eviction planes: zero-length at evict_every 1
+            "ebuf_val": (cfg.evict_buffer_slots if delayed else 0, cfg.value_words),
+            "ebuf_paths": (cfg.evict_window * cfg.evict_fetch_count if delayed else 0,),
+            "fetch_tag": (cfg.n_buckets_padded if delayed else 0,),
+        }
+        for f, shape in want.items():
+            got = tuple(getattr(o, f).shape)
+            if got != shape:
+                raise ValueError(f"{name}.{f} shape {got} does not match the "
+                                 f"geometry {shape}")
     return st
 
 

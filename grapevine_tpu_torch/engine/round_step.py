@@ -1,8 +1,9 @@
 """Phase-major batched engine step (port of
-``grapevine_tpu/engine/round_step.py:engine_round_step``): three
-vectorized ORAM rounds per batch — mailbox round A, records round B,
-mailbox round C — with the slot-order semantics of the reference (its
-module docstring documents them).
+``grapevine_tpu/engine/round_step.py:engine_round_step`` and
+``engine_flush_step``): three vectorized ORAM rounds per batch — mailbox
+round A, records round B, mailbox round C — with the slot-order semantics
+of the reference (its module docstring documents them), and under
+delayed eviction one flush of both trees every ``evict_every`` rounds.
 
 The round's random draws (fresh remap leaves, dummy-fetch leaves, id
 nonces) come from :func:`round_draws` on the state's generator;
@@ -20,7 +21,7 @@ from torch.profiler import record_function
 from ..oblivious.primitives import is_zero_words, rank_of, scatter_drop, u64_add_u32
 from ..oblivious.prp import prp2_decrypt
 from ..oram.path_oram import random_below, random_u32
-from ..oram.round import oram_round
+from ..oram.round import oram_flush, oram_round
 from ..wire import constants as C
 from .responses import assemble_responses
 from .state import EngineConfig, EngineState, mb_bucket_hash
@@ -179,3 +180,15 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
         id_key=state.id_key, rng=state.rng,
     )
     return new_state, responses, transcripts
+
+
+def engine_flush_step(ecfg: EngineConfig, state: EngineState) -> EngineState:
+    """One delayed-eviction flush over both trees (``evict_every`` > 1).
+
+    The engine calls it every ``evict_every`` rounds on the round-count
+    cadence — never on buffer contents. Deterministic given the state
+    (no random draws); the trees are updated in place."""
+    with record_function("engine_flush"):
+        rec = oram_flush(ecfg.rec, state.rec)
+        mb = oram_flush(ecfg.mb, state.mb)
+    return state._replace(rec=rec, mb=mb)

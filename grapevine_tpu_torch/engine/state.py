@@ -16,7 +16,13 @@ import torch
 
 from ..config import GrapevineConfig
 from ..device import resolve_device
-from ..oram.path_oram import OramConfig, OramState, init_oram, random_u32
+from ..oram.path_oram import (
+    OramConfig,
+    OramState,
+    derive_evict_buffer_slots,
+    init_oram,
+    random_u32,
+)
 from ..u32 import c32, rotl, shr
 from ..wire import constants as C
 
@@ -54,6 +60,8 @@ class EngineConfig:
     mb_table_buckets: int
     mb_slots: int
     mb_choices: int = 1
+    #: delayed batched eviction: a flush every E engine rounds (1 = none)
+    evict_every: int = 1
 
     @property
     def id_bits(self) -> int:
@@ -65,7 +73,10 @@ class EngineConfig:
 
         Auto values resolve to what the port runs: dense vphases, the
         comparison sorts, a flat position map, a k=4 tree-top cache
-        (clamped per tree) and per-round eviction."""
+        (clamped per tree) and per-round eviction. Under ``evict_every``
+        E > 1 the records tree's window is E rounds of B fetched paths,
+        the mailbox tree's 2E rounds (rounds A and C) of B·D; buffer
+        sizes are ``evict_buffer_slots`` or derived per tree."""
         _refuse_unported(cfg)
         m = cfg.mailbox_table_buckets
         k = max(1, cfg.mailbox_slots)
@@ -73,6 +84,18 @@ class EngineConfig:
         tc = cfg.tree_top_cache_levels
         if tc is None:
             tc = 4
+        ee = cfg.evict_every if cfg.evict_every is not None else 1
+        rec_w, mb_w = (ee, 2 * ee) if ee > 1 else (1, 1)
+        rec_f = cfg.batch_size if ee > 1 else 0
+        mb_f = cfg.batch_size * cfg.resolved_mailbox_choices if ee > 1 else 0
+        rec_c = mb_c = 0
+        if ee > 1:
+            if cfg.evict_buffer_slots is not None:
+                rec_c = mb_c = cfg.evict_buffer_slots
+            else:
+                rec_c = derive_evict_buffer_slots(cfg.max_messages, rec_w, rec_f,
+                                                  cfg.bucket_slots)
+                mb_c = derive_evict_buffer_slots(m, mb_w, mb_f, cfg.bucket_slots)
         return cls(
             max_messages=cfg.max_messages,
             max_recipients=cfg.max_recipients,
@@ -87,6 +110,9 @@ class EngineConfig:
                 cipher_impl=cfg.bucket_cipher_impl,
                 n_blocks=cfg.max_messages,
                 top_cache_levels=min(tc, cfg.records_height),
+                evict_window=rec_w,
+                evict_fetch_count=rec_f,
+                evict_buffer_slots=rec_c,
             ),
             mb=OramConfig(
                 height=cfg.mailbox_height,
@@ -97,10 +123,14 @@ class EngineConfig:
                 cipher_impl=cfg.bucket_cipher_impl,
                 n_blocks=m,
                 top_cache_levels=min(tc, cfg.mailbox_height),
+                evict_window=mb_w,
+                evict_fetch_count=mb_f,
+                evict_buffer_slots=mb_c,
             ),
             mb_table_buckets=m,
             mb_slots=k,
             mb_choices=cfg.resolved_mailbox_choices,
+            evict_every=ee,
         )
 
 
@@ -118,15 +148,8 @@ def _refuse_unported(cfg: GrapevineConfig) -> None:
         todo.append("sort_impl='radix' (ROADMAP.md queue A item 12)")
     if cfg.vphases_impl not in (None, "dense"):
         todo.append("vphases_impl='scan' (ROADMAP.md queue A item 7, _SortedGroups)")
-    if cfg.evict_every not in (None, 1):
-        todo.append("evict_every > 1 (ROADMAP.md queue A item 10, delayed eviction)")
     if cfg.pipeline_depth not in (None, 1):
         todo.append("pipeline_depth=2 (ROADMAP.md queue A item 8, pipelining)")
-    if cfg.bucket_cipher_impl not in ("jnp", "pallas_fused_tiled"):
-        todo.append(
-            f"bucket_cipher_impl={cfg.bucket_cipher_impl!r} (ROADMAP.md queue "
-            "B, kernels B2/B3/B5)"
-        )
     if todo:
         raise NotImplementedError(
             "not ported to the PyTorch engine yet: " + "; ".join(todo)

@@ -1,27 +1,34 @@
 """Fused path-row gather+decrypt and encrypt+scatter (counterpart of
-``grapevine_tpu/oblivious/pallas_gather.py``'s tiled kernels).
+``grapevine_tpu/oblivious/pallas_gather.py``), and the build of the
+port's CUDA library.
 
-Two functions, each with a hand-written Hopper kernel
-(``csrc/gather_kernels.cu``, ChaCha core in ``csrc/chacha.cuh``) and a
-plain PyTorch version beside it:
+Four functions under the reference's names, each with a hand-written
+Hopper kernel (``csrc/gather_kernels.cu``, ChaCha core in
+``csrc/chacha.cuh``). Two contracts, two designs of each:
 
-- :func:`gather_decrypt_rows_tiled` — fetch the rows at public bucket ids
-  and decrypt them in one pass (``rounds=0``: a plain gather);
-- :func:`scatter_encrypt_rows_tiled` — encrypt plaintext rows under
-  (target bucket, write epoch) and write them, and the epoch nonce,
-  into the trees IN PLACE (the analog of the reference's buffer
-  donation / input-output aliasing); non-owner rows go to the junk
-  bucket ``n_padded - 1``.
+- :func:`gather_decrypt_rows` (one warp per row) and
+  :func:`gather_decrypt_rows_tiled` (one CTA per row, keystream in shared
+  memory) fetch the rows at public bucket ids and decrypt them in one
+  pass (``rounds=0``: a plain gather); plain version
+  :func:`gather_decrypt_rows_plain`;
+- :func:`scatter_encrypt_rows` and :func:`scatter_encrypt_rows_tiled`
+  encrypt plaintext rows under (target bucket, write epoch) and write
+  them, and the epoch nonce, into the trees IN PLACE (the analog of the
+  reference's buffer donation / input-output aliasing); non-owner rows
+  go to the junk bucket ``n_padded - 1``; plain version
+  :func:`scatter_encrypt_rows_plain`.
 
-The names keep the reference's ``_tiled`` so that
-``bucket_cipher_impl="pallas_fused_tiled"`` names the same function in
-both packages. A wrapper takes its plain version only for tensors on the
-CPU (the analog of Pallas interpret mode); for CUDA tensors it launches
-the kernel or raises. Each launch adds one to :data:`LAUNCHES`.
+``bucket_cipher_impl="pallas_fused"`` runs the one-row pair and
+``"pallas_fused_tiled"`` the tiled pair, as in the reference. A wrapper
+takes its plain version only for tensors on the CPU (the analog of
+Pallas interpret mode); for CUDA tensors it launches the kernel or
+raises. Each launch adds one to :data:`LAUNCHES`.
 
-Build: the kernel library is compiled with ``nvcc`` into ``build/`` at
-the repository root on first use (a plain C interface bound with
-``ctypes``), keyed by a hash of the sources, and loaded once per process.
+Build: every source in ``csrc/`` is compiled with ``nvcc`` (one process
+per ``.cu``, all started together) and linked into one library in
+``build/`` at the repository root on first use (a plain C interface
+bound with ``ctypes``), keyed by a hash of all the sources, and loaded
+once per process.
 """
 
 from __future__ import annotations
@@ -39,14 +46,14 @@ import torch
 from .bucket_cipher import row_keystream
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {"gather_decrypt_rows_tiled": 0, "scatter_encrypt_rows_tiled": 0}
+LAUNCHES = {"gather_decrypt_rows": 0, "gather_decrypt_rows_tiled": 0,
+            "scatter_encrypt_rows": 0, "scatter_encrypt_rows_tiled": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("gather_kernels.cu", "chacha.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 _lib = None
 
@@ -66,44 +73,64 @@ def _nvcc() -> str:
     return found
 
 
+def _sources() -> list[Path]:
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
 def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/gather_kernels.cu`` into ``build/`` unless a library
-    built from the same sources and flags is already there."""
+    """Compile every ``csrc/*.cu`` (in parallel) and link them into one
+    library in ``build/``, unless a library built from the same sources
+    and flags is already there."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
     out = BUILD_DIR / f"libgv_kernels-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(_CSRC / "gather_kernels.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [str(Path(tmp) / (u.stem + ".o")) for u in units]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o, str(u)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for u, o in zip(units, objs)]
+        errs = [p.communicate()[1] for p in procs]  # waits for every one
+        for u, p, err in zip(units, procs, errs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {u.name} ({p.returncode}):\n{err}")
+            if verbose:
+                print(err, end="")
+        so = str(Path(tmp) / "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(so, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
-def _load():
+def load_library():
+    """The built library, loaded once, with every entry point's C types."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.gv_gather_decrypt.argtypes = [p] * 7 + [i64, i32, i32, i32, p]
-        lib.gv_gather_decrypt.restype = i32
-        lib.gv_scatter_encrypt.argtypes = [p] * 9 + [i64, i64, i32, i32, i32, p]
-        lib.gv_scatter_encrypt.restype = i32
+        for name in ("gv_gather_decrypt_rows", "gv_gather_decrypt_rows_tiled",
+                     "gv_cipher_rows"):
+            getattr(lib, name).argtypes = [p] * 7 + [i64, i32, i32, i32, p]
+            getattr(lib, name).restype = i32
+        for name in ("gv_scatter_encrypt_rows", "gv_scatter_encrypt_rows_tiled"):
+            getattr(lib, name).argtypes = [p] * 9 + [i64, i64, i32, i32, i32, p]
+            getattr(lib, name).restype = i32
         _lib = lib
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+def check_tensor(name: str, t: torch.Tensor, dtype, shape=None) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
@@ -112,7 +139,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _device_of(*ts) -> str:
+def device_kind(*ts) -> str:
+    """``"cpu"`` or ``"cuda"``: the one device every tensor lies on."""
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
         return "cpu"
@@ -158,47 +186,53 @@ def scatter_encrypt_rows_plain(key, tree_idx, tree_val, nonces, flat_b, owner,
 # ----------------------------------------------------------------------
 
 
-def gather_decrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, z: int,
-                              rounds: int = 8):
-    """(pidx int32[R, z], pval int32[R, z*v]) — gathered AND decrypted.
-
-    ``key`` int32[8]; ``tree_idx`` int32[n*z]; ``tree_val`` int32[n, z*v];
-    ``nonces`` int32[n, 2]; ``flat_b`` int32[R] heap-bucket ids (public).
-    """
+def _gather(kernel: str, key, tree_idx, tree_val, nonces, flat_b, z, rounds):
     n, zv = tree_val.shape
     r = flat_b.shape[0]
     for name, t, shape in (("key", key, (8,)), ("tree_idx", tree_idx, (n * z,)),
                            ("tree_val", tree_val, None),
                            ("nonces", nonces, (n, 2)), ("flat_b", flat_b, (r,))):
-        _check(name, t, torch.int32, shape)
+        check_tensor(name, t, torch.int32, shape)
     if rounds < 0 or rounds % 2:
         raise ValueError(f"rounds must be a non-negative even count, got {rounds}")
-    if _device_of(key, tree_idx, tree_val, nonces, flat_b) == "cpu":
+    if device_kind(key, tree_idx, tree_val, nonces, flat_b) == "cpu":
         return gather_decrypt_rows_plain(key, tree_idx, tree_val, nonces,
                                          flat_b, z, rounds)
-    lib = _load()
     out_idx = torch.empty((r, z), dtype=torch.int32, device=tree_val.device)
     out_val = torch.empty((r, zv), dtype=torch.int32, device=tree_val.device)
-    err = lib.gv_gather_decrypt(
+    err = getattr(load_library(), "gv_" + kernel)(
         key.data_ptr(), tree_idx.data_ptr(), tree_val.data_ptr(),
         nonces.data_ptr(), flat_b.data_ptr(), out_idx.data_ptr(),
         out_val.data_ptr(), r, z, zv, rounds,
         torch.cuda.current_stream(tree_val.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"gather_decrypt_rows_tiled launch failed: cudaError {err}")
-    LAUNCHES["gather_decrypt_rows_tiled"] += 1
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    LAUNCHES[kernel] += 1
     return out_idx, out_val
 
 
-def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
-                               epoch, new_pidx, new_pval, z: int, rounds: int):
-    """Encrypt + write back owned path rows in ONE pass, in place.
+def gather_decrypt_rows(key, tree_idx, tree_val, nonces, flat_b, z: int,
+                        rounds: int = 8):
+    """(pidx int32[R, z], pval int32[R, z*v]) — gathered AND decrypted,
+    one warp per row.
 
-    ``owner`` bool[R] (False rows write the junk bucket); ``epoch``
-    int32[2] the write epoch; ``new_pidx`` int32[R, z], ``new_pval``
-    int32[R, z*v] plaintext rows. Updates ``tree_idx``, ``tree_val`` and
-    ``nonces`` in place and returns them."""
+    ``key`` int32[8]; ``tree_idx`` int32[n*z]; ``tree_val`` int32[n, z*v];
+    ``nonces`` int32[n, 2]; ``flat_b`` int32[R] heap-bucket ids (public).
+    """
+    return _gather("gather_decrypt_rows", key, tree_idx, tree_val, nonces,
+                   flat_b, z, rounds)
+
+
+def gather_decrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, z: int,
+                              rounds: int = 8):
+    """:func:`gather_decrypt_rows`'s contract, one CTA per row."""
+    return _gather("gather_decrypt_rows_tiled", key, tree_idx, tree_val,
+                   nonces, flat_b, z, rounds)
+
+
+def _scatter(kernel: str, key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
+             new_pidx, new_pval, z, rounds):
     n, zv = tree_val.shape
     r = flat_b.shape[0]
     for name, t, shape in (("key", key, (8,)), ("tree_idx", tree_idx, (n * z,)),
@@ -206,24 +240,43 @@ def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
                            ("nonces", nonces, (n, 2)), ("flat_b", flat_b, (r,)),
                            ("epoch", epoch, (2,)), ("new_pidx", new_pidx, (r, z)),
                            ("new_pval", new_pval, (r, zv))):
-        _check(name, t, torch.int32, shape)
-    _check("owner", owner, torch.bool, (r,))
+        check_tensor(name, t, torch.int32, shape)
+    check_tensor("owner", owner, torch.bool, (r,))
     if rounds <= 0 or rounds % 2:
         raise ValueError(f"rounds must be a positive even count, got {rounds}")
-    dev = _device_of(key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
-                     new_pidx, new_pval)
+    dev = device_kind(key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
+                      new_pidx, new_pval)
     if dev == "cpu":
         return scatter_encrypt_rows_plain(key, tree_idx, tree_val, nonces,
                                           flat_b, owner, epoch, new_pidx,
                                           new_pval, z, rounds)
-    lib = _load()
-    err = lib.gv_scatter_encrypt(
+    err = getattr(load_library(), "gv_" + kernel)(
         key.data_ptr(), tree_idx.data_ptr(), tree_val.data_ptr(),
         nonces.data_ptr(), flat_b.data_ptr(), owner.data_ptr(),
         epoch.data_ptr(), new_pidx.data_ptr(), new_pval.data_ptr(), r, n, z,
         zv, rounds, torch.cuda.current_stream(tree_val.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"scatter_encrypt_rows_tiled launch failed: cudaError {err}")
-    LAUNCHES["scatter_encrypt_rows_tiled"] += 1
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    LAUNCHES[kernel] += 1
     return tree_idx, tree_val, nonces
+
+
+def scatter_encrypt_rows(key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
+                         new_pidx, new_pval, z: int, rounds: int):
+    """Encrypt + write back owned path rows in ONE pass, in place, one warp
+    per row.
+
+    ``owner`` bool[R] (False rows write the junk bucket); ``epoch``
+    int32[2] the write epoch; ``new_pidx`` int32[R, z], ``new_pval``
+    int32[R, z*v] plaintext rows. Updates ``tree_idx``, ``tree_val`` and
+    ``nonces`` in place and returns them."""
+    return _scatter("scatter_encrypt_rows", key, tree_idx, tree_val, nonces,
+                    flat_b, owner, epoch, new_pidx, new_pval, z, rounds)
+
+
+def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
+                               epoch, new_pidx, new_pval, z: int, rounds: int):
+    """:func:`scatter_encrypt_rows`'s contract, one CTA per row."""
+    return _scatter("scatter_encrypt_rows_tiled", key, tree_idx, tree_val,
+                    nonces, flat_b, owner, epoch, new_pidx, new_pval, z, rounds)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..oblivious.bucket_cipher import row_keystream
+from ..oblivious.cipher_kernels import cipher_rows_pallas
 from ..u32 import SENTINEL, narrow, ult
 
 I32 = torch.int32
@@ -33,8 +34,8 @@ MAX_U32_BLOCKS = 1 << 30
 @dataclasses.dataclass(frozen=True)
 class OramConfig:
     """Static geometry of one bucket tree (the reference's fields; the
-    port's slice runs a flat position map and per-round eviction, so the
-    reference's ``posmap`` and ``evict_*`` fields are not carried)."""
+    port runs a flat position map, so the reference's ``posmap`` field is
+    not carried)."""
 
     height: int  # leaves = 2**height
     value_words: int  # u32 words per block value
@@ -42,14 +43,28 @@ class OramConfig:
     stash_size: int = 96
     #: ChaCha rounds for at-rest bucket encryption; 0 disables the cipher
     cipher_rounds: int = 0
-    #: "jnp" (plain PyTorch cipher) or "pallas_fused_tiled" (the fused
-    #: gather/scatter kernels of oblivious/gather_kernels.py)
+    #: "jnp" (plain PyTorch cipher), "pallas" (the row-cipher kernel of
+    #: oblivious/cipher_kernels.py), "pallas_fused" / "pallas_fused_tiled"
+    #: (the one-row / tiled fused gather and scatter kernels of
+    #: oblivious/gather_kernels.py)
     cipher_impl: str = "jnp"
     #: logical block index space [0, n_blocks); None = leaves
     n_blocks: int | None = None
     #: tree-top cache depth k: heap buckets [0, 2^k − 1) live decrypted in
     #: the private cache planes; only the bottom levels touch the trees
     top_cache_levels: int = 0
+    #: delayed batched eviction: ``oram_round`` calls between flushes.
+    #: 1 = evict and write back every round (the ``ebuf_*``/``fetch_tag``
+    #: planes are zero-length); > 1 = fetch-only rounds into a private
+    #: eviction buffer, drained by ``oram_flush`` every window. The engine
+    #: maps ``evict_every=E`` to E on the records tree and 2E on the
+    #: mailbox tree (two mailbox rounds per engine round).
+    evict_window: int = 1
+    #: paths fetched per ``oram_round`` (B records, B·D mailbox); sizes
+    #: the public ``ebuf_paths`` ledger. Required > 0 iff window > 1.
+    evict_fetch_count: int = 0
+    #: eviction-buffer rows. Required > 0 iff window > 1.
+    evict_buffer_slots: int = 0
 
     def __post_init__(self):
         k = self.top_cache_levels
@@ -57,6 +72,16 @@ class OramConfig:
             raise ValueError(
                 f"top_cache_levels must be in [0, height={self.height}] "
                 f"(at least the leaf level stays in the HBM tree), got {k}"
+            )
+        w = self.evict_window
+        if w < 1:
+            raise ValueError(f"evict_window must be >= 1, got {w}")
+        if w > 1 and (self.evict_fetch_count < 1 or self.evict_buffer_slots < 1):
+            raise ValueError(
+                "evict_window > 1 (delayed batched eviction) needs "
+                "evict_fetch_count and evict_buffer_slots > 0, got "
+                f"fetch_count={self.evict_fetch_count}, "
+                f"buffer_slots={self.evict_buffer_slots}"
             )
         if self.height > MAX_U32_HEIGHT:
             raise ValueError(
@@ -72,6 +97,11 @@ class OramConfig:
     @property
     def encrypted(self) -> bool:
         return self.cipher_rounds > 0
+
+    @property
+    def delayed_eviction(self) -> bool:
+        """True iff rounds fetch only and ``oram_flush`` evicts in batches."""
+        return self.evict_window > 1
 
     @property
     def cache_buckets(self) -> int:
@@ -120,13 +150,18 @@ class OramState(NamedTuple):
     stash_idx: torch.Tensor  # int32[S]
     stash_val: torch.Tensor  # int32[S, V]
     stash_leaf: torch.Tensor  # int32[0] (recursive posmap only)
-    ebuf_idx: torch.Tensor  # int32[0] (delayed eviction only)
-    ebuf_val: torch.Tensor  # int32[0, V]
-    ebuf_leaf: torch.Tensor  # int32[0]
-    ebuf_paths: torch.Tensor  # int32[0]
+    #: delayed-eviction planes (zero-length at evict_window 1): the
+    #: private buffer the fetch rounds recompact into, the public window
+    #: ledger of fetched leaves, the rounds buffered so far, the flush
+    #: generation, and the generation each bucket was last fetched in
+    #: (== ebuf_gen: its tree copy is stale until the flush)
+    ebuf_idx: torch.Tensor  # int32[C]; SENTINEL = empty row
+    ebuf_val: torch.Tensor  # int32[C, V]
+    ebuf_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    ebuf_paths: torch.Tensor  # int32[window * fetch_count]
     ebuf_rounds: torch.Tensor  # int32 scalar
-    ebuf_gen: torch.Tensor  # int32 scalar (1)
-    fetch_tag: torch.Tensor  # int32[0]
+    ebuf_gen: torch.Tensor  # int32 scalar (starts at 1)
+    fetch_tag: torch.Tensor  # int32[n_padded] (int32[0] at window 1)
     posmap: torch.Tensor  # int32[blocks + 1] flat private table
     overflow: torch.Tensor  # int32 scalar, sticky count of dropped blocks
     nonces: torch.Tensor  # int32[n_padded, 2] (lo, hi) write epochs
@@ -151,6 +186,8 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device) -> OramState:
     ``gen``; the all-zero tree is its own ciphertext (epoch 0)."""
     z, v = cfg.bucket_slots, cfg.value_words
     cb = cfg.cache_buckets
+    delayed = cfg.delayed_eviction
+    c = cfg.evict_buffer_slots if delayed else 0
 
     def full(shape, val):
         return torch.full(shape, val, dtype=I32, device=device)
@@ -168,13 +205,14 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device) -> OramState:
         stash_idx=full((cfg.stash_size,), SENTINEL),
         stash_val=full((cfg.stash_size, v), 0),
         stash_leaf=empty.clone(),
-        ebuf_idx=empty.clone(),
-        ebuf_val=full((0, v), 0),
+        ebuf_idx=full((c,), SENTINEL),
+        ebuf_val=full((c, v), 0),
         ebuf_leaf=empty.clone(),
-        ebuf_paths=empty.clone(),
+        ebuf_paths=full((cfg.evict_window * cfg.evict_fetch_count if delayed else 0,), 0),
         ebuf_rounds=full((), 0),
+        # generation 1 over an all-zero tag plane: nothing is stale
         ebuf_gen=full((), 1),
-        fetch_tag=empty.clone(),
+        fetch_tag=full((cfg.n_buckets_padded if delayed else 0,), 0),
         posmap=posmap,
         overflow=full((), 0),
         nonces=full((cfg.n_buckets_padded, 2), 0),
@@ -184,10 +222,19 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device) -> OramState:
 
 
 def cipher_rows(cfg: OramConfig, key, buckets, epochs, pidx, pval):
-    """XOR bucket rows with their keystream (encrypt ≡ decrypt), plain
-    PyTorch path (``cipher_impl="jnp"``)."""
+    """XOR bucket rows with their keystream (encrypt ≡ decrypt).
+
+    Every ``pallas*`` impl goes through the row-cipher kernel
+    (``cipher_rows_pallas``: the kernel on CUDA tensors, its plain
+    version on CPU tensors), as the reference routes them all to its
+    Pallas kernel; ``"jnp"`` is the plain PyTorch keystream path. Both
+    give the same words."""
     if not cfg.encrypted:
         return pidx, pval
+    if cfg.cipher_impl in ("pallas", "pallas_fused", "pallas_fused_tiled"):
+        return cipher_rows_pallas(key, buckets.contiguous(), epochs.contiguous(),
+                                  pidx.contiguous(), pval.contiguous(),
+                                  cfg.cipher_rounds)
     z = cfg.bucket_slots
     ks = row_keystream(key, buckets, epochs, cfg.row_words, cfg.cipher_rounds)
     return pidx ^ ks[:, :z], pval ^ ks[:, z:]
@@ -217,6 +264,15 @@ def _path_scatter_(tree, path_b, new_vals, owner):
     device sync on CUDA (this is the plain ``"jnp"`` path)."""
     tree[path_b[owner].long()] = new_vals[owner]
     return tree
+
+
+def derive_evict_buffer_slots(blocks: int, window: int, fetch_count: int,
+                              z: int) -> int:
+    """Auto eviction-buffer rows (the reference's sizing): ~2·Z live
+    blocks per fetched path per window round plus insert slack, clamped
+    by the whole block space (a buffer that holds every block cannot
+    overflow)."""
+    return min(blocks, 2 * z * window * fetch_count + 4 * fetch_count)
 
 
 def working_leaves(posmap, cfg: OramConfig, idxs) -> torch.Tensor:

@@ -1,20 +1,27 @@
 """Batched Path-ORAM access round: one fetch, N ops, one eviction (port of
-``grapevine_tpu/oram/round.py:oram_round`` at ``evict_window=1``, single
-device, flat position map).
+``grapevine_tpu/oram/round.py``, single device, flat position map).
 
 1. **Dedup + fetch**: duplicate indices after the first occurrence fetch a
    fresh dummy path; all B paths are fetched at once, and buckets shared
    by several paths are owned by the lowest column touching them. The
    top ``k`` levels come from the decrypted tree-top cache, the rest from
-   the encrypted trees — through the fused gather+decrypt kernel when
-   ``cipher_impl="pallas_fused_tiled"``.
+   the encrypted trees — through a fused gather+decrypt kernel under
+   ``cipher_impl="pallas_fused"`` (one warp a row) or
+   ``"pallas_fused_tiled"`` (one CTA a row), else a gather and
+   ``cipher_rows``.
 2. **Apply**: the vectorized callback resolves slot-order semantics and
    returns each key's final state, committed at its last occurrence.
 3. **Evict**: one leaf sort, then a level-synchronous greedy pass
    assigns entries to the deepest fetched bucket on their path;
    leftovers recompact into the stash; owned buckets are written back
-   (encrypt+scatter kernel on the fused path) — write transcript ≡ read
-   transcript.
+   (a fused encrypt+scatter kernel on the fused paths) — write
+   transcript ≡ read transcript.
+
+Delayed eviction (``evict_window`` > 1): :func:`oram_round` runs
+:func:`_oram_fetch_round` instead — steps 1-2, then every live row
+recompacts into the private eviction buffer and the tree is not written —
+and :func:`oram_flush` evicts the window's working set into the union of
+its fetched buckets every ``evict_window`` rounds.
 
 The trees and nonces are updated IN PLACE (the analog of the reference's
 buffer donation): the ``state`` passed in is consumed.
@@ -27,7 +34,9 @@ from torch.profiler import record_function
 
 from ..oblivious.bucket_cipher import epoch_next
 from ..oblivious.gather_kernels import (
+    gather_decrypt_rows,
     gather_decrypt_rows_tiled,
+    scatter_encrypt_rows,
     scatter_encrypt_rows_tiled,
 )
 from ..oblivious.primitives import rank_of, scatter_drop, scatter_fresh
@@ -113,21 +122,25 @@ def _assign_evictions(cfg: OramConfig, valid, wleaf, bucket_map, n_targets: int,
     return slot_tgt, placed_w
 
 
-def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
-               dummy_leaves, apply_batch):
-    """One batched oblivious access round over this ORAM.
+def _fused_kernels(cfg: OramConfig):
+    """The (gather+decrypt, encrypt+scatter) kernel pair that
+    ``cfg.cipher_impl`` selects, or None for the unfused path."""
+    if not cfg.encrypted:
+        return None
+    if cfg.cipher_impl == "pallas_fused":
+        return gather_decrypt_rows, scatter_encrypt_rows
+    if cfg.cipher_impl == "pallas_fused_tiled":
+        return gather_decrypt_rows_tiled, scatter_encrypt_rows_tiled
+    return None
 
-    ``apply_batch(vals0 int32[B,V], present0 bool[B]) -> (outs,
-    final_val int32[B,V], final_alive bool[B])`` as in the reference.
-    Returns ``(state', outs, leaves int32[B])``; ``leaves`` is the public
-    transcript."""
+
+def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves):
+    """Step 1 of both round programs: dedup, posmap read/remap, the
+    owner map, and the decrypted path rows (top ``k`` levels from the
+    cache). Returns a dict of the round's public and private pieces."""
     b = idxs.shape[0]
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
-    s = cfg.stash_size
-    nslots = b * plen * z
     dev = idxs.device
-
-    # --- 1. dedup, position-map read/remap, path fetch -----------------
     first_occ, last_occ, _ = occurrence_masks(idxs, cfg.dummy_index)
     posmap, leaves = lookup_remap_round(
         cfg, state.posmap, idxs, new_leaves, dummy_leaves, first_occ, last_occ
@@ -146,10 +159,10 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     top_b = path_b[:, :kc].reshape(b * kc).clamp(max=max(cfg.cache_buckets, 1) - 1)
     top_slots = path_slot_indices(cfg, top_b).reshape(-1)
 
-    fused = cfg.cipher_impl == "pallas_fused_tiled" and cfg.encrypted
+    fused = _fused_kernels(cfg)
     with record_function("oram_fetch"):
-        if fused:
-            pidx, pval = gather_decrypt_rows_tiled(
+        if fused is not None:
+            pidx, pval = fused[0](
                 state.cipher_key, state.tree_idx, state.tree_val,
                 state.nonces, bot_b, z=z, rounds=cfg.cipher_rounds,
             )
@@ -169,19 +182,32 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
                 [state.cache_val[top_b.long()].reshape(b, kc, z * v),
                  pval.reshape(b, nbot, z * v)], dim=1,
             ).reshape(b * plen, z * v)
-        # non-owner copies of shared buckets are invalidated
-        pidx = torch.where(fowner[:, None], pidx, SENTINEL)
+    return dict(first_occ=first_occ, last_occ=last_occ, posmap=posmap,
+                leaves=leaves, path_b=path_b, flat_b=flat_b, bmap=bmap,
+                fowner=fowner, bot_b=bot_b, top_b=top_b, top_slots=top_slots,
+                pidx=pidx, pval=pval)
 
-    # working set: stash ++ fetched slots ++ b rows for net inserts, plus
-    # one spill row (index w) that absorbs the reference's dropped writes
-    w = s + nslots + b
-    widx_x = torch.cat([state.stash_idx, pidx.reshape(-1),
+
+def _apply(cfg: OramConfig, idxs, last_occ, keep, head_idx, head_val, pidx,
+           pval, apply_batch):
+    """Step 2 of both round programs over the working set ``head`` ++
+    fetched rows (``keep`` False invalidates a row) ++ B insert rows.
+    Returns ``(widx, wval, outs)`` after the round's last op on each key
+    has committed the callback's final state."""
+    b = idxs.shape[0]
+    v = cfg.value_words
+    dev = idxs.device
+    pidx = torch.where(keep[:, None], pidx, SENTINEL)
+    nh, nslots = head_idx.shape[0], pidx.numel()
+    # working set plus one spill row (index w) that absorbs the
+    # reference's dropped writes
+    w = nh + nslots + b
+    widx_x = torch.cat([head_idx, pidx.reshape(-1),
                         torch.full((b + 1,), SENTINEL, dtype=I32, device=dev)])
-    wval_x = torch.cat([state.stash_val, pval.reshape(-1, v),
+    wval_x = torch.cat([head_val, pval.reshape(-1, v),
                         torch.zeros((b + 1, v), dtype=I32, device=dev)])
     widx0 = widx_x[:w]
 
-    # --- 2. vectorized slot-order apply --------------------------------
     iota_w = torch.arange(w, dtype=I32, device=dev)
     row_map = scatter_fresh(
         cfg.blocks + 2, w,
@@ -203,56 +229,95 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     ins = last_occ & ~present0 & final_alive
     slot_iota = torch.arange(b, dtype=I32, device=dev)
     row_tgt = torch.where(
-        upd, pos0, torch.where(ins, s + nslots + slot_iota, w)
+        upd, pos0, torch.where(ins, nh + nslots + slot_iota, w)
     ).long()
     widx_x[row_tgt] = torch.where(final_alive, idxs, SENTINEL)
     wval_x[row_tgt] = final_val
-    widx, wval = widx_x[:w], wval_x[:w]
+    return widx_x[:w], wval_x[:w], outs
+
+
+def _recompact(n: int, widx, wval, keep):
+    """Rows with ``keep`` packed in order into fresh ``n``-row planes
+    (the rest dropped); returns ``(idx, val, dropped int32)``."""
+    target = torch.where(keep, rank_of(keep), n).long()
+    idx = scatter_fresh(n, SENTINEL, target, widx)
+    val = scatter_fresh(n, 0, target, wval)
+    dropped = torch.clamp(keep.to(I32).sum() - n, min=0).to(I32)
+    return idx, val, dropped
+
+
+def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval):
+    """Encrypt rows under ``state.epoch`` and write the owned ones into
+    the trees in place with their nonce (the fused kernel sends the rest
+    to the junk bucket; the unfused path leaves them unwritten)."""
+    z = cfg.bucket_slots
+    fused = _fused_kernels(cfg)
+    tree_idx, tree_val, nonces = state.tree_idx, state.tree_val, state.nonces
+    if fused is not None:
+        fused[1](state.cipher_key, tree_idx, tree_val, nonces, tgt_b, owner,
+                 state.epoch, pidx, pval, z=z, rounds=cfg.cipher_rounds)
+        return
+    epochs_w = state.epoch[None, :].expand(tgt_b.shape[0], 2)
+    enc_pidx, enc_pval = cipher_rows(
+        cfg, state.cipher_key, tgt_b, epochs_w, pidx, pval
+    )
+    _path_scatter_(tree_idx.view(-1, z), tgt_b, enc_pidx, owner)
+    _path_scatter_(tree_val, tgt_b, enc_pval, owner)
+    if cfg.encrypted:
+        _path_scatter_(nonces, tgt_b, epochs_w, owner)
+
+
+def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
+               dummy_leaves, apply_batch):
+    """One batched oblivious access round over this ORAM.
+
+    ``apply_batch(vals0 int32[B,V], present0 bool[B]) -> (outs,
+    final_val int32[B,V], final_alive bool[B])`` as in the reference.
+    Returns ``(state', outs, leaves int32[B])``; ``leaves`` is the public
+    transcript. Under delayed eviction this is the fetch-only
+    :func:`_oram_fetch_round`."""
+    if cfg.delayed_eviction:
+        return _oram_fetch_round(cfg, state, idxs, new_leaves, dummy_leaves,
+                                 apply_batch)
+    b = idxs.shape[0]
+    z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
+    s = cfg.stash_size
+    nslots = b * plen * z
+
+    f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves)
+    # non-owner copies of shared buckets are invalidated
+    widx, wval, outs = _apply(cfg, idxs, f["last_occ"], f["fowner"],
+                              state.stash_idx, state.stash_val, f["pidx"],
+                              f["pval"], apply_batch)
+    posmap, fowner = f["posmap"], f["fowner"]
     wleaf = working_leaves(posmap, cfg, widx)
 
     # --- 3. joint level-synchronous greedy eviction --------------------
     with record_function("oram_evict"):
         valid = widx != SENTINEL
         slot_tgt, placed = _assign_evictions(
-            cfg, valid, wleaf, bmap, b, nslots,
+            cfg, valid, wleaf, f["bmap"], b, nslots,
             lambda oc, level, rank: (oc * plen + level) * z + rank,
         )
         new_pidx = scatter_fresh(nslots, SENTINEL, slot_tgt.long(), widx)
         new_pval = scatter_fresh(nslots, 0, slot_tgt.long(), wval)
-
         # --- 4. stash recompaction ---------------------------------------
-        leftover = valid & ~placed
-        starget = torch.where(leftover, rank_of(leftover), s).long()
-        stash_idx = scatter_fresh(s, SENTINEL, starget, widx)
-        stash_val = scatter_fresh(s, 0, starget, wval)
-        n_left = leftover.to(I32).sum()
-        stash_dropped = torch.clamp(n_left - s, min=0).to(I32)
+        stash_idx, stash_val, stash_dropped = _recompact(
+            s, widx, wval, valid & ~placed
+        )
 
+    kc = cfg.top_cache_levels
+    nbot = plen - kc
     fowner_bot = fowner.reshape(b, plen)[:, kc:].reshape(b * nbot).contiguous()
     bot_pidx = new_pidx.reshape(b, plen, z)[:, kc:].reshape(b * nbot, z).contiguous()
     bot_pval = new_pval.reshape(b, plen, z * v)[:, kc:].reshape(
         b * nbot, z * v
     ).contiguous()
-    tree_idx, tree_val, nonces = state.tree_idx, state.tree_val, state.nonces
     with record_function("oram_writeback"):
-        if fused:
-            # encrypt + scatter + nonce commit in one pass, in place
-            scatter_encrypt_rows_tiled(
-                state.cipher_key, tree_idx, tree_val, nonces, bot_b,
-                fowner_bot, state.epoch, bot_pidx, bot_pval,
-                z=z, rounds=cfg.cipher_rounds,
-            )
-        else:
-            epochs_w = state.epoch[None, :].expand(b * nbot, 2)
-            enc_pidx, enc_pval = cipher_rows(
-                cfg, state.cipher_key, bot_b, epochs_w, bot_pidx, bot_pval
-            )
-            _path_scatter_(tree_idx.view(-1, z), bot_b, enc_pidx, fowner_bot)
-            _path_scatter_(tree_val, bot_b, enc_pval, fowner_bot)
-            if cfg.encrypted:
-                _path_scatter_(nonces, bot_b, epochs_w, fowner_bot)
+        _write_back(cfg, state, f["bot_b"], fowner_bot, bot_pidx, bot_pval)
         if kc:
             # cached levels write back plaintext, owner-masked
+            top_slots, top_b = f["top_slots"], f["top_b"]
             fowner_top = fowner.reshape(b, plen)[:, :kc].reshape(b * kc)
             cache_idx = scatter_drop(
                 state.cache_idx,
@@ -268,15 +333,167 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
             cache_idx, cache_val = state.cache_idx, state.cache_val
 
     new_state = state._replace(
-        tree_idx=tree_idx,
-        tree_val=tree_val,
         cache_idx=cache_idx,
         cache_val=cache_val,
         stash_idx=stash_idx,
         stash_val=stash_val,
         posmap=posmap,
         overflow=state.overflow + stash_dropped,
-        nonces=nonces,
         epoch=epoch_next(state.epoch),
     )
-    return new_state, outs, leaves
+    return new_state, outs, f["leaves"]
+
+
+def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
+                      dummy_leaves, apply_batch):
+    """The delayed-eviction fetch round (``evict_window`` > 1).
+
+    Steps 1-2 as :func:`oram_round`, except that buckets tagged earlier in
+    this window are stale (their live rows already moved to the buffer)
+    and are invalidated like non-owner copies. Then every live
+    working-set row recompacts into buffer ∪ stash (buffer first; rows
+    past C + S drop into the sticky overflow count), the round's leaves
+    are appended to the public window ledger, and the fetched buckets are
+    tagged with the current generation. The trees, cache, nonces and
+    epoch are untouched: zero tree writes, zero encryption."""
+    b = idxs.shape[0]
+    s, c = cfg.stash_size, cfg.evict_buffer_slots
+
+    f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves)
+    flat_b = f["flat_b"]
+    fresh = state.fetch_tag[flat_b.long()] != state.ebuf_gen
+    widx, wval, outs = _apply(
+        cfg, idxs, f["last_occ"], f["fowner"] & fresh,
+        torch.cat([state.stash_idx, state.ebuf_idx]),
+        torch.cat([state.stash_val, state.ebuf_val]),
+        f["pidx"], f["pval"], apply_batch,
+    )
+
+    # --- 3. recompact EVERYTHING into buffer ∪ stash (no eviction) -----
+    with record_function("oram_evict"):
+        comb_idx, comb_val, dropped = _recompact(c + s, widx, wval,
+                                                 widx != SENTINEL)
+
+    # --- 4. window bookkeeping; the tree/cache/nonces are UNTOUCHED ----
+    # the ledger row: rounds < window whenever a fetch round runs (the
+    # engine flushes at the window and resets the count); the clamp
+    # mirrors the reference's
+    row = torch.clamp(state.ebuf_rounds, max=cfg.evict_window - 1) * b
+    pos = (row + torch.arange(b, dtype=I32, device=idxs.device)).long()
+    ebuf_paths = state.ebuf_paths.index_copy(0, pos, f["leaves"])
+    # generations only grow, so a max over duplicate buckets is exact
+    fetch_tag = state.fetch_tag.scatter_reduce(
+        0, flat_b.long(), state.ebuf_gen.expand(flat_b.shape[0]), reduce="amax"
+    )
+    new_state = state._replace(
+        stash_idx=comb_idx[c:],
+        stash_val=comb_val[c:],
+        ebuf_idx=comb_idx[:c],
+        ebuf_val=comb_val[:c],
+        ebuf_paths=ebuf_paths,
+        ebuf_rounds=state.ebuf_rounds + 1,
+        fetch_tag=fetch_tag,
+        posmap=f["posmap"],
+        overflow=state.overflow + dropped,
+    )
+    return new_state, outs, f["leaves"]
+
+
+def flush_target_slots(cfg: OramConfig) -> int:
+    """Write targets of one flush: the window's fetched buckets
+    deduplicated — at most ``window·fetch_count·path_len``, and never
+    more than the whole padded heap."""
+    return min(cfg.evict_window * cfg.evict_fetch_count * cfg.path_len,
+               cfg.n_buckets_padded)
+
+
+def oram_flush(cfg: OramConfig, state: OramState) -> OramState:
+    """Batched eviction + write-back of one delayed-eviction window (the
+    reference's ``oram_flush``, single device, flat position map).
+
+    1. The window's fetched paths (the public ``ebuf_paths`` ledger;
+       rounds past ``ebuf_rounds`` masked) expand to bucket ids and
+       deduplicate, by a sort of public data, into ``flush_target_slots``
+       targets: every bucket fetched this window once.
+    2. Buffer ∪ stash is greedily assigned to the deepest target bucket
+       on each entry's path (the same ``_assign_evictions`` body, with a
+       [target, slot] output layout).
+    3. One encrypt+scatter writes every target bucket under the current
+       epoch; cached top buckets go to the plaintext cache planes.
+    4. Leftovers recompact into the stash, the buffer empties and the
+       generation bumps (re-validating every tagged bucket).
+
+    Deterministic given the state; the trees are updated in place."""
+    z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
+    s, c = cfg.stash_size, cfg.evict_buffer_slots
+    f = cfg.evict_fetch_count
+    ncols = cfg.evict_window * f
+    pad = cfg.n_buckets_padded
+    t = flush_target_slots(cfg)
+    dev = state.ebuf_paths.device
+
+    with record_function("oram_flush"):
+        leaves = state.ebuf_paths
+        active = torch.arange(ncols, dtype=I32, device=dev) // f < state.ebuf_rounds
+        flat_b = path_bucket_indices(cfg, leaves).reshape(ncols * plen)
+        # -- 1. public dedup: window bucket set → t compacted targets
+        # (bucket ids and pad are below 2^31: a signed sort is exact)
+        sb = torch.sort(torch.where(active.repeat_interleave(plen), flat_b, pad)).values
+        first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           sb[1:] != sb[:-1]]) & (sb < pad)
+        crank = rank_of(first)
+        # target slot → bucket id (pad = unused slot)
+        tgt_b = scatter_fresh(t, pad, torch.where(first, crank, t).long(), sb)
+        # dense bucket id → target slot (t = not a target this window)
+        dmap = scatter_fresh(pad, t, torch.where(first, sb, pad).long(), crank)
+
+        # working set = buffer ∪ stash (the fetch round's order)
+        widx = torch.cat([state.ebuf_idx, state.stash_idx])
+        wval = torch.cat([state.ebuf_val, state.stash_val])
+        wleaf = working_leaves(state.posmap, cfg, widx)
+        valid = widx != SENTINEL
+        slot_tgt, placed = _assign_evictions(
+            cfg, valid, wleaf, dmap, t, t * z,
+            lambda ts, level, rank: ts * z + rank,
+        )
+        new_pidx = scatter_fresh(t * z, SENTINEL, slot_tgt.long(), widx)
+        new_pval = scatter_fresh(t * z, 0, slot_tgt.long(), wval)
+        stash_idx, stash_val, stash_dropped = _recompact(
+            s, widx, wval, valid & ~placed
+        )
+
+        # -- 3. write-back: every target once; cached top buckets (a heap
+        # prefix) to the plaintext cache planes
+        cb = cfg.cache_buckets
+        is_cached = tgt_b < cb  # k = 0 → cb = 0 → all False
+        tree_tgt = (tgt_b < pad) & ~is_cached
+        _write_back(cfg, state, tgt_b, tree_tgt, new_pidx.view(t, z),
+                    new_pval.view(t, z * v))
+        if cfg.top_cache_levels:
+            cache_slots = path_slot_indices(
+                cfg, tgt_b.clamp(max=max(cb, 1) - 1)
+            ).reshape(-1)
+            cache_idx = scatter_drop(
+                state.cache_idx,
+                torch.where(is_cached.repeat_interleave(z), cache_slots, -1).long(),
+                new_pidx,
+            )
+            cache_val = scatter_drop(
+                state.cache_val, torch.where(is_cached, tgt_b, -1).long(),
+                new_pval.view(t, z * v),
+            )
+        else:
+            cache_idx, cache_val = state.cache_idx, state.cache_val
+
+    return state._replace(
+        cache_idx=cache_idx,
+        cache_val=cache_val,
+        stash_idx=stash_idx,
+        stash_val=stash_val,
+        ebuf_idx=torch.full((c,), SENTINEL, dtype=I32, device=dev),
+        ebuf_val=torch.zeros((c, v), dtype=I32, device=dev),
+        ebuf_rounds=torch.zeros_like(state.ebuf_rounds),
+        ebuf_gen=state.ebuf_gen + 1,
+        overflow=state.overflow + stash_dropped,
+        epoch=epoch_next(state.epoch),
+    )

@@ -1,0 +1,157 @@
+"""The port's one-row fused kernels and standalone row cipher held against
+the JAX package: the plain versions of ``cipher_rows_pallas`` (B2),
+``gather_decrypt_rows`` (B3) and ``scatter_encrypt_rows`` (B5) against
+the Pallas kernels of ``grapevine_tpu/oblivious/pallas_cipher.py`` and
+``pallas_gather.py`` in interpret mode, at 2 geometries × 2 seeds ×
+ChaCha rounds 8 and 20, with never-written (epoch (0, 0)) rows among the
+inputs. Integer functions: tolerance 0 (the scatter's junk bucket
+masked). The CUDA case holds each kernel against its plain version on
+the card.
+
+The JAX side is imported inside the tests that use it, so the CUDA test
+also runs where JAX is absent (``python -m pytest --noconftest
+tests/test_torch_cipher_kernels.py -k cuda``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+from grapevine_tpu_torch.oblivious import gather_kernels as gk
+from grapevine_tpu_torch.u32 import from_numpy, to_numpy
+from test_torch_cipher import (
+    _SC,
+    _gather_inputs,
+    _jax,
+    _scatter_inputs,
+    _t,
+    _u32,
+    cuda_device,  # noqa: F401  (fixture)
+)
+
+_G = ("key", "tree_idx", "tree_val", "nonces", "flat_b")
+
+#: (z, z*v, tree buckets): a 100-word row (7 ChaCha blocks) and a
+#: records-width row (1028 words, 65 blocks). Narrower rows are left out
+#: on purpose: the reference's interpret-mode compile of a 2-block row
+#: at 20 rounds runs for many minutes on the CPU.
+GEOMETRIES = [(4, 96, 64), (4, 1024, 16)]
+
+
+def _cipher_inputs(seed, z, zv, r=21):
+    rng = np.random.default_rng(200 + seed)
+    epoch = _u32(rng, (r, 2))
+    epoch[rng.random(r) < 0.3] = 0  # never-written rows pass through
+    epoch[1] = (0xFFFFFFFF, 0xFFFFFFFF)
+    return dict(key=_u32(rng, (8,)), bucket=_u32(rng, (r,), high=1 << 20),
+                epoch=epoch, pidx=_u32(rng, (r, z)), pval=_u32(rng, (r, zv)))
+
+
+_CI = ("key", "bucket", "epoch", "pidx", "pval")
+
+
+@pytest.mark.parametrize("rounds", [8, 20])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("z,zv,n", GEOMETRIES)
+def test_cipher_rows_plain_matches_jax_interpret(z, zv, n, seed, rounds):
+    from grapevine_tpu.oblivious.pallas_cipher import cipher_rows_pallas as jcr
+
+    jnp, _, _ = _jax()
+    x = _cipher_inputs(seed, z, zv)
+    wi, wv = jcr(*(jnp.asarray(x[k]) for k in _CI), rounds=rounds, interpret=True)
+    args = [_t(x[k]) for k in _CI]
+    before = dict(ck.LAUNCHES)
+    gi, gv = ck.cipher_rows_pallas(*args, rounds=rounds)
+    assert ck.LAUNCHES == before  # CPU tensors take the plain version
+    np.testing.assert_array_equal(to_numpy(gi), np.asarray(wi))
+    np.testing.assert_array_equal(to_numpy(gv), np.asarray(wv))
+    zero = ~x["epoch"].any(axis=1)
+    assert zero.any()
+    np.testing.assert_array_equal(to_numpy(gv)[zero], x["pval"][zero])
+    for k, a in zip(_CI, args):  # fresh outputs: the inputs are not written
+        np.testing.assert_array_equal(to_numpy(a), x[k], k)
+
+
+@pytest.mark.parametrize("rounds", [8, 20])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("z,zv,n", GEOMETRIES)
+def test_gather_rows_plain_matches_jax_interpret(z, zv, n, seed, rounds):
+    jnp, _, jpg = _jax()
+    x = _gather_inputs(10 + seed, z, zv, n)
+    x["nonces"][x["flat_b"][0]] = 0  # at least one never-written row
+    wi, wv = jpg.gather_decrypt_rows(*(jnp.asarray(x[k]) for k in _G), z=z,
+                                     rounds=rounds, interpret=True)
+    before = dict(gk.LAUNCHES)
+    gi, gv = gk.gather_decrypt_rows(*(_t(x[k]) for k in _G), z=z, rounds=rounds)
+    assert gk.LAUNCHES == before
+    np.testing.assert_array_equal(to_numpy(gi), np.asarray(wi))
+    np.testing.assert_array_equal(to_numpy(gv), np.asarray(wv))
+
+
+@pytest.mark.parametrize("rounds", [8, 20])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("z,zv,n", GEOMETRIES)
+def test_scatter_rows_plain_matches_jax_interpret(z, zv, n, seed, rounds):
+    jnp, _, jpg = _jax()
+    x = _scatter_inputs(10 + seed, z, zv, n)
+    wi, wv, wn = jpg.scatter_encrypt_rows(*(jnp.asarray(x[k]) for k in _SC),
+                                          z=z, rounds=rounds, interpret=True)
+    args = [_t(x[k]) for k in _SC]
+    before = dict(gk.LAUNCHES)
+    out = gk.scatter_encrypt_rows(*args, z=z, rounds=rounds)
+    assert gk.LAUNCHES == before
+    assert all(o is a for o, a in zip(out, args[1:4]))  # in place
+    ti, tv, tn = (to_numpy(a) for a in args[1:4])
+    # the junk bucket (last row) takes racing non-owner writes: masked
+    np.testing.assert_array_equal(ti[:-z], np.asarray(wi)[:-z])
+    np.testing.assert_array_equal(tv[:-1], np.asarray(wv)[:-1])
+    np.testing.assert_array_equal(tn[:-1], np.asarray(wn)[:-1])
+
+
+def test_cipher_rows_refuses_bad_inputs():
+    x = {k: _t(v) for k, v in _cipher_inputs(0, 4, 24).items()}
+    with pytest.raises(TypeError):
+        ck.cipher_rows_pallas(x["key"], x["bucket"].long(), x["epoch"],
+                              x["pidx"], x["pval"])
+    with pytest.raises(ValueError, match="rounds"):
+        ck.cipher_rows_pallas(*(x[k] for k in _CI), rounds=9)
+    with pytest.raises(ValueError, match="shape"):
+        ck.cipher_rows_pallas(x["key"], x["bucket"][1:], x["epoch"], x["pidx"],
+                              x["pval"])
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.cipher_rows_pallas(x["key"], x["bucket"], x["epoch"], x["pidx"],
+                              x["pval"].t().contiguous().t())
+
+
+@pytest.mark.parametrize("z,zv,n", GEOMETRIES + [(4, 6080, 32)])
+def test_cuda_one_row_kernels_match_plain_versions(cuda_device, z, zv, n):
+    x = _cipher_inputs(5, z, zv, r=301)
+    c = {k: from_numpy(v, cuda_device) for k, v in x.items()}
+    for rounds in (8, 20):
+        before = ck.LAUNCHES["cipher_rows_pallas"]
+        ki, kv = ck.cipher_rows_pallas(*(c[k] for k in _CI), rounds=rounds)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["cipher_rows_pallas"] == before + 1
+        pi, pv = ck.cipher_rows_pallas_plain(*(c[k] for k in _CI), rounds=rounds)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), rounds
+
+    x = _gather_inputs(5, z, zv, n, r=300)
+    c = {k: from_numpy(v, cuda_device) for k, v in x.items()}
+    for rounds in (0, 8, 20):
+        before = gk.LAUNCHES["gather_decrypt_rows"]
+        ki, kv = gk.gather_decrypt_rows(*(c[k] for k in _G), z=z, rounds=rounds)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["gather_decrypt_rows"] == before + 1
+        pi, pv = gk.gather_decrypt_rows_plain(*(c[k] for k in _G), z=z,
+                                              rounds=rounds)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), rounds
+
+    s = _scatter_inputs(6, z, zv, n, r=n // 2)
+    sk = {k: from_numpy(v, cuda_device) for k, v in s.items()}
+    sp = {k: v.clone() for k, v in sk.items()}
+    gk.scatter_encrypt_rows(*(sk[k] for k in _SC), z=z, rounds=8)
+    gk.scatter_encrypt_rows_plain(*(sp[k] for k in _SC), z=z, rounds=8)
+    torch.cuda.synchronize()
+    assert torch.equal(sk["tree_idx"][:-z], sp["tree_idx"][:-z])
+    assert torch.equal(sk["tree_val"][:-1], sp["tree_val"][:-1])
+    assert torch.equal(sk["nonces"][:-1], sp["nonces"][:-1])

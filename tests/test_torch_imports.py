@@ -74,8 +74,12 @@ def test_engine_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(vphases_impl="scan"), dict(sort_impl="radix"),
-    dict(posmap_impl="recursive"), dict(evict_every=2), dict(shards=2),
-    dict(bucket_cipher_impl="pallas"), dict(bucket_cipher_impl="pallas_fused"),
+    dict(posmap_impl="recursive"),
+    # delayed eviction runs; with a recursive map it stays refused
+    dict(evict_every=2, posmap_impl="recursive"), dict(shards=2),
+    # the kernel impls run single-device; sharded they stay refused
+    dict(bucket_cipher_impl="pallas", shards=2),
+    dict(bucket_cipher_impl="pallas_fused", evict_every=2, shards=2),
     dict(pipeline_depth=2),
 ])
 def test_unported_knobs_name_their_roadmap_item(knob):
@@ -84,3 +88,17 @@ def test_unported_knobs_name_their_roadmap_item(knob):
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         EngineConfig.from_config(GrapevineConfig(max_messages=64, **knob))
+
+
+@pytest.mark.parametrize("knob", [
+    dict(evict_every=2), dict(evict_every=4, evict_buffer_slots=50),
+    dict(bucket_cipher_impl="pallas"), dict(bucket_cipher_impl="pallas_fused"),
+    dict(bucket_cipher_impl="pallas_fused_tiled", evict_every=3),
+])
+def test_ported_knobs_are_accepted(knob):
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.state import EngineConfig
+
+    ecfg = EngineConfig.from_config(GrapevineConfig(max_messages=64, **knob))
+    assert ecfg.evict_every == knob.get("evict_every", 1)
+    assert ecfg.rec.cipher_impl == knob.get("bucket_cipher_impl", "jnp")
