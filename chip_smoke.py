@@ -10,10 +10,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3. every kernel against its plain PyTorch version on the card, at the
    records-tree and mailbox-tree row shapes of the production point and
    at the records and mailbox flush shapes of ``evict_every=4``
-   (tolerance 0: integer outputs, the scatters' junk bucket masked),
-   with its time, the plain version's time and the card's bound for the
-   same work. Contracts: gather+decrypt (B3 one warp a row, B4 one CTA a
-   row), encrypt+scatter (B5, B6), row cipher (B2);
+   (tolerance 0: integer outputs, the scatters' junk bucket masked; the
+   kernels skip non-owner rows, so the junk bucket and its nonce must
+   come out of them bit-identical), with its time, the plain version's
+   time and the card's bound for the same work; the scatters' ``ptxas``
+   registers, shared memory and spills and their launch (persistent grid,
+   rows per step) at each shape. Contracts: gather+decrypt (B3 one warp a
+   row, B4 one CTA a row), encrypt+scatter (B5 one row a step, B6 up to
+   8), row cipher (B2);
 4. the per-round slice: ``GrapevineEngine`` at 2^20 messages, 2^12
    recipients, B=2048, ``bucket_cipher_impl="pallas_fused_tiled"``
    serves a few rounds of CRUD through ``handle_queries``, every
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,11 +75,13 @@ KERNELS = {
                             "grapevine_tpu/oblivious/pallas_gather.py:89"),
     "gather_decrypt_rows_tiled": ("grapevine_tpu_torch/csrc/gather_kernels.cu",
                                   "grapevine_tpu/oblivious/pallas_gather.py:203"),
-    "scatter_encrypt_rows": ("grapevine_tpu_torch/csrc/gather_kernels.cu",
+    "scatter_encrypt_rows": ("grapevine_tpu_torch/csrc/scatter_kernels.cu",
                              "grapevine_tpu/oblivious/pallas_gather.py:444"),
-    "scatter_encrypt_rows_tiled": ("grapevine_tpu_torch/csrc/gather_kernels.cu",
+    "scatter_encrypt_rows_tiled": ("grapevine_tpu_torch/csrc/scatter_kernels.cu",
                                    "grapevine_tpu/oblivious/pallas_gather.py:360"),
 }
+#: the two scatters, instances of one kernel body
+SCATTERS = ("scatter_encrypt_rows", "scatter_encrypt_rows_tiled")
 
 
 def emit(obj) -> None:
@@ -91,10 +98,14 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+    after one warm-up call. The stream is held busy first (a ~10 ms spin
+    kernel) so every launch is queued before the first one starts: a
+    kernel shorter than its wrapper's host time is timed back to back,
+    not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     t0.record()
     for _ in range(reps):
         fn()
@@ -113,6 +124,37 @@ def keystream_ops(rows: int, row_words: int, rounds: int) -> int:
 
 def max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, static shared memory and spills that ``ptxas -v``
+    reported for each instance of the scatter kernel body: B5 is the one
+    with one row a step (``scatter_kernel<threads, 1>``), B6 the other."""
+    found, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*scatter_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            cur = found.setdefault((int(m[1]), int(m[2])), {})
+            continue
+        if "Compiling entry function" in line:
+            cur = None
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m[1]), static_smem_bytes=int(sm[1]) if sm else 0)
+    out = {}
+    for (threads, rows), rep in found.items():
+        out[SCATTERS[rows > 1]] = dict(rep, instance=f"scatter_kernel<{threads}, {rows}>")
+    if set(out) != set(SCATTERS) or any("registers" not in r for r in out.values()):
+        raise AssertionError(f"no ptxas report for both scatters: {sorted(out)}")
+    return out
 
 
 def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
@@ -206,7 +248,7 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
             gk.scatter_encrypt_rows_plain(*s_args_p, z=z, rounds=rounds)
             s_plain = cuda_ms(lambda: gk.scatter_encrypt_rows_plain(
                 *s_args_p, z=z, rounds=rounds), 3)
-            for name in ("scatter_encrypt_rows", "scatter_encrypt_rows_tiled"):
+            for name in SCATTERS:
                 fn = getattr(gk, name)
                 got = [tree_idx.clone(), tree_val.clone(), nonces.clone()]
                 s_args = (key, *got, fb, own, epoch, new_pidx, new_pval)
@@ -215,8 +257,15 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
                 err = max(max_err(got[0][:-z], want[0][:-z]),
                           max_err(got[1][:-1], want[1][:-1]),
                           max_err(got[2][:-1], want[2][:-1]))
+                # non-owner rows are skipped: the junk bucket keeps its bytes
+                if not (torch.equal(got[0][-z:], tree_idx[-z:])
+                        and torch.equal(got[1][-1], tree_val[-1])
+                        and torch.equal(got[2][-1], nonces[-1])):
+                    raise AssertionError(f"{name} wrote the junk bucket at the "
+                                         f"{tree} {shape} shape")
                 shapes.append(dict(common, kernel=name, shape=shape, rows=rr,
                                    owned_rows=n_owned, max_abs_err=err,
+                                   launch=gk.scatter_launch_config(name, rr, z, zv),
                                    ms=cuda_ms(lambda: fn(*s_args, z=z, rounds=rounds), 20),
                                    plain_ms=s_plain, bytes=s_bytes, ops=s_ops))
                 del got, s_args
@@ -765,14 +814,19 @@ def main() -> int:
     card = card_line()
     emit({"card": card})
     t0 = time.perf_counter()
-    lib = gk.build_library(verbose=True)
+    lib = gk.build_library()
     gk.load_library()
-    emit({"build_s": time.perf_counter() - t0, "library": lib.name})
+    log = gk.ptxas_log()
+    emit({"build_s": time.perf_counter() - t0, "library": lib.name,
+          "ptxas": ptxas_report(log)})
 
     geo = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048,
                vphases_impl="dense")
     prod = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
     shapes = kernel_checks(EngineConfig.from_config(prod), gk, ck, path_oram, round_mod)
+    emit({"scatter_launch": [
+        {k: s[k] for k in ("kernel", "tree", "shape", "rows", "owned_rows", "launch")}
+        for s in shapes if s["kernel"] in SCATTERS], "card": card})
 
     # phase 4: the per-round slice (B4, B6)
     torch.cuda.reset_peak_memory_stats()

@@ -1,6 +1,7 @@
-// Fused path-row gather+decrypt and encrypt+scatter for the Path-ORAM
-// bucket trees, hand-written for Hopper (sm_90a). Two designs of each
-// contract, one per TPU kernel they replace:
+// Fused path-row gather+decrypt for the Path-ORAM bucket trees,
+// hand-written for Hopper (sm_90a). Two designs of the contract, one per
+// TPU kernel they replace (the write-back mirror, encrypt+scatter, is in
+// scatter_kernels.cu):
 //
 // gv_gather_decrypt_rows_tiled (gather_tiled_kernel) replaces
 //   grapevine_tpu/oblivious/pallas_gather.py:gather_decrypt_rows_tiled
@@ -8,15 +9,6 @@
 //   (gather_rows_kernel) replaces pallas_gather.py:gather_decrypt_rows
 //   (_gather_kernel): fetch the rows at public bucket ids flat_b from
 //   (tree_idx, tree_val, nonces) and return them decrypted.
-// gv_scatter_encrypt_rows_tiled (scatter_tiled_kernel) replaces
-//   pallas_gather.py:scatter_encrypt_rows_tiled (_scatter_tiled_kernel),
-//   and gv_scatter_encrypt_rows (scatter_rows_kernel) replaces
-//   pallas_gather.py:scatter_encrypt_rows (_scatter_kernel): encrypt
-//   plaintext rows under (target bucket, write epoch) and write them into
-//   the trees in place, committing the nonce row in the same pass;
-//   non-owner rows go to the junk bucket n_padded - 1, which heap ids
-//   never address (their writes race there, as on the TPU, and that row
-//   is never read).
 //
 // What bounds them on an H100: device-memory bytes. Each row moves
 // (z + z*v) words in and out once; ChaCha8 costs ~26 int32 operations a
@@ -24,20 +16,20 @@
 // word, so the bytes decide (PERF.md has the measured times beside both
 // bounds). Both designs keep every extra byte off device memory: the
 // keystream never touches it, and the row's ciphertext is read once.
-// - *_tiled: one CTA per row builds that row's 16*nb keystream words in
-//   shared memory (one thread per ChaCha block, j-major placement,
-//   conflict-free stores) and then streams the row through once,
-//   coalesced, in 16-byte vectors where the layout allows.
-// - the one-row kernels: one WARP per row, eight rows per CTA, no shared
+// - gather_tiled_kernel: one CTA per row builds that row's 16*nb
+//   keystream words in shared memory (one thread per ChaCha block,
+//   j-major placement, conflict-free stores) and then streams the row
+//   through once, coalesced, in 16-byte vectors where the layout allows.
+// - gather_rows_kernel: one WARP per row, eight rows per CTA, no shared
 //   memory: each lane keeps its ChaCha blocks in registers and, word j of
 //   every block being 32 consecutive row words across the warp, loads
 //   and stores coalesce straight from the j-major layout
 //   (chacha.cuh:gv_warp_row).
 //
-// Obliviousness: every global address depends only on flat_b and owner,
-// which are public (the round's transcript and its bucket-owner map), as
-// in the Pallas kernels. The only branch is on the row's public nonce
-// (epoch 0 marks a never-written bucket whose keystream is the identity).
+// Obliviousness: every global address depends only on flat_b, which is
+// public (the round's transcript), as in the Pallas kernels. The only
+// branch is on the row's public nonce (epoch 0 marks a never-written
+// bucket whose keystream is the identity).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,29 +101,6 @@ __global__ void __launch_bounds__(kThreads) gather_tiled_kernel(
   stream_row(tree_val + row * zv, out_val + r * zv, ks + z, written, zv, vec);
 }
 
-__global__ void __launch_bounds__(kThreads) scatter_tiled_kernel(
-    const uint32_t* __restrict__ key, uint32_t* __restrict__ tree_idx,
-    uint32_t* __restrict__ tree_val, uint32_t* __restrict__ nonces,
-    const int32_t* __restrict__ flat_b, const uint8_t* __restrict__ owner,
-    const uint32_t* __restrict__ epoch, const uint32_t* __restrict__ new_pidx,
-    const uint32_t* __restrict__ new_pval, int64_t junk, int z, int zv,
-    int rounds, bool vec) {
-  extern __shared__ __align__(16) uint32_t ks[];
-  const int64_t r = blockIdx.x;
-  const int64_t tgt = owner[r] ? (int64_t)flat_b[r] : junk;
-  const uint32_t e_lo = epoch[0];
-  const uint32_t e_hi = epoch[1];
-  const int nb = (z + zv + 15) / 16;
-  row_keystream_smem(key, (uint32_t)tgt, e_lo, e_hi, rounds, nb, ks);
-  __syncthreads();
-  stream_row(new_pidx + r * z, tree_idx + tgt * z, ks, true, z, false);
-  stream_row(new_pval + r * zv, tree_val + tgt * zv, ks + z, true, zv, vec);
-  if (threadIdx.x == 0) {
-    nonces[2 * tgt] = e_lo;
-    nonces[2 * tgt + 1] = e_hi;
-  }
-}
-
 // One warp per row: row r = CTA * kRowsPerCta + warp.
 __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
     const uint32_t* __restrict__ key, const uint32_t* __restrict__ tree_idx,
@@ -150,30 +119,6 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
   gv_warp_row(k, (uint32_t)row, e_lo, e_hi, rounds, written,
               tree_idx + row * z, tree_val + row * zv, out_idx + r * z,
               out_val + r * zv, z, z + zv);
-}
-
-__global__ void __launch_bounds__(kThreads) scatter_rows_kernel(
-    const uint32_t* __restrict__ key, uint32_t* __restrict__ tree_idx,
-    uint32_t* __restrict__ tree_val, uint32_t* __restrict__ nonces,
-    const int32_t* __restrict__ flat_b, const uint8_t* __restrict__ owner,
-    const uint32_t* __restrict__ epoch, const uint32_t* __restrict__ new_pidx,
-    const uint32_t* __restrict__ new_pval, int64_t rows, int64_t junk, int z,
-    int zv, int rounds) {
-  const int64_t r = (int64_t)blockIdx.x * kRowsPerCta + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  uint32_t k[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) k[i] = __ldg(key + i);
-  const int64_t tgt = owner[r] ? (int64_t)flat_b[r] : junk;
-  const uint32_t e_lo = epoch[0];
-  const uint32_t e_hi = epoch[1];
-  gv_warp_row(k, (uint32_t)tgt, e_lo, e_hi, rounds, true, new_pidx + r * z,
-              new_pval + r * zv, tree_idx + tgt * z, tree_val + tgt * zv, z,
-              z + zv);
-  if ((threadIdx.x & 31) == 0) {
-    nonces[2 * tgt] = e_lo;
-    nonces[2 * tgt + 1] = e_hi;
-  }
 }
 
 bool aligned16(const void* p) {
@@ -219,26 +164,6 @@ int gv_gather_decrypt_rows_tiled(const void* key, const void* tree_idx,
   return (int)cudaGetLastError();
 }
 
-int gv_scatter_encrypt_rows_tiled(const void* key, void* tree_idx, void* tree_val,
-                       void* nonces, const void* flat_b, const void* owner,
-                       const void* epoch, const void* new_pidx,
-                       const void* new_pval, int64_t rows, int64_t n_padded,
-                       int z, int zv, int rounds, void* stream) {
-  if (rows == 0) return 0;
-  const int smem = smem_bytes(z, zv);
-  cudaError_t err = allow_smem(scatter_tiled_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec = (z % 4 == 0) && (zv % 4 == 0) && aligned16(tree_val) &&
-                   aligned16(new_pval);
-  scatter_tiled_kernel<<<(unsigned)rows, kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)key, (uint32_t*)tree_idx, (uint32_t*)tree_val,
-      (uint32_t*)nonces, (const int32_t*)flat_b, (const uint8_t*)owner,
-      (const uint32_t*)epoch, (const uint32_t*)new_pidx,
-      (const uint32_t*)new_pval, n_padded - 1, z, zv, rounds, vec);
-  return (int)cudaGetLastError();
-}
-
 int gv_gather_decrypt_rows(const void* key, const void* tree_idx,
                            const void* tree_val, const void* nonces,
                            const void* flat_b, void* out_idx, void* out_val,
@@ -250,21 +175,6 @@ int gv_gather_decrypt_rows(const void* key, const void* tree_idx,
       (const uint32_t*)tree_val, (const uint32_t*)nonces,
       (const int32_t*)flat_b, (uint32_t*)out_idx, (uint32_t*)out_val, rows, z,
       zv, rounds);
-  return (int)cudaGetLastError();
-}
-
-int gv_scatter_encrypt_rows(const void* key, void* tree_idx, void* tree_val,
-                            void* nonces, const void* flat_b,
-                            const void* owner, const void* epoch,
-                            const void* new_pidx, const void* new_pval,
-                            int64_t rows, int64_t n_padded, int z, int zv,
-                            int rounds, void* stream) {
-  if (rows == 0) return 0;
-  scatter_rows_kernel<<<row_ctas(rows), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)key, (uint32_t*)tree_idx, (uint32_t*)tree_val,
-      (uint32_t*)nonces, (const int32_t*)flat_b, (const uint8_t*)owner,
-      (const uint32_t*)epoch, (const uint32_t*)new_pidx,
-      (const uint32_t*)new_pval, rows, n_padded - 1, z, zv, rounds);
   return (int)cudaGetLastError();
 }
 

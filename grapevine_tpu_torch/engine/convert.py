@@ -75,8 +75,10 @@ def first_difference(a: dict, b: dict, mask_junk: bool = True):
 
     With ``mask_junk`` the padded junk bucket (the last row of each
     tree's ``tree_idx``/``tree_val``/``nonces``) is excluded: the fused
-    scatter redirects non-owner rows there, so its bytes are unspecified
-    (the reference's ``testing/compare.py:states_equal_excluding_junk``)."""
+    scatters' plain versions (and the reference's kernels) redirect
+    non-owner rows there while the card's kernels leave it alone, so its
+    bytes are unspecified (the reference's
+    ``testing/compare.py:states_equal_excluding_junk``)."""
     if a.keys() != b.keys():
         return "<leaf names>"
     for key in a:

@@ -3,20 +3,26 @@
 port's CUDA library.
 
 Four functions under the reference's names, each with a hand-written
-Hopper kernel (``csrc/gather_kernels.cu``, ChaCha core in
-``csrc/chacha.cuh``). Two contracts, two designs of each:
+Hopper kernel (ChaCha core in ``csrc/chacha.cuh``). Two contracts, two
+designs of each:
 
 - :func:`gather_decrypt_rows` (one warp per row) and
   :func:`gather_decrypt_rows_tiled` (one CTA per row, keystream in shared
   memory) fetch the rows at public bucket ids and decrypt them in one
-  pass (``rounds=0``: a plain gather); plain version
-  :func:`gather_decrypt_rows_plain`;
-- :func:`scatter_encrypt_rows` and :func:`scatter_encrypt_rows_tiled`
-  encrypt plaintext rows under (target bucket, write epoch) and write
-  them, and the epoch nonce, into the trees IN PLACE (the analog of the
-  reference's buffer donation / input-output aliasing); non-owner rows
-  go to the junk bucket ``n_padded - 1``; plain version
-  :func:`scatter_encrypt_rows_plain`.
+  pass (``rounds=0``: a plain gather); ``csrc/gather_kernels.cu``, plain
+  version :func:`gather_decrypt_rows_plain`;
+- :func:`scatter_encrypt_rows` (one row a step) and
+  :func:`scatter_encrypt_rows_tiled` (up to 8 rows a step), one kernel
+  body in ``csrc/scatter_kernels.cu``: persistent CTAs stage the owned
+  plaintext rows through shared memory with TMA bulk copies, XOR the
+  keystream in, and write them, and the epoch nonce, into the trees IN
+  PLACE (the analog of the reference's buffer donation / input-output
+  aliasing). Rows whose ``owner`` flag is false are skipped and write
+  nothing: the reference's contract says they must not write, and its
+  kernels send them to the junk bucket ``n_padded - 1`` only because a
+  Pallas grid step always writes its block (that row is never read).
+  Plain version :func:`scatter_encrypt_rows_plain`, which keeps the
+  reference's junk redirect; comparisons mask the last row.
 
 ``bucket_cipher_impl="pallas_fused"`` runs the one-row pair and
 ``"pallas_fused_tiled"`` the tiled pair, as in the reference. A wrapper
@@ -28,7 +34,8 @@ Build: every source in ``csrc/`` is compiled with ``nvcc`` (one process
 per ``.cu``, all started together) and linked into one library in
 ``build/`` at the repository root on first use (a plain C interface
 bound with ``ctypes``), keyed by a hash of all the sources, and loaded
-once per process.
+once per process. ``ptxas``'s report of every kernel (registers, shared
+memory, spills) is kept beside the library (:func:`ptxas_log`).
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ def _sources() -> list[Path]:
     return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def build_library(verbose: bool = False) -> Path:
+def build_library() -> Path:
     """Compile every ``csrc/*.cu`` (in parallel) and link them into one
     library in ``build/``, unless a library built from the same sources
     and flags is already there."""
@@ -90,11 +97,11 @@ def build_library(verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         units = [p for p in _sources() if p.suffix == ".cu"]
         objs = [str(Path(tmp) / (u.stem + ".o")) for u in units]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o, str(u)],
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o,
+                                   str(u)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True)
                  for u, o in zip(units, objs)]
@@ -102,15 +109,19 @@ def build_library(verbose: bool = False) -> Path:
         for u, p, err in zip(units, procs, errs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {u.name} ({p.returncode}):\n{err}")
-            if verbose:
-                print(err, end="")
         so = str(Path(tmp) / "lib.so")
         res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(errs))
         os.replace(so, out)  # atomic: a concurrent build sees all or nothing
     return out
+
+
+def ptxas_log() -> str:
+    """``ptxas -v``'s report of every kernel of the built library."""
+    return build_library().with_suffix(".ptxas.txt").read_text()
 
 
 def load_library():
@@ -126,6 +137,9 @@ def load_library():
         for name in ("gv_scatter_encrypt_rows", "gv_scatter_encrypt_rows_tiled"):
             getattr(lib, name).argtypes = [p] * 9 + [i64, i64, i32, i32, i32, p]
             getattr(lib, name).restype = i32
+        lib.gv_scatter_launch_config.argtypes = [i32, i64, i32, i32,
+                                                 ctypes.POINTER(i32)]
+        lib.gv_scatter_launch_config.restype = i32
         _lib = lib
     return _lib
 
@@ -168,7 +182,8 @@ def gather_decrypt_rows_plain(key, tree_idx, tree_val, nonces, flat_b, z, rounds
 def scatter_encrypt_rows_plain(key, tree_idx, tree_val, nonces, flat_b, owner,
                                epoch, new_pidx, new_pval, z, rounds):
     """``row_keystream``, then XOR, then ``index_copy_`` into the trees with
-    non-owner rows redirected to the junk bucket ``n_padded - 1``."""
+    non-owner rows redirected to the junk bucket ``n_padded - 1``, as the
+    reference writes them (the kernels skip them; the last row differs)."""
     n_padded = tree_val.shape[0]
     tgt = torch.where(owner, flat_b, n_padded - 1)
     r = tgt.shape[0]
@@ -264,19 +279,33 @@ def _scatter(kernel: str, key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
 
 def scatter_encrypt_rows(key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
                          new_pidx, new_pval, z: int, rounds: int):
-    """Encrypt + write back owned path rows in ONE pass, in place, one warp
-    per row.
+    """Encrypt + write back owned path rows in ONE pass, in place, one row
+    a step.
 
-    ``owner`` bool[R] (False rows write the junk bucket); ``epoch``
-    int32[2] the write epoch; ``new_pidx`` int32[R, z], ``new_pval``
-    int32[R, z*v] plaintext rows. Updates ``tree_idx``, ``tree_val`` and
-    ``nonces`` in place and returns them."""
+    ``owner`` bool[R] (public; False rows write nothing, on the card —
+    the plain version sends them to the junk bucket as the reference
+    does); ``epoch`` int32[2] the write epoch; ``new_pidx`` int32[R, z],
+    ``new_pval`` int32[R, z*v] plaintext rows. Updates ``tree_idx``,
+    ``tree_val`` and ``nonces`` in place and returns them."""
     return _scatter("scatter_encrypt_rows", key, tree_idx, tree_val, nonces,
                     flat_b, owner, epoch, new_pidx, new_pval, z, rounds)
 
 
 def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
                                epoch, new_pidx, new_pval, z: int, rounds: int):
-    """:func:`scatter_encrypt_rows`'s contract, one CTA per row."""
+    """:func:`scatter_encrypt_rows`'s contract, up to 8 rows a step."""
     return _scatter("scatter_encrypt_rows_tiled", key, tree_idx, tree_val,
                     nonces, flat_b, owner, epoch, new_pidx, new_pval, z, rounds)
+
+
+def scatter_launch_config(kernel: str, rows: int, z: int, zv: int) -> dict:
+    """How ``kernel`` (a scatter's name) launches at these shapes on the
+    card: its persistent grid, rows per step, shared memory a CTA and
+    CTAs an SM."""
+    out = (ctypes.c_int * 4)()
+    err = load_library().gv_scatter_launch_config(
+        int(kernel == "scatter_encrypt_rows_tiled"), rows, z, zv, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch config failed: cudaError {err}")
+    return dict(grid=out[0], rows_per_step=out[1], smem_bytes=out[2],
+                ctas_per_sm=out[3])

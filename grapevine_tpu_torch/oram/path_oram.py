@@ -125,8 +125,9 @@ class OramConfig:
 
     @property
     def n_buckets_padded(self) -> int:
-        """One bucket past the heap: the junk bucket the fused scatter
-        redirects non-owner rows to; heap indices never address it."""
+        """One bucket past the heap: the junk bucket the reference's fused
+        scatter (and its plain version here) redirects non-owner rows to;
+        heap indices never address it."""
         return 1 << (self.height + 1)
 
     @property

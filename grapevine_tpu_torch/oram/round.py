@@ -248,8 +248,10 @@ def _recompact(n: int, widx, wval, keep):
 
 def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval):
     """Encrypt rows under ``state.epoch`` and write the owned ones into
-    the trees in place with their nonce (the fused kernel sends the rest
-    to the junk bucket; the unfused path leaves them unwritten)."""
+    the trees in place with their nonce. The rest are not written: the
+    fused kernels and the unfused path both skip them (on the CPU the
+    fused kernels' plain versions send them to the junk bucket, as the
+    reference does; heap ids never address it)."""
     z = cfg.bucket_slots
     fused = _fused_kernels(cfg)
     tree_idx, tree_val, nonces = state.tree_idx, state.tree_val, state.nonces

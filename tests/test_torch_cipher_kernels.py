@@ -21,11 +21,16 @@ from grapevine_tpu_torch.oblivious import gather_kernels as gk
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
 from test_torch_cipher import (
     _SC,
+    OWNER_SHARES,
+    RING_GEOMETRIES,
+    SCATTER_GEOMETRIES,
     _gather_inputs,
     _jax,
+    _owner_share_inputs,
     _scatter_inputs,
     _t,
     _u32,
+    check_cuda_scatter,
     cuda_device,  # noqa: F401  (fixture)
 )
 
@@ -155,3 +160,16 @@ def test_cuda_one_row_kernels_match_plain_versions(cuda_device, z, zv, n):
     assert torch.equal(sk["tree_idx"][:-z], sp["tree_idx"][:-z])
     assert torch.equal(sk["tree_val"][:-1], sp["tree_val"][:-1])
     assert torch.equal(sk["nonces"][:-1], sp["nonces"][:-1])
+
+
+@pytest.mark.parametrize("share", OWNER_SHARES)
+@pytest.mark.parametrize("z,zv,n", SCATTER_GEOMETRIES)
+def test_cuda_scatter_rows_owner_shares(cuda_device, z, zv, n, share):
+    check_cuda_scatter(gk.scatter_encrypt_rows,
+                       _owner_share_inputs(7, z, zv, n, share, r=n - 3), z)
+
+
+@pytest.mark.parametrize("z,zv,n,r", RING_GEOMETRIES)
+def test_cuda_scatter_rows_ring(cuda_device, z, zv, n, r):
+    check_cuda_scatter(gk.scatter_encrypt_rows,
+                       _owner_share_inputs(8, z, zv, n, 0.6, r=r), z)

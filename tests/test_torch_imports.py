@@ -1,5 +1,5 @@
 """Package boundary of the PyTorch port: no module of
-``grapevine_tpu_torch`` (nor ``chip_smoke.py``) imports ``jax`` or the
+``grapevine_tpu_torch`` (nor ``chip_smoke.py``, ``chip_ab.py``) imports ``jax`` or the
 JAX package ``grapevine_tpu``, and entry points never fall back to the
 CPU silently."""
 
@@ -25,7 +25,7 @@ def _imports(path: Path):
 
 def _sources():
     files = sorted((ROOT / "grapevine_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     return files
 
 
