@@ -13,11 +13,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (tolerance 0: integer outputs, the scatters' junk bucket masked; the
    kernels skip non-owner rows, so the junk bucket and its nonce must
    come out of them bit-identical), with its time, the plain version's
-   time and the card's bound for the same work; the scatters' ``ptxas``
-   registers, shared memory and spills and their launch (persistent grid,
-   rows per step) at each shape. Contracts: gather+decrypt (B3 one warp a
-   row, B4 one CTA a row), encrypt+scatter (B5 one row a step, B6 up to
-   8), row cipher (B2);
+   time and the card's bound for the same work; the ``ptxas`` registers,
+   shared memory and spills of the four row-ring launches (none may
+   spill) and their launch (persistent grid, rows per step) at each
+   shape. Contracts: gather+decrypt (B3 the ring one row a step, B4 one
+   CTA a row), encrypt+scatter (B5 the ring one row a step, B6 up to 8),
+   row cipher (B2 the ring up to 8 rows a step);
 4. the per-round slice: ``GrapevineEngine`` at 2^20 messages, 2^12
    recipients, B=2048, ``bucket_cipher_impl="pallas_fused_tiled"``
    serves a few rounds of CRUD through ``handle_queries``, every
@@ -80,8 +81,12 @@ KERNELS = {
     "scatter_encrypt_rows_tiled": ("grapevine_tpu_torch/csrc/scatter_kernels.cu",
                                    "grapevine_tpu/oblivious/pallas_gather.py:360"),
 }
-#: the two scatters, instances of one kernel body
+#: the two scatters
 SCATTERS = ("scatter_encrypt_rows", "scatter_encrypt_rows_tiled")
+#: the four launches of the row ring (csrc/row_ring.cuh), by their
+#: instance ring_kernel<threads, rows a step, direction>
+RING = {(128, 1, 0): "scatter_encrypt_rows", (256, 8, 0): "scatter_encrypt_rows_tiled",
+        (128, 1, 1): "gather_decrypt_rows", (256, 8, 2): "cipher_rows_pallas"}
 
 
 def emit(obj) -> None:
@@ -128,13 +133,14 @@ def max_err(a, b) -> int:
 
 def ptxas_report(log: str) -> dict:
     """Registers, static shared memory and spills that ``ptxas -v``
-    reported for each instance of the scatter kernel body: B5 is the one
-    with one row a step (``scatter_kernel<threads, 1>``), B6 the other."""
+    reported for each launch of the row ring (``RING``); fails if one is
+    missing or spills."""
     found, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '[^']*scatter_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '[^']*ring_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      line)
         if m:
-            cur = found.setdefault((int(m[1]), int(m[2])), {})
+            cur = found.setdefault((int(m[1]), int(m[2]), int(m[3])), {})
             continue
         if "Compiling entry function" in line:
             cur = None
@@ -149,11 +155,14 @@ def ptxas_report(log: str) -> dict:
         if m:
             sm = re.search(r"(\d+) bytes smem", line)
             cur.update(registers=int(m[1]), static_smem_bytes=int(sm[1]) if sm else 0)
-    out = {}
-    for (threads, rows), rep in found.items():
-        out[SCATTERS[rows > 1]] = dict(rep, instance=f"scatter_kernel<{threads}, {rows}>")
-    if set(out) != set(SCATTERS) or any("registers" not in r for r in out.values()):
-        raise AssertionError(f"no ptxas report for both scatters: {sorted(out)}")
+    out = {RING[inst]: dict(rep, instance="ring_kernel<{}, {}, {}>".format(*inst))
+           for inst, rep in found.items() if inst in RING}
+    if set(out) != set(RING.values()) or any("registers" not in r for r in out.values()):
+        raise AssertionError(f"no ptxas report for every row-ring launch: {sorted(found)}")
+    spills = {k: r for k, r in out.items()
+              if r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0)}
+    if spills:
+        raise AssertionError(f"row-ring launches spill: {spills}")
     return out
 
 
@@ -225,12 +234,14 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
             fn = getattr(gk, name)
             ki, kv = fn(*g_args, z=z, rounds=rounds)
             torch.cuda.synchronize()
+            launch = ({"launch": gk.ring_launch_config(name, r, z, zv)}
+                      if name in RING.values() else {})
             shapes.append(dict(common, kernel=name, shape="round", rows=r,
                                unique_rows=uniq_rows, unique_written_rows=uniq_written,
                                never_written_rows=unwritten,
                                max_abs_err=max(max_err(ki, pi), max_err(kv, pv)),
                                ms=cuda_ms(lambda: fn(*g_args, z=z, rounds=rounds), 20),
-                               plain_ms=g_plain, bytes=g_bytes, ops=g_ops))
+                               plain_ms=g_plain, bytes=g_bytes, ops=g_ops, **launch))
             del ki, kv
         # B2 decrypts the same rows, gathered first, under their nonces
         c_rows = [("round", pi, pv, flat_b, nonces[flat_b.long()].contiguous())]
@@ -265,7 +276,7 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
                                          f"{tree} {shape} shape")
                 shapes.append(dict(common, kernel=name, shape=shape, rows=rr,
                                    owned_rows=n_owned, max_abs_err=err,
-                                   launch=gk.scatter_launch_config(name, rr, z, zv),
+                                   launch=gk.ring_launch_config(name, rr, z, zv),
                                    ms=cuda_ms(lambda: fn(*s_args, z=z, rounds=rounds), 20),
                                    plain_ms=s_plain, bytes=s_bytes, ops=s_ops))
                 del got, s_args
@@ -289,6 +300,7 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
                 common, kernel="cipher_rows_pallas", shape=shape, rows=rr,
                 never_written_rows=rr - written,
                 max_abs_err=max(max_err(ki, qi), max_err(kv, qv)),
+                launch=gk.ring_launch_config("cipher_rows_pallas", rr, z, zv),
                 ms=cuda_ms(lambda: ck.cipher_rows_pallas(*c_args, rounds=rounds), 20),
                 plain_ms=cuda_ms(lambda: ck.cipher_rows_pallas_plain(
                     *c_args, rounds=rounds), 3),
@@ -824,9 +836,10 @@ def main() -> int:
                vphases_impl="dense")
     prod = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
     shapes = kernel_checks(EngineConfig.from_config(prod), gk, ck, path_oram, round_mod)
-    emit({"scatter_launch": [
-        {k: s[k] for k in ("kernel", "tree", "shape", "rows", "owned_rows", "launch")}
-        for s in shapes if s["kernel"] in SCATTERS], "card": card})
+    emit({"ring_launch": [
+        {k: s[k] for k in ("kernel", "tree", "shape", "rows", "owned_rows", "launch")
+         if k in s}
+        for s in shapes if s["kernel"] in RING.values()], "card": card})
 
     # phase 4: the per-round slice (B4, B6)
     torch.cuda.reset_peak_memory_stats()

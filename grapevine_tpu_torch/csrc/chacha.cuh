@@ -53,45 +53,3 @@ GV_HD void gv_chacha_block(const uint32_t key[8], uint32_t ctr,
 }
 
 #undef GV_QR
-
-#ifdef __CUDACC__
-// One WARP ciphers one row, with no shared memory: lane l computes
-// ChaCha blocks c = l, l + 32, ... in registers and XORs word j of
-// block c into row word m = j * nb + c. For each j the 32 lanes touch
-// 32 consecutive row words, so the j-major layout makes every load and
-// store coalesce with no staging. A row is split over two planes: words
-// [0, z) live in *_idx, words [z, n_words) in *_val. `xor_ks` false
-// copies the row unchanged (a never-written bucket, epoch (0, 0)); it
-// is one value per row, so the branch is uniform across the warp.
-__device__ __forceinline__ void gv_warp_row(
-    const uint32_t key[8], uint32_t bucket, uint32_t epoch_lo,
-    uint32_t epoch_hi, int rounds, bool xor_ks,
-    const uint32_t* __restrict__ src_idx, const uint32_t* __restrict__ src_val,
-    uint32_t* __restrict__ dst_idx, uint32_t* __restrict__ dst_val, int z,
-    int n_words) {
-  const int lane = threadIdx.x & 31;
-  const int nb = (n_words + 15) / 16;
-  for (int c0 = 0; c0 < nb; c0 += 32) {
-    const int c = c0 + lane;
-    uint32_t ks[16];
-    if (xor_ks && c < nb) {
-      gv_chacha_block(key, (uint32_t)c, bucket, epoch_lo, epoch_hi, rounds,
-                      ks);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) ks[j] = 0u;
-    }
-    if (c < nb) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int m = j * nb + c;
-        if (m < z) {
-          dst_idx[m] = src_idx[m] ^ ks[j];
-        } else if (m < n_words) {
-          dst_val[m - z] = src_val[m - z] ^ ks[j];
-        }
-      }
-    }
-  }
-}
-#endif

@@ -1,47 +1,45 @@
 // Fused ChaCha keystream + XOR over bucket rows, hand-written for Hopper
 // (sm_90a).
 //
-// gv_cipher_rows (cipher_rows_kernel) replaces the TPU kernel
+// gv_cipher_rows (ring_kernel<256, 8, kCipher>) replaces the TPU kernel
 //   grapevine_tpu/oblivious/pallas_cipher.py:cipher_rows_pallas
-//   (_cipher_kernel): (pidx, pval) ^= keystream(bucket, epoch) over R
-//   contiguous rows, into fresh outputs (encrypt == decrypt). Rows whose
-//   epoch is (0, 0) (never-written buckets) are copied unchanged.
+//   (_cipher_kernel): (pidx, pval) ^ keystream(bucket[r], epoch[r]) over
+//   R contiguous rows, into fresh outputs (encrypt == decrypt); the
+//   inputs are never written (pallas_cipher.py:89-98). Rows whose epoch
+//   is (0, 0) (never-written buckets) are copied unchanged.
 //
-// What bounds it on an H100: device-memory bytes. Each row is read once
-// and written once ((z + z*v) words each way, plus its bucket id and
-// epoch); ChaCha8 costs ~26 int32 operations a row word, which the card
-// retires faster than its memory moves the word. So the design keeps the
-// keystream off device memory entirely: one warp per row (eight rows per
-// CTA), each lane building its ChaCha blocks in registers and XORing
-// word j of every block -- 32 consecutive row words across the warp, so
-// loads and stores coalesce straight from the j-major layout with no
-// shared-memory staging (chacha.cuh:gv_warp_row). The only branch that
-// depends on data is on the row's epoch, a public nonce.
+// What bounds it on an H100: device-memory bytes, each row read once and
+// written once ((z + z*v) words each way, plus its bucket id and epoch).
+// The design is the row ring (row_ring.cuh) in its cipher direction, up
+// to 8 rows a step: persistent CTAs stream row r through a shared-memory
+// ring of TMA bulk copies (the word path where a plane is not 16-byte
+// aligned or not a 16-byte multiple), and the step's (row, ChaCha block)
+// pairs are spread over all 256 threads, so the keystream of one step
+// overlaps the loads of the next and the stores of the last. A row wider
+// than about 77 KB does not fit the ring three times; its launch is
+// refused and the wrapper raises.
+//
+// Obliviousness: every global address depends only on r. The only branch
+// that depends on data is on the row's epoch, a public nonce.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "chacha.cuh"
+#include "row_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerCta = kThreads / 32;
-
-__global__ void __launch_bounds__(kThreads) cipher_rows_kernel(
-    const uint32_t* __restrict__ key, const uint32_t* __restrict__ bucket,
-    const uint32_t* __restrict__ epoch, const uint32_t* __restrict__ pidx,
-    const uint32_t* __restrict__ pval, uint32_t* __restrict__ out_idx,
-    uint32_t* __restrict__ out_val, int64_t rows, int z, int zv, int rounds) {
-  const int64_t r = (int64_t)blockIdx.x * kRowsPerCta + (threadIdx.x >> 5);
-  if (r >= rows) return;  // whole warps only
-  uint32_t k[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) k[i] = __ldg(key + i);
-  const uint32_t e_lo = epoch[2 * r];
-  const uint32_t e_hi = epoch[2 * r + 1];
-  gv_warp_row(k, bucket[r], e_lo, e_hi, rounds, (e_lo | e_hi) != 0u,
-              pidx + r * z, pval + r * zv, out_idx + r * z, out_val + r * zv,
-              z, z + zv);
+RingArgs cipher_args(const void* key, const void* bucket, const void* epoch,
+                     const void* pidx, const void* pval, void* out_idx,
+                     void* out_val) {
+  RingArgs a{};
+  a.key = (const uint32_t*)key;
+  a.src_idx = (const uint32_t*)pidx;
+  a.src_val = (const uint32_t*)pval;
+  a.dst_idx = (uint32_t*)out_idx;
+  a.dst_val = (uint32_t*)out_val;
+  a.epoch = (const uint32_t*)epoch;
+  a.bucket = (const uint32_t*)bucket;
+  return a;
 }
 
 }  // namespace
@@ -53,13 +51,15 @@ int gv_cipher_rows(const void* key, const void* bucket, const void* epoch,
                    const void* pidx, const void* pval, void* out_idx,
                    void* out_val, int64_t rows, int z, int zv, int rounds,
                    void* stream) {
-  if (rows == 0) return 0;
-  const unsigned ctas = (unsigned)((rows + kRowsPerCta - 1) / kRowsPerCta);
-  cipher_rows_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)key, (const uint32_t*)bucket, (const uint32_t*)epoch,
-      (const uint32_t*)pidx, (const uint32_t*)pval, (uint32_t*)out_idx,
-      (uint32_t*)out_val, rows, z, zv, rounds);
-  return (int)cudaGetLastError();
+  return ring_launch<256, kTileRows, kCipher>(
+      cipher_args(key, bucket, epoch, pidx, pval, out_idx, out_val), rows, z,
+      zv, rounds, stream);
+}
+
+// out[4] = {grid, rows per step, dynamic shared memory bytes a CTA, CTAs
+// an SM} of gv_cipher_rows's launch at these shapes.
+int gv_cipher_launch_config(int64_t rows, int z, int zv, int* out) {
+  return ring_launch_config<256, kTileRows, kCipher>(rows, z, zv, out);
 }
 
 }  // extern "C"

@@ -6,9 +6,10 @@
 // gv_gather_decrypt_rows_tiled (gather_tiled_kernel) replaces
 //   grapevine_tpu/oblivious/pallas_gather.py:gather_decrypt_rows_tiled
 //   (_gather_tiled_kernel), and gv_gather_decrypt_rows
-//   (gather_rows_kernel) replaces pallas_gather.py:gather_decrypt_rows
-//   (_gather_kernel): fetch the rows at public bucket ids flat_b from
-//   (tree_idx, tree_val, nonces) and return them decrypted.
+//   (ring_kernel<128, 1, kGather>) replaces
+//   pallas_gather.py:gather_decrypt_rows (_gather_kernel): fetch the rows
+//   at public bucket ids flat_b from (tree_idx, tree_val, nonces) and
+//   return them decrypted, into fresh outputs (rounds 0: a plain gather).
 //
 // What bounds them on an H100: device-memory bytes. Each row moves
 // (z + z*v) words in and out once; ChaCha8 costs ~26 int32 operations a
@@ -20,25 +21,28 @@
 //   keystream words in shared memory (one thread per ChaCha block,
 //   j-major placement, conflict-free stores) and then streams the row
 //   through once, coalesced, in 16-byte vectors where the layout allows.
-// - gather_rows_kernel: one WARP per row, eight rows per CTA, no shared
-//   memory: each lane keeps its ChaCha blocks in registers and, word j of
-//   every block being 32 consecutive row words across the warp, loads
-//   and stores coalesce straight from the j-major layout
-//   (chacha.cuh:gv_warp_row).
+// - the ring (row_ring.cuh) in its gather direction, one row a step as
+//   one Pallas grid step: persistent CTAs of 128 threads load tree row
+//   flat_b[r] into a shared-memory ring with a TMA bulk copy, XOR in the
+//   keystream under (flat_b[r], nonces[flat_b[r]]) with the row's ChaCha
+//   blocks spread over the CTA, and bulk-store it to output row r, so
+//   the keystream of one step overlaps the copies of its neighbours. A
+//   row wider than about 77 KB does not fit the ring three times; its
+//   launch is refused and the wrapper raises.
 //
 // Obliviousness: every global address depends only on flat_b, which is
-// public (the round's transcript), as in the Pallas kernels. The only
-// branch is on the row's public nonce (epoch 0 marks a never-written
-// bucket whose keystream is the identity).
+// public (the round's transcript), and on r, as in the Pallas kernels.
+// The only branch is on the row's public nonce (epoch 0 marks a
+// never-written bucket whose keystream is the identity).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chacha.cuh"
+#include "row_ring.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerCta = kThreads / 32;  // one-row kernels: a warp a row
 
 // Keystream of one row into shared memory: ks[j * nb + c] = word j of
 // block c. Threads take blocks c = tid, tid + blockDim, ...
@@ -101,30 +105,6 @@ __global__ void __launch_bounds__(kThreads) gather_tiled_kernel(
   stream_row(tree_val + row * zv, out_val + r * zv, ks + z, written, zv, vec);
 }
 
-// One warp per row: row r = CTA * kRowsPerCta + warp.
-__global__ void __launch_bounds__(kThreads) gather_rows_kernel(
-    const uint32_t* __restrict__ key, const uint32_t* __restrict__ tree_idx,
-    const uint32_t* __restrict__ tree_val, const uint32_t* __restrict__ nonces,
-    const int32_t* __restrict__ flat_b, uint32_t* __restrict__ out_idx,
-    uint32_t* __restrict__ out_val, int64_t rows, int z, int zv, int rounds) {
-  const int64_t r = (int64_t)blockIdx.x * kRowsPerCta + (threadIdx.x >> 5);
-  if (r >= rows) return;  // whole warps only
-  uint32_t k[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) k[i] = __ldg(key + i);
-  const int64_t row = flat_b[r];
-  const uint32_t e_lo = nonces[2 * row];
-  const uint32_t e_hi = nonces[2 * row + 1];
-  const bool written = rounds > 0 && (e_lo | e_hi) != 0u;
-  gv_warp_row(k, (uint32_t)row, e_lo, e_hi, rounds, written,
-              tree_idx + row * z, tree_val + row * zv, out_idx + r * z,
-              out_val + r * zv, z, z + zv);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 int smem_bytes(int z, int zv) { return 16 * ((z + zv + 15) / 16) * 4; }
 
 template <typename K>
@@ -133,10 +113,6 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
-}
-
-unsigned row_ctas(int64_t rows) {
-  return (unsigned)((rows + kRowsPerCta - 1) / kRowsPerCta);
 }
 
 }  // namespace
@@ -169,13 +145,21 @@ int gv_gather_decrypt_rows(const void* key, const void* tree_idx,
                            const void* flat_b, void* out_idx, void* out_val,
                            int64_t rows, int z, int zv, int rounds,
                            void* stream) {
-  if (rows == 0) return 0;
-  gather_rows_kernel<<<row_ctas(rows), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)key, (const uint32_t*)tree_idx,
-      (const uint32_t*)tree_val, (const uint32_t*)nonces,
-      (const int32_t*)flat_b, (uint32_t*)out_idx, (uint32_t*)out_val, rows, z,
-      zv, rounds);
-  return (int)cudaGetLastError();
+  RingArgs a{};
+  a.key = (const uint32_t*)key;
+  a.src_idx = (const uint32_t*)tree_idx;
+  a.src_val = (const uint32_t*)tree_val;
+  a.dst_idx = (uint32_t*)out_idx;
+  a.dst_val = (uint32_t*)out_val;
+  a.flat_b = (const int32_t*)flat_b;
+  a.nonces = (uint32_t*)nonces;
+  return ring_launch<kRowThreads, 1, kGather>(a, rows, z, zv, rounds, stream);
+}
+
+// out[4] = {grid, rows per step, dynamic shared memory bytes a CTA, CTAs
+// an SM} of gv_gather_decrypt_rows's launch at these shapes.
+int gv_gather_launch_config(int64_t rows, int z, int zv, int* out) {
+  return ring_launch_config<kRowThreads, 1, kGather>(rows, z, zv, out);
 }
 
 }  // extern "C"

@@ -5,8 +5,10 @@
 keystream (encrypt ≡ decrypt) into fresh outputs, as the reference does;
 its inputs are never written. Rows whose epoch is (0, 0) pass through
 unchanged. The kernel is hand-written for Hopper
-(``csrc/cipher_kernels.cu``, ChaCha core in ``csrc/chacha.cuh``) and
-lives in the one library ``gather_kernels.build_library`` builds;
+(``csrc/cipher_kernels.cu``: the row ring of ``csrc/row_ring.cuh``, up
+to 8 rows a step, persistent CTAs streaming rows through shared memory
+with TMA bulk copies; ChaCha core in ``csrc/chacha.cuh``) and lives in
+the one library ``gather_kernels.build_library`` builds;
 :func:`cipher_rows_pallas_plain` is its plain PyTorch version. The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each launch adds one to

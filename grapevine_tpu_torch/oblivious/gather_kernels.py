@@ -6,23 +6,29 @@ Four functions under the reference's names, each with a hand-written
 Hopper kernel (ChaCha core in ``csrc/chacha.cuh``). Two contracts, two
 designs of each:
 
-- :func:`gather_decrypt_rows` (one warp per row) and
+- :func:`gather_decrypt_rows` (the row ring, one row a step) and
   :func:`gather_decrypt_rows_tiled` (one CTA per row, keystream in shared
   memory) fetch the rows at public bucket ids and decrypt them in one
-  pass (``rounds=0``: a plain gather); ``csrc/gather_kernels.cu``, plain
-  version :func:`gather_decrypt_rows_plain`;
+  pass into fresh outputs (``rounds=0``: a plain gather);
+  ``csrc/gather_kernels.cu``, plain version
+  :func:`gather_decrypt_rows_plain`;
 - :func:`scatter_encrypt_rows` (one row a step) and
-  :func:`scatter_encrypt_rows_tiled` (up to 8 rows a step), one kernel
-  body in ``csrc/scatter_kernels.cu``: persistent CTAs stage the owned
-  plaintext rows through shared memory with TMA bulk copies, XOR the
-  keystream in, and write them, and the epoch nonce, into the trees IN
-  PLACE (the analog of the reference's buffer donation / input-output
-  aliasing). Rows whose ``owner`` flag is false are skipped and write
-  nothing: the reference's contract says they must not write, and its
-  kernels send them to the junk bucket ``n_padded - 1`` only because a
-  Pallas grid step always writes its block (that row is never read).
-  Plain version :func:`scatter_encrypt_rows_plain`, which keeps the
-  reference's junk redirect; comparisons mask the last row.
+  :func:`scatter_encrypt_rows_tiled` (up to 8 rows a step),
+  ``csrc/scatter_kernels.cu``: the owned plaintext rows are encrypted
+  and written, with the epoch nonce, into the trees IN PLACE (the analog
+  of the reference's buffer donation / input-output aliasing). Rows
+  whose ``owner`` flag is false are skipped and write nothing: the
+  reference's contract says they must not write, and its kernels send
+  them to the junk bucket ``n_padded - 1`` only because a Pallas grid
+  step always writes its block (that row is never read). Plain version
+  :func:`scatter_encrypt_rows_plain`, which keeps the reference's junk
+  redirect; comparisons mask the last row.
+
+The one-row gather, both scatters and the row cipher
+(``cipher_kernels.py``) are four launches of one kernel body, the row
+ring (``csrc/row_ring.cuh``): persistent CTAs stream whole rows through
+a shared-memory ring with TMA bulk copies and XOR the keystream in on
+the way; :func:`ring_launch_config` says how each launches.
 
 ``bucket_cipher_impl="pallas_fused"`` runs the one-row pair and
 ``"pallas_fused_tiled"`` the tiled pair, as in the reference. A wrapper
@@ -139,7 +145,11 @@ def load_library():
             getattr(lib, name).restype = i32
         lib.gv_scatter_launch_config.argtypes = [i32, i64, i32, i32,
                                                  ctypes.POINTER(i32)]
-        lib.gv_scatter_launch_config.restype = i32
+        for name in ("gv_gather_launch_config", "gv_cipher_launch_config"):
+            getattr(lib, name).argtypes = [i64, i32, i32, ctypes.POINTER(i32)]
+        for name in ("gv_scatter_launch_config", "gv_gather_launch_config",
+                     "gv_cipher_launch_config"):
+            getattr(lib, name).restype = i32
         _lib = lib
     return _lib
 
@@ -230,7 +240,7 @@ def _gather(kernel: str, key, tree_idx, tree_val, nonces, flat_b, z, rounds):
 def gather_decrypt_rows(key, tree_idx, tree_val, nonces, flat_b, z: int,
                         rounds: int = 8):
     """(pidx int32[R, z], pval int32[R, z*v]) — gathered AND decrypted,
-    one warp per row.
+    one row a step of the row ring.
 
     ``key`` int32[8]; ``tree_idx`` int32[n*z]; ``tree_val`` int32[n, z*v];
     ``nonces`` int32[n, 2]; ``flat_b`` int32[R] heap-bucket ids (public).
@@ -298,13 +308,26 @@ def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
                     nonces, flat_b, owner, epoch, new_pidx, new_pval, z, rounds)
 
 
-def scatter_launch_config(kernel: str, rows: int, z: int, zv: int) -> dict:
-    """How ``kernel`` (a scatter's name) launches at these shapes on the
-    card: its persistent grid, rows per step, shared memory a CTA and
-    CTAs an SM."""
+#: the C entry point that plans each row-ring launch, and its leading
+#: arguments
+_RING_CONFIG = {
+    "scatter_encrypt_rows": ("gv_scatter_launch_config", (0,)),
+    "scatter_encrypt_rows_tiled": ("gv_scatter_launch_config", (1,)),
+    "gather_decrypt_rows": ("gv_gather_launch_config", ()),
+    "cipher_rows_pallas": ("gv_cipher_launch_config", ()),
+}
+
+
+def ring_launch_config(kernel: str, rows: int, z: int, zv: int) -> dict:
+    """How ``kernel`` (a row-ring launch: either scatter,
+    ``gather_decrypt_rows`` or ``cipher_rows_pallas``) launches at these
+    shapes on the card: its persistent grid, rows per step, shared memory
+    a CTA and CTAs an SM."""
+    if kernel not in _RING_CONFIG:
+        raise ValueError(f"{kernel} is not a row-ring launch")
+    entry, lead = _RING_CONFIG[kernel]
     out = (ctypes.c_int * 4)()
-    err = load_library().gv_scatter_launch_config(
-        int(kernel == "scatter_encrypt_rows_tiled"), rows, z, zv, out)
+    err = getattr(load_library(), entry)(*lead, rows, z, zv, out)
     if err != 0:
         raise RuntimeError(f"{kernel} launch config failed: cudaError {err}")
     return dict(grid=out[0], rows_per_step=out[1], smem_bytes=out[2],

@@ -6,7 +6,7 @@
    by several paths are owned by the lowest column touching them. The
    top ``k`` levels come from the decrypted tree-top cache, the rest from
    the encrypted trees — through a fused gather+decrypt kernel under
-   ``cipher_impl="pallas_fused"`` (one warp a row) or
+   ``cipher_impl="pallas_fused"`` (the row ring, one row a step) or
    ``"pallas_fused_tiled"`` (one CTA a row), else a gather and
    ``cipher_rows``.
 2. **Apply**: the vectorized callback resolves slot-order semantics and

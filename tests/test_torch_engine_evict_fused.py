@@ -2,7 +2,7 @@
 ``bucket_cipher_impl="pallas_fused"``: the JAX engine runs its one-row
 fused gather and scatter Pallas kernels (``gather_decrypt_rows``,
 ``scatter_encrypt_rows``) in interpret mode, in the fetch rounds and the
-flush, the port runs its one-warp-a-row Hopper kernels' plain versions
+flush, the port runs its one-row-a-step Hopper kernels' plain versions
 (CPU tensors). Responses and transcripts are equal bit for bit, full
 state too with the padded junk bucket masked. Kept in its own file so the
 interpret-mode compiles run beside the other campaigns."""
