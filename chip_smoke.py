@@ -18,7 +18,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    spill) and their launch (persistent grid, rows per step) at each
    shape. Contracts: gather+decrypt (B3 the ring one row a step, B4 one
    CTA a row), encrypt+scatter (B5 the ring one row a step, B6 up to 8),
-   row cipher (B2 the ring up to 8 rows a step);
+   row cipher (B2 the ring up to 8 rows a step; also at the sweep's chunk
+   shapes, into a given output);
 4. the per-round slice: ``GrapevineEngine`` at 2^20 messages, 2^12
    recipients, B=2048, ``bucket_cipher_impl="pallas_fused_tiled"``
    serves a few rounds of CRUD through ``handle_queries``, every
@@ -36,7 +37,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    responses, transcripts and state (junk bucket masked) after every
    round: ``"pallas_fused_tiled"`` at ``evict_every=1``, and
    ``"pallas"``, ``"pallas_fused"``, ``"pallas_fused_tiled"`` at
-   ``evict_every=4`` over three windows.
+   ``evict_every=4`` over three windows;
+8. the expiry sweep at the production geometry, on the engines of
+   phases 4 (E=1, ``"pallas_fused_tiled"``) and 5 (E=4,
+   ``"pallas_fused"``, mid-window with the buffer not empty): two more
+   rounds (mailboxes written at an old clock, records stamped ahead of
+   the sweep's clock, updates that refresh old records), the sweep,
+   checked against the model with expiry (evicted count, messages,
+   recipients, every nonce the old epoch, the epoch advanced, B2 launched
+   2 x 258 times and nothing else, the peak memory it added at most a few
+   chunks), a profiled second sweep, a read-back of every written id
+   (expired and deleted ones NOT_FOUND) and one more CRUD round;
+9. durability: (a) at the production geometry (E=4, ``"pallas_fused"``)
+   16 rounds, 4 flushes and a sweep journaled with an fsync per record,
+   no checkpoint; a second facade on a copy of the state dir replays the
+   journal on the card, with the live run's launches, and must equal the
+   live engine on every leaf (junk masked) and in the generator state,
+   and the next round on both must agree in responses and transcripts;
+   (b) at 2^14 messages, B=64, E=4, for each ``pallas*`` impl: a
+   checkpoint mid-window, more rounds, a sweep and a flush, then the
+   same recovery from checkpoint plus journal, with the same checks.
+   Journal append + fsync ms per record, replay ms per record and
+   checkpoint write/load ms and bytes are printed.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -48,6 +70,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -166,11 +189,12 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
+def kernel_checks(ecfg, gk, ck, path_oram, round_mod, expiry):
     """Phase 3: each kernel against its plain version, per shape. Round
     shapes: the records round B and the mailbox rounds A/C of one engine
     round; flush shapes: one records and one mailbox flush of a whole
-    ``EVICT_EVERY`` window, targets deduplicated as ``oram_flush`` does."""
+    ``EVICT_EVERY`` window, targets deduplicated as ``oram_flush`` does;
+    sweep shapes (B2): one chunk of the expiry sweep per tree."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -243,8 +267,13 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
                                ms=cuda_ms(lambda: fn(*g_args, z=z, rounds=rounds), 20),
                                plain_ms=g_plain, bytes=g_bytes, ops=g_ops, **launch))
             del ki, kv
-        # B2 decrypts the same rows, gathered first, under their nonces
-        c_rows = [("round", pi, pv, flat_b, nonces[flat_b.long()].contiguous())]
+        # B2 decrypts the same rows, gathered first, under their nonces;
+        # and, as the expiry sweep does, one chunk of contiguous tree rows
+        # under their nonces into a scratch chunk (``out=``)
+        rpc = expiry._chunk_rows(cfg)
+        c_rows = [("round", pi, pv, flat_b, nonces[flat_b.long()].contiguous()),
+                  ("sweep", tree_idx[:rpc * z].view(rpc, z), tree_val[:rpc],
+                   torch.arange(rpc, dtype=torch.int32, device=dev), nonces[:rpc])]
         del pi, pv
 
         # -- encrypt + scatter (B5, B6) at the round and flush shapes
@@ -293,7 +322,9 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
             rr = pidx.shape[0]
             written = int((ep != 0).any(dim=1).sum())
             c_args = (key, bucket, ep, pidx, pval)
-            ki, kv = ck.cipher_rows_pallas(*c_args, rounds=rounds)
+            out = ((torch.empty_like(pidx), torch.empty_like(pval)) if shape == "sweep"
+                   else None)
+            ki, kv = ck.cipher_rows_pallas(*c_args, rounds=rounds, out=out)
             qi, qv = ck.cipher_rows_pallas_plain(*c_args, rounds=rounds)
             torch.cuda.synchronize()
             shapes.append(dict(
@@ -301,12 +332,12 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod):
                 never_written_rows=rr - written,
                 max_abs_err=max(max_err(ki, qi), max_err(kv, qv)),
                 launch=gk.ring_launch_config("cipher_rows_pallas", rr, z, zv),
-                ms=cuda_ms(lambda: ck.cipher_rows_pallas(*c_args, rounds=rounds), 20),
+                ms=cuda_ms(lambda: ck.cipher_rows_pallas(*c_args, rounds=rounds, out=out), 20),
                 plain_ms=cuda_ms(lambda: ck.cipher_rows_pallas_plain(
                     *c_args, rounds=rounds), 3),
                 bytes=4 * (2 * rr * w + 3 * rr + 8),
                 ops=keystream_ops(written, w, rounds) + written * w))
-            del ki, kv, qi, qv
+            del ki, kv, qi, qv, out
         del c_rows, key, tree_idx, tree_val, nonces
         torch.cuda.empty_cache()
     for s in shapes:
@@ -335,9 +366,11 @@ PER = {
 }
 
 
-def kernel_entries(shapes, launches):
+def kernel_entries(shapes, launches, sweep_chunks: dict):
     """One entry per kernel: its headline time, plain time and bound sum
-    the calls ``PER`` names; ``shapes`` keeps every per-call measurement."""
+    the calls ``PER`` names; ``shapes`` keeps every per-call measurement.
+    B2's entry adds the expiry sweep's path (``sweep_chunks``: chunks
+    per tree)."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         per, calls = PER[name]
@@ -347,7 +380,7 @@ def kernel_entries(shapes, launches):
         plain = sum(c * pick[(t, sh)]["plain_ms"] for t, sh, c in calls)
         bytes_ms = sum(c * pick[(t, sh)]["bytes_ms"] for t, sh, c in calls)
         ops_ms = sum(c * pick[(t, sh)]["ops_ms"] for t, sh, c in calls)
-        out.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(s["max_abs_err"] for s in mine),
@@ -356,7 +389,19 @@ def kernel_entries(shapes, launches):
             library_ms=None, per=per,
             shapes=[{k: v for k, v in s.items() if k not in ("kernel", "bytes", "ops")}
                     for s in mine],
-        ))
+        )
+        if name == "cipher_rows_pallas":
+            # the expiry sweep: each chunk decrypted and re-encrypted
+            calls = [(t, 2 * n) for t, n in sweep_chunks.items()]
+            sb = sum(c * pick[(t, "sweep")]["bytes_ms"] for t, c in calls)
+            so = sum(c * pick[(t, "sweep")]["ops_ms"] for t, c in calls)
+            entry["sweep"] = dict(
+                per="expiry sweep, both trees (decrypt + re-encrypt each chunk)",
+                launches=sum(c for _, c in calls),
+                ms=sum(c * pick[(t, "sweep")]["ms"] for t, c in calls),
+                plain_ms=sum(c * pick[(t, "sweep")]["plain_ms"] for t, c in calls),
+                bound_ms=max(sb, so), bound_by="bytes" if sb >= so else "operations")
+        out.append(entry)
     return out
 
 
@@ -378,12 +423,12 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
     refusals); later rounds read by id over every live message, and with
     ``writes`` also create, update and delete (write targets distinct
     within a round, so the model's order is the slot order). Returns
-    per-round stats, the health after the run, and the profile of the
-    last round if ``profile_last``."""
+    per-round stats, the health after the run, the profile of the last
+    round if ``profile_last``, the model (msg_id → sender, recipient,
+    payload and the timestamp of its last write) and the deleted ids."""
     import numpy as np
 
     from grapevine_tpu_torch.wire import constants as C
-    from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 
     b = eng.ecfg.batch_size
     # recipients 0..nrec-1, b/nrec messages each; message A of recipient r
@@ -394,7 +439,8 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
     recip = [_key("rcp", i % nrec) for i in range(b)]
     stranger = _key("zzz", 0)
     zero = bytes(16)
-    model: dict[bytes, dict] = {}  # msg_id → {"sender", "recipient", "payload"}
+    model: dict[bytes, dict] = {}  # msg_id → {"sender", "recipient", "payload", "ts"}
+    gone: set[bytes] = set()  # deleted msg_ids
     ids: list[bytes] = []
     rounds: list[dict] = []
     # collect the earlier phases' garbage (a profiler trace holds many
@@ -403,11 +449,6 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
     gc.collect()
     tracked = len(gc.get_objects())
     OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
-
-    def req(t, auth, rcp=bytes(32), mid=zero, payload=None):
-        return QueryRequest(request_type=t, auth_identity=auth, record=RequestRecord(
-            msg_id=mid, recipient=rcp,
-            payload=payload if payload is not None else bytes(C.PAYLOAD_SIZE)))
 
     def rec(mid):
         """The record a response must carry for ``mid``, as modelled now."""
@@ -426,15 +467,7 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
         rounds.append(dict(ops=len(reqs), s=dt, health=eng.health(),
                            gc_gen2=gc1 - gc0, gc_gen2_ms=(gs1 - gs0) * 1e3,
                            cuda_segments=seg1 - seg0))
-        for i, (r, (status, want)) in enumerate(zip(resp, expect)):
-            if r.status_code != status:
-                raise AssertionError(f"round {len(rounds)} op {i}: status "
-                                     f"{r.status_code}, expected {status}")
-            got = (r.record.msg_id, r.record.sender, r.record.recipient,
-                   r.record.payload)
-            if want is not None and got != want:
-                raise AssertionError(f"round {len(rounds)} op {i}: record "
-                                     "differs from the model")
+        check_responses(resp, expect, f"round {len(rounds)}")
         return resp
 
     q = nrec // 4  # a quarter of the recipients
@@ -443,11 +476,12 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
 
     # round 1: B creates, b/nrec messages for each recipient
     pays = [_payload(1, i) for i in range(b)]
-    resp = run([req(C.REQUEST_TYPE_CREATE, sender[i], recip[i], payload=pays[i])
+    resp = run([_req(C.REQUEST_TYPE_CREATE, sender[i], recip[i], payload=pays[i])
                 for i in range(b)], [(OK, None)] * b, NOW)
     for i, r in enumerate(resp):
         ids.append(r.record.msg_id)
-        model[r.record.msg_id] = dict(sender=sender[i], recipient=recip[i], payload=pays[i])
+        model[r.record.msg_id] = dict(sender=sender[i], recipient=recip[i], payload=pays[i],
+                                      ts=NOW)
     if len(set(ids)) != b or zero in ids:
         raise AssertionError("created msg_ids are not distinct and nonzero")
 
@@ -456,59 +490,61 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
     g = [list(range(k * q, (k + 1) * q)) for k in range(4)]
     reqs, exp = [], []
     for r in g[0]:
-        reqs.append(req(C.REQUEST_TYPE_READ, sender[A[r]], mid=ids[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, sender[A[r]], mid=ids[A[r]]))
         exp.append((OK, rec(ids[A[r]])))
     upd = {}
     for r in g[1]:
         upd[r] = _payload(2, r)
-        reqs.append(req(C.REQUEST_TYPE_UPDATE, sender[A[r]], recip[A[r]],
+        reqs.append(_req(C.REQUEST_TYPE_UPDATE, sender[A[r]], recip[A[r]],
                         ids[A[r]], upd[r]))
         exp.append((OK, None))
     for r in g[2]:
-        reqs.append(req(C.REQUEST_TYPE_DELETE, recip[A[r]], recip[A[r]], ids[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_DELETE, recip[A[r]], recip[A[r]], ids[A[r]]))
         exp.append((OK, rec(ids[A[r]])))
     for r in g[3]:
-        reqs.append(req(C.REQUEST_TYPE_READ, recip[A[r]], recip[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, recip[A[r]], recip[A[r]]))
         exp.append((OK, rec(ids[A[r]])))
     while len(reqs) < b:
-        reqs.append(req(C.REQUEST_TYPE_READ, _key("nob", len(reqs))))
+        reqs.append(_req(C.REQUEST_TYPE_READ, _key("nob", len(reqs))))
         exp.append((NF, None))
     run(reqs, exp, NOW + 1)
     for r in g[1]:
-        model[ids[A[r]]]["payload"] = upd[r]
+        model[ids[A[r]]].update(payload=upd[r], ts=NOW + 1)
     for r in g[2]:
         del model[ids[A[r]]]
+        gone.add(ids[A[r]])
 
     # round 3: read A back (original / updated / deleted → NOT_FOUND),
     # zero-id delete (pops A), read every B by its sender
     reqs, exp = [], []
     for r in g[0] + g[1]:
-        reqs.append(req(C.REQUEST_TYPE_READ, recip[A[r]], mid=ids[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, recip[A[r]], mid=ids[A[r]]))
         exp.append((OK, rec(ids[A[r]])))
     for r in g[2]:
-        reqs.append(req(C.REQUEST_TYPE_READ, recip[A[r]], mid=ids[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, recip[A[r]], mid=ids[A[r]]))
         exp.append((NF, None))
     for r in g[3]:
-        reqs.append(req(C.REQUEST_TYPE_DELETE, recip[A[r]], recip[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_DELETE, recip[A[r]], recip[A[r]]))
         exp.append((OK, rec(ids[A[r]])))
     for r in range(nrec):
-        reqs.append(req(C.REQUEST_TYPE_READ, sender[Bm[r]], mid=ids[Bm[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, sender[Bm[r]], mid=ids[Bm[r]]))
         exp.append((OK, rec(ids[Bm[r]])))
     run(reqs, exp, NOW + 2)
     for r in g[3]:
         del model[ids[A[r]]]
+        gone.add(ids[A[r]])
 
     # round 4 (half full: padded): zero-id reads now select B where A is
     # gone; strangers are refused; a wrong recipient on update is refused
     reqs, exp = [], []
     for r in g[2] + g[3]:
-        reqs.append(req(C.REQUEST_TYPE_READ, recip[Bm[r]], recip[Bm[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, recip[Bm[r]], recip[Bm[r]]))
         exp.append((OK, rec(ids[Bm[r]])))
     for r in g[0]:
-        reqs.append(req(C.REQUEST_TYPE_READ, stranger, mid=ids[A[r]]))
+        reqs.append(_req(C.REQUEST_TYPE_READ, stranger, mid=ids[A[r]]))
         exp.append((NF, None))
     for r in g[1]:
-        reqs.append(req(C.REQUEST_TYPE_UPDATE, sender[Bm[r]], stranger, ids[Bm[r]],
+        reqs.append(_req(C.REQUEST_TYPE_UPDATE, sender[Bm[r]], stranger, ids[Bm[r]],
                         _payload(3, r)))
         exp.append((C.STATUS_CODE_INVALID_RECIPIENT, None))
     run(reqs, exp, NOW + 3)
@@ -527,26 +563,27 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
             if kind == 0:  # create for an existing recipient
                 r = (j // 8 + k) % nrec
                 pay = _payload(16 + k, j)
-                reqs.append(req(C.REQUEST_TYPE_CREATE, sender[j], recip[r], payload=pay))
+                reqs.append(_req(C.REQUEST_TYPE_CREATE, sender[j], recip[r], payload=pay))
                 exp.append((OK, None))
                 post.append((j, sender[j], recip[r], pay))
             elif kind == 1:  # update by its sender
                 mid = upd_ids[j // 8]
                 pay = _payload(48 + k, j)
                 m = model[mid]
-                reqs.append(req(C.REQUEST_TYPE_UPDATE, m["sender"], m["recipient"],
+                reqs.append(_req(C.REQUEST_TYPE_UPDATE, m["sender"], m["recipient"],
                                 mid, pay))
                 exp.append((OK, None))
-                m["payload"] = pay
+                m.update(payload=pay, ts=NOW + k)
             elif kind == 2:  # delete by its recipient
                 mid = del_ids[j // 8]
                 m = model[mid]
-                reqs.append(req(C.REQUEST_TYPE_DELETE, m["recipient"], m["recipient"], mid))
+                reqs.append(_req(C.REQUEST_TYPE_DELETE, m["recipient"], m["recipient"], mid))
                 exp.append((OK, rec(mid)))
                 del model[mid]
+                gone.add(mid)
             else:  # read by id by its recipient
                 mid = read_ids[(j * 7 + k) % len(read_ids)]
-                reqs.append(req(C.REQUEST_TYPE_READ, model[mid]["recipient"], mid=mid))
+                reqs.append(_req(C.REQUEST_TYPE_READ, model[mid]["recipient"], mid=mid))
                 exp.append((OK, rec(mid)))
         if profile_last and k == n_rounds - 1:
             prof = profile_round(lambda: run(reqs, exp, NOW + k))
@@ -556,7 +593,8 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
         else:
             resp = run(reqs, exp, NOW + k)
         for j, snd, rcp, pay in post:
-            model[resp[j].record.msg_id] = dict(sender=snd, recipient=rcp, payload=pay)
+            model[resp[j].record.msg_id] = dict(sender=snd, recipient=rcp, payload=pay,
+                                                ts=NOW + k)
 
     if eng.message_count() != len(model):
         raise AssertionError(f"engine holds {eng.message_count()} messages, "
@@ -565,7 +603,7 @@ def run_slice(eng, n_rounds: int, writes: bool, profile_last: bool):
     if h["stash_overflow"] != 0:
         raise AssertionError(f"stash overflow {h['stash_overflow']}")
     rounds[0]["gc_tracked_objects_at_start"] = tracked
-    return rounds, h, prof
+    return rounds, h, prof, model, gone
 
 
 class Gen2Clock:
@@ -598,7 +636,7 @@ def host_counters() -> tuple[int, float, int]:
 #: device_phase names)
 SPANS = ("round_a_mailbox", "round_b_records", "round_c_mailbox", "oram_fetch",
          "oram_apply", "oram_evict", "oram_writeback", "respond", "engine_flush",
-         "oram_flush")
+         "oram_flush", "sweep_records", "sweep_mailbox")
 
 
 def profile_round(fn) -> dict:
@@ -684,10 +722,12 @@ def require_launches(launches: dict, want: dict, path: str) -> None:
                                  f"expected {want.get(name, 0)}")
 
 
-def run_evict_slice(GrapevineEngine, cfg, gk, ck, card) -> tuple[dict, dict, dict]:
+def run_evict_slice(GrapevineEngine, cfg, gk, ck, card):
     """Phase 5: 4 windows of mixed CRUD at ``evict_every=EVICT_EVERY``;
     fetch rounds and flushes timed apart (each flush between two
-    synchronizations, taken out of its round's wall time)."""
+    synchronizations, taken out of its round's wall time). Returns the
+    slice line, the profile, the launches, and the engine with its model
+    and deleted ids (phase 8 sweeps it)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = GrapevineEngine(cfg, seed=SEED)
@@ -707,7 +747,8 @@ def run_evict_slice(GrapevineEngine, cfg, gk, ck, card) -> tuple[dict, dict, dic
     eng._flush_step = timed_flush
     n_rounds = 4 * EVICT_EVERY
     _reset_launches(gk, ck)
-    rounds, health, prof = run_slice(eng, n_rounds, writes=True, profile_last=True)
+    rounds, health, prof, model, gone = run_slice(eng, n_rounds, writes=True,
+                                                  profile_last=True)
     launches = _launches(gk, ck)
     require_launches(launches, {"gather_decrypt_rows": 3 * n_rounds,
                                 "scatter_encrypt_rows": 2 * (n_rounds // EVICT_EVERY)},
@@ -738,9 +779,39 @@ def run_evict_slice(GrapevineEngine, cfg, gk, ck, card) -> tuple[dict, dict, dic
         evict_buffer_high_water={t: max(o[t] for o in occ) for t in ("rec", "mb")},
         evict_buffer_slots=health["evict_buffer_slots"],
     )
-    del eng, flush
-    torch.cuda.empty_cache()
-    return line, prof, launches
+    eng._flush_step = flush
+    return line, prof, launches, eng, model, gone
+
+
+def mixed_requests(rng, users, created, rnd: int) -> list:
+    """One small-geometry round (64 or 50 ops) over ``users``: creates,
+    reads, updates and deletes of ``created`` ids, zero-id reads and
+    deletes of the caller's own mailbox."""
+    from grapevine_tpu_torch.wire import constants as C
+
+    reqs = []
+    for i in range(64 if rnd % 2 == 0 else 50):
+        a, r = users[rng.integers(len(users))], users[rng.integers(len(users))]
+        x = rng.random()
+        if rnd == 0 or x < 0.35 or not created:
+            t, mid = C.REQUEST_TYPE_CREATE, bytes(16)
+        elif x < 0.8:
+            t = (C.REQUEST_TYPE_READ, C.REQUEST_TYPE_UPDATE,
+                 C.REQUEST_TYPE_DELETE)[rng.integers(3)]
+            mid, a, r = created[rng.integers(len(created))]
+        else:
+            t, mid, a = (C.REQUEST_TYPE_READ, C.REQUEST_TYPE_DELETE)[
+                rng.integers(2)], bytes(16), r
+        reqs.append(_req(t, a, r, mid, _payload(rnd, i)))
+    return reqs
+
+
+def note_created(reqs, resp, created: list) -> None:
+    from grapevine_tpu_torch.wire import constants as C
+
+    for q, r in zip(reqs, resp):
+        if q.request_type == C.REQUEST_TYPE_CREATE and r.status_code == C.STATUS_CODE_SUCCESS:
+            created.append((r.record.msg_id, q.auth_identity, q.record.recipient))
 
 
 def cross_check(GrapevineConfig, GrapevineEngine, convert, impls, evict_every: int,
@@ -748,9 +819,6 @@ def cross_check(GrapevineConfig, GrapevineEngine, convert, impls, evict_every: i
     """Phase 7: each kernel engine ≡ the plain ("jnp") engine on the card,
     after every round: responses, transcripts, state (junk masked)."""
     import numpy as np
-
-    from grapevine_tpu_torch.wire import constants as C
-    from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 
     engines = {
         impl: GrapevineEngine(GrapevineConfig(
@@ -763,23 +831,7 @@ def cross_check(GrapevineConfig, GrapevineEngine, convert, impls, evict_every: i
     users = [_key("usr", i) for i in range(24)]
     created: list = []
     for rnd in range(n_rounds):
-        reqs = []
-        for i in range(64 if rnd % 2 == 0 else 50):
-            a, r = users[rng.integers(24)], users[rng.integers(24)]
-            x = rng.random()
-            if rnd == 0 or x < 0.35 or not created:
-                t, mid = C.REQUEST_TYPE_CREATE, bytes(16)
-            elif x < 0.8:
-                t = (C.REQUEST_TYPE_READ, C.REQUEST_TYPE_UPDATE,
-                     C.REQUEST_TYPE_DELETE)[rng.integers(3)]
-                mid, a, r = created[rng.integers(len(created))]
-            else:
-                t, mid, a = (C.REQUEST_TYPE_READ, C.REQUEST_TYPE_DELETE)[
-                    rng.integers(2)], bytes(16), r
-            reqs.append(QueryRequest(request_type=t, auth_identity=a,
-                                     record=RequestRecord(
-                                         msg_id=mid, recipient=r,
-                                         payload=_payload(rnd, i))))
+        reqs = mixed_requests(rng, users, created, rnd)
         outs = {impl: e.handle_queries_with_transcript(reqs, NOW + rnd)
                 for impl, e in engines.items()}
         rj, tj = outs["jnp"]
@@ -797,15 +849,399 @@ def cross_check(GrapevineConfig, GrapevineEngine, convert, impls, evict_every: i
             if diff is not None:
                 raise AssertionError(f"cross-check {impl} E={evict_every} round "
                                      f"{rnd}: state differs at {diff}")
-        for q, r in zip(reqs, rj):
-            if q.request_type == C.REQUEST_TYPE_CREATE and r.status_code == 1:
-                created.append((r.record.msg_id, q.auth_identity, q.record.recipient))
+        note_created(reqs, rj, created)
     flushes = {impl: getattr(e, "flushes", 0) for impl, e in engines.items()}
     if evict_every > 1 and set(flushes.values()) != {n_rounds // evict_every}:
         raise AssertionError(f"cross-check flush counts {flushes}")
     return dict(impls=list(impls), evict_every=evict_every, rounds=n_rounds,
                 flushes=flushes["jnp"], messages=engines["jnp"].message_count(),
                 equal=True)
+
+
+#: phase 8's sweep clock: records last written before NOW + 6 expire,
+#: those written later survive, and so do those stamped ahead of it
+SWEEP_NOW, SWEEP_PERIOD = NOW + 100, 94
+
+
+def _req(t, auth, rcp=bytes(32), mid=bytes(16), payload=None):
+    from grapevine_tpu_torch.wire import constants as C
+    from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+
+    return QueryRequest(request_type=t, auth_identity=auth, record=RequestRecord(
+        msg_id=mid, recipient=rcp,
+        payload=payload if payload is not None else bytes(C.PAYLOAD_SIZE)))
+
+
+def check_responses(resp, expect, where: str) -> None:
+    """Each response's status, and record where one is expected
+    ``(msg_id, sender, recipient, payload)``, against the model."""
+    for i, (r, (status, want)) in enumerate(zip(resp, expect)):
+        if r.status_code != status:
+            raise AssertionError(f"{where} op {i}: status {r.status_code}, "
+                                 f"expected {status}")
+        got = (r.record.msg_id, r.record.sender, r.record.recipient, r.record.payload)
+        if want is not None and got != want:
+            raise AssertionError(f"{where} op {i}: record differs from the model")
+
+
+def _expired(ts: int) -> bool:
+    """The reference oracle's rule: ``now - ts > period``, signed (a record
+    stamped ahead of the clock never expires)."""
+    return SWEEP_NOW - ts > SWEEP_PERIOD
+
+
+def run_expiry_phase(eng, model: dict, gone: set, gk, ck, card, label: str) -> dict:
+    """Phase 8 on a slice's engine at the production geometry: two more
+    rounds (mailboxes written only at an old clock, records stamped ahead
+    of the sweep's clock, old records refreshed by updates; under delayed
+    eviction they leave the window half full), the sweep, checked against
+    the model with expiry; then a profiled second sweep, a read-back of
+    every written id and one more CRUD round."""
+    from grapevine_tpu_torch.engine.expiry import _chunk_rows
+    from grapevine_tpu_torch.oblivious.bucket_cipher import epoch_next
+    from grapevine_tpu_torch.wire import constants as C
+
+    OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+    ecfg = eng.ecfg
+    b = ecfg.batch_size
+    # a round at an old clock: 64 recipients nothing else writes, 2 each
+    lonely = [_key("lon", i) for i in range(64)]
+    reqs = [_req(C.REQUEST_TYPE_CREATE, _key("snd", i), lonely[i // 2],
+                 payload=_payload(90, i)) for i in range(128)]
+    resp = eng.handle_queries(reqs, NOW + 2)
+    check_responses(resp, [(OK, None)] * len(reqs), f"{label} old-clock round")
+    for q, r in zip(reqs, resp):
+        model[r.record.msg_id] = dict(sender=q.auth_identity, recipient=q.record.recipient,
+                                      payload=q.record.payload, ts=NOW + 2)
+    # a round ahead of the sweep's clock: 64 new mailboxes, and updates
+    # that refresh 64 records which would otherwise expire
+    ahead = NOW + 200
+    fut = [_key("fut", i) for i in range(64)]
+    reqs = [_req(C.REQUEST_TYPE_CREATE, _key("snd", i), fut[i], payload=_payload(91, i))
+            for i in range(64)]
+    old = [mid for mid, m in model.items()
+           if _expired(m["ts"]) and m["recipient"] not in set(lonely)][:64]
+    upd = {}
+    for i, mid in enumerate(old):
+        m = model[mid]
+        upd[mid] = _payload(92, i)
+        reqs.append(_req(C.REQUEST_TYPE_UPDATE, m["sender"], m["recipient"], mid, upd[mid]))
+    resp = eng.handle_queries(reqs, ahead)
+    check_responses(resp, [(OK, None)] * len(reqs), f"{label} ahead-of-clock round")
+    for q, r in zip(reqs[:64], resp[:64]):
+        model[r.record.msg_id] = dict(sender=q.auth_identity, recipient=q.record.recipient,
+                                      payload=q.record.payload, ts=ahead)
+    for mid, pay in upd.items():
+        model[mid].update(payload=pay, ts=ahead)
+    h0 = eng.health()
+    buffered = (sum(h0["evict_buffer_occupancy"].values()) if eng.evict_every > 1 else None)
+    if eng.evict_every > 1 and not (buffered and h0["evict_rounds_since_flush"]):
+        raise AssertionError(f"{label}: the sweep must run mid-window with the buffer "
+                             f"not empty ({h0})")
+
+    expired = {mid for mid, m in model.items() if _expired(m["ts"])}
+    emptied = ({m["recipient"] for m in model.values()}
+               - {m["recipient"] for mid, m in model.items() if mid not in expired})
+    if not expired or len(expired) == len(model) or not emptied:
+        raise AssertionError(f"{label}: the clock expires {len(expired)} of "
+                             f"{len(model)} records, empties {len(emptied)} mailboxes")
+    st = eng.state
+    old_ep = (st.rec.epoch.clone(), st.mb.epoch.clone())
+    n_chunks = {t: cfg.n_buckets_padded // _chunk_rows(cfg)
+                for t, cfg in (("records", ecfg.rec), ("mailbox", ecfg.mb))}
+    del st
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(gk, ck)
+    t0 = time.perf_counter()
+    evicted = eng.expire(SWEEP_NOW, SWEEP_PERIOD)
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches(gk, ck)
+    peak_added = torch.cuda.max_memory_allocated() - base
+    require_launches(launches, {"cipher_rows_pallas": 2 * sum(n_chunks.values())},
+                     f"{label} sweep")
+    for mid in expired:
+        del model[mid]
+    if evicted != len(expired):
+        raise AssertionError(f"{label}: the sweep evicted {evicted}, the model {len(expired)}")
+    if eng.message_count() != len(model):
+        raise AssertionError(f"{label}: {eng.message_count()} messages, model {len(model)}")
+    recips = len({m["recipient"] for m in model.values()})
+    if eng.recipient_count() != recips:
+        raise AssertionError(f"{label}: {eng.recipient_count()} recipients, model {recips}")
+    st = eng.state
+    for name, o, ep in (("rec", st.rec, old_ep[0]), ("mb", st.mb, old_ep[1])):
+        if not bool((o.nonces == ep).all()):
+            raise AssertionError(f"{label}: {name}.nonces are not all the old epoch")
+        if not torch.equal(o.epoch, epoch_next(ep)):
+            raise AssertionError(f"{label}: {name}.epoch did not advance")
+    del st
+    chunk_bytes = max(4 * _chunk_rows(c) * c.row_words for c in (ecfg.rec, ecfg.mb))
+    tree_bytes = 4 * ecfg.rec.n_buckets_padded * ecfg.rec.row_words
+    if peak_added > 4 * chunk_bytes:
+        raise AssertionError(f"{label}: the sweep added {peak_added} bytes at its peak, "
+                             f"more than 4 chunks ({chunk_bytes} bytes each)")
+    # a second sweep at the same clock expires nothing more: profiled
+    prof = profile_round(lambda: eng.expire(SWEEP_NOW, SWEEP_PERIOD))
+    if prof.pop("result") != 0:
+        raise AssertionError(f"{label}: the second sweep evicted records")
+
+    # read back every written id: the live ones by their recipient, the
+    # expired and the deleted ones NOT_FOUND
+    reads = [(mid, OK) for mid in model] + [(mid, NF) for mid in expired | gone]
+    by_id = {**model}
+    for lo in range(0, len(reads), b):
+        chunk = reads[lo:lo + b]
+        reqs, exp = [], []
+        for mid, status in chunk:
+            m = by_id.get(mid)
+            reqs.append(_req(C.REQUEST_TYPE_READ, m["recipient"] if m else _key("rcp", 0),
+                             mid=mid))
+            exp.append((status, (mid, m["sender"], m["recipient"], m["payload"])
+                        if m else None))
+        check_responses(eng.handle_queries(reqs, SWEEP_NOW + 1), exp,
+                        f"{label} read-back {lo // b}")
+    # one more CRUD round: creates into live mailboxes, updates, deletes,
+    # and zero-id reads of the mailboxes the sweep emptied
+    live = sorted(model)
+    q = min(b // 4, len(live) // 3)
+    reqs, exp = [], []
+    for i in range(q):
+        r = model[live[i]]["recipient"]
+        reqs.append(_req(C.REQUEST_TYPE_CREATE, _key("snd", i), r, payload=_payload(93, i)))
+        exp.append((OK, None))
+    for i, mid in enumerate(live[q: 2 * q]):
+        m = model[mid]
+        reqs.append(_req(C.REQUEST_TYPE_UPDATE, m["sender"], m["recipient"], mid,
+                         _payload(94, i)))
+        exp.append((OK, None))
+    for mid in live[2 * q: 3 * q]:
+        m = model[mid]
+        reqs.append(_req(C.REQUEST_TYPE_DELETE, m["recipient"], m["recipient"], mid))
+        exp.append((OK, (mid, m["sender"], m["recipient"], m["payload"])))
+    for rcp in lonely[: b - len(reqs)]:
+        reqs.append(_req(C.REQUEST_TYPE_READ, rcp))
+        exp.append((NF, None))  # emptied by the sweep
+    check_responses(eng.handle_queries(reqs, SWEEP_NOW + 2), exp, f"{label} CRUD round")
+    if eng.health()["stash_overflow"] != 0:
+        raise AssertionError(f"{label}: stash overflow")
+    return dict(
+        label=label, evict_every=eng.evict_every,
+        bucket_cipher_impl=ecfg.rec.cipher_impl, now=SWEEP_NOW, period=SWEEP_PERIOD,
+        evicted=evicted, emptied_mailboxes=len(emptied), messages_after=len(model),
+        recipients_after=recips, buffered_rows_at_sweep=buffered, sweep_wall_ms=sweep_ms,
+        # the profiled sweep: kernel time summed, and the two spans' extent
+        # on the device timeline (idle gaps between launches included)
+        sweep_device_ms=prof["device_ms"],
+        sweep_span_ms={k: prof["span_device_ms"].get(k) for k in ("sweep_records",
+                                                                  "sweep_mailbox")},
+        profile=prof, chunks=n_chunks, launches=launches, peak_added_bytes=peak_added,
+        chunk_bytes=chunk_bytes, records_tree_bytes=tree_bytes,
+        read_back=len(reads), card=card)
+
+
+def states_differ(ecfg, a, b):
+    """First leaf where two engine states on the card differ (junk bucket
+    masked), ``"rng"`` if only the generators do, else None."""
+    from grapevine_tpu_torch.oram.path_oram import OramState
+
+    for name in ("rec", "mb"):
+        z = getattr(ecfg, name).bucket_slots
+        for f in OramState._fields:
+            x, y = getattr(getattr(a, name), f), getattr(getattr(b, name), f)
+            if f in ("tree_val", "nonces"):
+                x, y = x[:-1], y[:-1]
+            elif f == "tree_idx":
+                x, y = x[:-z], y[:-z]
+            if x.shape != y.shape or not torch.equal(x, y):
+                return f"{name}.{f}"
+    for f in ("freelist", "free_top", "recipients", "seq", "hash_key", "id_key"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            return f
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        return "rng"
+    return None
+
+
+class JournalClock:
+    """Wall time of each journal append (seal + write + fsync), by kind,
+    wrapped around one engine's durability manager."""
+
+    def __init__(self, mgr):
+        self.ms: dict[str, list] = {"round": [], "flush": [], "sweep": []}
+        for kind in self.ms:
+            fn = getattr(mgr, f"append_{kind}")
+            setattr(mgr, f"append_{kind}", self._timed(kind, fn))
+
+    def _timed(self, kind, fn):
+        def call(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            self.ms[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+
+def recover_timed(GrapevineEngine, cfg, state_dir, DurabilityConfig, dkw: dict):
+    """A facade built on ``state_dir`` (recovery in its constructor), with
+    the recovery's wall time and the launches it made."""
+    from grapevine_tpu_torch.engine import checkpoint as cp
+
+    spent = []
+    recover = cp.DurabilityManager.recover
+
+    def timed(self, *a):
+        t = time.perf_counter()
+        out = recover(self, *a)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    cp.DurabilityManager.recover = timed
+    try:
+        eng = GrapevineEngine(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=state_dir, **dkw))
+    finally:
+        cp.DurabilityManager.recover = recover
+    return eng, spent[0]
+
+
+def next_round_equal(a, b, reqs, now, where: str) -> None:
+    """The same round on two engines: equal responses and transcripts."""
+    import numpy as np
+
+    ra, ta = a.handle_queries_with_transcript(reqs, now)
+    rb, tb = b.handle_queries_with_transcript(reqs, now)
+    if [x.pack() for x in ra] != [x.pack() for x in rb]:
+        raise AssertionError(f"{where}: responses of the next round differ")
+    if not np.array_equal(ta, tb):
+        raise AssertionError(f"{where}: transcripts of the next round differ")
+
+
+def run_durability_prod(GrapevineEngine, cfg, gk, ck, card) -> dict:
+    """Phase 9a: at the production geometry (E=4, ``"pallas_fused"``), no
+    checkpoint: 16 rounds, 4 flushes and a sweep journaled with an fsync
+    on every record; a second facade on a copy of the state dir recovers
+    by replaying the journal on the card, equal to the live engine on
+    every leaf and in the generator, and the next round agrees."""
+    import shutil
+    import tempfile
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+
+    dkw = dict(checkpoint_every_rounds=1 << 20, journal_fsync_every=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        live_dir = f"{tmp}/live"
+        eng = GrapevineEngine(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=live_dir, **dkw))
+        clock = JournalClock(eng.durability)
+        _reset_launches(gk, ck)
+        rounds, _, _, model, _ = run_slice(eng, 4 * EVICT_EVERY, writes=True,
+                                           profile_last=False)
+        evicted = eng.expire(NOW + 8, 4)
+        live_launches = _launches(gk, ck)
+        if eng.flushes != 4 or not evicted or eng.durability.seq != 4 * EVICT_EVERY + 5:
+            raise AssertionError(f"durable run: {eng.flushes} flushes, {evicted} evicted, "
+                                 f"journal at {eng.durability.seq}")
+        shutil.copytree(live_dir, f"{tmp}/copy")
+        journal_bytes = sum(os.path.getsize(f"{tmp}/copy/{n}")
+                            for n in os.listdir(f"{tmp}/copy") if n.endswith(".wal"))
+        _reset_launches(gk, ck)
+        rec, replay_s = recover_timed(GrapevineEngine, cfg, f"{tmp}/copy",
+                                      DurabilityConfig, dkw)
+        replay_launches = _launches(gk, ck)
+        records = rec.durability.replayed
+        if records != eng.durability.seq:
+            raise AssertionError(f"replayed {records} of {eng.durability.seq} records")
+        require_launches(replay_launches, {k: v for k, v in live_launches.items() if v},
+                         "journal replay")
+        diff = states_differ(eng.ecfg, eng.state, rec.state)
+        if diff is not None:
+            raise AssertionError(f"recovered state differs from the live one at {diff}")
+        from grapevine_tpu_torch.wire import constants as C
+
+        live = sorted(model)[: eng.ecfg.batch_size]
+        reqs = [_req(C.REQUEST_TYPE_READ, model[mid]["recipient"], mid=mid) for mid in live]
+        next_round_equal(eng, rec, reqs, NOW + 9, "journal-only recovery")
+        eng.close()
+        rec.close()
+        del eng, rec
+    torch.cuda.empty_cache()
+    ms = clock.ms
+    return dict(
+        max_messages=cfg.max_messages, batch_size=cfg.batch_size, evict_every=EVICT_EVERY,
+        bucket_cipher_impl=cfg.bucket_cipher_impl, records=records, evicted=evicted,
+        journal_bytes=journal_bytes, append_fsync_ms={k: statistics.median(v)
+                                                      for k, v in ms.items()},
+        append_fsync_ms_all=ms, replay_s=replay_s, replay_ms_per_record=replay_s * 1e3 / records,
+        live_launches=live_launches, replay_launches=replay_launches,
+        round_ms=[r["s"] * 1e3 for r in rounds], state_equal=True, card=card)
+
+
+def run_durability_small(GrapevineConfig, GrapevineEngine, impl: str, card) -> dict:
+    """Phase 9b at the cross-check geometry (2^14 messages, B=64, E=4):
+    6 rounds, a checkpoint mid-window, 4 more rounds (a flush), a sweep
+    and a partial-window flush; a second facade on a copy of the state
+    dir recovers from the checkpoint plus the journal tail, equal on
+    every leaf and in the generator, and the next round agrees."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine import checkpoint as cp
+
+    cfg = GrapevineConfig(max_messages=2**14, max_recipients=2**10, batch_size=64,
+                          bucket_cipher_impl=impl, vphases_impl="dense",
+                          evict_every=EVICT_EVERY)
+    dkw = dict(checkpoint_every_rounds=1 << 20)
+    rng = np.random.default_rng(SEED)
+    users = [_key("usr", i) for i in range(24)]
+    created: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = GrapevineEngine(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=f"{tmp}/live", **dkw))
+        ckpt = {}
+        for rnd in range(10):
+            reqs = mixed_requests(rng, users, created, rnd)
+            resp = eng.handle_queries(reqs, NOW + 10 * rnd)
+            note_created(reqs, resp, created)
+            if rnd == 5:
+                t = time.perf_counter()
+                seq = eng.checkpoint_now()
+                ckpt["write_ms"] = (time.perf_counter() - t) * 1e3
+                ckpt["seq"] = seq
+        evicted = eng.expire(NOW + 55, 30)
+        if not evicted or not eng.flush_now():
+            raise AssertionError(f"{impl}: the sweep evicted {evicted}, or no flush")
+        path = cp.checkpoint_path(f"{tmp}/live", ckpt["seq"])
+        ckpt["bytes"] = os.path.getsize(path)
+        t = time.perf_counter()
+        cp.load_checkpoint(path, eng.durability.root_key, eng.ecfg)
+        torch.cuda.synchronize()
+        ckpt["load_ms"] = (time.perf_counter() - t) * 1e3
+        shutil.copytree(f"{tmp}/live", f"{tmp}/copy")
+        rec, replay_s = recover_timed(GrapevineEngine, cfg, f"{tmp}/copy",
+                                      DurabilityConfig, dkw)
+        d = rec.durability
+        if not d.recovered_from_checkpoint or d.ckpt_seq != ckpt["seq"] or not d.replayed:
+            raise AssertionError(f"{impl}: recovery did not start at the checkpoint")
+        diff = states_differ(eng.ecfg, eng.state, rec.state)
+        if diff is not None:
+            raise AssertionError(f"{impl}: recovered state differs at {diff}")
+        next_round_equal(eng, rec, mixed_requests(rng, users, created, 10), NOW + 100,
+                         f"{impl} checkpoint recovery")
+        # recovery = checkpoint load + replay of the journal tail
+        out = dict(bucket_cipher_impl=impl, evict_every=EVICT_EVERY, checkpoint=ckpt,
+                   replayed=d.replayed, recovery_s=replay_s, evicted=evicted,
+                   state_equal=True, card=card)
+        eng.close()
+        rec.close()
+    return out
 
 
 def main() -> int:
@@ -816,7 +1252,7 @@ def main() -> int:
     t_start = time.perf_counter()
     gc.callbacks.append(GEN2)
     from grapevine_tpu_torch.config import GrapevineConfig
-    from grapevine_tpu_torch.engine import convert
+    from grapevine_tpu_torch.engine import convert, expiry
     from grapevine_tpu_torch.engine.batcher import GrapevineEngine
     from grapevine_tpu_torch.engine.state import EngineConfig
     from grapevine_tpu_torch.oblivious import cipher_kernels as ck
@@ -835,7 +1271,10 @@ def main() -> int:
     geo = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048,
                vphases_impl="dense")
     prod = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
-    shapes = kernel_checks(EngineConfig.from_config(prod), gk, ck, path_oram, round_mod)
+    prod_ecfg = EngineConfig.from_config(prod)
+    shapes = kernel_checks(prod_ecfg, gk, ck, path_oram, round_mod, expiry)
+    sweep_chunks = {t: c.n_buckets_padded // expiry._chunk_rows(c)
+                    for t, c in (("records", prod_ecfg.rec), ("mailbox", prod_ecfg.mb))}
     emit({"ring_launch": [
         {k: s[k] for k in ("kernel", "tree", "shape", "rows", "owned_rows", "launch")
          if k in s}
@@ -848,19 +1287,25 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     _reset_launches(gk, ck)
-    rounds, health, prof = run_slice(eng, 7, writes=False, profile_last=True)
+    rounds, health, prof, model, gone = run_slice(eng, 7, writes=False, profile_last=True)
     launches = _launches(gk, ck)
     require_launches(launches, {"gather_decrypt_rows_tiled": 21,
                                 "scatter_encrypt_rows_tiled": 21}, "per-round slice")
     slice_line = slice_stats(prod, rounds, health, init_s, launches, card)
+    # phase 8 (E=1): the expiry sweep on this slice's engine (B2)
+    exp1 = run_expiry_phase(eng, model, gone, gk, ck, card, "per-round slice")
     del eng
     torch.cuda.empty_cache()
 
     # phase 5: the delayed-eviction slice (B3, B5)
     evict = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused",
                             evict_every=EVICT_EVERY)
-    evict_line, evict_prof, evict_launches = run_evict_slice(
+    evict_line, evict_prof, evict_launches, eng, model, gone = run_evict_slice(
         GrapevineEngine, evict, gk, ck, card)
+    # phase 8 (E=4): mid-window, the buffer not empty (B2)
+    exp4 = run_expiry_phase(eng, model, gone, gk, ck, card, "delayed-eviction slice")
+    del eng
+    torch.cuda.empty_cache()
 
     # phase 6: the "pallas" path (B2)
     unfused = GrapevineConfig(**geo, bucket_cipher_impl="pallas")
@@ -869,7 +1314,7 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     _reset_launches(gk, ck)
-    rounds, health, _ = run_slice(eng, 5, writes=True, profile_last=False)
+    rounds, health, *_ = run_slice(eng, 5, writes=True, profile_last=False)
     pallas_launches = _launches(gk, ck)
     require_launches(pallas_launches, {"cipher_rows_pallas": 6 * 5}, "'pallas' path")
     pallas_line = slice_stats(unfused, rounds, health, init_s, pallas_launches, card)
@@ -883,8 +1328,16 @@ def main() -> int:
                       ("pallas", "pallas_fused", "pallas_fused_tiled"), EVICT_EVERY,
                       3 * EVICT_EVERY)
 
+    # phase 9: durability — journal-only recovery at the production
+    # geometry, checkpoint + journal recovery at the small one
+    dur = {"production": run_durability_prod(GrapevineEngine, evict, gk, ck, card),
+           "small": [run_durability_small(GrapevineConfig, GrapevineEngine, impl, card)
+                     for impl in ("pallas", "pallas_fused", "pallas_fused_tiled")]}
+
     launches_by_kernel = {
-        "cipher_rows_pallas": pallas_launches["cipher_rows_pallas"],
+        "cipher_rows_pallas": (pallas_launches["cipher_rows_pallas"]
+                               + exp1["launches"]["cipher_rows_pallas"]
+                               + exp4["launches"]["cipher_rows_pallas"]),
         "gather_decrypt_rows": evict_launches["gather_decrypt_rows"],
         "gather_decrypt_rows_tiled": launches["gather_decrypt_rows_tiled"],
         "scatter_encrypt_rows": evict_launches["scatter_encrypt_rows"],
@@ -896,8 +1349,10 @@ def main() -> int:
     emit({"evict_profile": evict_prof, "card": card})
     emit({"pallas_slice": pallas_line})
     emit({"cross_check": [xc1, xc4]})
+    emit({"expiry": [exp1, exp4]})
+    emit({"durability": dur})
     emit({"wall_s": time.perf_counter() - t_start, "card": card})
-    emit({"kernels": kernel_entries(shapes, launches_by_kernel), "card": card})
+    emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -309,4 +309,44 @@ class GrapevineConfig:
         return 1 << self.mailbox_height
 
 
+@dataclasses.dataclass(frozen=True)
+class DurabilityConfig:
+    """Crash-safety knobs (engine/checkpoint.py, engine/journal.py).
+
+    With a ``state_dir`` set, the engine journals every admitted batch
+    (sealed, fsync-batched) before dispatching it and periodically dumps
+    a sealed whole-``EngineState`` checkpoint; restart = load the last
+    checkpoint + deterministically replay the journal tail. Whole-state
+    dumps and whole-batch journal records are access-pattern-free by
+    construction: they are written for every round regardless of what
+    the ops inside are, so durability adds no obliviousness leak.
+    """
+
+    #: directory holding checkpoints, journal segments, and (by default)
+    #: the auto-generated root seal key
+    state_dir: str
+    #: rounds+sweeps between sealed checkpoints (RTO knob: recovery
+    #: replays at most this many journal records)
+    checkpoint_every_rounds: int = 64
+    #: journal records per fsync. 1 (default) = every record is durable
+    #: before its round dispatches (RPO 0 for acknowledged ops); larger
+    #: values amortize the fsync at the cost of losing up to N-1
+    #: acknowledged rounds on a *machine* crash (a process crash alone
+    #: loses nothing — the page cache survives)
+    journal_fsync_every: int = 1
+    #: 32-byte root seal key file; None = ``<state_dir>/root.key``,
+    #: auto-generated 0600 on first start. Point it at a separately
+    #: mounted secret in production: a sealed checkpoint next to its
+    #: key is integrity-protected but not confidential
+    seal_key_file: str | None = None
+
+    def __post_init__(self):
+        if not self.state_dir:
+            raise ValueError("durability requires a state_dir")
+        if self.checkpoint_every_rounds < 1:
+            raise ValueError("checkpoint_every_rounds must be >= 1")
+        if self.journal_fsync_every < 1:
+            raise ValueError("journal_fsync_every must be >= 1")
+
+
 DEFAULT_CONFIG = GrapevineConfig()

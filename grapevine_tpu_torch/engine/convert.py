@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..oram.path_oram import OramState
+from ..oram.path_oram import OramState, oram_leaf_shapes
 from ..u32 import from_numpy, to_numpy as _t2n
 from .state import EngineConfig, EngineState
 
@@ -42,15 +42,7 @@ def from_jax_state(ecfg: EngineConfig, leaves: dict, seed: int = 0,
         rng=gen,
     )
     for name, cfg, o in (("rec", ecfg.rec, st.rec), ("mb", ecfg.mb, st.mb)):
-        delayed = cfg.delayed_eviction
-        want = {
-            "tree_val": (cfg.n_buckets_padded, cfg.bucket_slots * cfg.value_words),
-            # the delayed-eviction planes: zero-length at evict_every 1
-            "ebuf_val": (cfg.evict_buffer_slots if delayed else 0, cfg.value_words),
-            "ebuf_paths": (cfg.evict_window * cfg.evict_fetch_count if delayed else 0,),
-            "fetch_tag": (cfg.n_buckets_padded if delayed else 0,),
-        }
-        for f, shape in want.items():
+        for f, shape in oram_leaf_shapes(cfg).items():
             got = tuple(getattr(o, f).shape)
             if got != shape:
                 raise ValueError(f"{name}.{f} shape {got} does not match the "

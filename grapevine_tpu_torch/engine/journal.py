@@ -1,0 +1,707 @@
+"""Sealed batch journal: append-before-dispatch, replay on recovery (port
+of ``grapevine_tpu/engine/journal.py``; the frame format is the
+reference's byte for byte).
+
+Every batch the engine admits is appended here, sealed under the journal
+subkey of the root key and fsync-batched, *before* it dispatches to the
+device, so the journal is always ahead of (or equal to) the device state.
+Recovery loads the newest sealed checkpoint and replays the journal tail
+through the same engine programs: the round is deterministic given
+(state, batch, generator state), which the equality suites against the
+reference pin.
+
+Layout: segment files ``journal-<firstseq>.wal`` in the state dir. A
+segment is a concatenation of frames::
+
+    frame  = b"GVJ1" | u64 seq | u32 blob_len | blob
+    blob   = nonce(12) | ChaCha20(body) | HMAC-SHA256 tag(32)
+             (sealed with aad = the 16-byte frame header, so a frame
+             cannot be re-sequenced or length-mangled undetected)
+    body   = round: u8 1 | u32 n_real | u32 B | u32 now | u32 now_hi
+                    | req_type u32[B] | auth u32[B,8] | msg_id u32[B,4]
+                    | recipient u32[B,8] | payload u32[B,PW]
+             sweep: u8 2 | u32 now | u32 now_hi | u32 period
+             flush: u8 3   (delayed-eviction flush: no payload, the
+                    flush is deterministic given the state, and replay
+                    re-executes it in journal order like rounds and
+                    sweeps)
+
+A frame serializes the *whole* fixed-size batch (padding included)
+whatever the ops inside are: like the checkpoint, its size and write
+pattern are functions of the geometry only, so journaling leaks nothing
+the round cadence did not already.
+
+Torn-tail contract: a crash mid-append leaves a partial (or
+tag-invalid) final frame in the final segment — that frame's batch
+never dispatched with durability=1, and is discarded with a warning.
+Any anomaly *before* the final frame of the final segment (bad magic,
+failed tag, sequence gap) is real corruption and raises
+:class:`JournalError` — the journal is never half-loaded silently.
+
+At each checkpoint the journal **rolls**: a fresh segment starts at the
+next sequence and every older segment (fully covered by the checkpoint)
+is deleted. Sequence numbers in frame headers make the crash windows
+safe: records at or below the checkpoint seq are simply skipped on
+replay wherever they survive.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import struct
+import time
+from typing import Iterator, NamedTuple
+
+import numpy as np
+
+from ..testing import faults
+from .state import EngineConfig, ID_WORDS, KEY_WORDS, PAYLOAD_WORDS
+
+log = logging.getLogger("grapevine_tpu_torch.journal")
+
+FRAME_MAGIC = b"GVJ1"
+_HEADER = struct.Struct("<4sQI")  # magic, seq, blob_len
+_SEAL_OVERHEAD = 12 + 32  # nonce + tag
+
+KIND_ROUND = 1
+KIND_SWEEP = 2
+KIND_FLUSH = 3
+
+#: round batch columns in serialization order, with their per-op widths
+_ROUND_COLS = (
+    ("req_type", 1),
+    ("auth", KEY_WORDS),
+    ("msg_id", ID_WORDS),
+    ("recipient", KEY_WORDS),
+    ("payload", PAYLOAD_WORDS),
+)
+
+
+class JournalError(RuntimeError):
+    """Journal corruption that replay must not paper over."""
+
+
+# -- epoch fencing ------------------------------------------------------
+#
+# A promoting standby plants a ``fenced`` marker in the old primary's
+# state dir carrying the bumped journal epoch. The marker is created
+# O_EXCL, so a double-promote race has exactly one winner; a revived (or
+# still-running) stale primary refuses to append the moment it sees an
+# epoch newer than its own — the split-brain guard. The promoted
+# replica's own dir records its epoch in an ``epoch`` file instead, so
+# a later failover chain keeps monotonic generations.
+
+FENCE_FILE = "fenced"
+EPOCH_FILE = "epoch"
+
+
+def fence_path(state_dir: str) -> str:
+    return os.path.join(state_dir, FENCE_FILE)
+
+
+def read_fence(state_dir: str) -> dict | None:
+    """The fence marker's payload, or None when the dir is unfenced."""
+    try:
+        with open(fence_path(state_dir), "r", encoding="utf-8") as fh:
+            return json.load(fh)
+    except FileNotFoundError:
+        return None
+    except (OSError, ValueError) as exc:
+        # an unreadable fence still fences: fail closed, loudly
+        raise JournalError(f"unreadable fence marker: {exc}") from exc
+
+
+def read_epoch(state_dir: str) -> int:
+    """This state dir's journal epoch (0 = never promoted into)."""
+    try:
+        with open(os.path.join(state_dir, EPOCH_FILE), encoding="utf-8") as fh:
+            return int(fh.read().strip() or 0)
+    except FileNotFoundError:
+        return 0
+
+
+def write_epoch(state_dir: str, epoch: int) -> None:
+    """Durably record this dir's journal epoch (promote() on the
+    replica's own dir)."""
+    from .checkpoint import write_all
+
+    path = os.path.join(state_dir, EPOCH_FILE)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
+    try:
+        write_all(fd, str(int(epoch)).encode())
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, path)
+    dfd = os.open(state_dir, os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+def write_fence(state_dir: str, epoch: int, fingerprint: str) -> dict:
+    """Fence a (presumed dead) primary's state dir at ``epoch``.
+
+    O_EXCL: in a double-promote race exactly one caller returns; the
+    loser gets a hard JournalError and must not serve."""
+    from .checkpoint import write_all
+
+    payload = {"epoch": int(epoch), "fingerprint": fingerprint,
+               "fenced_unix": int(time.time())}
+    path = fence_path(state_dir)
+    try:
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
+    except FileExistsError:
+        existing = read_fence(state_dir)
+        raise JournalError(
+            f"journal already fenced at epoch "
+            f"{existing.get('epoch') if existing else '?'} — another "
+            "replica won the promotion race; this one must not serve"
+        ) from None
+    try:
+        write_all(fd, json.dumps(payload).encode())
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    dfd = os.open(state_dir, os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+    return payload
+
+
+class JournalRecord(NamedTuple):
+    seq: int
+    kind: int  # KIND_ROUND | KIND_SWEEP
+    batch: dict | None  # round: the pack_batch-shaped device dict
+    n_real: int  # round: real (non-padding) ops
+    now: int  # sweep: u64 low lane
+    now_hi: int  # sweep: u64 high lane
+    period: int  # sweep: expiry period
+
+
+def _segment_first_seq(name: str) -> int | None:
+    if name.startswith("journal-") and name.endswith(".wal"):
+        try:
+            return int(name[len("journal-") : -len(".wal")])
+        except ValueError:
+            return None
+    return None
+
+
+class BatchJournal:
+    """One engine's sealed write-ahead journal (see module docstring).
+
+    Not internally locked: every call runs under the engine lock
+    (appends are serialized with the rounds they precede)."""
+
+    def __init__(self, state_dir: str, root_key: bytes,
+                 ecfg: EngineConfig, fsync_every: int = 1, on_fsync=None):
+        self.state_dir = state_dir
+        self.root_key = root_key
+        self.ecfg = ecfg
+        self.fsync_every = max(1, int(fsync_every))
+        self.on_fsync = on_fsync
+        #: last sequence appended or observed during replay
+        self.seq = 0
+        #: last sequence known fsynced (machine-crash durable; a mere
+        #: process crash also keeps everything written, via page cache)
+        self.durable_seq = 0
+        self._fd: int | None = None
+        self._since_fsync = 0
+        self._tail: tuple[str, int] | None = None  # (path, valid_end)
+        self._cur_path: str | None = None  # segment open for append
+        self._scanned = False
+        #: journal generation this writer serves under (epoch file in
+        #: the state dir, bumped by a promoting standby). An append is
+        #: refused the moment a fence marker with a newer epoch appears
+        #: (the split-brain guard).
+        self.epoch = read_epoch(state_dir)
+        #: the only two legal blob lengths for this geometry (round
+        #: bodies are constant-size given B; sweeps are fixed). Replay
+        #: uses this to tell a corrupted length field (raise) from a
+        #: genuinely truncated final frame (torn tail, discard).
+        round_body = 17 + 4 * ecfg.batch_size * sum(
+            w for _, w in _ROUND_COLS
+        )
+        # the frame header's blob_len is u32 on the wire: refuse at
+        # construction rather than truncate a frame length at append
+        # time (a torn tail replay could never tell from corruption)
+        if round_body + _SEAL_OVERHEAD > 0xFFFFFFFF:
+            raise ValueError(
+                f"journal frame for batch_size {ecfg.batch_size} would "
+                f"be {round_body + _SEAL_OVERHEAD} bytes — past the u32 "
+                "blob_len wire field; shard the batch instead"
+            )
+        self._valid_blob_lens = frozenset(
+            body + _SEAL_OVERHEAD for body in (round_body, 13, 1)
+        )
+
+    # -- codec ----------------------------------------------------------
+
+    def _encode_round(self, batch: dict, n_real: int) -> bytes:
+        b = self.ecfg.batch_size
+        if int(batch["req_type"].shape[0]) != b:
+            raise ValueError(
+                f"batch rows {batch['req_type'].shape[0]} != batch_size {b}"
+            )
+        parts = [struct.pack(
+            "<BIIII", KIND_ROUND, n_real, b,
+            int(batch["now"]), int(batch.get("now_hi", 0)),
+        )]
+        for name, words in _ROUND_COLS:
+            arr = np.ascontiguousarray(np.asarray(batch[name]), dtype="<u4")
+            if arr.size != b * words:
+                raise ValueError(
+                    f"batch column {name!r}: {arr.size} words, "
+                    f"want {b * words}"
+                )
+            parts.append(arr.tobytes())
+        return b"".join(parts)
+
+    def _decode_body(self, seq: int, body: bytes) -> JournalRecord:
+        if not body:
+            raise JournalError(f"journal frame {seq}: empty body")
+        kind = body[0]
+        if kind == KIND_SWEEP:
+            if len(body) != 13:
+                raise JournalError(
+                    f"journal frame {seq}: sweep body is {len(body)} bytes"
+                )
+            now, now_hi, period = struct.unpack_from("<III", body, 1)
+            return JournalRecord(seq, KIND_SWEEP, None, 0, now, now_hi, period)
+        if kind == KIND_FLUSH:
+            if len(body) != 1:
+                raise JournalError(
+                    f"journal frame {seq}: flush body is {len(body)} bytes"
+                )
+            return JournalRecord(seq, KIND_FLUSH, None, 0, 0, 0, 0)
+        if kind != KIND_ROUND:
+            raise JournalError(f"journal frame {seq}: unknown kind {kind}")
+        n_real, b, now, now_hi = struct.unpack_from("<IIII", body, 1)
+        if b != self.ecfg.batch_size:
+            raise JournalError(
+                f"journal frame {seq}: batch_size {b} does not match this "
+                f"engine's {self.ecfg.batch_size} — replay requires the "
+                "identical geometry the journal was written under"
+            )
+        off = 17
+        batch: dict = {}
+        for name, words in _ROUND_COLS:
+            nbytes = b * words * 4
+            if off + nbytes > len(body):
+                raise JournalError(
+                    f"journal frame {seq}: column {name!r} cut short"
+                )
+            arr = np.frombuffer(body, "<u4", count=b * words, offset=off)
+            arr = arr.astype(np.uint32)  # native order, writable copy
+            batch[name] = arr.reshape(b, words) if words > 1 else arr
+            off += nbytes
+        if off != len(body):
+            raise JournalError(
+                f"journal frame {seq}: {len(body) - off} trailing bytes"
+            )
+        batch["now"] = np.uint32(now)
+        batch["now_hi"] = np.uint32(now_hi)
+        return JournalRecord(seq, KIND_ROUND, batch, n_real, now, now_hi, 0)
+
+    # -- replay ---------------------------------------------------------
+
+    def _segments(self) -> list[tuple[int, str]]:
+        out = []
+        for name in os.listdir(self.state_dir):
+            first = _segment_first_seq(name)
+            if first is not None:
+                out.append((first, os.path.join(self.state_dir, name)))
+        return sorted(out)
+
+    def replay(self, after_seq: int = 0) -> Iterator[JournalRecord]:
+        """Yield decoded records with seq > ``after_seq`` across all
+        segments, oldest first, enforcing sequence contiguity. Tolerates
+        exactly one torn/invalid *final* frame in the *final* segment;
+        anything else raises JournalError. Must run (to exhaustion)
+        before :meth:`open_for_append`."""
+        from .checkpoint import SealError, unseal
+
+        segments = self._segments()
+        self.seq = after_seq
+        self._tail = None
+        self._scanned = True
+        expected = None
+        for si, (_, path) in enumerate(segments):
+            last_seg = si == len(segments) - 1
+            with open(path, "rb") as fh:
+                data = fh.read()
+            off = 0
+            if last_seg:
+                self._tail = (path, 0)
+            while off < len(data):
+                # parse one frame; on anomaly decide torn tail vs
+                # corrupt. A torn write leaves a PREFIX of a valid
+                # frame at EOF — anything else (full header present but
+                # wrong magic or an impossible length, bad tag with
+                # frames after it) is corruption and must raise, never
+                # silently truncate durable frames.
+                anomaly, mid_file, body, end, seq = None, False, b"", off, -1
+                if off + _HEADER.size > len(data):
+                    anomaly = "partial frame header"
+                    mid_file = not FRAME_MAGIC.startswith(
+                        data[off : off + len(FRAME_MAGIC)]
+                    )
+                else:
+                    magic, seq, blob_len = _HEADER.unpack_from(data, off)
+                    if magic != FRAME_MAGIC:
+                        anomaly = "bad frame magic"
+                        mid_file = True  # full header present: not a prefix
+                    elif blob_len not in self._valid_blob_lens:
+                        anomaly = (
+                            f"frame {seq}: impossible blob length "
+                            f"{blob_len} (legal: "
+                            f"{sorted(self._valid_blob_lens)})"
+                        )
+                        mid_file = True
+                    else:
+                        end = off + _HEADER.size + blob_len
+                        if end > len(data):
+                            anomaly = f"frame {seq} cut short"
+                        else:
+                            header = data[off : off + _HEADER.size]
+                            try:
+                                body = unseal(
+                                    self.root_key, b"journal",
+                                    data[off + _HEADER.size : end],
+                                    aad=header,
+                                )
+                            except SealError as exc:
+                                anomaly = (
+                                    f"frame {seq} failed its integrity "
+                                    f"check: {exc}"
+                                )
+                                # a torn write truncates the file — a
+                                # complete frame with bytes after it is
+                                # not a crash artifact
+                                mid_file = end < len(data)
+                if anomaly is not None:
+                    if last_seg and not mid_file:
+                        log.warning(
+                            "discarding torn journal tail (%s@%d: %s) — "
+                            "the batch in it never became durable",
+                            path, off, anomaly,
+                        )
+                        break
+                    raise JournalError(f"{path}@{off}: {anomaly}")
+                if seq > after_seq:
+                    if expected is None:
+                        if seq != after_seq + 1:
+                            raise JournalError(
+                                f"{path}@{off}: journal starts at seq "
+                                f"{seq} but the checkpoint covers "
+                                f"{after_seq} — missing segment(s)"
+                            )
+                    elif seq != expected:
+                        raise JournalError(
+                            f"{path}@{off}: sequence gap (frame {seq}, "
+                            f"expected {expected})"
+                        )
+                    expected = seq + 1
+                    self.seq = seq
+                    yield self._decode_body(seq, body)
+                off = end
+                if last_seg:
+                    self._tail = (path, off)
+        self.durable_seq = self.seq
+
+    def _read_segment(self, path: str) -> bytes:
+        """Follower-path segment read with bounded-backoff retry on
+        transient errors (EIO from a flaky mount and friends). A
+        vanished file propagates FileNotFoundError — the scan loop
+        rescans the directory, because a roll/prune racing the reader
+        is normal, not an error."""
+        delay = 0.01
+        for attempt in range(4):
+            try:
+                with open(path, "rb") as fh:
+                    return fh.read()
+            except FileNotFoundError:
+                raise
+            except OSError as exc:
+                if attempt == 3:
+                    raise JournalError(
+                        f"{path}: transient read errors exhausted: {exc}"
+                    ) from exc
+                time.sleep(delay)
+                delay *= 2
+        raise AssertionError("unreachable")
+
+    def _follow_scan(self, after_seq: int):
+        """Hardened live-tail scan behind :meth:`follow`: yield ``(seq, body, frame_bytes)`` for
+        every frame with seq > ``after_seq``, oldest first, stopping
+        silently at the physical tail.
+
+        Liveness contract:
+
+        - a torn/incomplete FINAL frame at the physical end of the
+          final segment means "not yet durable — poll again", never an
+          error (the writer is mid-append, or died mid-append; either
+          way the bytes may still arrive or be truncated at the
+          writer's next open);
+        - a segment roll or checkpoint-prune racing the reader triggers
+          a directory rescan — segments the reader already consumed may
+          vanish freely; only genuinely missing data (the reader fell
+          behind the prune horizon) raises;
+        - transient read errors retry with bounded backoff before
+          raising (:meth:`_read_segment`).
+
+        Mid-file anomalies are still corruption and raise exactly like
+        :meth:`replay`."""
+        from .checkpoint import SealError, unseal
+
+        rescans = 0
+        while True:
+            try:
+                segments = self._segments()
+            except OSError as exc:
+                rescans += 1
+                if rescans > 8:
+                    raise JournalError(
+                        f"{self.state_dir}: directory scan errors "
+                        f"exhausted: {exc}"
+                    ) from exc
+                time.sleep(0.01 * rescans)
+                continue
+            # drop segments the reader has fully consumed: segment i is
+            # fully covered when its successor starts at or below
+            # after_seq + 1 (so a prune deleting it cannot matter)
+            while len(segments) > 1 and segments[1][0] <= after_seq + 1:
+                segments.pop(0)
+            if segments and segments[0][0] > after_seq + 1:
+                raise JournalError(
+                    f"follower at seq {after_seq} fell behind the prune "
+                    f"horizon — the earliest live segment starts at "
+                    f"{segments[0][0]}; re-bootstrap from a checkpoint"
+                )
+            try:
+                for si, (_, path) in enumerate(segments):
+                    last_seg = si == len(segments) - 1
+                    data = self._read_segment(path)
+                    off = 0
+                    while off < len(data):
+                        anomaly, mid_file = None, False
+                        body, end, seq = b"", off, -1
+                        if off + _HEADER.size > len(data):
+                            anomaly = "partial frame header"
+                            mid_file = not FRAME_MAGIC.startswith(
+                                data[off : off + len(FRAME_MAGIC)]
+                            )
+                        else:
+                            magic, seq, blob_len = _HEADER.unpack_from(
+                                data, off
+                            )
+                            if magic != FRAME_MAGIC:
+                                anomaly = "bad frame magic"
+                                mid_file = True
+                            elif blob_len not in self._valid_blob_lens:
+                                anomaly = (
+                                    f"frame {seq}: impossible blob "
+                                    f"length {blob_len}"
+                                )
+                                mid_file = True
+                            else:
+                                end = off + _HEADER.size + blob_len
+                                if end > len(data):
+                                    anomaly = f"frame {seq} cut short"
+                                else:
+                                    header = data[off : off + _HEADER.size]
+                                    try:
+                                        body = unseal(
+                                            self.root_key, b"journal",
+                                            data[off + _HEADER.size : end],
+                                            aad=header,
+                                        )
+                                    except SealError as exc:
+                                        anomaly = (
+                                            f"frame {seq} failed its "
+                                            f"integrity check: {exc}"
+                                        )
+                                        mid_file = end < len(data)
+                        if anomaly is not None:
+                            if last_seg and not mid_file:
+                                # physical tail not yet durable: poll
+                                # again on the next call — never an
+                                # error, never a warning per poll
+                                log.debug(
+                                    "follow: tail not yet durable "
+                                    "(%s@%d: %s)", path, off, anomaly,
+                                )
+                                return
+                            raise JournalError(f"{path}@{off}: {anomaly}")
+                        if seq > after_seq:
+                            if seq != after_seq + 1:
+                                raise JournalError(
+                                    f"{path}@{off}: sequence gap (frame "
+                                    f"{seq}, expected {after_seq + 1})"
+                                )
+                            yield seq, body, data[off:end]
+                            after_seq = seq
+                            rescans = 0
+                        off = end
+                return
+            except FileNotFoundError:
+                # roll/prune raced the reader between listdir and open —
+                # rescan; data that is genuinely gone trips the prune-
+                # horizon check above on the next pass
+                rescans += 1
+                if rescans > 8:
+                    raise JournalError(
+                        f"{self.state_dir}: segments kept vanishing "
+                        "mid-scan across 8 rescans"
+                    ) from None
+                continue
+
+    def follow(self, after_seq: int = 0) -> Iterator[JournalRecord]:
+        """Read-only replication tail: yield decoded records with seq >
+        ``after_seq`` for a follower that will never append (it applies
+        them to standby state). Each call rescans the directory, so
+        repeated calls pick up newly written frames and freshly rolled
+        segments; a torn final frame is skipped this call and retried on
+        the next (see :meth:`_follow_scan` for the full liveness
+        contract)."""
+        if self._fd is not None:
+            raise RuntimeError(
+                "follow() is for read-only followers; this journal is "
+                "open for append"
+            )
+        for seq, body, _frame in self._follow_scan(after_seq):
+            yield self._decode_body(seq, body)
+
+    # -- append ---------------------------------------------------------
+
+    def open_for_append(self) -> None:
+        """Open the journal for appends after :meth:`replay`: truncate
+        the final segment past its last valid frame (torn tails die
+        here), or start a fresh segment when none exists."""
+        if not self._scanned:
+            raise RuntimeError("replay() must run before open_for_append()")
+        if self._fd is not None:
+            return
+        # a revived stale primary must refuse HERE, before it truncates
+        # the tail a promoted replica already drained (split-brain guard)
+        self._check_fence()
+        if self._tail is not None:
+            path, valid_end = self._tail
+            self._fd = os.open(path, os.O_WRONLY)
+            os.ftruncate(self._fd, valid_end)
+            os.lseek(self._fd, 0, os.SEEK_END)
+            self._cur_path = path
+        else:
+            self._create_segment(self.seq + 1)
+        self._since_fsync = 0
+
+    def _create_segment(self, first_seq: int) -> None:
+        path = os.path.join(self.state_dir, f"journal-{first_seq:016d}.wal")
+        self._fd = os.open(
+            path, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600
+        )
+        self._tail = (path, 0)
+        self._cur_path = path
+        dfd = os.open(self.state_dir, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+
+    def _check_fence(self) -> None:
+        """Refuse to write under a newer epoch's fence (one stat per
+        append — noise next to the seal + write it guards)."""
+        fence = read_fence(self.state_dir)
+        if fence is not None and int(fence.get("epoch", 0)) > self.epoch:
+            raise JournalError(
+                f"journal fenced: epoch {fence['epoch']} supersedes this "
+                f"writer's epoch {self.epoch} — a standby promoted and "
+                "owns the sequence now; refusing append (split-brain "
+                "guard)"
+            )
+
+    def _append(self, body: bytes) -> int:
+        from .checkpoint import seal, write_all
+
+        if self._fd is None:
+            raise RuntimeError("journal not open for append")
+        self._check_fence()
+        seq = self.seq + 1
+        blob_len = len(body) + _SEAL_OVERHEAD
+        header = _HEADER.pack(FRAME_MAGIC, seq, blob_len)
+        frame = header + seal(self.root_key, b"journal", body, aad=header)
+        if faults.active():
+            faults.crash("journal.append.pre")
+            if faults.hit("journal.append.torn"):
+                write_all(self._fd, frame[: len(frame) // 2])
+                os.fsync(self._fd)
+                faults.die()
+        write_all(self._fd, frame)
+        if faults.active():
+            faults.crash("journal.append.post_write")
+        self.seq = seq
+        self._since_fsync += 1
+        if self._since_fsync >= self.fsync_every:
+            self.sync()
+        if faults.active():
+            faults.crash("journal.append.post_fsync")
+        return seq
+
+    def append_round(self, batch: dict, n_real: int) -> int:
+        return self._append(self._encode_round(batch, n_real))
+
+    def append_sweep(self, now: int, now_hi: int, period: int) -> int:
+        return self._append(
+            struct.pack("<BIII", KIND_SWEEP, now, now_hi, period)
+        )
+
+    def append_flush(self) -> int:
+        """Delayed-eviction flush marker: no payload — the flush is a
+        deterministic function of the state, so the record only fixes
+        its position in the replay order."""
+        return self._append(struct.pack("<B", KIND_FLUSH))
+
+    def sync(self) -> None:
+        """fsync pending appends (the durability barrier)."""
+        if self._fd is not None and self._since_fsync:
+            os.fsync(self._fd)
+            self._since_fsync = 0
+            self.durable_seq = self.seq
+            if self.on_fsync is not None:
+                self.on_fsync(self.durable_seq)
+
+    def roll(self) -> None:
+        """Start a fresh segment at the next seq and delete the older
+        ones — called only after a checkpoint covering ``self.seq`` is
+        durably on disk."""
+        self.sync()
+        current = os.path.join(
+            self.state_dir, f"journal-{self.seq + 1:016d}.wal"
+        )
+        if self._cur_path != current:
+            # the usual case; equality means nothing was appended since
+            # the last roll (e.g. a drain checkpoint right after one) —
+            # the fresh segment is already in place
+            if self._fd is not None:
+                os.close(self._fd)
+                self._fd = None
+            self._create_segment(self.seq + 1)
+        for _, path in self._segments():
+            if path != current:
+                try:
+                    os.unlink(path)
+                except OSError:  # pragma: no cover - concurrent cleanup
+                    pass
+
+    def close(self) -> None:
+        if self._fd is not None:
+            self.sync()
+            os.close(self._fd)
+            self._fd = None

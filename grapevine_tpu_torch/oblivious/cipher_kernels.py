@@ -42,24 +42,36 @@ def cipher_rows_pallas_plain(key, bucket, epoch, pidx, pval, rounds: int = 8):
     return pidx ^ ks[:, :z], pval ^ ks[:, z:]
 
 
-def cipher_rows_pallas(key, bucket, epoch, pidx, pval, rounds: int = 8):
+def cipher_rows_pallas(key, bucket, epoch, pidx, pval, rounds: int = 8, out=None):
     """(pidx' int32[R, z], pval' int32[R, W-z]) = rows ^ keystream.
 
     ``key`` int32[8]; ``bucket`` int32[R] heap ids; ``epoch`` int32[R, 2]
     (lo, hi) per-row nonces, (0, 0) = identity; ``pidx`` int32[R, z] and
-    ``pval`` int32[R, W-z] the row's slot-index and value words."""
+    ``pval`` int32[R, W-z] the row's slot-index and value words.
+    ``out=(out_idx, out_val)``, contiguous tensors of those shapes that
+    overlap neither input, receives the rows instead of fresh outputs
+    (the expiry sweep decrypts into one scratch chunk and re-encrypts
+    straight back into the tree rows)."""
     r, z = pidx.shape
     zv = pval.shape[1]
     for name, t, shape in (("key", key, (8,)), ("bucket", bucket, (r,)),
                            ("epoch", epoch, (r, 2)), ("pidx", pidx, None),
                            ("pval", pval, (r, zv))):
         check_tensor(name, t, torch.int32, shape)
+    if out is not None:
+        check_tensor("out_idx", out[0], torch.int32, (r, z))
+        check_tensor("out_val", out[1], torch.int32, (r, zv))
     if rounds < 0 or rounds % 2:
         raise ValueError(f"rounds must be a non-negative even count, got {rounds}")
-    if device_kind(key, bucket, epoch, pidx, pval) == "cpu":
-        return cipher_rows_pallas_plain(key, bucket, epoch, pidx, pval, rounds)
-    out_idx = torch.empty_like(pidx)
-    out_val = torch.empty_like(pval)
+    if device_kind(key, bucket, epoch, pidx, pval, *(out or ())) == "cpu":
+        ci, cv = cipher_rows_pallas_plain(key, bucket, epoch, pidx, pval, rounds)
+        if out is None:
+            return ci, cv
+        out[0].copy_(ci)
+        out[1].copy_(cv)
+        return out
+    out_idx, out_val = out if out is not None else (torch.empty_like(pidx),
+                                                    torch.empty_like(pval))
     err = load_library().gv_cipher_rows(
         key.data_ptr(), bucket.data_ptr(), epoch.data_ptr(), pidx.data_ptr(),
         pval.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(), r, z, zv,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..u32 import ult, widen
+from ..u32 import ule, ult, widen
 
 
 def words_equal(a, b):
@@ -34,6 +34,16 @@ def u64_add_u32(lo, hi, k):
     """(lo, hi) + k with carry over u32 lanes."""
     s = lo + k
     return s, hi + ult(s, lo).to(torch.int32)
+
+
+def u64_le(a_lo, a_hi, b_lo, b_hi):
+    """a <= b over (lo, hi) u32 lane pairs."""
+    return ult(a_hi, b_hi) | ((a_hi == b_hi) & ule(a_lo, b_lo))
+
+
+def u64_sub(a_lo, a_hi, b_lo, b_hi):
+    """a - b (mod 2^64) over u32 lane pairs."""
+    return a_lo - b_lo, a_hi - b_hi - ult(a_lo, b_lo).to(torch.int32)
 
 
 def lex_argsort(lo, hi, dim=-1):

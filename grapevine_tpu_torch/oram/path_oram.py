@@ -170,6 +170,25 @@ class OramState(NamedTuple):
     epoch: torch.Tensor  # int32[2] (lo, hi), next write epoch
 
 
+def oram_leaf_shapes(cfg: OramConfig) -> dict:
+    """Each ``OramState`` leaf's shape for this geometry (what
+    :func:`init_oram` builds), by field name."""
+    z, v, n = cfg.bucket_slots, cfg.value_words, cfg.n_buckets_padded
+    cb, s = cfg.cache_buckets, cfg.stash_size
+    delayed = cfg.delayed_eviction
+    c = cfg.evict_buffer_slots if delayed else 0
+    return dict(
+        tree_idx=(n * z,), tree_val=(n, z * v), cache_idx=(cb * z,),
+        cache_val=(cb, z * v), cache_leaf=(0,), tree_leaf=(0,), stash_idx=(s,),
+        stash_val=(s, v), stash_leaf=(0,), ebuf_idx=(c,), ebuf_val=(c, v),
+        ebuf_leaf=(0,),
+        ebuf_paths=(cfg.evict_window * cfg.evict_fetch_count if delayed else 0,),
+        ebuf_rounds=(), ebuf_gen=(), fetch_tag=(n if delayed else 0,),
+        posmap=(cfg.blocks + 1,), overflow=(), nonces=(n, 2), cipher_key=(8,),
+        epoch=(2,),
+    )
+
+
 def random_u32(gen: torch.Generator, shape, device) -> torch.Tensor:
     """Uniform u32 words (int32 bits) from ``gen``."""
     return narrow(torch.randint(0, 1 << 32, shape, generator=gen,
@@ -222,23 +241,33 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device) -> OramState:
     )
 
 
-def cipher_rows(cfg: OramConfig, key, buckets, epochs, pidx, pval):
+def cipher_rows(cfg: OramConfig, key, buckets, epochs, pidx, pval, out=None):
     """XOR bucket rows with their keystream (encrypt ≡ decrypt).
 
     Every ``pallas*`` impl goes through the row-cipher kernel
     (``cipher_rows_pallas``: the kernel on CUDA tensors, its plain
     version on CPU tensors), as the reference routes them all to its
     Pallas kernel; ``"jnp"`` is the plain PyTorch keystream path. Both
-    give the same words."""
+    give the same words. ``out=(idx, val)``, tensors that overlap
+    neither input, receives the rows instead of fresh tensors (a plain
+    copy without the cipher)."""
     if not cfg.encrypted:
-        return pidx, pval
+        if out is None:
+            return pidx, pval
+        out[0].copy_(pidx)
+        out[1].copy_(pval)
+        return out
     if cfg.cipher_impl in ("pallas", "pallas_fused", "pallas_fused_tiled"):
         return cipher_rows_pallas(key, buckets.contiguous(), epochs.contiguous(),
                                   pidx.contiguous(), pval.contiguous(),
-                                  cfg.cipher_rounds)
+                                  cfg.cipher_rounds, out)
     z = cfg.bucket_slots
     ks = row_keystream(key, buckets, epochs, cfg.row_words, cfg.cipher_rounds)
-    return pidx ^ ks[:, :z], pval ^ ks[:, z:]
+    if out is None:
+        return pidx ^ ks[:, :z], pval ^ ks[:, z:]
+    torch.bitwise_xor(pidx, ks[:, :z], out=out[0])
+    torch.bitwise_xor(pval, ks[:, z:], out=out[1])
+    return out
 
 
 def path_bucket_indices(cfg: OramConfig, leaf) -> torch.Tensor:

@@ -1,0 +1,138 @@
+"""Crash-fault injection for the durability layer (port of
+``grapevine_tpu/testing/faults.py``).
+
+A crash test must be able to kill the process at *specific* points of
+the journal/checkpoint protocol (mid-append, between write and fsync,
+between checkpoint rename and journal prune), not just at random wall
+times. ``faults.crash("name")`` calls at those points give deterministic,
+nameable crash sites; the module is inert (one falsy global check per
+call) unless the ``GRAPEVINE_FAULTS`` environment variable, or
+:func:`reset`, arms a plan.
+
+Plan syntax::
+
+    GRAPEVINE_FAULTS="journal.append.torn=3"
+    GRAPEVINE_FAULTS="checkpoint.pre_rename=1;round.post_dispatch=5"
+
+``point=n`` means: die (SIGKILL — no atexit, no flushing, the honest
+crash) on the *n*-th time execution reaches that point. Multiple points
+are independent counters; the first to reach its count kills the
+process.
+
+Instrumented points (grep ``faults.crash`` / ``faults.hit``):
+
+- ``journal.append.pre``       before any frame bytes are written
+- ``journal.append.torn``      half the frame written + fsynced, then die
+                               (the torn-tail case replay must tolerate)
+- ``journal.append.post_write``frame fully written, before fsync
+- ``journal.append.post_fsync``frame durable, before the round dispatches
+- ``checkpoint.tmp.torn``      half the sealed tmp file written, then die
+- ``checkpoint.pre_rename``    tmp complete, before the atomic rename
+- ``checkpoint.post_rename``   checkpoint live, before journal roll/prune
+- ``round.pre_dispatch``       round journaled + fsynced, before its device
+                               dispatch
+- ``round.post_dispatch``      round journaled + dispatched, before resolve
+- ``flush.pre_dispatch``       delayed-eviction flush frame journaled +
+                               fsynced, before the flush dispatches — the
+                               kill-at-flush window: the E-th round is
+                               durable and possibly mid-flight, the flush
+                               is durable but not applied
+- ``flush.post_dispatch``      flush journaled + dispatched, before any
+                               resolve
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import time
+
+ENV_VAR = "GRAPEVINE_FAULTS"
+
+#: every instrumented crash site
+ALL_POINTS = (
+    "journal.append.pre",
+    "journal.append.torn",
+    "journal.append.post_write",
+    "journal.append.post_fsync",
+    "checkpoint.tmp.torn",
+    "checkpoint.pre_rename",
+    "checkpoint.post_rename",
+    "round.pre_dispatch",
+    "round.post_dispatch",
+    "flush.pre_dispatch",
+    "flush.post_dispatch",
+)
+
+
+class _Plan:
+    __slots__ = ("targets", "counts")
+
+    def __init__(self, spec: str):
+        self.targets: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            point, _, n = part.partition("=")
+            point = point.strip()
+            if point not in ALL_POINTS:
+                raise ValueError(
+                    f"unknown fault point {point!r}; known: {ALL_POINTS}"
+                )
+            self.targets[point] = max(1, int(n or 1))
+            self.counts[point] = 0
+
+
+_plan: _Plan | None = None
+_loaded = False
+
+
+def _get_plan() -> _Plan | None:
+    global _plan, _loaded
+    if not _loaded:
+        reset(os.environ.get(ENV_VAR, ""))
+    return _plan
+
+
+def reset(spec: str | None = None) -> None:
+    """(Re)load the fault plan — from ``spec`` or the environment.
+
+    Tests use ``reset("")`` to disarm and ``reset("point=n")`` to arm
+    in-process without touching the environment."""
+    global _plan, _loaded
+    if spec is None:
+        spec = os.environ.get(ENV_VAR, "")
+    _plan = _Plan(spec) if spec.strip() else None
+    _loaded = True
+
+
+def active() -> bool:
+    """True when any fault point is armed (the fast-path guard)."""
+    return _get_plan() is not None
+
+
+def hit(point: str) -> bool:
+    """Count a visit to ``point``; True when its trigger count is
+    reached — the caller then performs its custom damage (e.g. a
+    partial write) and calls :func:`die`."""
+    plan = _get_plan()
+    if plan is None or point not in plan.targets:
+        return False
+    plan.counts[point] += 1
+    return plan.counts[point] == plan.targets[point]
+
+
+def crash(point: str) -> None:
+    """Die on the spot when ``point``'s trigger count is reached."""
+    if hit(point):
+        die()
+
+
+def die() -> None:
+    """SIGKILL self: no cleanup handlers, no buffers flushed — the
+    honest crash the recovery path is specified against."""
+    os.kill(os.getpid(), signal.SIGKILL)
+    while True:  # pragma: no cover - signal delivery races the next line
+        time.sleep(1)

@@ -41,17 +41,31 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert bad == []
 
 
+def test_import_scan_covers_the_expiry_and_durability_modules():
+    """The sweep, the durability layer and their helpers are port modules
+    of their own (own copies of the reference's jax-free journal and
+    fault injection), so the boundary scan reads each of them."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
+                "oblivious/radix.py", "testing/faults.py"):
+        path = f"grapevine_tpu_torch/{mod}"
+        assert path in scanned, path
+        assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
+
+
 def test_import_scan_sees_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\nfrom grapevine_tpu.config import X\n")
     assert [m.split(".")[0] for m in _imports(p)] == ["jax", "grapevine_tpu"]
 
 
-def test_engine_without_cuda_raises(monkeypatch):
+def test_engine_without_cuda_raises(monkeypatch, tmp_path):
     """Every entry point that places state (the facade, ``init_engine``,
-    ``from_jax_state``) defaults to the card and raises without one."""
-    from grapevine_tpu_torch.config import GrapevineConfig
+    ``from_jax_state``, the durability manager that loads checkpoints)
+    defaults to the card and raises without one."""
+    from grapevine_tpu_torch.config import DurabilityConfig, GrapevineConfig
     from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.engine.checkpoint import DurabilityManager
     from grapevine_tpu_torch.engine.convert import from_jax_state, to_numpy
     from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
 
@@ -62,6 +76,8 @@ def test_engine_without_cuda_raises(monkeypatch):
         GrapevineEngine(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_engine(ecfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DurabilityManager(DurabilityConfig(state_dir=str(tmp_path)), ecfg)
     eng = GrapevineEngine(cfg, device="cpu")
     assert eng.state.freelist.device.type == "cpu"
     leaves = to_numpy(eng.state)
