@@ -58,7 +58,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    checkpoint mid-window, more rounds, a sweep and a flush, then the
    same recovery from checkpoint plus journal, with the same checks.
    Journal append + fsync ms per record, replay ms per record and
-   checkpoint write/load ms and bytes are printed.
+   checkpoint write/load ms and bytes are printed;
+10. the pipelined facade at the production geometry, depth 1 against
+   depth 2 (``pipeline_depth``), one after the other from the same seed:
+   (a) E=4 ``"pallas_fused"`` with a state dir (an fsync per record) and
+   (b) E=1 ``"pallas_fused_tiled"``, each 7 ``handle_queries`` calls of
+   4 full rounds (creates, updates, deletes and reads by id, every
+   status checked; depth 2's last call profiled). Responses, state and (a)
+   journal bytes must be equal, and a depth-1 engine recovered from
+   (a)'s depth-2 state dir must equal the live one. From the third
+   round on, every depth-2 dispatch runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises;
+   the admission bound's exact read, the one allowed, is counted), and
+   each round records whether the round before it was still running when
+   its dispatch returned. Round wall (call / 4), ops/s, span medians and
+   the registry's phase p50s, and the profiled call's busy share.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -657,7 +671,10 @@ def profile_round(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     spans = {e.key: e.device_time_total / 1e3 for e in ev if e.key in SPANS}
-    kernels = sorted((e for e in ev if e.key not in SPANS),
+    # the facade's phase timers are record_function ranges too
+    # ("grapevine/<phase>"): ranges, not kernels
+    kernels = sorted((e for e in ev if e.key not in SPANS
+                      and not e.key.startswith("grapevine/")),
                      key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return dict(
@@ -1244,12 +1261,291 @@ def run_durability_small(GrapevineConfig, GrapevineEngine, impl: str, card) -> d
     return out
 
 
+#: phase 10: handle_queries calls a depth runs (the last one profiled
+#: where asked), each of PIPE_CHUNKS full rounds
+PIPE_CALLS, PIPE_CHUNKS = 6, 4
+PIPE_NOW = NOW + 1000
+#: the steady-state dispatch metrics phase 10 reports (its span names)
+PIPE_SPANS = ("dispatch", "journal", "evict", "demux", "flush")
+
+
+class PipeStream:
+    """Phase 10's request stream, a function of the seed and of the msg_ids
+    earlier calls created. Each round: B/8 creates (a sender each, into
+    B/8 recipients); in call 0 the rest are reads by a stranger (NOT_FOUND),
+    later B/32 updates by their senders, B/32 deletes by their recipients
+    (distinct across the call) and reads by id of live messages not
+    deleted in the call. Returns each call's requests and their expected
+    statuses; every recipient's mailbox stays far below its cap, and the
+    round's creates keep the admission bound far from the quotas."""
+
+    def __init__(self, b: int):
+        import numpy as np
+
+        self.b = b
+        self.rng = np.random.default_rng(SEED + 10)
+        self.senders = [_key("psn", i) for i in range(b)]
+        self.recips = [_key("prc", i) for i in range(b // 8)]
+        self.live: list = []  # (msg_id, sender, recipient)
+
+    def call(self, k: int):
+        from grapevine_tpu_torch.wire import constants as C
+
+        b, nrec = self.b, len(self.recips)
+        OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+        perm = [self.live[i] for i in self.rng.permutation(len(self.live))]
+        nw = b // 32
+        upd = iter(perm[:nw * PIPE_CHUNKS])
+        dele = iter(perm[nw * PIPE_CHUNKS:2 * nw * PIPE_CHUNKS])
+        keep = perm[2 * nw * PIPE_CHUNKS:]
+        reqs, want = [], []
+        for c in range(PIPE_CHUNKS):
+            rnd = k * PIPE_CHUNKS + c
+            for j in range(b):
+                if j % 8 == 0:
+                    r = self.recips[(j // 8 + rnd) % nrec]
+                    reqs.append(_req(C.REQUEST_TYPE_CREATE, self.senders[j], r,
+                                     payload=_payload(100 + rnd, j)))
+                elif k == 0:
+                    reqs.append(_req(C.REQUEST_TYPE_READ, _key("pst", 0),
+                                     mid=_key("pid", rnd * b + j)[:16]))
+                    want.append(NF)
+                    continue
+                elif j % 32 == 1:
+                    mid, snd, rcp = next(upd)
+                    reqs.append(_req(C.REQUEST_TYPE_UPDATE, snd, rcp, mid,
+                                     _payload(200 + rnd, j)))
+                elif j % 32 == 17:
+                    mid, _snd, rcp = next(dele)
+                    reqs.append(_req(C.REQUEST_TYPE_DELETE, rcp, rcp, mid))
+                else:
+                    mid, _snd, rcp = keep[int(self.rng.integers(len(keep)))]
+                    reqs.append(_req(C.REQUEST_TYPE_READ, rcp, mid=mid))
+                want.append(OK)
+        gone = set(m for m, _, _ in perm[nw * PIPE_CHUNKS:2 * nw * PIPE_CHUNKS])
+        self.live = [x for x in self.live if x[0] not in gone]
+        return reqs, want
+
+    def note(self, reqs, resp) -> None:
+        from grapevine_tpu_torch.wire import constants as C
+
+        for q, r in zip(reqs, resp):
+            if q.request_type == C.REQUEST_TYPE_CREATE:
+                self.live.append((r.record.msg_id, q.auth_identity, q.record.recipient))
+
+
+def drive_pipeline(eng, depth: int, gk, ck, profile: bool) -> dict:
+    """Phase 10 on one engine: PIPE_CALLS calls of PIPE_CHUNKS rounds
+    through ``handle_queries``, then one more (profiled if ``profile``).
+
+    Every round's ``handle_queries_async`` returns through a wrapper that
+    records whether the round dispatched before it was still running on
+    the card (its event not complete) when it returned; from the third
+    round on it runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (depth 2), so any synchronizing call in the upload, the admission
+    decision, the round, the flush or the output copies raises. The
+    admission bound's exact read is the one sync allowed there, and is
+    counted (``fallback_reads``); so are the rounds whose predecessor was
+    still running when their dispatch started. Returns the calls' wall
+    times (and the host's collections and allocations in each), the
+    steady rounds' span medians, the overlap record, the launches, the
+    response digest and the profile."""
+    import hashlib
+
+    from grapevine_tpu_torch.wire import constants as C
+
+    stream = PipeStream(eng.ecfg.batch_size)
+    pendings, overlapped, guarded, fallback_reads = [], [], [], []
+    running_at_start: list = []
+    read, dispatch = eng._read_bound_locked, eng.handle_queries_async
+    live = {"guard": depth == 2}
+
+    def counted_read():
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            fallback_reads.append(len(pendings))
+
+    def watched_dispatch(reqs, now):
+        prev = pendings[-1] if pendings else None
+        running_at_start.append(prev is not None and prev.running())
+        guard = live["guard"] and len(pendings) >= 2
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            p = dispatch(reqs, now)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        overlapped.append(prev is not None and prev.running())
+        guarded.append(guard)
+        pendings.append(p)
+        return p
+
+    eng._read_bound_locked = counted_read
+    eng.handle_queries_async = watched_dispatch
+    digest = hashlib.sha256()
+    call_s, host, prof = [], [], None
+    gc.collect()
+    _reset_launches(gk, ck)
+    for k in range(PIPE_CALLS + 1):
+        reqs, want = stream.call(k)
+
+        def run():
+            return eng.handle_queries(reqs, PIPE_NOW + k)
+
+        if k == PIPE_CALLS and profile:
+            live["guard"] = False
+            prof = profile_round(run)
+            resp = prof.pop("result")
+        else:
+            gc0, gs0, seg0 = host_counters()
+            t0 = time.perf_counter()
+            resp = run()
+            call_s.append(time.perf_counter() - t0)
+            gc1, gs1, seg1 = host_counters()
+            host.append(dict(gc_gen2=gc1 - gc0, gc_gen2_ms=(gs1 - gs0) * 1e3,
+                             cuda_segments=seg1 - seg0))
+        got = [r.status_code for r in resp]
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"phase 10 depth {depth} call {k} op {bad}: status "
+                                 f"{got[bad]}, expected {want[bad]}")
+        stream.note(reqs, resp)
+        for r in resp:
+            digest.update(r.pack())
+    launches = _launches(gk, ck)
+    del eng._read_bound_locked, eng.handle_queries_async
+    n_rounds = len(pendings)
+    if n_rounds != (PIPE_CALLS + 1) * PIPE_CHUNKS:
+        raise AssertionError(f"phase 10: {n_rounds} rounds dispatched")
+    steady = pendings[PIPE_CHUNKS:PIPE_CALLS * PIPE_CHUNKS]
+    spans = {s: [p.spans[s][1] * 1e3 for p in steady if s in p.spans] for s in PIPE_SPANS}
+    round_ms = sorted(s * 1e3 / PIPE_CHUNKS for s in call_s[1:])
+    snap = eng.metrics.snapshot()
+    b = eng.ecfg.batch_size
+    return dict(
+        depth=depth, rounds=n_rounds, calls=PIPE_CALLS + 1, chunks_per_call=PIPE_CHUNKS,
+        call_ms=[s * 1e3 for s in call_s], call_host=host,
+        median_round_ms=statistics.median(round_ms), max_round_ms=round_ms[-1],
+        ops_per_s=b * PIPE_CHUNKS * (PIPE_CALLS - 1) / sum(call_s[1:]),
+        span_median_ms={s: statistics.median(v) if v else None for s, v in spans.items()},
+        registry_p50_s={s: snap.get(f"grapevine_phase_seconds{{phase={s}}}_p50")
+                        for s in PIPE_SPANS},
+        overlapped_rounds=sum(overlapped), overlapped=overlapped,
+        prev_running_at_dispatch_start=sum(running_at_start),
+        sync_guarded_dispatches=sum(guarded),
+        sync_guarded_without_fallback=sum(g for i, g in enumerate(guarded)
+                                          if i not in fallback_reads),
+        fallback_reads=fallback_reads, flushes=eng.flushes, launches=launches,
+        profile=prof and {k: v for k, v in prof.items() if k != "top_kernels"},
+        top_kernels=prof and prof["top_kernels"][:5],
+        responses_sha256=digest.hexdigest(), statuses_checked=True,
+    )
+
+
+def _fixed_urandom(n: int) -> bytes:
+    return bytes((7 * i + 3) & 0xFF for i in range(n))
+
+
+def run_pipeline_phase(GrapevineConfig, GrapevineEngine, geo: dict, impl: str,
+                       evict_every: int, durable: bool, gk, ck, card) -> dict:
+    """Phase 10 for one configuration: the same stream at depth 1, then
+    (that engine freed, its final state kept) at depth 2; equal responses
+    and state, and with ``durable`` (an fsync per journal record, no
+    checkpoint; seal nonces and the root key fixed for the phase, so both
+    journals are the same bytes) equal journal files, and a depth-1 engine
+    recovered from the depth-2 state dir equal to the live one."""
+    import shutil
+    import tempfile
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+
+    dkw = dict(checkpoint_every_rounds=1 << 20, journal_fsync_every=1)
+    cfgs = {d: GrapevineConfig(**geo, bucket_cipher_impl=impl, evict_every=evict_every,
+                               pipeline_depth=d) for d in (1, 2)}
+    want = {"gather_decrypt_rows": 3, "scatter_encrypt_rows": 0} if impl == "pallas_fused" \
+        else {"gather_decrypt_rows_tiled": 3, "scatter_encrypt_rows_tiled": 3}
+    runs, states = {}, {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    urandom = os.urandom
+    os.urandom = _fixed_urandom
+    try:
+        for depth in (1, 2):
+            dur = (DurabilityConfig(state_dir=f"{tmp}/d{depth}", **dkw) if durable else None)
+            eng = GrapevineEngine(cfgs[depth], seed=SEED, durability=dur)
+            if eng.pipeline_depth != depth:
+                raise AssertionError(f"engine runs depth {eng.pipeline_depth}")
+            run = drive_pipeline(eng, depth, gk, ck, profile=depth == 2)
+            rounds, flushes = run["rounds"], run["flushes"]
+            expect = {k: v * rounds for k, v in want.items()}
+            if evict_every > 1:
+                expect["scatter_encrypt_rows"] = 2 * flushes
+                if flushes != rounds // evict_every:
+                    raise AssertionError(f"phase 10: {flushes} flushes in {rounds} rounds")
+            require_launches(run["launches"], expect, f"pipeline depth {depth}")
+            runs[depth] = run
+            if depth == 1:
+                states[1] = eng.state
+                if durable:
+                    eng.close()
+                del eng
+                torch.cuda.empty_cache()
+            else:
+                live = eng
+        if runs[1]["responses_sha256"] != runs[2]["responses_sha256"]:
+            raise AssertionError(f"{impl}: depth-2 responses differ from depth 1")
+        diff = states_differ(live.ecfg, states[1], live.state)
+        if diff is not None:
+            raise AssertionError(f"{impl}: depth-2 state differs from depth 1 at {diff}")
+        out = dict(bucket_cipher_impl=impl, evict_every=evict_every, durable=durable,
+                   depth1=runs[1], depth2=runs[2], responses_equal=True, state_equal=True,
+                   card=card)
+        if durable:
+            live.close()
+            files = {d: sorted(n for n in os.listdir(f"{tmp}/d{d}") if n.endswith(".wal"))
+                     for d in (1, 2)}
+            same = files[1] == files[2] and all(
+                open(f"{tmp}/d1/{n}", "rb").read() == open(f"{tmp}/d2/{n}", "rb").read()
+                for n in files[1])
+            if not same:
+                raise AssertionError(f"{impl}: depth-2 journal bytes differ from depth 1")
+            out["journal_bytes"] = sum(os.path.getsize(f"{tmp}/d2/{n}") for n in files[2])
+            shutil.copytree(f"{tmp}/d2", f"{tmp}/copy")
+            rec, replay_s = recover_timed(GrapevineEngine, cfgs[1], f"{tmp}/copy",
+                                          DurabilityConfig, dkw)
+            diff = states_differ(live.ecfg, live.state, rec.state)
+            if diff is not None:
+                raise AssertionError(f"{impl}: depth-1 recovery of the depth-2 journal "
+                                     f"differs at {diff}")
+            out.update(journal_equal=True, recovered_equal=True, replay_s=replay_s,
+                       replayed=rec.durability.replayed)
+            rec.close()
+            del rec
+    finally:
+        os.urandom = urandom
+        shutil.rmtree(tmp, ignore_errors=True)
+    del live, states
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    #: seconds each group of phases took, in order
+    phase_s: dict = {}
+
+    def split(name: str) -> None:
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+
     gc.callbacks.append(GEN2)
     from grapevine_tpu_torch.config import GrapevineConfig
     from grapevine_tpu_torch.engine import convert, expiry
@@ -1280,6 +1576,8 @@ def main() -> int:
          if k in s}
         for s in shapes if s["kernel"] in RING.values()], "card": card})
 
+    split("kernels")
+
     # phase 4: the per-round slice (B4, B6)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1297,6 +1595,8 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
+    split("per_round_slice_and_sweep")
+
     # phase 5: the delayed-eviction slice (B3, B5)
     evict = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused",
                             evict_every=EVICT_EVERY)
@@ -1306,6 +1606,8 @@ def main() -> int:
     exp4 = run_expiry_phase(eng, model, gone, gk, ck, card, "delayed-eviction slice")
     del eng
     torch.cuda.empty_cache()
+
+    split("evict_slice_and_sweep")
 
     # phase 6: the "pallas" path (B2)
     unfused = GrapevineConfig(**geo, bucket_cipher_impl="pallas")
@@ -1321,6 +1623,8 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
+    split("pallas_path")
+
     # phase 7: cross-checks at a small geometry
     xc1 = cross_check(GrapevineConfig, GrapevineEngine, convert,
                       ("pallas_fused_tiled",), 1, 5)
@@ -1328,20 +1632,37 @@ def main() -> int:
                       ("pallas", "pallas_fused", "pallas_fused_tiled"), EVICT_EVERY,
                       3 * EVICT_EVERY)
 
+    split("cross_checks")
+
     # phase 9: durability — journal-only recovery at the production
     # geometry, checkpoint + journal recovery at the small one
     dur = {"production": run_durability_prod(GrapevineEngine, evict, gk, ck, card),
            "small": [run_durability_small(GrapevineConfig, GrapevineEngine, impl, card)
                      for impl in ("pallas", "pallas_fused", "pallas_fused_tiled")]}
 
+    split("durability")
+
+    # phase 10: the pipelined facade, depth 1 against depth 2 — durable
+    # at E=4 ("pallas_fused": B3, B5), then E=1 ("pallas_fused_tiled": B4, B6)
+    pipe = [run_pipeline_phase(GrapevineConfig, GrapevineEngine, geo, "pallas_fused",
+                               EVICT_EVERY, True, gk, ck, card),
+            run_pipeline_phase(GrapevineConfig, GrapevineEngine, geo, "pallas_fused_tiled",
+                               1, False, gk, ck, card)]
+    pipe_launches = {k: sum(p["depth2"]["launches"][k] for p in pipe) for k in KERNELS}
+    split("pipeline")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (pallas_launches["cipher_rows_pallas"]
                                + exp1["launches"]["cipher_rows_pallas"]
                                + exp4["launches"]["cipher_rows_pallas"]),
-        "gather_decrypt_rows": evict_launches["gather_decrypt_rows"],
-        "gather_decrypt_rows_tiled": launches["gather_decrypt_rows_tiled"],
-        "scatter_encrypt_rows": evict_launches["scatter_encrypt_rows"],
-        "scatter_encrypt_rows_tiled": launches["scatter_encrypt_rows_tiled"],
+        "gather_decrypt_rows": (evict_launches["gather_decrypt_rows"]
+                                + pipe_launches["gather_decrypt_rows"]),
+        "gather_decrypt_rows_tiled": (launches["gather_decrypt_rows_tiled"]
+                                      + pipe_launches["gather_decrypt_rows_tiled"]),
+        "scatter_encrypt_rows": (evict_launches["scatter_encrypt_rows"]
+                                 + pipe_launches["scatter_encrypt_rows"]),
+        "scatter_encrypt_rows_tiled": (launches["scatter_encrypt_rows_tiled"]
+                                       + pipe_launches["scatter_encrypt_rows_tiled"]),
     }
     emit(slice_line)
     emit({"profile": prof, "card": card})
@@ -1351,7 +1672,9 @@ def main() -> int:
     emit({"cross_check": [xc1, xc4]})
     emit({"expiry": [exp1, exp4]})
     emit({"durability": dur})
-    emit({"wall_s": time.perf_counter() - t_start, "card": card})
+    for p in pipe:
+        emit({"pipeline": p, "card": card})
+    emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

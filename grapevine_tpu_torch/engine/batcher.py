@@ -1,21 +1,49 @@
-"""Host-side batching and the engine facade (port of the core of
+"""Host-side batching and the engine facade (port of
 ``grapevine_tpu/engine/batcher.py``).
 
 ``pack_batch``/``unpack_responses`` convert between wire records and the
-columnar batch arrays; :class:`GrapevineEngine` owns the device state and
-serves ``handle_queries`` one padded batch per engine round, serially,
-with the delayed-eviction flush every ``evict_every`` rounds, runs the
-expiry sweep (``expire``), and with a ``DurabilityConfig`` journals every
-round, flush and sweep (sealed) before the state changes, checkpoints the
-whole state on a cadence, and recovers on construction by replaying
-through the same programs (``engine/checkpoint.py``, ``engine/journal.py``).
-The async pipeline and the ``attach_*`` telemetry hooks belong to later
-slices (ROADMAP.md queue A).
+columnar batch arrays. :class:`GrapevineEngine` owns the device state and
+serves rounds through the reference's staged pipeline: a round passes
+through four stages — assemble (validate + pack, outside the lock),
+journal (sealed append + fsync, under the engine lock), dispatch (the
+round enqueued on the device, same lock hold), resolve (wait for the
+round's own outputs + demux, outside the lock). ``handle_queries_async``
+composes the first three and returns the :class:`PendingRound` whose
+``resolve()`` is stage four; ``handle_queries`` keeps up to
+``pipeline_depth`` rounds between dispatch and resolve, so with depth 2
+round k+1's pack, journal fsync and kernel issue overlap round k on the
+card. Journal order is dispatch order at every depth (both happen in one
+lock hold), so a journal written at depth 2 replays on a depth-1 engine.
+
+Dispatch makes no host synchronization on the card:
+
+- the batch goes up through one pinned staging buffer and one
+  asynchronous copy (a copy from pageable memory makes PyTorch
+  synchronize the stream, which would wait for every round in flight);
+- the round's outputs come down by asynchronous copies into pinned
+  buffers, enqueued right behind the round and followed by a CUDA event;
+  ``resolve`` waits on that event only, never on the device or the
+  stream, so a later round already dispatched keeps running and
+  ``resolve`` may run on another thread;
+- the admission branch (the reference's ``lax.cond`` on ``free_top`` and
+  ``recipients``) is decided on the host from a bound (``_admission``)
+  instead of a read of the state, whenever the bound decides it.
+
+The facade also runs the delayed-eviction flush every ``evict_every``
+rounds (in the window-closing round's lock hold), the expiry sweep
+(``expire``), and with a ``DurabilityConfig`` checkpoints on a cadence
+and recovers on construction by replaying the journal through the same
+programs (``engine/checkpoint.py``, ``engine/journal.py``). Telemetry is
+``self.metrics`` (``engine/metrics.py``) on an obs registry; the
+``attach_*`` hooks (tracer, SLO, workload, cost and leak monitors) are
+ROADMAP.md queue A item 16.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -24,10 +52,12 @@ from ..config import DurabilityConfig, GrapevineConfig
 from ..device import resolve_device
 from ..testing import faults
 from ..u32 import SENTINEL, from_numpy, to_numpy
+from ..wire import constants as C
 from ..wire.records import QueryRequest, QueryResponse, Record
 from ..wire.validate import validate_request
 from .expiry import expiry_sweep
-from .round_step import engine_flush_step, engine_round_step
+from .metrics import EngineMetrics
+from .round_step import admission_fast_ok, engine_flush_step, engine_round_step
 from .state import (
     ID_WORDS,
     KEY_WORDS,
@@ -65,9 +95,36 @@ def pack_batch(reqs: list[QueryRequest], batch_size: int, now: int) -> dict:
     }
 
 
+def upload_batch(batch: dict, device) -> tuple[dict, torch.Tensor | None]:
+    """numpy batch columns → int32 tensors on ``device``, and the host
+    buffer the copy reads.
+
+    On the card every column goes into one pinned staging buffer and up
+    by one asynchronous copy; the columns are views of the one device
+    buffer. The staging buffer is returned so the caller can keep it
+    until the copy has run (the round's ``PendingRound`` holds it; PyTorch's
+    pinned-memory cache also withholds a block from reuse until the copies
+    that read it are done). On the CPU each column is a plain copy and
+    the buffer is None."""
+    dev = torch.device(device)
+    arrs = {k: np.asarray(v, np.uint32) for k, v in batch.items()}
+    if dev.type != "cuda":
+        return {k: from_numpy(a, dev) for k, a in arrs.items()}, None
+    staging = torch.empty(sum(a.size for a in arrs.values()), dtype=torch.int32,
+                          pin_memory=True)
+    flat = staging.numpy().view(np.uint32)
+    spans, off = {}, 0
+    for k, a in arrs.items():
+        flat[off:off + a.size] = a.reshape(-1)
+        spans[k] = (off, a.size, a.shape)
+        off += a.size
+    up = staging.to(dev, non_blocking=True)
+    return {k: up[o:o + n].view(shape) for k, (o, n, shape) in spans.items()}, staging
+
+
 def batch_to_device(batch: dict, device) -> dict:
     """numpy batch columns → int32 tensors on ``device``."""
-    return {k: from_numpy(np.asarray(v, np.uint32), device) for k, v in batch.items()}
+    return upload_batch(batch, device)[0]
 
 
 def unpack_responses(resp: dict, n: int) -> list[QueryResponse]:
@@ -97,10 +154,123 @@ def unpack_responses(resp: dict, n: int) -> list[QueryResponse]:
     ]
 
 
+def _stage_to_host(outs: dict):
+    """Enqueue copies of a round's output tensors to the host behind the
+    round; returns ``(host tensors, event or None)``. On the card each
+    goes into a fresh pinned buffer by an asynchronous copy and a CUDA
+    event is recorded after the last one: the host values are valid once
+    the event has completed. On the CPU the outputs are the host values
+    (fresh tensors each round, never updated in place afterwards)."""
+    first = next(iter(outs.values()))
+    if first.device.type != "cuda":
+        return outs, None
+    host = {}
+    for k, v in outs.items():
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+class PendingRound:
+    """Handle to a dispatched-but-unresolved round; ``resolve()`` blocks
+    until the round's own outputs are on the host."""
+
+    __slots__ = ("_engine", "_host", "_done", "_staging", "_tag", "_n", "_t0",
+                 "_spans", "_enq", "_qdepth")
+
+    def __init__(self, engine, host, done, staging, tag, n, t0, spans=None):
+        self._engine = engine
+        #: the round's outputs on the host (pinned copies in flight on the
+        #: card): responses, the state's free_top and recipients, and the
+        #: transcript when asked for
+        self._host = host
+        #: CUDA event recorded after the copies (None on the CPU)
+        self._done = done
+        #: the batch's pinned staging buffer, alive until the round is done
+        self._staging = staging
+        #: the round's dispatch number (the admission bound's clock)
+        self._tag = tag
+        self._n = n
+        self._t0 = t0
+        #: {phase: (start_s, dur_s)} on the perf_counter clock
+        self._spans = spans
+        #: perf_counter enqueue time of the round's oldest op (scheduler)
+        self._enq = None
+        #: scheduler backlog at dispatch (scheduler)
+        self._qdepth = None
+
+    def set_enqueued_at(self, t_enq: float) -> None:
+        """Stamp the oldest op's enqueue time (perf_counter seconds);
+        must be called before ``resolve()``."""
+        self._enq = t_enq
+
+    def set_queue_depth(self, depth: int) -> None:
+        """Stamp the post-dispatch scheduler backlog (an aggregate of the
+        queue, never of any op in it); before ``resolve()``."""
+        self._qdepth = int(depth)
+
+    def note_span(self, name: str, start_s: float, dur_s: float) -> None:
+        """Add a collector-side span (assembly/verify) to this round's
+        ledger; before ``resolve()``."""
+        if self._spans is None:
+            self._spans = {}
+        self._spans[name] = (start_s, dur_s)
+
+    @property
+    def spans(self) -> dict:
+        """The round's span ledger (complete after ``resolve()``)."""
+        return dict(self._spans or {})
+
+    def running(self) -> bool:
+        """Whether the round's device work (through its output copies) is
+        still running; never waits. False on the CPU."""
+        return self._done is not None and not self._done.query()
+
+    def _wait(self) -> dict:
+        """Wait for this round's outputs only (its event, not the device
+        or the stream), refresh the engine's admission bound from them,
+        and return them as numpy u32 arrays."""
+        if self._done is not None:
+            self._done.synchronize()
+        out = {k: to_numpy(v) for k, v in self._host.items()}
+        self._engine._note_bound(self._tag, int(out.pop("free_top")),
+                                 int(out.pop("recipients")))
+        self._staging = None
+        return out
+
+    def resolve(self) -> list[QueryResponse]:
+        m = self._engine.metrics
+        # "evict" = the round's device work measured from the host: the
+        # wait for its own event
+        t_ev = time.perf_counter()
+        with m.time_phase("evict"):
+            host = self._wait()
+        t_dm = time.perf_counter()
+        with m.time_phase("demux"):
+            out = unpack_responses(host, self._n)
+        t_done = time.perf_counter()
+        # dispatch → results delivered; under a pipelined caller this
+        # includes the next round's dispatch (the commit latency a client
+        # observes, not device time)
+        m.record_round(self._n, self._engine.ecfg.batch_size, t_done - self._t0)
+        spans = dict(self._spans or {})
+        spans["evict"] = (t_ev, t_dm - t_ev)
+        spans["demux"] = (t_dm, t_done - t_dm)
+        # the host-observed device window (enqueue → readiness observed at
+        # resolve): an upper bound on device-busy time
+        spans["device"] = (self._t0, t_dm - self._t0)
+        r0 = min(s for s, _ in spans.values())
+        spans["round"] = (r0, t_done - r0)
+        self._spans = spans
+        return out
+
+
 class GrapevineEngine:
     """The in-process oblivious engine on one device (``device=None`` →
-    the CUDA card; raises without one). Thread-safe: rounds are
-    serialized by a lock.
+    the CUDA card; raises without one). Thread-safe: dispatches are
+    serialized by a lock; ``PendingRound.resolve`` runs outside it.
 
     With ``durability``, construction recovers whatever the state dir
     holds (newest checkpoint, then the journal tail replayed through the
@@ -114,7 +284,6 @@ class GrapevineEngine:
         self.ecfg = EngineConfig.from_config(self.config)
         self.state: EngineState = init_engine(self.ecfg, seed, self.device)
         self._lock = threading.Lock()
-        self.rounds = 0
         #: delayed eviction: the flush runs strictly every E rounds — a
         #: pure function of the round count, never of buffer contents
         self.evict_every = self.ecfg.evict_every
@@ -124,12 +293,40 @@ class GrapevineEngine:
         #: replay-time cadence audit (``_replay_record``): rounds seen
         #: since the last flush record; None until the first record
         self._replay_since: int | None = None
+        #: the most rounds kept between dispatch and resolve. Not part of
+        #: EngineConfig: a journal written at depth 2 replays on a depth-1
+        #: engine, so the checkpoint fingerprint must not cover it. Auto:
+        #: 1 on the CPU, where the device is the host and a second round in
+        #: flight overlaps nothing; 2 on the card, where the host stops
+        #: waiting for the device's tail at resolve and chip_smoke.py
+        #: phase 10 read higher ops/s at depth 2 in every depth-1/depth-2
+        #: pair on the H100 (PERF.md §6 lists every run)
+        if self.config.pipeline_depth is not None:
+            self.pipeline_depth = self.config.pipeline_depth
+        else:
+            self.pipeline_depth = 2 if self.device.type == "cuda" else 1
+        self.metrics = EngineMetrics()
+        #: last sampled per-tree eviction-buffer occupancy (health view)
+        self._ebuf_counts: dict = {}
+        #: the admission bound (``_admission``): exact (free_top,
+        #: recipients) after dispatch number ``_known[0]``, the CREATE
+        #: count of every round dispatched since, and the state's
+        #: free_top tensor the bound belongs to (a state set from outside
+        #: is a different tensor, and the next round reads instead)
+        self._bound_lock = threading.Lock()
+        self._dispatched = 0
+        self._known: tuple[int, int, int] | None = None
+        self._inflight: deque[tuple[int, int]] = deque()
+        self._bound_ref = None
         self.durability = None
         if durability is not None:
             from .checkpoint import DurabilityManager
 
-            self.durability = DurabilityManager(durability, self.ecfg, self.device)
-            self.state = self.durability.recover(self.state, self._replay_record)
+            self.durability = DurabilityManager(durability, self.ecfg, self.device,
+                                                registry=self.metrics.registry)
+            with self.metrics.time_phase("replay"):
+                self.state = self.durability.recover(self.state, self._replay_record)
+                self._read_bound_locked()  # waits for the replayed rounds
         if self.evict_every > 1:
             # the cadence counter comes FROM STATE, never from a host
             # mirror: the records tree runs one fetch round per engine
@@ -183,62 +380,218 @@ class GrapevineEngine:
             return self._flush_step(self.ecfg, state)
         return expiry_sweep(self.ecfg, state, rec.now, rec.period, rec.now_hi)
 
+    # -- the admission bound ---------------------------------------------
+
+    def _read_bound_locked(self) -> tuple[int, int]:
+        """Read the state's exact free_top and recipients (one host read,
+        which waits for every round in flight) and restart the bound
+        from them."""
+        st = self.state
+        ft, rc = torch.stack([st.free_top, st.recipients]).tolist()
+        with self._bound_lock:
+            self._known = (self._dispatched, ft, rc)
+            self._inflight.clear()
+            self._bound_ref = st.free_top
+        return ft, rc
+
+    def _admission(self, creates: int) -> bool:
+        """The round's admission branch, exactly the reference's
+        predicate ``free_top >= B and recipients + B <= max_recipients``
+        on the state the round starts from.
+
+        Bound: a round allocates at most one block and claims at most one
+        recipient per CREATE op in it; sweeps and flushes only free (and a
+        sweep restarts the bound from exact values). So from exact values
+        after dispatch number k0 and the CREATE count S of the rounds
+        dispatched since, ``free_top >= free_top_k0 - S`` and
+        ``recipients <= recipients_k0 + S``. When those bounds already
+        satisfy the predicate, the fast branch is the reference's choice
+        and the round runs with no host read. Otherwise (near saturation,
+        or no bound yet) the round reads the exact values, as the
+        reference's ``lax.cond`` would, and takes their branch.
+
+        What the bound reveals through timing: whether a round waited is a
+        threshold of public aggregates (messages and recipients, both
+        exported in ``health()``) and of the in-flight rounds' CREATE
+        counts, and it can wait only within ``S + B`` of a quota, the
+        regime where the reference's own branch already changes the
+        round's timing. The transcript and every device address are
+        unchanged."""
+        b = self.ecfg.batch_size
+        with self._bound_lock:
+            kn = self._known
+            if kn is not None and self.state.free_top is self._bound_ref:
+                pending = [c for tag, c in self._inflight if tag > kn[0]]
+                s = sum(pending)
+                if not pending or admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b):
+                    # nothing dispatched since the exact values: they ARE
+                    # the state's, and decide either branch
+                    return admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b)
+        return admission_fast_ok(self.ecfg, *self._read_bound_locked(), b)
+
+    def _note_bound(self, tag: int, free_top: int, recipients: int) -> None:
+        """A resolved round's own free_top and recipients outputs: exact
+        values after dispatch number ``tag``."""
+        with self._bound_lock:
+            if self._known is not None and tag <= self._known[0]:
+                return
+            self._known = (tag, free_top, recipients)
+            while self._inflight and self._inflight[0][0] <= tag:
+                self._inflight.popleft()
+
+    # -- the staged round pipeline -------------------------------------
+
     def handle_queries(self, reqs: list[QueryRequest], now: int) -> list[QueryResponse]:
-        """Process requests in slot order, one padded batch per round."""
-        self._validate(reqs, now)
+        """Process requests in slot order, one padded batch per round.
+
+        Atomicity is per round: the engine lock is taken per batch_size
+        chunk. Up to ``pipeline_depth`` chunks stay dispatched but
+        unresolved; responses come back in request order (rounds resolve
+        in dispatch order), and depth 1 is the serial program."""
+        for r in reqs:  # all-or-nothing: nothing commits if any is malformed
+            validate_request(r)
         out: list[QueryResponse] = []
         bs = self.ecfg.batch_size
-        for i in range(0, len(reqs), bs):
-            out.extend(self._round(reqs[i:i + bs], now)[0])
+        depth = max(1, self.pipeline_depth)
+        ledger: deque[PendingRound] = deque()
+        # resolve everything dispatched even when a dispatch or an earlier
+        # resolve raises; the FIRST exception stays the one raised
+        exc0: BaseException | None = None
+        try:
+            for i in range(0, len(reqs), bs):
+                while len(ledger) >= depth:
+                    out.extend(ledger.popleft().resolve())
+                ledger.append(self.handle_queries_async(reqs[i:i + bs], now))
+        except BaseException as exc:
+            exc0 = exc
+        while ledger:
+            try:
+                out.extend(ledger.popleft().resolve())
+            except BaseException as exc:
+                if exc0 is None:
+                    exc0 = exc
+        if exc0 is not None:
+            raise exc0
         return out
 
-    def handle_queries_with_transcript(self, reqs: list[QueryRequest], now: int):
-        """One batch; returns (responses, transcript u32[B, 2D+1])."""
-        self._validate(reqs, now)
-        if len(reqs) > self.ecfg.batch_size:
-            raise ValueError("single batch only")
-        return self._round(reqs, now)
-
-    @staticmethod
-    def _validate(reqs, now) -> None:
-        for r in reqs:  # all-or-nothing: nothing commits if any is malformed
+    def _assemble_round(self, reqs: list[QueryRequest], now: int) -> dict:
+        """Stage 1 — assemble: validate + pack the wire records into the
+        fixed-size batch (outside the lock; the one place a round's
+        requests and clock are validated)."""
+        for r in reqs:
             validate_request(r)
         if int(now) <= 0:
             raise ValueError("server clock must be positive")
+        bs = self.ecfg.batch_size
+        if len(reqs) > bs:
+            raise ValueError("async path is one round at a time")
+        return pack_batch(reqs, bs, now)
 
-    def _round(self, chunk, now):
-        """One engine round over ≤B validated requests, journaled before
-        it dispatches; the window's flush follows the E-th round once its
-        responses are unpacked, then a checkpoint when one is due."""
-        host_batch = pack_batch(chunk, self.ecfg.batch_size, now)
-        batch = batch_to_device(host_batch, self.device)
+    def _journal_round(self, batch: dict, n_real: int, spans: dict) -> None:
+        """Stage 2 — journal: sealed append + fsync barrier (per
+        ``journal_fsync_every``) BEFORE the round may dispatch, in the
+        same lock hold as stage 3, so journal order is dispatch order.
+        With a round already in flight (depth 2) the fsync overlaps it."""
+        if self.durability is not None:
+            t_j0 = time.perf_counter()
+            self.durability.append_round(batch, n_real)
+            j_s = time.perf_counter() - t_j0
+            self.metrics.observe_phase("journal", j_s)
+            spans["journal"] = (t_j0, j_s)
+        if faults.active():
+            # the pipelined crash window: this round is durable but not
+            # dispatched, while the previous one may still be running
+            faults.crash("round.pre_dispatch")
+
+    def _dispatch_round(self, batch: dict, n_real: int, spans: dict,
+                        transcript: bool = False) -> PendingRound:
+        """Stage 3 — dispatch: upload the batch, enqueue the round and
+        chain ``self.state`` onto its output, then enqueue the copies of
+        the round's outputs to the host and the event ``resolve`` waits
+        on. Returns at enqueue; the caller holds the lock."""
+        t0 = time.perf_counter()
+        dev_batch, staging = upload_batch(batch, self.device)
+        creates = int(np.count_nonzero(batch["req_type"] == C.REQUEST_TYPE_CREATE))
+        fast_ok = self._admission(creates)
+        self.state, resp, tr = engine_round_step(self.ecfg, self.state, dev_batch,
+                                                 fast_ok=fast_ok)
+        with self._bound_lock:
+            self._dispatched += 1
+            self._inflight.append((self._dispatched, creates))
+            self._bound_ref = self.state.free_top
+        outs = dict(resp, free_top=self.state.free_top, recipients=self.state.recipients)
+        if transcript:
+            outs["transcript"] = tr
+        host, done = _stage_to_host(outs)
+        return PendingRound(self, host, done, staging, self._dispatched, n_real, t0,
+                            spans=spans)
+
+    def handle_queries_async(self, reqs: list[QueryRequest], now: int) -> PendingRound:
+        """Dispatch one round without waiting for the device.
+
+        Stages 1-3 (assemble → journal + fsync → dispatch); the returned
+        handle's ``resolve()`` is stage 4. The window's flush and a due
+        checkpoint run in the same lock hold; their spans land on this
+        (the window-closing) round."""
+        batch = self._assemble_round(reqs, now)
         with self._lock:
-            if self.durability is not None:
-                self.durability.append_round(host_batch, len(chunk))
-            if faults.active():
-                faults.crash("round.pre_dispatch")
-            self.state, resp, transcript = engine_round_step(self.ecfg, self.state, batch)
+            t_d0 = time.perf_counter()
+            spans: dict = {}
+            # "dispatch" spans the journal barrier (append-before-dispatch
+            # is the crash-safety contract) and the round's enqueue; the
+            # device round itself lands in "evict" at resolve
+            with self.metrics.time_phase("dispatch"):
+                self._journal_round(batch, len(reqs), spans)
+                pending = self._dispatch_round(batch, len(reqs), spans)
             if faults.active():
                 faults.crash("round.post_dispatch")
-            self.rounds += 1
-            out = unpack_responses(resp, len(chunk)), to_numpy(transcript)
-            self._flush_window_locked(count_round=True)
-            self._checkpoint_if_due_locked()
-        return out
+            t_f0 = time.perf_counter()
+            if self._flush_window_locked(count_round=True):
+                spans["flush"] = (t_f0, time.perf_counter() - t_f0)
+            if self.durability is not None and self.durability.should_checkpoint():
+                # a pipeline barrier: state_to_bytes waits for every
+                # dispatched round, so the sealed state is exactly the
+                # journal's seq
+                t_c0 = time.perf_counter()
+                with self.metrics.time_phase("checkpoint"):
+                    self.durability.checkpoint(self.state)
+                spans["checkpoint"] = (t_c0, time.perf_counter() - t_c0)
+            spans["dispatch"] = (t_d0, time.perf_counter() - t_d0)
+        return pending
 
-    def _checkpoint_if_due_locked(self) -> None:
-        if self.durability is not None and self.durability.should_checkpoint():
-            self.durability.checkpoint(self.state)
+    def handle_queries_with_transcript(self, reqs: list[QueryRequest], now: int):
+        """One batch; returns (responses, transcript u32[B, 2D+1]).
+
+        As the reference's test/bench variant: the requests are validated
+        but not the clock, the round is journaled and dispatched and the
+        window's flush follows, and it runs no checkpoint cadence and
+        records no round metrics."""
+        for r in reqs:
+            validate_request(r)
+        bs = self.ecfg.batch_size
+        if len(reqs) > bs:
+            raise ValueError("single batch only")
+        batch = pack_batch(reqs, bs, now)
+        with self._lock:
+            self._journal_round(batch, len(reqs), {})
+            pending = self._dispatch_round(batch, len(reqs), {}, transcript=True)
+            self._flush_window_locked(count_round=True)
+        host = pending._wait()
+        return unpack_responses(host, len(reqs)), host["transcript"]
+
+    # -- delayed eviction -----------------------------------------------
 
     def _flush_window_locked(self, count_round: bool = False, min_rounds: int = 1) -> bool:
-        """Journal, then run, one flush when the window is due; the caller
-        holds the lock.
+        """Journal, then dispatch, one flush when the window is due; the
+        caller holds the lock.
 
         ``count_round=True`` counts one round first and flushes only when
         the window closes (the steady-state cadence); ``False`` flushes
         when at least ``min_rounds`` rounds are buffered (``flush_now``
-        passes 1, recovery completion ``evict_every``). Returns whether
-        it flushed."""
+        passes 1, recovery completion ``evict_every``). The flush rides the
+        device queue behind the window's last round (the ``flush`` phase
+        is its enqueue; its device time lands in the next wait). Returns
+        whether it flushed."""
         if self._flush_step is None:
             return False
         if count_round:
@@ -247,10 +600,13 @@ class GrapevineEngine:
         if self._rounds_since_flush < due:
             return False
         if self.durability is not None:
-            self.durability.append_flush()
+            with self.metrics.time_phase("journal"):
+                self.durability.append_flush()
         if faults.active():
             faults.crash("flush.pre_dispatch")
-        self.state = self._flush_step(self.ecfg, self.state)
+        with self.metrics.time_phase("flush"):
+            self.state = self._flush_step(self.ecfg, self.state)
+        self.metrics.record_flush()
         if faults.active():
             faults.crash("flush.post_dispatch")
         self.flushes += 1
@@ -264,13 +620,26 @@ class GrapevineEngine:
         with self._lock:
             return self._flush_window_locked()
 
+    def flush_bubble_pending(self) -> bool:
+        """True between a flush dispatch and the next round dispatch (and
+        at engine start): the next collection window overlaps the flush's
+        device time. A pure function of the cadence counter, itself a pure
+        function of the round count. Benign unlocked int read."""
+        return self._flush_step is not None and self._rounds_since_flush == 0
+
+    # -- sweep, checkpoints, close ---------------------------------------
+
     def expire(self, now: int, period: int | None = None) -> int:
         """Run the expiry sweep (journaled first); returns the number of
         records evicted. ``period`` defaults to the config's
-        ``expiry_period``; 0 disables."""
+        ``expiry_period``; 0 or less disables; 2^32 or more raises
+        ``OverflowError`` before anything changes (the reference's u32
+        conversion raises)."""
         period = self.config.expiry_period if period is None else int(period)
         if period <= 0:
             return 0
+        if period >= 1 << 32:
+            raise OverflowError(f"expiry period {period} does not fit in a u32 lane")
         lo, hi = int(now) & 0xFFFFFFFF, (int(now) >> 32) & 0xFFFFFFFF
         with self._lock:
             before = int(self.state.free_top)
@@ -278,10 +647,15 @@ class GrapevineEngine:
                 # journal before mutate, as rounds: a crash between the
                 # append and the sweep replays the sweep
                 self.durability.append_sweep(lo, hi, period)
-            self.state = expiry_sweep(self.ecfg, self.state, lo, period, hi)
-            evicted = int(self.state.free_top) - before
-            # sweeps count toward the checkpoint cadence like rounds
-            self._checkpoint_if_due_locked()
+            with self.metrics.time_phase("sweep"):
+                self.state = expiry_sweep(self.ecfg, self.state, lo, period, hi)
+                free_top, _ = self._read_bound_locked()
+            evicted = free_top - before
+            self.metrics.record_sweep(evicted)
+            if self.durability is not None and self.durability.should_checkpoint():
+                # sweeps count toward the checkpoint cadence like rounds
+                with self.metrics.time_phase("checkpoint"):
+                    self.durability.checkpoint(self.state)
             return evicted
 
     def checkpoint_now(self) -> int | None:
@@ -290,7 +664,8 @@ class GrapevineEngine:
         if self.durability is None:
             return None
         with self._lock:
-            return self.durability.checkpoint(self.state)
+            with self.metrics.time_phase("checkpoint"):
+                return self.durability.checkpoint(self.state)
 
     def close(self) -> None:
         """Sync and close the durability store (if any)."""
@@ -298,41 +673,53 @@ class GrapevineEngine:
             with self._lock:
                 self.durability.close()
 
+    # -- metrics (never keyed by client identity) ------------------------
+
     def message_count(self) -> int:
         return self.ecfg.max_messages - int(self.state.free_top)
 
     def recipient_count(self) -> int:
         return int(self.state.recipients)
 
+    def sample_stash(self) -> dict:
+        """Sample both trees' stash occupancy into the metrics gauges (and,
+        under delayed eviction, the eviction buffers'); returns the
+        per-tree stash counts. Scrape cadence, not per round: a device
+        reduction every round would serialize the pipeline for a gauge
+        read only between scrapes (``MetricsServer``'s pre-scrape hook)."""
+        with self._lock:
+            trees = {"rec": self.state.rec, "mb": self.state.mb}
+            counts = {n: int((t.stash_idx != SENTINEL).sum()) for n, t in trees.items()}
+            ebuf = ({n: int((t.ebuf_idx != SENTINEL).sum()) for n, t in trees.items()}
+                    if self.evict_every > 1 else {})
+            self._ebuf_counts = ebuf
+        for n in counts.values():
+            self.metrics.observe_stash(n)
+        if ebuf:
+            self.metrics.observe_evict_buffer(sum(ebuf.values()))
+        return counts
+
     def health(self) -> dict:
-        """Aggregate state counters (never per-client). Under delayed
-        eviction also each tree's buffer occupancy against its capacity
-        (buffer overflow rides ``stash_overflow``) and the window
-        position."""
+        """Aggregate state + batch-level counters (never per-client): the
+        reference's keys, and ``durability`` (the durability manager's
+        status) when a state dir is configured."""
+        occupancy = self.sample_stash()
         with self._lock:
             st = self.state
             out = {
                 "messages": self.ecfg.max_messages - int(st.free_top),
                 "recipients": int(st.recipients),
                 "stash_overflow": int(st.rec.overflow) + int(st.mb.overflow),
-                "stash_occupancy": {
-                    "rec": int((st.rec.stash_idx != SENTINEL).sum()),
-                    "mb": int((st.mb.stash_idx != SENTINEL).sum()),
-                },
-                "rounds": self.rounds,
-                "device": str(self.device),
+                "stash_occupancy": occupancy,
+                **self.metrics.snapshot(),
             }
             if self.evict_every > 1:
-                out["evict_buffer_occupancy"] = {
-                    "rec": int((st.rec.ebuf_idx != SENTINEL).sum()),
-                    "mb": int((st.mb.ebuf_idx != SENTINEL).sum()),
-                }
+                out["evict_buffer_occupancy"] = dict(self._ebuf_counts)
                 out["evict_buffer_slots"] = {
                     "rec": self.ecfg.rec.evict_buffer_slots,
                     "mb": self.ecfg.mb.evict_buffer_slots,
                 }
                 out["evict_rounds_since_flush"] = self._rounds_since_flush
-                out["evict_flushes"] = self.flushes
             if self.durability is not None:
                 out["durability"] = self.durability.status()
             return out

@@ -43,6 +43,7 @@ import json
 import os
 import re
 import struct
+import time
 
 import numpy as np
 import torch
@@ -429,9 +430,13 @@ class DurabilityManager:
 
     One per engine, driven from ``GrapevineEngine`` under the engine lock
     (appends and checkpoints are serialized with rounds by construction).
-    Loaded checkpoints land on ``device`` (``None`` → the CUDA card)."""
+    Loaded checkpoints land on ``device`` (``None`` → the CUDA card).
+    With a ``registry`` it exports the reference's eight durability
+    series (batch-level only: sequence numbers, counts and durations,
+    never content)."""
 
-    def __init__(self, dcfg: DurabilityConfig, ecfg: EngineConfig, device=None):
+    def __init__(self, dcfg: DurabilityConfig, ecfg: EngineConfig, device=None,
+                 registry=None):
         from .journal import BatchJournal
 
         self.dcfg = dcfg
@@ -440,13 +445,53 @@ class DurabilityManager:
         os.makedirs(dcfg.state_dir, exist_ok=True)
         key_path = dcfg.seal_key_file or os.path.join(dcfg.state_dir, "root.key")
         self.root_key = load_or_create_root_key(key_path)
+        self._c_records = self._c_fsyncs = self._c_ckpts = None
+        self._g_durable = self._g_ckpt = self._g_replayed = None
+        self._g_recovery_s = self._g_applied = None
+        if registry is not None:
+            self._c_records = registry.counter(
+                "grapevine_journal_records_total",
+                "batches + sweeps appended to the sealed journal")
+            self._c_fsyncs = registry.counter(
+                "grapevine_journal_fsyncs_total",
+                "journal fsync barriers issued")
+            self._c_ckpts = registry.counter(
+                "grapevine_checkpoints_total",
+                "sealed whole-state checkpoints written")
+            self._g_durable = registry.gauge(
+                "grapevine_last_durable_seq",
+                "highest journal sequence fsynced to disk")
+            self._g_ckpt = registry.gauge(
+                "grapevine_last_checkpoint_seq",
+                "journal sequence of the newest sealed checkpoint")
+            self._g_replayed = registry.gauge(
+                "grapevine_recovery_replayed_records",
+                "journal records replayed during the last recovery")
+            self._g_recovery_s = registry.gauge(
+                "grapevine_recovery_seconds",
+                "wall time of the last startup recovery")
+            self._g_applied = registry.gauge(
+                "grapevine_journal_applied_seq",
+                "highest journal sequence applied to engine state (on "
+                "the primary this tracks journal_seq; on a follower "
+                "replaying shipped journal frames it is the replication "
+                "frontier — the fleet aggregator derives "
+                "grapevine_fleet_journal_lag_seq from it; ROADMAP "
+                "item 4, OPERATIONS.md §20)")
         self.journal = BatchJournal(dcfg.state_dir, self.root_key, ecfg,
-                                    fsync_every=dcfg.journal_fsync_every)
+                                    fsync_every=dcfg.journal_fsync_every,
+                                    on_fsync=self._note_fsync)
         self.ckpt_seq = 0  # journal seq covered by the newest checkpoint
         #: highest journal seq applied to engine state
         self.applied_seq = 0
         self.replayed = 0
         self.recovered_from_checkpoint = False
+
+    # journal callback: runs under the engine lock with the append
+    def _note_fsync(self, durable_seq: int) -> None:
+        if self._c_fsyncs is not None:
+            self._c_fsyncs.inc()
+            self._g_durable.set(durable_seq)
 
     # -- recovery -------------------------------------------------------
 
@@ -457,6 +502,7 @@ class DurabilityManager:
         the next state (the engine's round/flush/sweep). Corrupt
         checkpoints and mid-journal corruption raise; only a torn *tail*
         frame (the crash-mid-append case) is discarded."""
+        t0 = time.monotonic()
         state = init_state
         latest = find_latest_checkpoint(self.dcfg.state_dir)
         if latest is not None:
@@ -471,12 +517,18 @@ class DurabilityManager:
             self.ckpt_seq = seq
             self.recovered_from_checkpoint = True
         self.replayed = 0
-        self.applied_seq = self.ckpt_seq
+        self.note_applied_seq(self.ckpt_seq)
         for rec in self.journal.replay(after_seq=self.ckpt_seq):
             state = apply_fn(state, rec)
             self.replayed += 1
-            self.applied_seq = self.journal.seq
+            self.note_applied_seq(self.journal.seq)
+            if self._g_replayed is not None:
+                self._g_replayed.set(self.replayed)
         self.journal.open_for_append()
+        if self._g_ckpt is not None:
+            self._g_ckpt.set(self.ckpt_seq)
+            self._g_durable.set(self.journal.seq)
+            self._g_recovery_s.set(round(time.monotonic() - t0, 6))
         return state
 
     # -- steady state ---------------------------------------------------
@@ -485,19 +537,29 @@ class DurabilityManager:
     def seq(self) -> int:
         return self.journal.seq
 
+    def note_applied_seq(self, seq: int) -> None:
+        """Record that engine state now reflects journal records up to
+        ``seq`` (the append path calls it on the primary)."""
+        self.applied_seq = seq
+        if self._g_applied is not None:
+            self._g_applied.set(seq)
+
+    def _appended(self, seq: int) -> int:
+        if self._c_records is not None:
+            self._c_records.inc()
+        self.note_applied_seq(seq)
+        return seq
+
     def append_round(self, batch: dict, n_real: int) -> int:
-        self.applied_seq = self.journal.append_round(batch, n_real)
-        return self.applied_seq
+        return self._appended(self.journal.append_round(batch, n_real))
 
     def append_sweep(self, now: int, now_hi: int, period: int) -> int:
-        self.applied_seq = self.journal.append_sweep(now, now_hi, period)
-        return self.applied_seq
+        return self._appended(self.journal.append_sweep(now, now_hi, period))
 
     def append_flush(self) -> int:
         """Delayed-eviction flush marker (``journal.KIND_FLUSH``); counts
         toward the checkpoint cadence like rounds and sweeps."""
-        self.applied_seq = self.journal.append_flush()
-        return self.applied_seq
+        return self._appended(self.journal.append_flush())
 
     def should_checkpoint(self) -> bool:
         return self.journal.seq - self.ckpt_seq >= self.dcfg.checkpoint_every_rounds
@@ -517,6 +579,9 @@ class DurabilityManager:
         self.recovered_from_checkpoint = True
         self.journal.roll()
         prune_checkpoints(self.dcfg.state_dir, seq)
+        if self._c_ckpts is not None:
+            self._c_ckpts.inc()
+            self._g_ckpt.set(seq)
         return seq
 
     def status(self) -> dict:

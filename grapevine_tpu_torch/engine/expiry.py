@@ -133,6 +133,10 @@ def expiry_sweep(ecfg: EngineConfig, state: EngineState, now, period,
     dev = state.free_top.device
 
     def lane(x):
+        if not isinstance(x, torch.Tensor) and not 0 <= int(x) < 1 << 32:
+            # the reference's U32(x) raises here too; wrapping would sweep
+            # with another clock or period
+            raise OverflowError(f"{int(x)} does not fit in a u32 lane")
         return torch.as_tensor(c32(int(x)), dtype=I32, device=dev)
 
     now, now_hi, period = lane(now), lane(now_hi), lane(period)

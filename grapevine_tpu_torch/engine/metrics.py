@@ -1,0 +1,238 @@
+"""Batch-level engine metrics (a copy of ``grapevine_tpu/engine/metrics.py``,
+which imports no JAX: the same series, help strings, labels, buckets and
+``snapshot()`` keys).
+
+The obliviousness requirement constrains telemetry: nothing here is
+keyed by client identity or op type — per-op timing/type breakdowns
+would themselves be the side channel the engine exists to close
+(reference grapevine.proto:120-122). What IS safe to export, and what
+operators need (the reference's `mc-common` logging analog):
+
+- round counters: rounds run, real ops, padded slots → batch occupancy;
+- round latency: a fixed-size ring of recent wall times → p50/p99
+  (BASELINE.json tracks p99 access latency as a first-class metric);
+- per-phase round timing (assembly/verify/dispatch/evict/demux/sweep)
+  as fixed-bucket histograms — every phase covers the whole fixed-size
+  round, so durations are functions of (capacity, batch size), never of
+  the ops inside (obs/phases.py);
+- scheduler/queue health: depth, high-water, under-full rounds,
+  collector stalls;
+- expiry sweeps run and records evicted;
+- auth: batch verifications, failed signatures (counts only);
+- stash pressure: sampled occupancy high-water mark per tree (polled at
+  ``snapshot()`` — a per-round device reduction would stall the
+  dispatch pipeline for a gauge nobody reads between scrapes).
+
+All of it lives in an obs.TelemetryRegistry whose label allowlist makes
+a per-client/per-op series a registration-time error, and which the
+leak audit (tools/check_telemetry_policy.py) re-checks in tier-1.
+
+Thread-safety: the ring is guarded by this module's own lock, registry
+samples by per-child locks, and every recording entry point may be
+called from any thread — `record_round` in particular runs from
+`PendingRound.resolve()` outside the engine lock (the pipelined
+scheduler resolves a round after dispatching the next one). Do not
+weaken the internal locks based on who currently calls what.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+
+from ..obs.phases import PHASE_BUCKETS, PHASES, STASH_BUCKETS, phase_timer
+from ..obs.registry import TelemetryRegistry
+
+
+class EngineMetrics:
+    """Monotonic counters + a latency ring on a TelemetryRegistry;
+    `snapshot()` is the merged flat export, the registry the scrapable
+    one (obs/exporter.py)."""
+
+    def __init__(self, ring_size: int = 1024, registry: TelemetryRegistry | None = None):
+        self._lock = threading.Lock()
+        self._ring = np.zeros((ring_size,), np.float64)
+        self._ring_n = 0  # total rounds ever recorded
+        self._last_round_mono: float | None = None
+        r = self.registry = registry or TelemetryRegistry()
+        self._c_rounds = r.counter(
+            "grapevine_rounds_total", "oblivious rounds committed")
+        self._c_real = r.counter(
+            "grapevine_real_ops_total", "real (non-padding) ops committed")
+        self._c_padded = r.counter(
+            "grapevine_padded_slots_total", "dummy-padded slots committed")
+        self._c_underfull = r.counter(
+            "grapevine_underfull_rounds_total",
+            "rounds dispatched with fewer real ops than batch_size")
+        self._c_sweeps = r.counter(
+            "grapevine_expiry_sweeps_total", "expiry sweeps run")
+        self._c_evicted = r.counter(
+            "grapevine_expired_records_total", "records evicted by expiry")
+        self._c_flushes = r.counter(
+            "grapevine_evict_flushes_total",
+            "delayed-eviction window flushes dispatched (cadence is a "
+            "pure function of the round counter — the fleet uniformity "
+            "monitor compares flush phase across shards)")
+        self._c_verifies = r.counter(
+            "grapevine_batch_verifies_total",
+            "round-level batched signature verifications")
+        self._c_authfail = r.counter(
+            "grapevine_auth_failures_total",
+            "challenge signatures that failed verification (count only)")
+        self._c_stalls = r.counter(
+            "grapevine_collector_stalls_total",
+            "collection windows that hit the max_wait cap before filling")
+        self._c_worker_crash = r.counter(
+            "grapevine_worker_crash_total",
+            "scheduler collector thread deaths (crashes, not clean close)")
+        self._g_occupancy = r.gauge(
+            "grapevine_batch_occupancy",
+            "real ops / batch slots of the last committed round")
+        self._g_qdepth = r.gauge(
+            "grapevine_queue_depth", "ops waiting in the scheduler queue")
+        self._g_qdepth_hw = r.gauge(
+            "grapevine_queue_depth_high_water",
+            "max scheduler queue depth observed")
+        self._g_stash_hw = r.gauge(
+            "grapevine_stash_high_water",
+            "max sampled ORAM stash occupancy (must stay far below "
+            "stash_size; overflow means the eviction invariant broke)")
+        self._g_ebuf = r.gauge(
+            "grapevine_evict_buffer_occupancy",
+            "sampled delayed-eviction buffer occupancy, summed over "
+            "trees (rows; batch-level — the buffer holds whole fetched "
+            "paths, never per-client state); 0 with evict_every=1")
+        self._g_ebuf_hw = r.gauge(
+            "grapevine_evict_buffer_high_water",
+            "max sampled delayed-eviction buffer occupancy (the "
+            "near-overflow canary: approaching evict_buffer_slots "
+            "means the window is undersized — OPERATIONS.md §19)")
+        self._h_phase = r.histogram(
+            "grapevine_phase_seconds",
+            "wall time per round phase (batch-level; obs/phases.py)",
+            buckets=PHASE_BUCKETS, labels={"phase": PHASES})
+        self._h_round = r.histogram(
+            "grapevine_round_seconds",
+            "dispatch-to-delivery commit latency per round",
+            buckets=PHASE_BUCKETS)
+        self._h_stash = r.histogram(
+            "grapevine_stash_occupancy",
+            "sampled stash occupancy (entries)", buckets=STASH_BUCKETS)
+
+    # -- recording ------------------------------------------------------
+
+    def record_round(self, n_real: int, batch_size: int, seconds: float) -> None:
+        with self._lock:
+            self._ring[self._ring_n % self._ring.size] = seconds
+            self._ring_n += 1
+            self._last_round_mono = time.monotonic()
+        self._c_rounds.inc()
+        self._c_real.inc(n_real)
+        self._c_padded.inc(batch_size - n_real)
+        if n_real < batch_size:
+            self._c_underfull.inc()
+        self._g_occupancy.set(n_real / batch_size if batch_size else 0.0)
+        self._h_round.observe(seconds)
+
+    def record_sweep(self, evicted: int) -> None:
+        self._c_sweeps.inc()
+        self._c_evicted.inc(evicted)
+
+    def record_flush(self) -> None:
+        self._c_flushes.inc()
+
+    def record_auth(self, failures: int = 0) -> None:
+        self._c_verifies.inc()
+        if failures:
+            self._c_authfail.inc(failures)
+
+    def observe_stash(self, occupancy: int) -> None:
+        self._g_stash_hw.set_max(occupancy)
+        self._h_stash.observe(occupancy)
+
+    def observe_evict_buffer(self, occupancy: int) -> None:
+        """Sampled delayed-eviction buffer occupancy (rows, summed over
+        trees) — scrape-cadence like the stash gauge, never per round."""
+        self._g_ebuf.set(occupancy)
+        self._g_ebuf_hw.set_max(occupancy)
+
+    def observe_phase(self, phase: str, seconds: float) -> None:
+        self._h_phase.observe(seconds, phase=phase)
+
+    def time_phase(self, phase: str):
+        """Context manager timing one host-side phase (+ profiler span)."""
+        return phase_timer(self._h_phase, phase)
+
+    def observe_queue_depth(self, depth: int) -> None:
+        self._g_qdepth.set(depth)
+        self._g_qdepth_hw.set_max(depth)
+
+    def record_stall(self) -> None:
+        self._c_stalls.inc()
+
+    def record_worker_crash(self) -> None:
+        self._c_worker_crash.inc()
+
+    # -- health probes --------------------------------------------------
+
+    def last_round_age(self) -> float | None:
+        """Seconds since the last committed round; None before the first.
+        Lock-free read path on purpose: healthz must answer while a
+        wedged recorder holds the ring lock."""
+        t = self._last_round_mono
+        return None if t is None else time.monotonic() - t
+
+    # -- compat counter views (legacy attribute names) ------------------
+
+    @property
+    def real_ops(self) -> int:
+        return int(self._c_real.get())
+
+    @property
+    def padded_slots(self) -> int:
+        return int(self._c_padded.get())
+
+    @property
+    def stash_high_water(self) -> int:
+        return int(self._g_stash_hw.get())
+
+    # -- export ---------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            rounds = self._ring_n
+            # ring slice is valid both pre-wrap (first `rounds` cells)
+            # and post-wrap (the whole ring holds the last ring_size)
+            lat = np.sort(self._ring[: min(rounds, self._ring.size)])
+        real = int(self._c_real.get())
+        slots = real + int(self._c_padded.get())
+        out = {
+            "rounds": rounds,
+            "real_ops": real,
+            "batch_occupancy": (real / slots) if slots else 0.0,
+            "sweeps": int(self._c_sweeps.get()),
+            "evicted": int(self._c_evicted.get()),
+            "batch_verifies": int(self._c_verifies.get()),
+            "auth_failures": int(self._c_authfail.get()),
+            "stash_high_water": int(self._g_stash_hw.get()),
+            "underfull_rounds": int(self._c_underfull.get()),
+            "collector_stalls": int(self._c_stalls.get()),
+            "queue_depth": int(self._g_qdepth.get()),
+            "queue_depth_high_water": int(self._g_qdepth_hw.get()),
+        }
+        if len(lat):
+            # method="higher" (a real order statistic, never below a
+            # sample): linear interpolation over a small ring
+            # under-reports p99 — at 20 rounds it averaged the 19th and
+            # 20th samples instead of reporting the 20th
+            out["round_ms_p50"] = round(
+                float(np.percentile(lat, 50, method="higher")) * 1e3, 3)
+            out["round_ms_p99"] = round(
+                float(np.percentile(lat, 99, method="higher")) * 1e3, 3)
+        # the merged registry view (phase histograms, gauges): one flat
+        # dict so loopback health readers see engine + scheduler + ORAM
+        # telemetry without a second endpoint (server/service.py)
+        out.update(self.registry.snapshot())
+        return out

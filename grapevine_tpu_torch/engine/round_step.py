@@ -59,15 +59,29 @@ def round_draws(ecfg: EngineConfig, gen: torch.Generator, b: int, device) -> Rou
                       random_u32(gen, (b, 3), device))
 
 
+def admission_fast_ok(ecfg: EngineConfig, free_top: int, recipients: int, b: int) -> bool:
+    """The reference's admission predicate on exact host values: the
+    vectorized branch needs B free blocks and room for B new recipients
+    (``grapevine_tpu/engine/vphases.py:629-631``)."""
+    return free_top >= b and recipients + b <= ecfg.max_recipients
+
+
 def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
-                      draws: RoundDraws | None = None):
+                      draws: RoundDraws | None = None, fast_ok: bool | None = None):
     """Process one batch as three phase-major ORAM rounds.
 
     ``batch``: int32 tensors ``req_type[B]``, ``auth[B,8]``,
     ``msg_id[B,4]``, ``recipient[B,8]``, ``payload[B,234]`` and 0-dim
     ``now``/``now_hi`` (u64 clock lanes). Returns ``(state', responses,
     transcripts int32[B, 2D+1])``. The input ``state``'s tree tensors are
-    updated in place (consumed, like a donated buffer)."""
+    updated in place (consumed, like a donated buffer).
+
+    ``fast_ok`` is the quota admission branch, the reference's ``lax.cond``
+    predicate ``free_top >= B and recipients + B <= max_recipients`` on the
+    input state. ``None`` reads it from the state (a host read, which
+    waits for every round still running); the facade passes the value
+    when its host-side bound already decides it (``engine/batcher.py``),
+    and a caller that passes it must pass exactly that predicate."""
     rt = batch["req_type"]
     b = rt.shape[0]
     dev = rt.device
@@ -102,10 +116,10 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     cand_pos = torch.where(ks < state.free_top, (state.free_top + mm_mask - ks) & mm_mask, 0)
     cand_idx = state.freelist[cand_pos.long()]
 
-    # quota admission branch: a host read of public aggregates (one sync)
-    fast_ok = bool(
-        (state.free_top >= b) & (state.recipients + b <= ecfg.max_recipients)
-    )
+    if fast_ok is None:
+        # quota admission branch: a host read of public aggregates (one sync)
+        fast_ok = admission_fast_ok(
+            ecfg, *torch.stack([state.free_top, state.recipients]).tolist(), b)
 
     # ---- round A: mailbox (capacity, append, zero-id select/pop) ------
     ctx = {

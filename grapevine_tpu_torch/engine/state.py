@@ -148,8 +148,6 @@ def _refuse_unported(cfg: GrapevineConfig) -> None:
         todo.append("sort_impl='radix' (ROADMAP.md queue A item 12)")
     if cfg.vphases_impl not in (None, "dense"):
         todo.append("vphases_impl='scan' (ROADMAP.md queue A item 7, _SortedGroups)")
-    if cfg.pipeline_depth not in (None, 1):
-        todo.append("pipeline_depth=2 (ROADMAP.md queue A item 8, pipelining)")
     if todo:
         raise NotImplementedError(
             "not ported to the PyTorch engine yet: " + "; ".join(todo)

@@ -1,0 +1,411 @@
+"""Central telemetry registry with a structural leak policy (a copy of
+``grapevine_tpu/obs/registry.py``, which imports no JAX).
+
+Obliviousness makes telemetry a part of the attack surface (reference
+grapevine.proto:120-122): a metric keyed by client identity, message id,
+or operation type IS the side channel — a scrape endpoint exporting
+``round_seconds{op_type="delete"}`` leaks what the constant-shape device
+round was built to hide. The registry therefore rejects dangerous
+series *at registration time* instead of trusting call sites:
+
+- label **keys** must come from :data:`ALLOWED_LABEL_KEYS` (batch-level
+  dimensions only); anything else — and in particular anything in
+  :data:`FORBIDDEN_LABEL_KEYS` — raises :class:`TelemetryLeakError`;
+- label **values** are declared at registration and children are
+  instantiated eagerly; ``labels()`` with an undeclared value raises.
+  Dynamic label values are how identities leak into label sets (a
+  "safe" key like ``phase`` with a session token as its value), so the
+  cardinality of every series is fixed before the first sample;
+- histogram **bucket boundaries** are fixed at registration — a
+  data-dependent bucket layout would itself be a signal.
+
+``audit()`` re-checks the invariants over the full registry (the
+telemetry analog of testing/leakcheck.py's transcript detectors) and is
+run by tools/check_telemetry_policy.py and a tier-1 test, so a metric
+sneaking past the allowlist fails CI, not a security review.
+
+Thread-safety: one lock per registry guards registration and the metric
+maps; each sample mutation takes the same lock (samples are a few dict
+and float ops — uncontended in practice next to the device round).
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import re
+import threading
+
+#: Batch-level label dimensions that cannot identify a client, message,
+#: or operation. Everything else is rejected at registration.
+ALLOWED_LABEL_KEYS = frozenset({
+    "phase",   # round phase name (assembly/verify/dispatch/...)
+    "tree",    # which ORAM ("rec" / "mb") — structural, not data
+    "role",    # serving role ("mono" / "engine" / "frontend")
+    "result",  # coarse outcome bucket ("ok" / "error")
+    "shard",   # fleet shard index — declared small-integer topology
+               # positions only (obs/fleet.py); never a member name,
+               # address, or anything derived from traffic
+    "worker",  # hostpipe worker-pool index — a config-declared position
+               # (0..W-1, server/hostpipe.py), same integer-only rule as
+               # shard. A worker index is NOT a channel identity: many
+               # channels hash onto one worker and the mapping is the
+               # public sticky-routing function, but a channel_id (or
+               # anything derived from one) as a label VALUE is still
+               # rejected by the declared-values rule
+})
+
+#: Known-dangerous keys, named so the registration error can say *why*.
+#: The allowlist is what enforces safety; this set exists to turn "not
+#: allowlisted" into "this is the side channel" for the obvious cases.
+FORBIDDEN_LABEL_KEYS = frozenset({
+    "client", "client_id", "session", "session_id", "channel",
+    "channel_id", "user", "user_id", "identity", "auth", "auth_identity",
+    "msg_id", "message_id", "sender", "recipient", "key", "block",
+    "leaf", "path", "op", "op_type", "operation", "request_type",
+})
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+
+
+class TelemetryLeakError(ValueError):
+    """A metric registration or sample would violate the leak policy."""
+
+
+def _check_labels(name: str, labels: dict[str, tuple[str, ...]] | None):
+    if not labels:
+        return {}
+    out = {}
+    for key, values in labels.items():
+        if key in FORBIDDEN_LABEL_KEYS:
+            raise TelemetryLeakError(
+                f"metric {name!r}: label key {key!r} is per-client/per-op "
+                "— exporting it reopens the access-pattern side channel "
+                "(grapevine.proto:120-122); telemetry must stay "
+                "batch-level"
+            )
+        if key not in ALLOWED_LABEL_KEYS:
+            raise TelemetryLeakError(
+                f"metric {name!r}: label key {key!r} is not in the "
+                f"telemetry allowlist {sorted(ALLOWED_LABEL_KEYS)}"
+            )
+        values = tuple(str(v) for v in values)
+        if not values:
+            raise TelemetryLeakError(
+                f"metric {name!r}: label key {key!r} declares no values "
+                "— label values must be enumerated at registration "
+                "(dynamic values are how identities leak into series)"
+            )
+        if key in ("shard", "worker"):
+            # shard/worker identity is public topology (a config-
+            # declared position), and ONLY that: integer indices. A
+            # hostname, pod name — or a channel_id routed onto a worker
+            # — as a value would export deployment or session identity
+            # through every series.
+            for v in values:
+                if not v.isascii() or not v.isdigit():
+                    raise TelemetryLeakError(
+                        f"metric {name!r}: {key} label value {v!r} is "
+                        "not a bare integer index — values are "
+                        "declared topology positions (0..N-1), never "
+                        "member names, addresses, or channel ids "
+                        "(obs/fleet.py, server/hostpipe.py)"
+                    )
+        out[key] = values
+    return out
+
+
+class _Metric:
+    """Base: a named family with eagerly-instantiated labeled children."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str, labels=None):
+        if not _NAME_RE.match(name):
+            raise ValueError(f"bad metric name {name!r}")
+        self.name = name
+        self.help = help
+        self.labels_decl: dict[str, tuple[str, ...]] = _check_labels(name, labels)
+        self.label_keys = tuple(self.labels_decl)
+        self._lock = threading.Lock()
+        self._children: dict[tuple[str, ...], object] = {}
+        # eager children: every declared series exists (and exports as
+        # zero) before the first sample, so scrapes see a stable schema
+        for vals in self._cartesian(self.label_keys):
+            self._children[vals] = self._new_child()
+        if not self.label_keys:
+            self._children[()] = self._new_child()
+
+    def _cartesian(self, keys):
+        if not keys:
+            return
+        combos = [()]
+        for k in keys:
+            combos = [c + (v,) for c in combos for v in self.labels_decl[k]]
+        yield from combos
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def labels(self, **kv):
+        """The child for the given label values; undeclared values raise."""
+        if set(kv) != set(self.label_keys):
+            raise TelemetryLeakError(
+                f"metric {self.name!r} takes labels {self.label_keys}, "
+                f"got {tuple(kv)}"
+            )
+        vals = tuple(str(kv[k]) for k in self.label_keys)
+        for k, v in zip(self.label_keys, vals):
+            if v not in self.labels_decl[k]:
+                raise TelemetryLeakError(
+                    f"metric {self.name!r}: label {k}={v!r} was not "
+                    "declared at registration — dynamic label values "
+                    "are forbidden (fixed cardinality is the leak guard)"
+                )
+        return self._children[vals]
+
+    def child(self):
+        """The unlabeled child (metrics registered without labels)."""
+        if self.label_keys:
+            raise TelemetryLeakError(
+                f"metric {self.name!r} is labeled; use .labels()"
+            )
+        return self._children[()]
+
+    def series(self):
+        """Yield (label_values_tuple, child) for every declared series."""
+        with self._lock:
+            return list(self._children.items())
+
+
+class _CounterChild:
+    __slots__ = ("_lock", "value")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def inc(self, amount: float = 1.0):
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self.value += amount
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild()
+
+    def inc(self, amount: float = 1.0, **kv):
+        (self.labels(**kv) if kv else self.child()).inc(amount)
+
+    def get(self, **kv) -> float:
+        return (self.labels(**kv) if kv else self.child()).value
+
+
+class _GaugeChild:
+    __slots__ = ("_lock", "value")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def set(self, value: float):
+        with self._lock:
+            self.value = float(value)
+
+    def inc(self, amount: float = 1.0):
+        with self._lock:
+            self.value += amount
+
+    def set_max(self, value: float):
+        """Monotonic high-water update (value = max(value, new))."""
+        with self._lock:
+            self.value = max(self.value, float(value))
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def _new_child(self):
+        return _GaugeChild()
+
+    def set(self, value: float, **kv):
+        (self.labels(**kv) if kv else self.child()).set(value)
+
+    def set_max(self, value: float, **kv):
+        (self.labels(**kv) if kv else self.child()).set_max(value)
+
+    def inc(self, amount: float = 1.0, **kv):
+        (self.labels(**kv) if kv else self.child()).inc(amount)
+
+    def get(self, **kv) -> float:
+        return (self.labels(**kv) if kv else self.child()).value
+
+
+class _HistogramChild:
+    __slots__ = ("_lock", "buckets", "counts", "total", "count")
+
+    def __init__(self, buckets: tuple[float, ...]):
+        self._lock = threading.Lock()
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)  # +1 for +Inf
+        self.total = 0.0
+        self.count = 0
+
+    def observe(self, value: float):
+        i = bisect.bisect_left(self.buckets, value)
+        with self._lock:
+            self.counts[i] += 1
+            self.total += value
+            self.count += 1
+
+    def state(self) -> tuple[list[int], float, int]:
+        """Consistent (counts copy, sum, count) for the read path — a
+        scrape racing observe() must never render cumulative buckets
+        that disagree with _count (Prometheus histogram_quantile chokes
+        on torn histograms)."""
+        with self._lock:
+            return list(self.counts), self.total, self.count
+
+    def quantile(self, q: float) -> float:
+        """Conservative (upper-bound) quantile from the bucket counts:
+        the upper edge of the bucket holding the q-th sample. Never
+        under-reports, unlike linear interpolation over a small sample
+        (the np.percentile bias engine/metrics.py used to have)."""
+        with self._lock:
+            n = self.count
+            if n == 0:
+                return 0.0
+            rank = max(1, math.ceil(q * n))
+            acc = 0
+            for i, c in enumerate(self.counts):
+                acc += c
+                if acc >= rank:
+                    return self.buckets[i] if i < len(self.buckets) else math.inf
+        return math.inf
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help, buckets: tuple[float, ...], labels=None):
+        buckets = tuple(float(b) for b in buckets)
+        if not buckets or list(buckets) != sorted(set(buckets)):
+            raise ValueError(
+                f"histogram {name!r}: buckets must be a non-empty "
+                "strictly-increasing tuple (fixed at registration)"
+            )
+        self.buckets = buckets
+        super().__init__(name, help, labels)
+
+    def _new_child(self):
+        return _HistogramChild(self.buckets)
+
+    def observe(self, value: float, **kv):
+        (self.labels(**kv) if kv else self.child()).observe(value)
+
+
+class TelemetryRegistry:
+    """A process-local metric namespace; the unit the exporter serves.
+
+    One registry per engine (not a module global): tests and multi-engine
+    processes would otherwise collide on duplicate registration.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: dict[str, _Metric] = {}
+
+    def _register(self, metric: _Metric) -> _Metric:
+        with self._lock:
+            if metric.name in self._metrics:
+                raise ValueError(f"duplicate metric {metric.name!r}")
+            self._metrics[metric.name] = metric
+        return metric
+
+    def counter(self, name, help, labels=None) -> Counter:
+        return self._register(Counter(name, help, labels))
+
+    def gauge(self, name, help, labels=None) -> Gauge:
+        return self._register(Gauge(name, help, labels))
+
+    def histogram(self, name, help, buckets, labels=None) -> Histogram:
+        return self._register(Histogram(name, help, buckets, labels))
+
+    def collect(self) -> list[_Metric]:
+        with self._lock:
+            return list(self._metrics.values())
+
+    def get(self, name: str) -> _Metric | None:
+        with self._lock:
+            return self._metrics.get(name)
+
+    # -- leak audit -----------------------------------------------------
+
+    def audit(self) -> dict:
+        """Assert the whole registry is batch-level only.
+
+        Re-validates every metric against the allowlist (defense in
+        depth: _check_labels runs at registration, but an audit must not
+        trust that the object was built through the public path), checks
+        that no series grew labels beyond its declaration, and that
+        histogram buckets are still the registration-time boundaries.
+        Raises TelemetryLeakError on any violation; returns a summary.
+        """
+        n_series = 0
+        for m in self.collect():
+            _check_labels(m.name, m.labels_decl)  # raises on bad keys
+            declared = set(m._cartesian(m.label_keys)) or {()}
+            actual = {vals for vals, _ in m.series()}
+            if not actual <= declared:
+                raise TelemetryLeakError(
+                    f"metric {m.name!r} grew undeclared series "
+                    f"{sorted(actual - declared)}"
+                )
+            if isinstance(m, Histogram):
+                for _, child in m.series():
+                    if child.buckets != m.buckets:
+                        raise TelemetryLeakError(
+                            f"histogram {m.name!r}: bucket boundaries "
+                            "changed after registration"
+                        )
+            n_series += len(actual)
+        return {
+            "ok": True,
+            "metrics": len(self.collect()),
+            "series": n_series,
+        }
+
+    # -- flat snapshot (merged health view; server/service.py) ----------
+
+    def snapshot(self) -> dict:
+        """Flat {name or name{k=v}: value} across the registry.
+
+        Counters/gauges export their value; histograms export
+        ``_count``/``_sum`` plus conservative p50/p99 — the merged
+        loopback health view server/service.py returns.
+        """
+        out: dict[str, float] = {}
+        for m in self.collect():
+            for vals, child in m.series():
+                suffix = (
+                    "{" + ",".join(
+                        f"{k}={v}" for k, v in zip(m.label_keys, vals)
+                    ) + "}"
+                    if vals
+                    else ""
+                )
+                key = m.name + suffix
+                if m.kind == "histogram":
+                    _, total, count = child.state()
+                    out[key + "_count"] = count
+                    out[key + "_sum"] = round(total, 6)
+                    if count:
+                        out[key + "_p50"] = child.quantile(0.50)
+                        out[key + "_p99"] = child.quantile(0.99)
+                else:
+                    out[key] = child.value
+        return out

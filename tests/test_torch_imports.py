@@ -42,12 +42,15 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_import_scan_covers_the_expiry_and_durability_modules():
-    """The sweep, the durability layer and their helpers are port modules
-    of their own (own copies of the reference's jax-free journal and
-    fault injection), so the boundary scan reads each of them."""
+    """The sweep, the durability layer, the telemetry and their helpers
+    are port modules of their own (own copies of the reference's jax-free
+    journal, fault injection, obs registry/exporter/httpd and engine
+    metrics), so the boundary scan reads each of them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
-                "oblivious/radix.py", "testing/faults.py"):
+                "oblivious/radix.py", "testing/faults.py", "engine/metrics.py",
+                "obs/__init__.py", "obs/registry.py", "obs/phases.py",
+                "obs/exporter.py", "obs/httpd.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
@@ -88,6 +91,21 @@ def test_engine_without_cuda_raises(monkeypatch, tmp_path):
     assert from_jax_state(ecfg, leaves, device="cpu").mb.nonces.device.type == "cpu"
 
 
+def test_pipelined_engine_without_cuda_raises(monkeypatch):
+    """``pipeline_depth=2`` is ported, and a pipelined facade still
+    defaults to the card and raises without one; on the CPU only when
+    asked, where the depth is the configured one (auto: 1)."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GrapevineEngine(GrapevineConfig(max_messages=64, pipeline_depth=2))
+    eng = GrapevineEngine(GrapevineConfig(max_messages=64, pipeline_depth=2), device="cpu")
+    assert eng.pipeline_depth == 2
+    assert GrapevineEngine(GrapevineConfig(max_messages=64), device="cpu").pipeline_depth == 1
+
+
 @pytest.mark.parametrize("knob", [
     dict(vphases_impl="scan"), dict(sort_impl="radix"),
     dict(posmap_impl="recursive"),
@@ -96,7 +114,6 @@ def test_engine_without_cuda_raises(monkeypatch, tmp_path):
     # the kernel impls run single-device; sharded they stay refused
     dict(bucket_cipher_impl="pallas", shards=2),
     dict(bucket_cipher_impl="pallas_fused", evict_every=2, shards=2),
-    dict(pipeline_depth=2),
 ])
 def test_unported_knobs_name_their_roadmap_item(knob):
     from grapevine_tpu_torch.config import GrapevineConfig
@@ -110,6 +127,7 @@ def test_unported_knobs_name_their_roadmap_item(knob):
     dict(evict_every=2), dict(evict_every=4, evict_buffer_slots=50),
     dict(bucket_cipher_impl="pallas"), dict(bucket_cipher_impl="pallas_fused"),
     dict(bucket_cipher_impl="pallas_fused_tiled", evict_every=3),
+    dict(pipeline_depth=2),
 ])
 def test_ported_knobs_are_accepted(knob):
     from grapevine_tpu_torch.config import GrapevineConfig
