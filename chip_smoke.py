@@ -72,7 +72,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the admission bound's exact read, the one allowed, is counted), and
    each round records whether the round before it was still running when
    its dispatch returned. Round wall (call / 4), ops/s, span medians and
-   the registry's phase p50s, and the profiled call's busy share.
+   the registry's phase p50s, and the profiled call's busy share;
+11. the serving tier at the production point, E=4 ``"pallas_fused"``,
+   durable (a state dir, an fsync per record), the auto pipeline depth (2
+   on the card) and a fixed server clock, over loopback gRPC (the line
+   names the transport, the channel's crypto backend and the r255
+   backend, which must be the native library): (a) one
+   ``GrapevineServer`` whose expiry loop sweeps about once a second on
+   its own thread (B2; nothing expires under the fixed clock), 16 client
+   sessions at once, each authenticated and running a scripted CRUD
+   sequence through the encrypted channel, every response checked
+   against a dict model; a forged challenge signature gets
+   UNAUTHENTICATED and reaches no round (one more auth failure, no more
+   rounds); a malformed envelope gets INVALID_ARGUMENT; one scrape of
+   ``/metrics`` (assembly, verify, dispatch, evict, demux, journal and
+   sweep samples) and ``/healthz`` (200, healthy); (b) 12 full rounds of
+   B signed ops (1/8 creates, 1/32 updates, 1/32 deletes, the rest reads
+   by id) from a pool of 256 identities through ``submit_nowait`` of a
+   ``BatchScheduler`` at depth 2, four rounds ahead, every response
+   checked; per round the host batch verify, the collector's dispatch and
+   settle ms, the wall between dispatches and whether the previous round
+   was still running when a dispatch returned; ops/s; and one more round
+   alone under the profiler (every thread): its busy share; 3 B3 a round
+   and 2 B5 a flush; (c) an ``EngineServer`` (``"pallas_fused_tiled"``,
+   E=1) behind a ``FrontendServer``, 4 clients x 4 ops, each response
+   checked, 3 B4 and 3 B6 a round.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -653,18 +677,25 @@ SPANS = ("round_a_mailbox", "round_b_records", "round_c_mailbox", "oram_fetch",
          "oram_flush", "sweep_records", "sweep_mailbox")
 
 
-def profile_round(fn) -> dict:
+def profile_round(fn, all_threads: bool = False) -> dict:
     """Run ``fn`` (one engine round, and its flush if the window closes)
     under torch.profiler: device time per span (the record_function
     ranges) and per kernel, and the device's busy share of the wall time
     (kernel time summed; one stream, so kernels do not overlap). The
-    result of ``fn`` is returned under ``"result"``."""
+    result of ``fn`` is returned under ``"result"``. With ``all_threads``
+    the profiler records every thread's ops (the scheduler's collector
+    thread dispatches the round), not only the caller's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kw = {}
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+
+        kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+                 acc_events=True, **kw) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -1534,6 +1565,555 @@ def run_pipeline_phase(GrapevineConfig, GrapevineEngine, geo: dict, impl: str,
     return out
 
 
+#: phase 11: the serving tier at the production point (durable E=4
+#: "pallas_fused"): concurrent client sessions in part a, full rounds of
+#: signed ops through the scheduler in part b, the engine/frontend tier
+#: in part c
+SERVE_NOW = NOW + 5000
+SERVE_CLIENTS, SERVE_POOL, SERVE_ROUNDS, SERVE_LOOKAHEAD = 16, 256, 12, 4
+#: ops in each phase 11a session's script
+SESSION_OPS = 9
+TIER_CLIENTS, TIER_OPS = 4, 4
+#: the phase series part a's /metrics scrape must show samples of
+SERVE_PHASES = ("assembly", "verify", "dispatch", "evict", "demux", "journal", "sweep")
+
+
+def _rpc_code(fn):
+    """The gRPC status code ``fn`` fails with (None if it succeeds)."""
+    import grpc
+
+    try:
+        fn()
+    except grpc.RpcError as exc:
+        return exc.code()
+    return None
+
+
+def serve_sessions(server, port: int) -> None:
+    """Phase 11a's client work: SERVE_CLIENTS sessions authenticate, then
+    run a scripted CRUD sequence at once, in three steps between
+    barriers (two creates to the next two clients; zero-id read, delete
+    and read of the client's own mailbox; reads by id, an update and a
+    read-back of what it sent), every response checked against a dict
+    model."""
+    import threading
+
+    from grapevine_tpu_torch.server.client import GrapevineClient
+    from grapevine_tpu_torch.wire import constants as C
+
+    OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+    n = SERVE_CLIENTS
+    clients = [GrapevineClient(f"insecure-grapevine://127.0.0.1:{port}",
+                               identity_seed=_key("cli", i)) for i in range(n)]
+    for c in clients:
+        c.auth()
+    model: dict = {}  # msg_id -> (sender, recipient, payload)
+    sent: list = [[] for _ in range(n)]
+    deleted: set = set()
+    lock, barrier = threading.Lock(), threading.Barrier(n)
+    errors: list = []
+
+    def check(r, status, want=None, where=""):
+        if r.status_code != status:
+            raise AssertionError(f"phase 11a {where}: status {r.status_code}, "
+                                 f"expected {status}")
+        if want is not None:
+            got = (r.record.sender, r.record.recipient, r.record.payload)
+            if got != want or r.record.timestamp != SERVE_NOW:
+                raise AssertionError(f"phase 11a {where}: record differs from the model")
+
+    def mine(i, r, where):
+        """A record addressed to client i, equal to the model's."""
+        with lock:
+            want = model.get(r.record.msg_id)
+        if want is None or want[1] != clients[i].public_key:
+            raise AssertionError(f"phase 11a {where}: not a message for this client")
+        check(r, OK, want, where)
+        return r.record.msg_id
+
+    def script(i):
+        c = clients[i]
+        try:
+            for k in (1, 2):
+                rcp = clients[(i + k) % n].public_key
+                pay = _payload(110 + k, i)
+                r = c.create(rcp, pay)
+                check(r, OK, (c.public_key, rcp, pay), f"client {i} create {k}")
+                with lock:
+                    model[r.record.msg_id] = (c.public_key, rcp, pay)
+                sent[i].append(r.record.msg_id)
+            barrier.wait()
+            first = mine(i, c.read(), f"client {i} zero-id read")
+            popped = mine(i, c.delete(), f"client {i} zero-id delete")
+            with lock:
+                deleted.add(popped)
+            left = mine(i, c.read(), f"client {i} zero-id read after delete")
+            if left == popped or first not in (popped, left):
+                raise AssertionError(f"phase 11a client {i}: mailbox order broken")
+            barrier.wait()
+            for k, mid in enumerate(sent[i]):
+                with lock:
+                    want = None if mid in deleted else model[mid]
+                r = c.read(mid)
+                check(r, NF if want is None else OK, want, f"client {i} read {k}")
+            mid = sent[i][1]
+            with lock:
+                gone, (snd, rcp, _) = mid in deleted, model[mid]
+            pay = _payload(120, i)
+            r = c.update(mid, rcp, pay)
+            check(r, NF if gone else OK, None if gone else (snd, rcp, pay),
+                  f"client {i} update")
+            if not gone:
+                with lock:
+                    model[mid] = (snd, rcp, pay)
+            r = c.read(mid)
+            check(r, NF if gone else OK, None if gone else (snd, rcp, pay),
+                  f"client {i} read-back")
+        except BaseException as exc:  # re-raised on the main thread
+            errors.append(exc)
+            barrier.abort()
+
+    threads = [threading.Thread(target=script, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for c in clients:
+        c.close()
+    if errors:
+        raise errors[0]
+    live = len(model) - len(deleted)
+    if server.engine.message_count() != live:
+        raise AssertionError(f"phase 11a: engine holds {server.engine.message_count()} "
+                             f"messages, model {live}")
+
+
+def serve_refusals(server, port: int) -> dict:
+    """Phase 11a: a forged challenge signature gets UNAUTHENTICATED
+    without a round and counts one auth failure; a malformed envelope gets
+    INVALID_ARGUMENT."""
+    import grpc
+
+    from grapevine_tpu_torch.server.client import GrapevineClient
+
+    c = GrapevineClient(f"insecure-grapevine://127.0.0.1:{port}",
+                        identity_seed=_key("forger", 0))
+    c.auth()
+    scheme = c._scheme
+
+    class Forged:
+        keygen = staticmethod(scheme.keygen)
+
+        @staticmethod
+        def sign(sk, ctx, msg):
+            return b"\x01" * 63 + b"\x81"  # marked, bogus
+
+    snap = server.engine.metrics.snapshot
+    rounds0, fails0 = snap()["rounds"], snap()["grapevine_auth_failures_total"]
+    c._scheme = Forged
+    forged = _rpc_code(lambda: c.create(c.public_key, _payload(130, 0)))
+    c._scheme = scheme
+    if forged != grpc.StatusCode.UNAUTHENTICATED:
+        raise AssertionError(f"phase 11a: a forged signature got {forged}")
+    if snap()["rounds"] != rounds0:
+        raise AssertionError("phase 11a: the forged op reached a round")
+    if snap()["grapevine_auth_failures_total"] != fails0 + 1:
+        raise AssertionError("phase 11a: the auth failure was not counted")
+    junk = _rpc_code(lambda: c._query_rpc(b"\x0a\x05ab"))
+    if junk != grpc.StatusCode.INVALID_ARGUMENT:
+        raise AssertionError(f"phase 11a: a malformed envelope got {junk}")
+    c.close()
+    return dict(forged_signature=forged.name, rounds_added_by_forged_op=0,
+                auth_failures_added=1, malformed_envelope=junk.name)
+
+
+def scrape(mport: int) -> dict:
+    """Phase 11a: /metrics once (the SERVE_PHASES series must have
+    samples) and /healthz (200, healthy)."""
+    import urllib.request
+
+    body = urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics", timeout=60) \
+        .read().decode()
+    counts = {}
+    for ph in SERVE_PHASES:
+        m = re.search(r'^grapevine_phase_seconds_count\{phase="%s"\} (\S+)$' % ph, body,
+                      re.M)
+        counts[ph] = float(m.group(1)) if m else 0.0
+    if not all(counts.values()):
+        raise AssertionError(f"phase 11a: phase series without samples: {counts}")
+    hz = urllib.request.urlopen(f"http://127.0.0.1:{mport}/healthz", timeout=60)
+    doc = json.loads(hz.read())
+    if hz.status != 200 or doc.get("healthy") is not True:
+        raise AssertionError(f"phase 11a: /healthz {hz.status} {doc}")
+    return dict(phase_counts=counts, healthz=hz.status, healthy=doc["healthy"])
+
+
+class ServeStream:
+    """Phase 11b's ops over a pool of SERVE_POOL identities, each of whose
+    challenge signature is made once (the service checks challenge
+    freshness, the scheduler only the signature). Each round of B: B/8
+    creates (pool member j to member j + r + 1); in the first
+    SERVE_LOOKAHEAD rounds the rest are reads of unknown ids by a pool
+    member (NOT_FOUND); later B/32 updates by the sender, B/32 deletes by
+    the recipient and reads by id by the recipient, of messages created at
+    least SERVE_LOOKAHEAD rounds earlier (their ids are known by then)."""
+
+    def __init__(self, b: int):
+        import numpy as np
+
+        from grapevine_tpu_torch.session import schnorrkel
+        from grapevine_tpu_torch.wire import constants as C
+
+        self.b = b
+        self.rng = np.random.default_rng(SEED + 11)
+        self.pool = []
+        for i in range(SERVE_POOL):
+            sk, pub = schnorrkel.keygen(_key("pool", i))
+            challenge = _key("chal", i)
+            sig = schnorrkel.sign(sk, C.GRAPEVINE_CHALLENGE_SIGNING_CONTEXT, challenge)
+            self.pool.append((pub, (pub, C.GRAPEVINE_CHALLENGE_SIGNING_CONTEXT, challenge,
+                                    sig)))
+        self.live: list = []  # (msg_id, sender index, recipient index)
+
+    def _op(self, t, who: int, rcp: int | None = None, mid=bytes(16), payload=None):
+        from grapevine_tpu_torch.wire import constants as C
+        from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+
+        pub, auth = self.pool[who]
+        rec = RequestRecord(msg_id=mid,
+                            recipient=self.pool[rcp][0] if rcp is not None else bytes(32),
+                            payload=payload if payload is not None else bytes(C.PAYLOAD_SIZE))
+        return QueryRequest(request_type=t, auth_identity=pub, auth_signature=auth[3],
+                            record=rec), auth
+
+    def round(self, r: int):
+        """Round r's ops and their expected (status, sender, recipient,
+        payload or None)."""
+        from grapevine_tpu_torch.wire import constants as C
+
+        b, n = self.b, SERVE_POOL
+        OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+        nw = b // 32
+        perm = [self.live[i] for i in self.rng.permutation(len(self.live))]
+        upd, dele, keep = perm[:nw], perm[nw:2 * nw], perm[2 * nw:]
+        if r >= SERVE_LOOKAHEAD and len(keep) < 1:
+            raise AssertionError("phase 11b: no live messages to read")
+        ops, want = [], []
+        iu, idl = iter(upd), iter(dele)
+        for j in range(b):
+            if j % 8 == 0:
+                snd, rcp = (j // 8) % n, (j // 8 + r + 1) % n
+                pay = _payload(140 + r, j)
+                ops.append(self._op(C.REQUEST_TYPE_CREATE, snd, rcp, payload=pay))
+                want.append((OK, snd, rcp, pay))
+            elif r < SERVE_LOOKAHEAD:
+                ops.append(self._op(C.REQUEST_TYPE_READ, j % n, mid=_key("none", r * b + j)[:16]))
+                want.append((NF, None, None, None))
+            elif j % 32 == 1:
+                mid, snd, rcp, _ = next(iu)
+                pay = _payload(150 + r, j)
+                ops.append(self._op(C.REQUEST_TYPE_UPDATE, snd, rcp, mid, pay))
+                want.append((OK, snd, rcp, pay))
+            elif j % 32 == 17:
+                mid, snd, rcp, pay = next(idl)
+                ops.append(self._op(C.REQUEST_TYPE_DELETE, rcp, rcp, mid))
+                want.append((OK, snd, rcp, pay))
+            else:
+                mid, snd, rcp, pay = keep[int(self.rng.integers(len(keep)))]
+                ops.append(self._op(C.REQUEST_TYPE_READ, rcp, mid=mid))
+                want.append((OK, snd, rcp, pay))
+        if r >= SERVE_LOOKAHEAD:
+            # updated messages come back into the pool with their new
+            # payload when the round settles
+            gone = {m for m, *_ in dele} | {m for m, *_ in upd}
+            self.live = [x for x in self.live if x[0] not in gone]
+        return ops, want
+
+    def settle(self, ops, want, resps, r: int) -> None:
+        """Check round r's responses against the model and note what it
+        created and updated."""
+        for j, ((req, _), (status, snd, rcp, pay), resp) in enumerate(zip(ops, want, resps)):
+            if resp.status_code != status:
+                raise AssertionError(f"phase 11b round {r} op {j}: status "
+                                     f"{resp.status_code}, expected {status}")
+            if snd is not None:
+                got = (resp.record.sender, resp.record.recipient, resp.record.payload)
+                if got != (self.pool[snd][0], self.pool[rcp][0], pay):
+                    raise AssertionError(f"phase 11b round {r} op {j}: record differs "
+                                         "from the model")
+            if j % 8 == 0:
+                self.live.append((resp.record.msg_id, snd, rcp, pay))
+            elif r >= SERVE_LOOKAHEAD and j % 32 == 1:
+                self.live.append((req.record.msg_id, snd, rcp, pay))
+
+
+def serve_rounds(eng, gk, ck, card) -> dict:
+    """Phase 11b: SERVE_ROUNDS full rounds of signed ops through a
+    ``BatchScheduler`` over the phase's engine (its own, with windows only
+    a full batch closes), submitted with ``submit_nowait`` SERVE_LOOKAHEAD
+    rounds ahead, at the engine's depth; then one more round alone, under
+    the profiler with every thread recorded. Per round: the collector's
+    assembly wait, the host batch verify, dispatch and settle ms, the
+    wall between dispatch starts, and whether the previous round was still
+    running on the card when this round's dispatch returned."""
+    from grapevine_tpu_torch.server.scheduler import BatchScheduler
+
+    b = eng.ecfg.batch_size
+    stream = ServeStream(b)
+    pendings, overlapped = [], []
+    dispatch = eng.handle_queries_async
+
+    def watched_dispatch(reqs, now):
+        prev = pendings[-1] if pendings else None
+        p = dispatch(reqs, now)
+        overlapped.append(prev is not None and prev.running())
+        pendings.append(p)
+        return p
+
+    eng.handle_queries_async = watched_dispatch
+    sched = BatchScheduler(eng, max_wait_ms=600_000.0, idle_gap_ms=600_000.0,
+                           clock=lambda: SERVE_NOW)
+    rounds0, flushes0 = eng.metrics.snapshot()["rounds"], eng.flushes
+    gc.collect()
+    _reset_launches(gk, ck)
+    try:
+        queued: dict = {}
+        gc0, gs0, _ = host_counters()
+        t0 = time.perf_counter()
+        for r in range(SERVE_ROUNDS + 1):
+            if r >= SERVE_LOOKAHEAD or r == SERVE_ROUNDS:
+                for k in sorted(queued):
+                    if k <= r - SERVE_LOOKAHEAD or r == SERVE_ROUNDS:
+                        ops, want, futs = queued.pop(k)
+                        stream.settle(ops, want, [f.result(timeout=600) for f in futs], k)
+            if r == SERVE_ROUNDS:
+                break
+            ops, want = stream.round(r)
+            queued[r] = (ops, want, [sched.submit_nowait(q, a) for q, a in ops])
+        wall_s = time.perf_counter() - t0
+        gc1, gs1, _ = host_counters()
+        ops, want = stream.round(SERVE_ROUNDS)
+
+        def one_round():
+            futs = [sched.submit_nowait(q, a) for q, a in ops]
+            return [f.result(timeout=600) for f in futs]
+
+        prof = profile_round(one_round, all_threads=True)
+        stream.settle(ops, want, prof.pop("result"), SERVE_ROUNDS)
+        if not prof["device_kernels"]:
+            raise AssertionError("phase 11b: the profiler saw no kernel of the round")
+        # the same batch verify with no other thread running: what the
+        # collector's verify costs without contention for the interpreter
+        items = [a for _, a in ops]
+        t_v = time.perf_counter()
+        if not sched.scheme.batch_verify(items):
+            raise AssertionError("phase 11b: the round's signatures do not verify")
+        verify_alone_ms = (time.perf_counter() - t_v) * 1e3
+    finally:
+        sched.close()
+        del eng.handle_queries_async
+    launches = _launches(gk, ck)
+    rounds = eng.metrics.snapshot()["rounds"] - rounds0
+    flushes = eng.flushes - flushes0
+    if rounds != SERVE_ROUNDS + 1 or len(pendings) != rounds:
+        raise AssertionError(f"phase 11b: {rounds} rounds for {SERVE_ROUNDS + 1} full batches")
+    require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+                                "scatter_encrypt_rows": 2 * flushes}, "phase 11b")
+    if flushes != (rounds0 + rounds) // EVICT_EVERY - rounds0 // EVICT_EVERY:
+        raise AssertionError(f"phase 11b: {flushes} flushes in rounds {rounds0 + 1}-"
+                             f"{rounds0 + rounds}")
+    per = []
+    timed = pendings[:SERVE_ROUNDS]
+    for k, p in enumerate(timed):
+        s = p.spans
+        per.append(dict(
+            assembly_ms=s["assembly"][1] * 1e3, verify_ms=s["verify"][1] * 1e3,
+            dispatch_ms=s["dispatch"][1] * 1e3, journal_ms=s["journal"][1] * 1e3,
+            settle_ms=(s["evict"][1] + s["demux"][1]) * 1e3,
+            flush_ms=s["flush"][1] * 1e3 if "flush" in s else None,
+            wall_ms=(timed[k + 1].spans["dispatch"][0] - s["dispatch"][0]) * 1e3
+            if k + 1 < len(timed) else None,
+            prev_running_at_dispatch_return=overlapped[k]))
+    steady = per[1:-1]
+    med = {k: statistics.median(x[k] for x in steady)
+           for k in ("assembly_ms", "verify_ms", "dispatch_ms", "settle_ms", "wall_ms")}
+    return dict(rounds=rounds, flushes=flushes, batch_size=b, ops=b * SERVE_ROUNDS,
+                pool=SERVE_POOL, lookahead_rounds=SERVE_LOOKAHEAD,
+                pipeline_depth=sched.pipeline_depth, wall_s=wall_s,
+                ops_per_s=b * SERVE_ROUNDS / wall_s,
+                median=med, verify_alone_ms=verify_alone_ms,
+                gc_gen2=gc1 - gc0, gc_gen2_ms=(gs1 - gs0) * 1e3, per_round=per,
+                overlapped_rounds=sum(overlapped[:SERVE_ROUNDS]),
+                profile={k: v for k, v in prof.items() if k != "top_kernels"},
+                top_kernels=prof["top_kernels"][:5], launches=launches,
+                responses_checked=b * (SERVE_ROUNDS + 1), card=card)
+
+
+def serve_tier(GrapevineConfig, geo, gk, ck, card) -> dict:
+    """Phase 11c: an ``EngineServer`` on the card at
+    ``"pallas_fused_tiled"``, E=1, behind a ``FrontendServer`` on gRPC
+    loopback; TIER_CLIENTS clients run TIER_OPS ops each (a create to the
+    next client, a zero-id read of their own mailbox, a read by id and an
+    update of what they sent), every response checked; B4 and B6 launch 3
+    times a round."""
+    import threading
+
+    from grapevine_tpu_torch.server.client import GrapevineClient
+    from grapevine_tpu_torch.server.tier import EngineServer, FrontendServer
+    from grapevine_tpu_torch.wire import constants as C
+
+    OK = C.STATUS_CODE_SUCCESS
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
+    t0 = time.perf_counter()
+    engine = EngineServer(cfg, seed=SEED, clock=lambda: SERVE_NOW)
+    eport = engine.start("127.0.0.1:0")
+    fe = FrontendServer(f"127.0.0.1:{eport}", config=cfg)
+    port = fe.start("insecure-grapevine://127.0.0.1:0")
+    init_s = time.perf_counter() - t0
+    n = TIER_CLIENTS
+    clients = [GrapevineClient(f"insecure-grapevine://127.0.0.1:{port}",
+                               identity_seed=_key("tier", i)) for i in range(n)]
+    for c in clients:
+        c.auth()
+    barrier, errors = threading.Barrier(n), []
+    _reset_launches(gk, ck)
+
+    def script(i):
+        c, nxt = clients[i], clients[(i + 1) % n]
+        try:
+            pay = _payload(160, i)
+            r = c.create(nxt.public_key, pay)
+            if r.status_code != OK:
+                raise AssertionError(f"phase 11c client {i}: create {r.status_code}")
+            mid = r.record.msg_id
+            barrier.wait()
+            r = c.read()
+            want = (clients[(i - 1) % n].public_key, c.public_key, _payload(160, (i - 1) % n))
+            if r.status_code != OK or (r.record.sender, r.record.recipient,
+                                       r.record.payload) != want:
+                raise AssertionError(f"phase 11c client {i}: zero-id read differs")
+            r = c.read(mid)
+            if r.status_code != OK or r.record.payload != pay:
+                raise AssertionError(f"phase 11c client {i}: read by id differs")
+            r = c.update(mid, nxt.public_key, _payload(161, i))
+            if r.status_code != OK or r.record.payload != _payload(161, i):
+                raise AssertionError(f"phase 11c client {i}: update differs")
+        except BaseException as exc:
+            errors.append(exc)
+            barrier.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=script, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    serve_s = time.perf_counter() - t0
+    launches = _launches(gk, ck)
+    rounds = engine.engine.metrics.snapshot()["rounds"]
+    for c in clients:
+        c.close()
+    fe.stop()
+    engine.stop()
+    if errors:
+        raise errors[0]
+    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * rounds,
+                                "scatter_encrypt_rows_tiled": 3 * rounds}, "phase 11c")
+    out = dict(bucket_cipher_impl="pallas_fused_tiled", evict_every=1, clients=n,
+               ops=n * TIER_OPS, rounds=rounds, init_s=init_s, serve_s=serve_s,
+               launches=launches, responses_checked=n * TIER_OPS, card=card)
+    del engine, fe
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_serving_phase(GrapevineConfig, geo: dict, gk, ck, card) -> dict:
+    """Phase 11: the port serving the reference's wire protocol on the card
+    at the production point, durable (a state dir, an fsync per record),
+    at E=4 ``"pallas_fused"`` and the auto pipeline depth, with a fixed
+    server clock. (a) one ``GrapevineServer`` with ``expiry_period=10``
+    (its expiry loop sweeps about once a second on its own thread, and
+    nothing expires under the fixed clock): concurrent sessions, the
+    refusals, one /metrics and /healthz scrape; (b) full rounds through
+    the scheduler; (c) the engine and frontend tier. Returns the lines."""
+    import shutil
+    import tempfile
+
+    import grpc
+
+    from grapevine_tpu_torch import session
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine import expiry
+    from grapevine_tpu_torch.server.service import GrapevineServer
+
+    if session.R255_BACKEND != "native":
+        raise AssertionError("phase 11: the native r255 library did not build; a "
+                             "pure-Python batch verify would set the round's pace")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY,
+                          expiry_period=10)
+    dcfg = DurabilityConfig(state_dir=f"{tmp}/state", checkpoint_every_rounds=1 << 20,
+                            journal_fsync_every=1)
+    try:
+        t0 = time.perf_counter()
+        server = GrapevineServer(cfg, seed=SEED, clock=lambda: SERVE_NOW, durability=dcfg)
+        eng = server.engine
+        if eng.pipeline_depth != 2:
+            raise AssertionError(f"phase 11: the engine runs depth {eng.pipeline_depth}")
+        port = server.start("insecure-grapevine://127.0.0.1:0")
+        mport = server.start_metrics(0)
+        init_s = time.perf_counter() - t0
+        gc.collect()
+        _reset_launches(gk, ck)
+        snap = eng.metrics.snapshot
+        t0 = time.perf_counter()
+        serve_sessions(server, port)
+        ops = SERVE_CLIENTS * SESSION_OPS
+        sessions_s = time.perf_counter() - t0
+        refusals = serve_refusals(server, port)
+        deadline = time.perf_counter() + 30
+        while snap()["sweeps"] < 1 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        metrics = scrape(mport)
+        # stop the expiry loop (waiting out a sweep in progress) before the
+        # launches are read and part b is timed
+        server._expiry_stop.set()
+        server._expiry_thread.join(timeout=60)
+        launches_a = _launches(gk, ck)
+        s = snap()
+        rounds_a, sweeps = s["rounds"], s["sweeps"]
+        per_sweep = 2 * sum(t.n_buckets_padded // expiry._chunk_rows(t)
+                            for t in (eng.ecfg.rec, eng.ecfg.mb))
+        require_launches(launches_a, {"gather_decrypt_rows": 3 * rounds_a,
+                                      "scatter_encrypt_rows": 2 * eng.flushes,
+                                      "cipher_rows_pallas": per_sweep * sweeps},
+                         "phase 11a")
+        if sweeps < 1:
+            raise AssertionError("phase 11a: the expiry loop never swept")
+        part_a = dict(
+            transport=f"grpc {grpc.__version__} loopback", clients=SERVE_CLIENTS, ops=ops,
+            crypto_backend=session.CRYPTO_BACKEND, r255_backend=session.R255_BACKEND,
+            device=str(eng.device), pipeline_depth=eng.pipeline_depth, init_s=init_s,
+            sessions_s=sessions_s,
+            rounds=rounds_a, flushes=eng.flushes, sweeps=sweeps, evicted=s["evicted"],
+            responses_checked=ops, **refusals, metrics=metrics, launches=launches_a,
+            health={k: v for k, v in server.health().items()
+                    if k in ("sessions", "messages", "recipients", "stash_overflow",
+                             "batch_verifies", "auth_failures")},
+            card=card)
+        if part_a["health"]["stash_overflow"]:
+            raise AssertionError("phase 11a: stash overflow")
+        part_b = serve_rounds(eng, gk, ck, card)
+        server.stop(checkpoint=False)
+        del server, eng
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    part_c = serve_tier(GrapevineConfig, geo, gk, ck, card)
+    return dict(a=part_a, b=part_b, c=part_c, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -1651,18 +2231,30 @@ def main() -> int:
     pipe_launches = {k: sum(p["depth2"]["launches"][k] for p in pipe) for k in KERNELS}
     split("pipeline")
 
+    # phase 11: the serving tier — sessions and the sweep thread (B3, B5,
+    # B2), full rounds through the scheduler (B3, B5), the engine/frontend
+    # tier (B4, B6)
+    serve = run_serving_phase(GrapevineConfig, geo, gk, ck, card)
+    serve_launches = {k: sum(serve[p]["launches"].get(k, 0) for p in "abc") for k in KERNELS}
+    split("serving")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (pallas_launches["cipher_rows_pallas"]
                                + exp1["launches"]["cipher_rows_pallas"]
-                               + exp4["launches"]["cipher_rows_pallas"]),
+                               + exp4["launches"]["cipher_rows_pallas"]
+                               + serve_launches["cipher_rows_pallas"]),
         "gather_decrypt_rows": (evict_launches["gather_decrypt_rows"]
-                                + pipe_launches["gather_decrypt_rows"]),
+                                + pipe_launches["gather_decrypt_rows"]
+                                + serve_launches["gather_decrypt_rows"]),
         "gather_decrypt_rows_tiled": (launches["gather_decrypt_rows_tiled"]
-                                      + pipe_launches["gather_decrypt_rows_tiled"]),
+                                      + pipe_launches["gather_decrypt_rows_tiled"]
+                                      + serve_launches["gather_decrypt_rows_tiled"]),
         "scatter_encrypt_rows": (evict_launches["scatter_encrypt_rows"]
-                                 + pipe_launches["scatter_encrypt_rows"]),
+                                 + pipe_launches["scatter_encrypt_rows"]
+                                 + serve_launches["scatter_encrypt_rows"]),
         "scatter_encrypt_rows_tiled": (launches["scatter_encrypt_rows_tiled"]
-                                       + pipe_launches["scatter_encrypt_rows_tiled"]),
+                                       + pipe_launches["scatter_encrypt_rows_tiled"]
+                                       + serve_launches["scatter_encrypt_rows_tiled"]),
     }
     emit(slice_line)
     emit({"profile": prof, "card": card})
@@ -1674,6 +2266,9 @@ def main() -> int:
     emit({"durability": dur})
     for p in pipe:
         emit({"pipeline": p, "card": card})
+    emit({"serving_sessions": serve["a"]})
+    emit({"serving_rounds": serve["b"]})
+    emit({"serving_tier": serve["c"]})
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,812 @@
+/* ristretto255 group operations for batched Schnorr verification.
+ *
+ * The host-side native layer of the session stack (the analog of the
+ * reference's Rust mc-crypto-keys dependency, reference
+ * types/src/lib.rs:13, README.md:199): field arithmetic mod 2^255-19
+ * with 5x51-bit limbs (unsigned __int128 products), extended-Edwards
+ * point ops, RFC 9496 ristretto decode/encode, a precomputed fixed-base
+ * nibble table, and a Straus interleaved multi-scalar multiplication.
+ * Scalar-field (mod L) arithmetic and all hashing stay in Python — the
+ * caller passes fully reduced 256-bit little-endian scalars.
+ *
+ * Exposed via ctypes (grapevine_tpu/native/__init__.py):
+ *   r255_init()                     build the basepoint table (idempotent)
+ *   r255_verify1(pub, R, s, k)      s*B == R + k*A          -> 1/0/-1
+ *   r255_batch_check(n, Rs, As, z, zk, sb)
+ *       fixed(sb) == sum z_i*R_i + zk_i*A_i                 -> 1/0/-1
+ *
+ * Verification-only: nothing here handles secrets, so variable-time
+ * arithmetic is fine (same stance as the pure-Python path it
+ * accelerates, session/ristretto.py).
+ *
+ * Built by `cc -O2 -shared -fPIC` at first import; correctness is
+ * pinned by cross-checking against the pure-Python implementation over
+ * random points/scalars and the RFC 9496 test vectors
+ * (tests/test_native_r255.py).
+ */
+
+#include <stdint.h>
+#include <stddef.h>
+#include <string.h>
+
+typedef uint64_t u64;
+typedef unsigned __int128 u128;
+
+#define MASK51 0x7FFFFFFFFFFFFULL
+
+typedef struct { u64 v[5]; } fe;
+
+/* ---------------- field arithmetic mod 2^255-19 ---------------- */
+
+static void fe_zero(fe *r) { memset(r, 0, sizeof *r); }
+static void fe_one(fe *r) { fe_zero(r); r->v[0] = 1; }
+static void fe_copy(fe *r, const fe *a) { *r = *a; }
+
+static void fe_add(fe *r, const fe *a, const fe *b) {
+    for (int i = 0; i < 5; i++) r->v[i] = a->v[i] + b->v[i];
+}
+
+/* r = a - b, with a bias of 2p to keep limbs nonnegative */
+static void fe_sub(fe *r, const fe *a, const fe *b) {
+    r->v[0] = a->v[0] + 0xFFFFFFFFFFFDAULL - b->v[0];
+    r->v[1] = a->v[1] + 0xFFFFFFFFFFFFEULL - b->v[1];
+    r->v[2] = a->v[2] + 0xFFFFFFFFFFFFEULL - b->v[2];
+    r->v[3] = a->v[3] + 0xFFFFFFFFFFFFEULL - b->v[3];
+    r->v[4] = a->v[4] + 0xFFFFFFFFFFFFEULL - b->v[4];
+}
+
+static void fe_carry(fe *r) {
+    for (int rep = 0; rep < 2; rep++) {
+        u64 c;
+        c = r->v[0] >> 51; r->v[0] &= MASK51; r->v[1] += c;
+        c = r->v[1] >> 51; r->v[1] &= MASK51; r->v[2] += c;
+        c = r->v[2] >> 51; r->v[2] &= MASK51; r->v[3] += c;
+        c = r->v[3] >> 51; r->v[3] &= MASK51; r->v[4] += c;
+        c = r->v[4] >> 51; r->v[4] &= MASK51; r->v[0] += c * 19;
+    }
+}
+
+static void fe_mul(fe *r, const fe *a, const fe *b) {
+    u128 t0, t1, t2, t3, t4;
+    u64 a0 = a->v[0], a1 = a->v[1], a2 = a->v[2], a3 = a->v[3], a4 = a->v[4];
+    u64 b0 = b->v[0], b1 = b->v[1], b2 = b->v[2], b3 = b->v[3], b4 = b->v[4];
+    u64 b1_19 = b1 * 19, b2_19 = b2 * 19, b3_19 = b3 * 19, b4_19 = b4 * 19;
+
+    t0 = (u128)a0*b0 + (u128)a1*b4_19 + (u128)a2*b3_19 + (u128)a3*b2_19 + (u128)a4*b1_19;
+    t1 = (u128)a0*b1 + (u128)a1*b0    + (u128)a2*b4_19 + (u128)a3*b3_19 + (u128)a4*b2_19;
+    t2 = (u128)a0*b2 + (u128)a1*b1    + (u128)a2*b0    + (u128)a3*b4_19 + (u128)a4*b3_19;
+    t3 = (u128)a0*b3 + (u128)a1*b2    + (u128)a2*b1    + (u128)a3*b0    + (u128)a4*b4_19;
+    t4 = (u128)a0*b4 + (u128)a1*b3    + (u128)a2*b2    + (u128)a3*b1    + (u128)a4*b0;
+
+    u64 c;
+    u64 r0 = (u64)t0 & MASK51; c = (u64)(t0 >> 51);
+    t1 += c;
+    u64 r1 = (u64)t1 & MASK51; c = (u64)(t1 >> 51);
+    t2 += c;
+    u64 r2 = (u64)t2 & MASK51; c = (u64)(t2 >> 51);
+    t3 += c;
+    u64 r3 = (u64)t3 & MASK51; c = (u64)(t3 >> 51);
+    t4 += c;
+    u64 r4 = (u64)t4 & MASK51; c = (u64)(t4 >> 51);
+    r0 += c * 19;
+    c = r0 >> 51; r0 &= MASK51; r1 += c;
+    r->v[0] = r0; r->v[1] = r1; r->v[2] = r2; r->v[3] = r3; r->v[4] = r4;
+}
+
+static void fe_sq(fe *r, const fe *a) { fe_mul(r, a, a); }
+
+/* r = a^(2^n) */
+static void fe_sqn(fe *r, const fe *a, int n) {
+    fe_copy(r, a);
+    for (int i = 0; i < n; i++) fe_sq(r, r);
+}
+
+/* a^(2^252 - 3): shared chain for invert and sqrt (ref10 structure) */
+static void fe_pow22523(fe *out, const fe *z) {
+    fe t0, t1, t2;
+    fe_sq(&t0, z);                 /* 2 */
+    fe_sqn(&t1, &t0, 2);           /* 8 */
+    fe_mul(&t1, z, &t1);           /* 9 */
+    fe_mul(&t0, &t0, &t1);         /* 11 */
+    fe_sq(&t0, &t0);               /* 22 */
+    fe_mul(&t0, &t1, &t0);         /* 2^5 - 1 */
+    fe_sqn(&t1, &t0, 5);
+    fe_mul(&t0, &t1, &t0);         /* 2^10 - 1 */
+    fe_sqn(&t1, &t0, 10);
+    fe_mul(&t1, &t1, &t0);         /* 2^20 - 1 */
+    fe_sqn(&t2, &t1, 20);
+    fe_mul(&t1, &t2, &t1);         /* 2^40 - 1 */
+    fe_sqn(&t1, &t1, 10);
+    fe_mul(&t0, &t1, &t0);         /* 2^50 - 1 */
+    fe_sqn(&t1, &t0, 50);
+    fe_mul(&t1, &t1, &t0);         /* 2^100 - 1 */
+    fe_sqn(&t2, &t1, 100);
+    fe_mul(&t1, &t2, &t1);         /* 2^200 - 1 */
+    fe_sqn(&t1, &t1, 50);
+    fe_mul(&t0, &t1, &t0);         /* 2^250 - 1 */
+    fe_sqn(&t0, &t0, 2);
+    fe_mul(out, &t0, z);           /* 2^252 - 3 */
+}
+
+static void fe_invert(fe *out, const fe *z) {
+    /* z^(p-2) = z^(2^255 - 21) via the classic chain */
+    fe t0, t1, t2, t3;
+    fe_sq(&t0, z);
+    fe_sqn(&t1, &t0, 2);
+    fe_mul(&t1, z, &t1);
+    fe_mul(&t0, &t0, &t1);
+    fe_sq(&t2, &t0);
+    fe_mul(&t1, &t1, &t2);
+    fe_sqn(&t2, &t1, 5);
+    fe_mul(&t1, &t2, &t1);
+    fe_sqn(&t2, &t1, 10);
+    fe_mul(&t2, &t2, &t1);
+    fe_sqn(&t3, &t2, 20);
+    fe_mul(&t2, &t3, &t2);
+    fe_sqn(&t2, &t2, 10);
+    fe_mul(&t1, &t2, &t1);
+    fe_sqn(&t2, &t1, 50);
+    fe_mul(&t2, &t2, &t1);
+    fe_sqn(&t3, &t2, 100);
+    fe_mul(&t2, &t3, &t2);
+    fe_sqn(&t2, &t2, 50);
+    fe_mul(&t1, &t2, &t1);
+    fe_sqn(&t1, &t1, 5);
+    fe_mul(out, &t1, &t0);
+}
+
+static void fe_frombytes(fe *r, const uint8_t s[32]) {
+    u64 w0, w1, w2, w3;
+    memcpy(&w0, s, 8); memcpy(&w1, s + 8, 8);
+    memcpy(&w2, s + 16, 8); memcpy(&w3, s + 24, 8);
+    r->v[0] = w0 & MASK51;
+    r->v[1] = ((w0 >> 51) | (w1 << 13)) & MASK51;
+    r->v[2] = ((w1 >> 38) | (w2 << 26)) & MASK51;
+    r->v[3] = ((w2 >> 25) | (w3 << 39)) & MASK51;
+    r->v[4] = (w3 >> 12) & MASK51;
+}
+
+static void fe_tobytes(uint8_t s[32], const fe *a) {
+    fe t = *a;
+    fe_carry(&t);
+    /* full reduction: add 19, fold, then subtract 2^255 bit */
+    u64 q = (t.v[0] + 19) >> 51;
+    q = (t.v[1] + q) >> 51;
+    q = (t.v[2] + q) >> 51;
+    q = (t.v[3] + q) >> 51;
+    q = (t.v[4] + q) >> 51;
+    t.v[0] += 19 * q;
+    u64 c;
+    c = t.v[0] >> 51; t.v[0] &= MASK51; t.v[1] += c;
+    c = t.v[1] >> 51; t.v[1] &= MASK51; t.v[2] += c;
+    c = t.v[2] >> 51; t.v[2] &= MASK51; t.v[3] += c;
+    c = t.v[3] >> 51; t.v[3] &= MASK51; t.v[4] += c;
+    t.v[4] &= MASK51;
+    u64 w0 = t.v[0] | (t.v[1] << 51);
+    u64 w1 = (t.v[1] >> 13) | (t.v[2] << 38);
+    u64 w2 = (t.v[2] >> 26) | (t.v[3] << 25);
+    u64 w3 = (t.v[3] >> 39) | (t.v[4] << 12);
+    memcpy(s, &w0, 8); memcpy(s + 8, &w1, 8);
+    memcpy(s + 16, &w2, 8); memcpy(s + 24, &w3, 8);
+}
+
+static int fe_isnegative(const fe *a) {
+    uint8_t s[32];
+    fe_tobytes(s, a);
+    return s[0] & 1;
+}
+
+static int fe_iszero(const fe *a) {
+    uint8_t s[32];
+    static const uint8_t zero[32] = {0};
+    fe_tobytes(s, a);
+    return memcmp(s, zero, 32) == 0;
+}
+
+static int fe_eq(const fe *a, const fe *b) {
+    fe d;
+    fe_sub(&d, a, b);
+    return fe_iszero(&d);
+}
+
+static void fe_neg(fe *r, const fe *a) {
+    fe z;
+    fe_zero(&z);
+    fe_sub(r, &z, a);
+}
+
+static void fe_cabs(fe *r, const fe *a) {  /* |a| = -a if negative */
+    if (fe_isnegative(a)) fe_neg(r, a); else fe_copy(r, a);
+    fe_carry(r);
+}
+
+/* ---------------- curve constants ---------------- */
+
+static fe FE_D, FE_SQRT_M1, FE_INVSQRT_A_MINUS_D, FE_ONE;
+
+/* d = -121665/121666 */
+static const uint8_t D_BYTES[32] = {
+    0xa3,0x78,0x59,0x13,0xca,0x4d,0xeb,0x75,0xab,0xd8,0x41,0x41,
+    0x4d,0x0a,0x70,0x00,0x98,0xe8,0x79,0x77,0x79,0x40,0xc7,0x8c,
+    0x73,0xfe,0x6f,0x2b,0xee,0x6c,0x03,0x52};
+static const uint8_t SQRT_M1_BYTES[32] = {
+    0xb0,0xa0,0x0e,0x4a,0x27,0x1b,0xee,0xc4,0x78,0xe4,0x2f,0xad,
+    0x06,0x18,0x43,0x2f,0xa7,0xd7,0xfb,0x3d,0x99,0x00,0x4d,0x2b,
+    0x0b,0xdf,0xc1,0x4f,0x80,0x24,0x83,0x2b};
+
+typedef struct { fe x, y, z, t; } ge;  /* extended coordinates, a=-1 */
+
+static void ge_identity(ge *r) {
+    fe_zero(&r->x); fe_one(&r->y); fe_one(&r->z); fe_zero(&r->t);
+}
+
+static void ge_add(ge *r, const ge *p, const ge *q) {
+    fe a, b, c, d, e, f, g, h, t0, t1;
+    fe_sub(&t0, &p->y, &p->x); fe_carry(&t0);
+    fe_sub(&t1, &q->y, &q->x); fe_carry(&t1);
+    fe_mul(&a, &t0, &t1);
+    fe_add(&t0, &p->y, &p->x);
+    fe_add(&t1, &q->y, &q->x);
+    fe_mul(&b, &t0, &t1);
+    fe_mul(&c, &p->t, &FE_D);
+    fe_add(&c, &c, &c);
+    fe_carry(&c);
+    fe_mul(&c, &c, &q->t);
+    fe_mul(&d, &p->z, &q->z);
+    fe_add(&d, &d, &d);
+    fe_sub(&e, &b, &a); fe_carry(&e);
+    fe_sub(&f, &d, &c); fe_carry(&f);
+    fe_add(&g, &d, &c); fe_carry(&g);
+    fe_add(&h, &b, &a); fe_carry(&h);
+    fe_mul(&r->x, &e, &f);
+    fe_mul(&r->y, &g, &h);
+    fe_mul(&r->z, &f, &g);
+    fe_mul(&r->t, &e, &h);
+}
+
+/* RFC 9496 SQRT_RATIO_M1. Returns was_square; *r = sqrt(u/v) or sqrt(i*u/v), abs. */
+static int sqrt_ratio_m1(fe *r, const fe *u, const fe *v) {
+    fe v3, v7, t, check, u_neg, u_neg_i, rr;
+    fe_sq(&v3, v); fe_mul(&v3, &v3, v);          /* v^3 */
+    fe_sq(&v7, &v3); fe_mul(&v7, &v7, v);        /* v^7 */
+    fe_mul(&t, u, &v7);
+    fe_pow22523(&t, &t);                         /* (u v^7)^((p-5)/8) */
+    fe_mul(&rr, u, &v3); fe_mul(&rr, &rr, &t);
+    fe_sq(&check, &rr); fe_mul(&check, &check, v);
+    fe_neg(&u_neg, u);
+    fe_mul(&u_neg_i, &u_neg, &FE_SQRT_M1);
+    int correct = fe_eq(&check, u);
+    int flipped = fe_eq(&check, &u_neg);
+    int flipped_i = fe_eq(&check, &u_neg_i);
+    if (flipped || flipped_i) fe_mul(&rr, &rr, &FE_SQRT_M1);
+    fe_cabs(r, &rr);
+    return correct || flipped;
+}
+
+/* RFC 9496 decode; returns 0 ok, -1 invalid */
+static int ristretto_decode(ge *p, const uint8_t s_bytes[32]) {
+    fe s, ss, u1, u2, u2_sqr, v, t, den_x, den_y, x, y;
+    /* canonical check: bytes must re-encode identically and be non-negative */
+    fe_frombytes(&s, s_bytes);
+    uint8_t chk[32];
+    fe_tobytes(chk, &s);
+    if (memcmp(chk, s_bytes, 32) != 0) return -1;
+    if (s_bytes[0] & 1) return -1;
+
+    fe_sq(&ss, &s);
+    fe_one(&u1); fe_sub(&u1, &u1, &ss); fe_carry(&u1);      /* 1 - s^2 */
+    fe_one(&u2); fe_add(&u2, &u2, &ss); fe_carry(&u2);      /* 1 + s^2 */
+    fe_sq(&u2_sqr, &u2);
+    fe_sq(&t, &u1); fe_mul(&t, &t, &FE_D);                  /* d u1^2 */
+    fe_neg(&v, &t);
+    fe_sub(&v, &v, &u2_sqr); fe_carry(&v);                  /* -(d u1^2) - u2^2 */
+    fe mulv;
+    fe_mul(&mulv, &v, &u2_sqr);
+    fe one;
+    fe_one(&one);
+    int was_square = sqrt_ratio_m1(&t, &one, &mulv);        /* invsqrt */
+    fe_mul(&den_x, &t, &u2);
+    fe_mul(&den_y, &t, &den_x); fe_mul(&den_y, &den_y, &v);
+    fe_add(&x, &s, &s);
+    fe_mul(&x, &x, &den_x);
+    fe_cabs(&x, &x);
+    fe_mul(&y, &u1, &den_y);
+    fe_mul(&t, &x, &y);
+    if (!was_square || fe_isnegative(&t) || fe_iszero(&y)) return -1;
+    fe_copy(&p->x, &x); fe_copy(&p->y, &y);
+    fe_one(&p->z);
+    fe_copy(&p->t, &t);
+    return 0;
+}
+
+/* ristretto coset equality: X1 Y2 == Y1 X2  OR  Y1 Y2 == X1 X2 */
+static int ristretto_eq(const ge *p, const ge *q) {
+    fe a, b;
+    fe_mul(&a, &p->x, &q->y);
+    fe_mul(&b, &p->y, &q->x);
+    if (fe_eq(&a, &b)) return 1;
+    fe_mul(&a, &p->y, &q->y);
+    fe_mul(&b, &p->x, &q->x);
+    return fe_eq(&a, &b);
+}
+
+/* ---------------- fixed-base table ---------------- */
+
+static const uint8_t BASEPOINT_BYTES[32] = {
+    0xe2,0xf2,0xae,0x0a,0x6a,0xbc,0x4e,0x71,0xa8,0x84,0xa9,0x61,
+    0xc5,0x00,0x51,0x5f,0x58,0xe3,0x0b,0x6a,0xa5,0x82,0xdd,0x8d,
+    0xb6,0xa6,0x59,0x45,0xe0,0x8d,0x2d,0x76};
+
+static ge FIXED_TABLE[64][16];
+static int INITIALIZED = 0;
+
+int r255_init(void) {
+    if (INITIALIZED) return 0;
+    fe_frombytes(&FE_D, D_BYTES);
+    fe_frombytes(&FE_SQRT_M1, SQRT_M1_BYTES);
+    fe_one(&FE_ONE);
+    ge base;
+    if (ristretto_decode(&base, BASEPOINT_BYTES) != 0) return -1;
+    for (int w = 0; w < 64; w++) {
+        ge_identity(&FIXED_TABLE[w][0]);
+        for (int d = 1; d < 16; d++)
+            ge_add(&FIXED_TABLE[w][d], &FIXED_TABLE[w][d - 1], &base);
+        ge next;
+        ge_add(&next, &FIXED_TABLE[w][1], &FIXED_TABLE[w][15]);  /* 16*base */
+        base = next;
+    }
+    INITIALIZED = 1;
+    return 0;
+}
+
+/* constant-time select: r = table[d] scanned with masks, no secret-
+ * dependent branches or indices (the scalar is secret on the signing
+ * path — r255_mult_base computes nonce*B and key*B) */
+static void ge_ct_select(ge *r, const ge table[16], int d) {
+    const u64 *src0 = (const u64 *)&table[0];
+    u64 *dst = (u64 *)r;
+    size_t words = sizeof(ge) / sizeof(u64);
+    for (size_t i = 0; i < words; i++) dst[i] = src0[i];
+    for (int j = 1; j < 16; j++) {
+        u64 mask = (u64)0 - (u64)(((uint32_t)(j ^ d) - 1u) >> 31); /* all-1 iff j==d */
+        const u64 *src = (const u64 *)&table[j];
+        for (size_t i = 0; i < words; i++)
+            dst[i] ^= mask & (dst[i] ^ src[i]);
+    }
+}
+
+static void fixed_mult(ge *r, const uint8_t s[32]) {
+    /* window 0 via select from identity-rooted table; remaining windows
+     * always add (Edwards unified addition is complete, so adding the
+     * selected entry — identity when the nibble is 0 — is safe) */
+    ge t;
+    ge_ct_select(r, FIXED_TABLE[0], s[0] & 0xF);
+    for (int w = 1; w < 64; w++) {
+        int d = (s[w >> 1] >> ((w & 1) * 4)) & 0xF;
+        ge_ct_select(&t, FIXED_TABLE[w], d);
+        ge_add(r, r, &t);
+    }
+}
+
+/* Multi-scalar multiplication; scalars are 32-byte LE, verification-
+ * only (variable time is fine — same stance as the Python path).
+ *
+ * Small n: Straus with per-point 4-bit tables (cheap setup).
+ * Large n: Pippenger bucket method — per window of c bits, scatter
+ * every point into one of 2^c-1 buckets (one add each), then fold the
+ * buckets with the running-sum trick (2*(2^c-1) adds) and shift the
+ * accumulator by c doublings. Total ≈ (256/c)*(n + 2^(c+1)) adds vs
+ * Straus's ~74n: at n=4096 (a 2048-signature round, 2 points each)
+ * that is ~2x fewer point additions, and the bucket scratch is O(2^c)
+ * instead of Straus's n*16 table. */
+#define MSM_MAX 4096
+#define STRAUS_MAX 64
+
+static int msm_straus(ge *out, size_t n, const ge *pts, const uint8_t *scalars) {
+    static ge tables[STRAUS_MAX][16];
+    if (n > STRAUS_MAX) return -1;
+    for (size_t i = 0; i < n; i++) {
+        ge_identity(&tables[i][0]);
+        tables[i][1] = pts[i];
+        for (int d = 2; d < 16; d++)
+            ge_add(&tables[i][d], &tables[i][d - 1], &pts[i]);
+    }
+    ge acc;
+    ge_identity(&acc);
+    for (int w = 63; w >= 0; w--) {
+        ge_add(&acc, &acc, &acc);
+        ge_add(&acc, &acc, &acc);
+        ge_add(&acc, &acc, &acc);
+        ge_add(&acc, &acc, &acc);
+        for (size_t i = 0; i < n; i++) {
+            int d = (scalars[i * 32 + (w >> 1)] >> ((w & 1) * 4)) & 0xF;
+            if (d) ge_add(&acc, &acc, &tables[i][d]);
+        }
+    }
+    *out = acc;
+    return 0;
+}
+
+/* c bits of a 32-byte LE scalar starting at bit position `bit` (c <= 8,
+ * so two bytes always cover the window) */
+static int scalar_window(const uint8_t *s, int bit, int c) {
+    int byte = bit >> 3, shift = bit & 7;
+    uint32_t v = s[byte];
+    if (byte + 1 < 32) v |= (uint32_t)s[byte + 1] << 8;
+    return (int)((v >> shift) & ((1u << c) - 1));
+}
+
+static int msm_pippenger(ge *out, size_t n, const ge *pts,
+                         const uint8_t *scalars) {
+    int c = n < 1024 ? 6 : 8; /* ~optimal where this path runs */
+    int nbuckets = (1 << c) - 1;
+    static ge buckets[255];
+    int windows = (256 + c - 1) / c;
+    ge acc;
+    ge_identity(&acc);
+    for (int w = windows - 1; w >= 0; w--) {
+        for (int j = 0; j < c; j++) ge_add(&acc, &acc, &acc);
+        for (int j = 0; j < nbuckets; j++) ge_identity(&buckets[j]);
+        int bit = w * c;
+        for (size_t i = 0; i < n; i++) {
+            int d = scalar_window(scalars + 32 * i, bit, c);
+            if (d) ge_add(&buckets[d - 1], &buckets[d - 1], &pts[i]);
+        }
+        /* sum_d d*bucket[d] = sum of suffix running sums */
+        ge sum, runsum;
+        ge_identity(&sum);
+        ge_identity(&runsum);
+        for (int j = nbuckets - 1; j >= 0; j--) {
+            ge_add(&runsum, &runsum, &buckets[j]);
+            ge_add(&sum, &sum, &runsum);
+        }
+        ge_add(&acc, &acc, &sum);
+    }
+    *out = acc;
+    return 0;
+}
+
+static int msm(ge *out, size_t n, const ge *pts, const uint8_t *scalars) {
+    if (n > MSM_MAX) return -1;
+    if (n <= STRAUS_MAX) return msm_straus(out, n, pts, scalars);
+    return msm_pippenger(out, n, pts, scalars);
+}
+
+/* Decoded-public-key cache: ristretto decode costs one field
+ * exponentiation (~15-19 us on a weak core) and the batch equation
+ * decodes TWO points per signature — but the A_i are client identity
+ * keys, which repeat heavily across a session's requests, while the
+ * R_i are fresh nonce points every time. Direct-mapped, keyed by the
+ * full 32-byte encoding; stores only successfully-decoded canonical
+ * points, so a hit is exactly equivalent to a fresh decode. Callers
+ * (r255_verify1 / r255_batch_check) run under the Python wrapper's
+ * module lock, which serializes all access to this static table. */
+#define PUBCACHE_BITS 13
+#define PUBCACHE_N (1 << PUBCACHE_BITS)
+static struct { uint8_t key[32]; ge val; uint8_t full; } pubcache[PUBCACHE_N];
+
+static int ristretto_decode_pub(ge *out, const uint8_t enc[32]) {
+    uint64_t h;
+    memcpy(&h, enc, 8);
+    uint32_t slot = (uint32_t)(h ^ (h >> 17) ^ (h >> 31)) & (PUBCACHE_N - 1);
+    if (pubcache[slot].full && memcmp(pubcache[slot].key, enc, 32) == 0) {
+        *out = pubcache[slot].val;
+        return 0;
+    }
+    if (ristretto_decode(out, enc) != 0) return -1;
+    memcpy(pubcache[slot].key, enc, 32);
+    pubcache[slot].val = *out;
+    pubcache[slot].full = 1;
+    return 0;
+}
+
+/* ---------------- exported checks ---------------- */
+
+/* s*B == R + k*A; all inputs 32-byte LE. 1 valid, 0 invalid, -1 bad input */
+int r255_verify1(const uint8_t pub[32], const uint8_t r_enc[32],
+                 const uint8_t s[32], const uint8_t k[32]) {
+    if (r255_init() != 0) return -1;
+    ge a_pt, big_r, left, right;
+    if (ristretto_decode_pub(&a_pt, pub) != 0) return -1;
+    if (ristretto_decode(&big_r, r_enc) != 0) return -1;
+    fixed_mult(&left, s);
+    ge pts[1] = {a_pt};
+    if (msm(&right, 1, pts, k) != 0) return -1;
+    ge_add(&right, &right, &big_r);
+    return ristretto_eq(&left, &right);
+}
+
+/* fixed(sb) == sum z_i*R_i + zk_i*A_i over n items.
+ * rs/as_: n*32 bytes of encodings; z/zk: n*32 LE reduced scalars. */
+int r255_batch_check(size_t n, const uint8_t *rs, const uint8_t *as_,
+                     const uint8_t *z, const uint8_t *zk,
+                     const uint8_t sb[32]) {
+    if (r255_init() != 0) return -1;
+    if (2 * n > MSM_MAX) return -1;
+    static ge pts[MSM_MAX];
+    static uint8_t scal[MSM_MAX * 32];
+    for (size_t i = 0; i < n; i++) {
+        if (ristretto_decode(&pts[2 * i], rs + 32 * i) != 0) return -1;
+        if (ristretto_decode_pub(&pts[2 * i + 1], as_ + 32 * i) != 0) return -1;
+        memcpy(scal + 64 * i, z + 32 * i, 32);
+        memcpy(scal + 64 * i + 32, zk + 32 * i, 32);
+    }
+    ge left, right;
+    fixed_mult(&left, sb);
+    if (msm(&right, 2 * n, pts, scal) != 0) return -1;
+    return ristretto_eq(&left, &right);
+}
+
+/* RFC 9496 encode of an internal point */
+static void ristretto_encode_ge(uint8_t out[32], const ge *pp) {
+    ge p = *pp;
+    fe u1, u2, t, den1, den2, z_inv, ix0, iy0, enchanted, x, y, den_inv, s_out;
+    fe_add(&u1, &p.z, &p.y);
+    fe_sub(&t, &p.z, &p.y); fe_carry(&t);
+    fe_mul(&u1, &u1, &t);
+    fe_mul(&u2, &p.x, &p.y);
+    fe u2sq, mulv;
+    fe_sq(&u2sq, &u2);
+    fe_mul(&mulv, &u1, &u2sq);
+    fe one;
+    fe_one(&one);
+    fe invsqrt;
+    sqrt_ratio_m1(&invsqrt, &one, &mulv);
+    fe_mul(&den1, &invsqrt, &u1);
+    fe_mul(&den2, &invsqrt, &u2);
+    fe_mul(&z_inv, &den1, &den2);
+    fe_mul(&z_inv, &z_inv, &p.t);
+    fe_mul(&ix0, &p.x, &FE_SQRT_M1);
+    fe_mul(&iy0, &p.y, &FE_SQRT_M1);
+    /* INVSQRT_A_MINUS_D = 1/sqrt(a-d) with a=-1: sqrt_ratio(1, -1-d) */
+    fe amd;
+    fe_one(&amd);
+    fe_neg(&amd, &amd);
+    fe_sub(&amd, &amd, &FE_D); fe_carry(&amd);
+    sqrt_ratio_m1(&enchanted, &one, &amd);
+    fe_mul(&enchanted, &den1, &enchanted);
+    fe tz;
+    fe_mul(&tz, &p.t, &z_inv);
+    int rotate = fe_isnegative(&tz);
+    if (rotate) {
+        fe_copy(&x, &iy0); fe_copy(&y, &ix0); fe_copy(&den_inv, &enchanted);
+    } else {
+        fe_copy(&x, &p.x); fe_copy(&y, &p.y); fe_copy(&den_inv, &den2);
+    }
+    fe xz;
+    fe_mul(&xz, &x, &z_inv);
+    if (fe_isnegative(&xz)) fe_neg(&y, &y);
+    fe_sub(&t, &p.z, &y); fe_carry(&t);
+    fe_mul(&s_out, &den_inv, &t);
+    fe_cabs(&s_out, &s_out);
+    fe_tobytes(out, &s_out);
+}
+
+/* test hook: decode+re-encode (canonicality / round-trip checks) */
+int r255_encode(uint8_t out[32], const uint8_t in[32]) {
+    if (r255_init() != 0) return -1;
+    ge p;
+    if (ristretto_decode(&p, in) != 0) return -1;
+    ristretto_encode_ge(out, &p);
+    return 0;
+}
+
+/* out = s*B (fixed-base, for client-side signing). 0 ok, -1 init fail */
+int r255_mult_base(uint8_t out[32], const uint8_t s[32]) {
+    if (r255_init() != 0) return -1;
+    ge p;
+    fixed_mult(&p, s);
+    ristretto_encode_ge(out, &p);
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* Keccak-f[1600] (FIPS 202 permutation), for the merlin/STROBE layer  */
+/* under sr25519 signatures (session/merlin.py).  The pure-Python      */
+/* permutation costs ~10^2 us; per-request signature verification runs */
+/* several permutations, so the hot path dispatches here when loaded.  */
+/* State: 200 bytes, 25 little-endian u64 lanes.                       */
+/* ------------------------------------------------------------------ */
+
+static const uint64_t keccak_rc[24] = {
+    0x0000000000000001ULL, 0x0000000000008082ULL, 0x800000000000808aULL,
+    0x8000000080008000ULL, 0x000000000000808bULL, 0x0000000080000001ULL,
+    0x8000000080008081ULL, 0x8000000000008009ULL, 0x000000000000008aULL,
+    0x0000000000000088ULL, 0x0000000080008009ULL, 0x000000008000000aULL,
+    0x000000008000808bULL, 0x800000000000008bULL, 0x8000000000008089ULL,
+    0x8000000000008003ULL, 0x8000000000008002ULL, 0x8000000000000080ULL,
+    0x000000000000800aULL, 0x800000008000000aULL, 0x8000000080008081ULL,
+    0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL,
+};
+
+static const int keccak_rot[25] = {
+    0, 1, 62, 28, 27, 36, 44, 6, 55, 20, 3, 10, 43, 25, 39,
+    41, 45, 15, 21, 8, 18, 2, 61, 56, 14,
+};
+
+static uint64_t rotl64(uint64_t v, int n) {
+    return n == 0 ? v : (v << n) | (v >> (64 - n));
+}
+
+void r255_keccak_f1600(uint8_t state[200]) {
+    uint64_t a[25];
+    for (int i = 0; i < 25; i++) {
+        uint64_t v = 0;
+        for (int j = 7; j >= 0; j--) v = (v << 8) | state[8 * i + j];
+        a[i] = v;
+    }
+    for (int round = 0; round < 24; round++) {
+        uint64_t c[5], d[5], b[25];
+        for (int x = 0; x < 5; x++)
+            c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
+        for (int x = 0; x < 5; x++)
+            d[x] = c[(x + 4) % 5] ^ rotl64(c[(x + 1) % 5], 1);
+        for (int x = 0; x < 5; x++)
+            for (int y = 0; y < 25; y += 5) a[x + y] ^= d[x];
+        for (int x = 0; x < 5; x++)
+            for (int y = 0; y < 5; y++)
+                b[y + 5 * ((2 * x + 3 * y) % 5)] =
+                    rotl64(a[x + 5 * y], keccak_rot[x + 5 * y]);
+        for (int x = 0; x < 5; x++)
+            for (int y = 0; y < 25; y += 5)
+                a[x + y] = b[x + y] ^ (~b[(x + 1) % 5 + y] & b[(x + 2) % 5 + y]);
+        a[0] ^= keccak_rc[round];
+    }
+    for (int i = 0; i < 25; i++) {
+        uint64_t v = a[i];
+        for (int j = 0; j < 8; j++) { state[8 * i + j] = (uint8_t)v; v >>= 8; }
+    }
+}
+
+/* ------------------------------------------------------------------ */
+/* STROBE-128 duplex (the trimmed subset merlin embeds) over the      */
+/* permutation above — the per-request signature hot path runs ~8     */
+/* transcript ops per challenge derivation, and the Python framing    */
+/* (session/merlin.py) costs ~85 us/challenge; these C ops cut that   */
+/* to single-digit us. Layout: one 203-byte blob shared with Python:  */
+/*   [0..200) keccak state | [200] pos | [201] pos_begin | [202] cur_flags */
+/* merlin.py's pure-Python Strobe128 is the correctness oracle.       */
+/* ------------------------------------------------------------------ */
+
+#define STROBE_R 166
+#define SF_I 1
+#define SF_A 2
+#define SF_C 4
+#define SF_T 8
+#define SF_M 16
+#define SF_K 32
+
+static void strobe_run_f(uint8_t *b) {
+    b[b[200]] ^= b[201];
+    b[b[200] + 1] ^= 0x04;
+    b[STROBE_R + 1] ^= 0x80;
+    r255_keccak_f1600(b);
+    b[200] = 0;
+    b[201] = 0;
+}
+
+static void strobe_absorb(uint8_t *b, const uint8_t *d, size_t n) {
+    uint8_t pos = b[200];
+    for (size_t i = 0; i < n; i++) {
+        b[pos++] ^= d[i];
+        if (pos == STROBE_R) {
+            b[200] = pos;
+            strobe_run_f(b);
+            pos = 0;
+        }
+    }
+    b[200] = pos;
+}
+
+static void strobe_overwrite(uint8_t *b, const uint8_t *d, size_t n) {
+    uint8_t pos = b[200];
+    for (size_t i = 0; i < n; i++) {
+        b[pos++] = d[i];
+        if (pos == STROBE_R) {
+            b[200] = pos;
+            strobe_run_f(b);
+            pos = 0;
+        }
+    }
+    b[200] = pos;
+}
+
+static void strobe_squeeze(uint8_t *b, uint8_t *out, size_t n) {
+    uint8_t pos = b[200];
+    for (size_t i = 0; i < n; i++) {
+        out[i] = b[pos];
+        b[pos++] = 0;
+        if (pos == STROBE_R) {
+            b[200] = pos;
+            strobe_run_f(b);
+            pos = 0;
+        }
+    }
+    b[200] = pos;
+}
+
+static int strobe_begin_op(uint8_t *b, uint8_t flags, int more) {
+    if (more) return flags == b[202] ? 0 : -1;
+    if (flags & SF_T) return -2;
+    uint8_t header[2];
+    header[0] = b[201];           /* old pos_begin */
+    header[1] = flags;
+    b[201] = b[200] + 1;
+    b[202] = flags;
+    strobe_absorb(b, header, 2);
+    if ((flags & (SF_C | SF_K)) && b[200] != 0) strobe_run_f(b);
+    return 0;
+}
+
+/* op: 0 = meta_ad, 1 = ad, 2 = prf (data unused, out filled), 3 = key */
+int r255_strobe_op(uint8_t *b, int op, const uint8_t *data, size_t n,
+                   uint8_t *out, int more) {
+    int rc;
+    switch (op) {
+    case 0:
+        rc = strobe_begin_op(b, SF_M | SF_A, more);
+        if (rc) return rc;
+        strobe_absorb(b, data, n);
+        return 0;
+    case 1:
+        rc = strobe_begin_op(b, SF_A, more);
+        if (rc) return rc;
+        strobe_absorb(b, data, n);
+        return 0;
+    case 2:
+        rc = strobe_begin_op(b, SF_I | SF_A | SF_C, more);
+        if (rc) return rc;
+        strobe_squeeze(b, out, n);
+        return 0;
+    case 3:
+        rc = strobe_begin_op(b, SF_A | SF_C, more);
+        if (rc) return rc;
+        strobe_overwrite(b, data, n);
+        return 0;
+    }
+    return -3;
+}
+
+/* merlin append_message: meta_ad(label) ‖ meta_ad(LE32(len), more) ‖ ad(msg)
+   — one library crossing instead of three (transcript.rs framing). */
+void r255_merlin_append(uint8_t *b, const uint8_t *label, size_t llen,
+                        const uint8_t *msg, size_t mlen) {
+    uint8_t le[4] = {(uint8_t)mlen, (uint8_t)(mlen >> 8),
+                     (uint8_t)(mlen >> 16), (uint8_t)(mlen >> 24)};
+    strobe_begin_op(b, SF_M | SF_A, 0);
+    strobe_absorb(b, label, llen);
+    strobe_absorb(b, le, 4);
+    strobe_begin_op(b, SF_A, 0);
+    strobe_absorb(b, msg, mlen);
+}
+
+/* merlin challenge_bytes: meta_ad(label) ‖ meta_ad(LE32(n), more) ‖ PRF(n). */
+void r255_merlin_challenge(uint8_t *b, const uint8_t *label, size_t llen,
+                           uint8_t *out, size_t n) {
+    uint8_t le[4] = {(uint8_t)n, (uint8_t)(n >> 8), (uint8_t)(n >> 16),
+                     (uint8_t)(n >> 24)};
+    strobe_begin_op(b, SF_M | SF_A, 0);
+    strobe_absorb(b, label, llen);
+    strobe_absorb(b, le, 4);
+    strobe_begin_op(b, SF_I | SF_A | SF_C, 0);
+    strobe_squeeze(b, out, n);
+}
+
+/* The full schnorrkel Fiat–Shamir challenge in one crossing: clone the
+   cached SigningContext prefix (203-byte blob), absorb the message and
+   the sign.rs label sequence, squeeze 64 challenge bytes. Labels are
+   schnorrkel-og 0.11 sign.rs/context.rs; session/merlin.py's Python
+   framing is the oracle (tests/test_merlin.py equivalence). */
+void r255_schnorrkel_challenge(const uint8_t *prefix_blob,
+                               const uint8_t *msg, size_t mlen,
+                               const uint8_t *pub, const uint8_t *r_enc,
+                               uint8_t *out64) {
+    uint8_t b[203];
+    memcpy(b, prefix_blob, 203);
+    r255_merlin_append(b, (const uint8_t *)"sign-bytes", 10, msg, mlen);
+    r255_merlin_append(b, (const uint8_t *)"proto-name", 10,
+                       (const uint8_t *)"Schnorr-sig", 11);
+    r255_merlin_append(b, (const uint8_t *)"sign:pk", 7, pub, 32);
+    r255_merlin_append(b, (const uint8_t *)"sign:R", 6, r_enc, 32);
+    r255_merlin_challenge(b, (const uint8_t *)"sign:c", 6, out64, 64);
+}

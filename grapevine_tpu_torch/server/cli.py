@@ -1,0 +1,724 @@
+"""grapevine server CLI for the PyTorch port (a copy of
+``grapevine_tpu/server/cli.py``: the reference's ``./grapevine-server
+--help``, README.md:126, with the expiry period as a flag, README.md:90).
+
+    python -m grapevine_tpu_torch.server.cli --device cpu \\
+        --listen insecure-grapevine://127.0.0.1:3229
+
+Roles ``mono`` (default), ``engine`` and ``frontend`` serve as the
+reference's do. The engine runs on the CUDA card unless ``--device cpu``
+is given, and raises without a card. The ``standby`` and ``fleet`` roles
+and the flags of unported features (leak monitor, tracer, SLO, profiler,
+adaptive window, journal shipping) raise ``NotImplementedError`` naming
+their ROADMAP.md queue A item. This module imports no ``torch`` at the
+top, so host-pipeline workers (which re-import the main module) stay
+torch-free.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from ..config import GrapevineConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    # allow_abbrev=False: role/flag validation detects explicitly-
+    # supplied options by exact token match in argv, which abbreviated
+    # option prefixes would dodge
+    p = argparse.ArgumentParser(
+        prog="grapevine-server-torch",
+        description="oblivious message bus server (PyTorch/CUDA port)",
+        allow_abbrev=False,
+    )
+    p.add_argument(
+        "--listen",
+        default="insecure-grapevine://0.0.0.0:3229",
+        help="listen URI: grapevine://host:port (TLS) or insecure-grapevine://host:port",
+    )
+    p.add_argument("--tls-cert", help="PEM certificate chain (required for grapevine://)")
+    p.add_argument("--tls-key", help="PEM private key (required for grapevine://)")
+    p.add_argument(
+        "--expiry-period",
+        type=int,
+        default=0,
+        help="seconds until messages expire; 0 disables the sweep",
+    )
+    p.add_argument("--msg-capacity", type=int, default=1 << 14, help="max in-flight messages")
+    p.add_argument(
+        "--recipient-capacity", type=int, default=1 << 12, help="max recipients with mail"
+    )
+    p.add_argument("--batch-size", type=int, default=8, help="ops per oblivious round")
+    p.add_argument(
+        "--batch-wait-ms",
+        type=float,
+        default=None,
+        help="cap on the round-collection window (default: scheduler's "
+        "quiescence policy, 8ms cap / 2ms idle gap)",
+    )
+    p.add_argument(
+        "--posmap-impl",
+        choices=["flat", "recursive"],
+        default=None,
+        help="position-map implementation (oram/posmap.py): 'flat' = "
+        "the private in-memory table (default via auto), 'recursive' = "
+        "a one-level recursive position ORAM — ~sqrt(capacity)× less "
+        "resident position memory for ~2× round path traffic, the "
+        "knob that takes one replica past 2^24 records (sizing table: "
+        "OPERATIONS.md §13). Responses are bit-identical either way. "
+        "Device-owning roles only — the frontend never touches a "
+        "position map",
+    )
+    p.add_argument(
+        "--tree-top-cache-levels",
+        type=int,
+        default=None,
+        help="tree-top cache depth k for every Path-ORAM bucket tree "
+        "(oram/path_oram.py): the top k levels (2^k-1 buckets, on "
+        "EVERY path) live decrypted-resident instead of in the "
+        "encrypted HBM tree, cutting per-access path HBM traffic and "
+        "cipher work to the bottom height+1-k levels. "
+        "Access-pattern-neutral (the cached levels are touched by "
+        "every access; CI-audited) and bit-identical at every k. "
+        "0 = off; unset = auto per backend (OPERATIONS.md §14 sizing "
+        "+ flip guidance). Device-owning roles only — the frontend "
+        "never touches a tree",
+    )
+    p.add_argument(
+        "--pipeline-depth",
+        type=int,
+        choices=[1, 2],
+        default=None,
+        help="round-pipeline depth (engine/batcher.py): max dispatched-"
+        "but-unresolved engine rounds in flight. 2 = while round k "
+        "executes on the device, round k+1 is assembled, verified, and "
+        "its journal frame fsynced — steady-state cadence approaches "
+        "max(host, fsync, device) and p99 commit latency stops paying "
+        "the fsync; 1 = the serial program, bit for bit (responses and "
+        "state are bit-identical either way, and replay order is "
+        "journal order at every depth — OPERATIONS.md §16). Unset = "
+        "auto: 2 on the CUDA card, 1 on the CPU. Device-owning roles "
+        "only — the frontend has no round pipeline",
+    )
+    p.add_argument(
+        "--evict-every",
+        type=int,
+        default=None,
+        help="delayed batched eviction cadence E (oram/round.py, "
+        "OPERATIONS.md §19): fetched path contents accumulate in a "
+        "bounded private buffer and the scatter+encrypt half of the "
+        "round runs ONCE per E rounds over the window's deduplicated "
+        "bucket union — the steady-state round is gather+decrypt+"
+        "stash-update only. Responses and logical state are "
+        "bit-identical at every E; the flush cadence is a pure round "
+        "count, never buffer contents (CI-audited). 1 = per-round "
+        "eviction, bit for bit; unset = auto (currently 1). "
+        "Device-owning roles only",
+    )
+    p.add_argument(
+        "--evict-buffer-slots",
+        type=int,
+        default=None,
+        help="eviction-buffer capacity override (rows per payload "
+        "tree) under --evict-every > 1; unset = auto sizing "
+        "(OPERATIONS.md §19 — min(blocks, 2·Z·window·fetches + "
+        "slack)). Watch grapevine_evict_buffer_high_water before "
+        "lowering it. Device-owning roles only",
+    )
+    p.add_argument(
+        "--shards",
+        type=int,
+        default=1,
+        help="bucket-tree shard count across the local device mesh "
+        "(parallel/mesh.py, OPERATIONS.md §22; not ported: ROADMAP.md "
+        "queue A item 15): each of the first N devices owns a "
+        "contiguous heap range of both bucket trees; the round gathers "
+        "over ICI and the delayed-eviction flush "
+        "owner-masks its scatters per chip. Responses, transcripts, and "
+        "logical state are bit-identical at every shard count, and "
+        "journals/checkpoints replay across shard counts (the knob is "
+        "outside the durability fingerprint, like --pipeline-depth). "
+        "Power of two dividing both trees' padded bucket counts; "
+        "requires N visible devices. 1 = single-chip (default). "
+        "Device-owning roles only",
+    )
+    p.add_argument("--seed", type=int, default=0, help="engine RNG seed")
+    p.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help="where the engine's state and rounds live: the CUDA card "
+        "(default; the server refuses to start without one) or, asked "
+        "for explicitly, the CPU through every kernel's plain PyTorch "
+        "version. Device-owning roles only",
+    )
+    p.add_argument(
+        "--identity-seed",
+        help="64 hex chars: derive a STABLE server static key (IX "
+        "handshake) so clients can pin it across restarts; omitted = "
+        "fresh identity per start. The public key is printed either way.",
+    )
+    p.add_argument(
+        "--role",
+        choices=["mono", "engine", "frontend", "fleet", "standby"],
+        default="mono",
+        help="mono = engine + sessions in one process (default); "
+        "engine = device engine tier only (serves the internal Submit "
+        "API on --engine-listen); frontend = client-facing session "
+        "process forwarding validated ops to --engine (run N of these "
+        "behind a load balancer — server/tier.py); fleet = scrape "
+        "aggregator over N member processes' metrics endpoints, "
+        "serving merged shard-labeled /metrics, /healthz, /leakaudit "
+        "with cross-shard uniformity detectors (obs/fleet.py); "
+        "standby = hot replica replaying a primary's shipped journal "
+        "(engine/replication.py, OPERATIONS.md §23) — SIGUSR1 "
+        "promotes it and it starts serving the Submit API on "
+        "--engine-listen. fleet and standby are not ported (ROADMAP.md "
+        "queue A items 16 and 13) and raise",
+    )
+    p.add_argument(
+        "--fleet-members",
+        help="(role=fleet) comma-separated member metrics endpoints as "
+        "host:port; list POSITION is the shard index — the only member "
+        "identity that ever reaches a metric label (obs/fleet.py)",
+    )
+    p.add_argument(
+        "--fleet-scrape-interval",
+        type=float,
+        default=1.0,
+        help="(role=fleet) seconds between scrape cycles. With the "
+        "start instant this fixes the ENTIRE scrape schedule — a pure "
+        "function of config, never of observed traffic "
+        "(OPERATIONS.md §20)",
+    )
+    p.add_argument(
+        "--fleet-port",
+        type=int,
+        default=0,
+        help="(role=fleet) port for the merged fleet endpoints "
+        "(0 = ephemeral); binds --metrics-host",
+    )
+    p.add_argument(
+        "--engine-listen",
+        default="127.0.0.1:0",
+        help="(role=engine) internal host:port for the Submit API — "
+        "keep it on localhost or a private interface",
+    )
+    p.add_argument(
+        "--engine",
+        help="(role=frontend) host:port of the engine tier's Submit API",
+    )
+    p.add_argument(
+        "--replicate-to",
+        help="(mono/engine, with --state-dir) host:port of a standby "
+        "replica's --standby-listen endpoint: stream every sealed "
+        "journal frame there at round cadence (engine/replication.py). "
+        "Shipping traffic is a pure function of round count — the "
+        "frames are the sealed constant-size journal records, so the "
+        "leak monitor's cadence policing covers the wire verbatim "
+        "(OPERATIONS.md §23)",
+    )
+    p.add_argument(
+        "--ship-every",
+        type=int,
+        default=1,
+        help="(with --replicate-to) journal frames per shipping wake "
+        "(default 1 = every frame immediately). N>1 batches wakes; the "
+        "standby still receives every frame, just up to N-1 frames "
+        "later — a standby-RPO knob, not a durability knob",
+    )
+    p.add_argument(
+        "--standby-listen",
+        default="127.0.0.1:0",
+        help="(role=standby) host:port to accept the primary's "
+        "replication feed on (0 = ephemeral; keep it on localhost or "
+        "a private interface — frames are sealed, but the cadence is "
+        "operational telemetry)",
+    )
+    p.add_argument(
+        "--promote-from",
+        help="(role=standby) the primary's --state-dir path, reachable "
+        "at promotion time (shared volume): promote() plants the "
+        "split-brain fence there and drains the durable journal tail "
+        "for RPO 0. Omitted = promote from shipped state only "
+        "(accepting the shipping lag as RPO)",
+    )
+    p.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        help="serve Prometheus /metrics and /healthz on this port "
+        "(0 = ephemeral; default: off). Telemetry is batch-level only — "
+        "the registry's leak audit guarantees nothing per-client or "
+        "per-op is exported (OPERATIONS.md §8) — but keep the port on "
+        "localhost or a private scrape network anyway",
+    )
+    p.add_argument(
+        "--metrics-host",
+        default="127.0.0.1",
+        help="interface for the metrics endpoint (default: localhost "
+        "only; point it at a private scrape interface explicitly — "
+        "operational telemetry is nobody else's business)",
+    )
+    p.add_argument(
+        "--leakmon",
+        action="store_true",
+        help="continuously audit the ORAM transcript for obliviousness "
+        "leaks (obs/leakmon.py): sliding-window same-key collision / "
+        "cross-round repeat / uniformity detectors, a /leakaudit verdict "
+        "on the metrics endpoint, and the round flight recorder on "
+        "/flightrec. Device-owning roles only (mono, engine) — a "
+        "frontend never sees a transcript (OPERATIONS.md §10)",
+    )
+    p.add_argument(
+        "--leakmon-window",
+        type=int,
+        default=256,
+        help="leak monitor sliding window, in per-stream observations "
+        "(default 256; larger = more statistical power, slower to "
+        "flag AND to clear — OPERATIONS.md §10)",
+    )
+    p.add_argument(
+        "--leakmon-uniformity-z",
+        type=float,
+        default=8.0,
+        help="|z| threshold for the pooled-leaf uniformity detector "
+        "(default 8.0; honest transcripts give |z| = O(1))",
+    )
+    p.add_argument(
+        "--leakmon-collision-threshold",
+        type=float,
+        default=0.02,
+        help="windowed same-key leaf collision rate above this is "
+        "SUSPECT (default 0.02; honest rate is 1/leaves)",
+    )
+    p.add_argument(
+        "--leakmon-repeat-threshold",
+        type=float,
+        default=0.05,
+        help="windowed cross-round leaf repeat rate above this is "
+        "SUSPECT (default 0.05; honest rate is 1/leaves)",
+    )
+    p.add_argument(
+        "--leakmon-dump-path",
+        help="file the flight recorder dumps to on a PASS→SUSPECT "
+        "transition (default: no automatic dump; /flightrec always "
+        "serves the ring on demand)",
+    )
+    p.add_argument(
+        "--trace-ring-size",
+        type=int,
+        default=512,
+        help="per-round span ledgers retained by the round tracer "
+        "(obs/tracer.py): /trace serves them as Perfetto-loadable "
+        "Chrome trace JSON and grapevine_round_bubble_ratio derives "
+        "from them. Spans are phases, never operations — the "
+        "leak policy, enforced structurally. Device-owning roles only",
+    )
+    p.add_argument(
+        "--slo-commit-p99-ms",
+        type=float,
+        default=None,
+        help="end-to-end commit-latency SLO target in ms (enqueue → "
+        "round settle, worst op per round). Multi-window burn rates "
+        "over a 1%% error budget fold into /healthz: both windows "
+        "burning = 503 = stop routing (OPERATIONS.md §12). Unset = "
+        "observe-only: latencies, burn rates, and grapevine_slo_alert "
+        "still export against a 250 ms reference target, but /healthz "
+        "never gates on them — setting a target is the explicit "
+        "operator decision to let a breach pull the replica from "
+        "routing. Device-owning roles only — latency commits on the "
+        "engine",
+    )
+    p.add_argument(
+        "--profile-enable",
+        action="store_true",
+        help="expose /profile?ms=N on the metrics endpoint: a live "
+        "profiler capture of the serving process (not ported: ROADMAP.md "
+        "queue A item 16; one at a time, "
+        "duration-clamped; obs/profiler.py). Off by default — a "
+        "capture costs real overhead and writes device traces to "
+        "disk. Device-owning roles only",
+    )
+    p.add_argument(
+        "--state-dir",
+        help="crash safety: directory for sealed checkpoints + the "
+        "batch journal (engine/checkpoint.py). Every admitted batch is "
+        "journaled before dispatch; restart = last checkpoint + replay. "
+        "Default: off — state is volatile "
+        "(see OPERATIONS.md §11). Device-owning roles only",
+    )
+    p.add_argument(
+        "--checkpoint-every-rounds",
+        type=int,
+        default=64,
+        help="(with --state-dir) rounds+sweeps between sealed "
+        "whole-state checkpoints — the RTO knob: recovery replays at "
+        "most this many journal records (default 64)",
+    )
+    p.add_argument(
+        "--journal-fsync-every",
+        type=int,
+        default=1,
+        help="(with --state-dir) journal records per fsync. 1 (default) "
+        "= every round is machine-crash-durable before it dispatches; "
+        "N>1 amortizes the fsync, risking the last N-1 acknowledged "
+        "rounds on power loss (process crashes lose nothing either way)",
+    )
+    p.add_argument(
+        "--seal-key-file",
+        help="(with --state-dir) 32-byte root seal key file (default: "
+        "<state-dir>/root.key, auto-generated 0600). Mount a secret "
+        "from outside the state volume in production — OPERATIONS.md "
+        "§11 key management",
+    )
+    p.add_argument(
+        "--worker-restart",
+        action="store_true",
+        help="supervised restart of the batch-collector thread after a "
+        "crash (default: a dead collector flips /healthz unhealthy and "
+        "stays dead for the orchestrator to replace the process). "
+        "Either way the crash increments grapevine_worker_crash_total",
+    )
+    p.add_argument(
+        "--host-workers",
+        type=int,
+        default=0,
+        help="off-GIL host pipeline: N worker processes for session "
+        "decrypt/encode/verify, sticky by channel id (server/hostpipe.py). "
+        "0 (default) = the historical in-process path. Worker crash "
+        "policy rides --worker-restart; either way /healthz folds the "
+        "pool and crashes increment grapevine_host_worker_crash_total",
+    )
+    p.add_argument(
+        "--adaptive-batch",
+        action="store_true",
+        help="SLO-adaptive round-collection window: size each round's "
+        "wait from the arrival-rate EWMA, queue depth, and SLO burn "
+        "rates — public load aggregates only, never queue contents "
+        "(server/adaptive.py has the obliviousness argument). Default: "
+        "the static --batch-wait-ms window",
+    )
+    p.add_argument(
+        "--flush-window",
+        dest="flush_window_ms",
+        type=float,
+        default=None,
+        metavar="MS",
+        help="flush-aware collection: when the delayed-eviction flush "
+        "(--evict-every) occupies the device, stretch the overlapping "
+        "collection window by MS milliseconds to harvest a fuller "
+        "round. The flush cadence itself stays strictly every "
+        "--evict-every rounds — this knob only retimes host-side "
+        "collection, a pure function of the public round counter",
+    )
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+#: which flags each role actually consumes — a flag explicitly supplied
+#: outside its role's set is a misconfiguration, and silently dropping
+#: it would hide exactly the kind of mistake (expecting TLS or a pinned
+#: identity on the wrong listener) that must fail loudly
+#: the leak monitor audits the device transcript, so only device-owning
+#: roles take its flags — a frontend supplying --leakmon-* is exactly
+#: the "expected monitoring that isn't happening" misconfiguration this
+#: matrix exists to catch
+_LEAKMON_FLAGS = {"leakmon", "leakmon_window", "leakmon_uniformity_z",
+                  "leakmon_collision_threshold",
+                  "leakmon_repeat_threshold", "leakmon_dump_path"}
+
+#: durability owns device state, so only device-owning roles take it —
+#: a frontend supplying --state-dir would silently checkpoint nothing
+_DURABILITY_FLAGS = {"state_dir", "checkpoint_every_rounds",
+                     "journal_fsync_every", "seal_key_file",
+                     "worker_restart"}
+
+#: round tracing, the commit-latency SLO, and live profiler capture all
+#: observe the device round, so only device-owning roles take them — a
+#: frontend supplying --slo-commit-p99-ms would silently measure nothing
+_TRACE_SLO_FLAGS = {"trace_ring_size", "slo_commit_p99_ms",
+                    "profile_enable"}
+
+#: device-engine geometry/execution knobs: only roles that build an
+#: engine take them — a frontend supplying --posmap-impl,
+#: --tree-top-cache-levels, --pipeline-depth, or --evict-every would
+#: silently configure nothing (its engine lives in another process)
+_ENGINE_GEOM_FLAGS = {"posmap_impl", "tree_top_cache_levels",
+                      "pipeline_depth", "evict_every",
+                      "evict_buffer_slots", "shards"}
+
+#: fleet-aggregator topology/cadence: only the fleet role scrapes —
+#: any other role supplied --fleet-members would silently aggregate
+#: nothing, and a fleet role supplied engine flags would silently
+#: serve no engine
+_FLEET_FLAGS = {"fleet_members", "fleet_scrape_interval", "fleet_port"}
+
+#: journal shipping needs the journal in-process, so only roles that
+#: own a durable engine take --replicate-to — a frontend supplying it
+#: would silently replicate nothing (its journal lives in the engine
+#: tier), exactly the misconfiguration that must fail loudly before an
+#: operator believes they have a standby
+_REPLICATION_FLAGS = {"replicate_to", "ship_every"}
+
+#: the standby's own surface: its replication listener and the
+#: primary state dir it fences at promotion
+_STANDBY_FLAGS = {"standby_listen", "promote_from"}
+
+#: the multiprocess host pipeline handles session decrypt/encode and
+#: signature verify — any role that terminates sessions (mono,
+#: frontend) or verifies rounds (engine) takes it; the fleet
+#: aggregator and the pre-promotion standby touch neither
+_HOSTPIPE_FLAGS = {"host_workers"}
+
+#: adaptive/flush-aware collection shapes the device round window, so
+#: only roles that own a BatchScheduler over an in-process engine take
+#: them — a frontend supplying --adaptive-batch would silently shape
+#: nothing (its rounds are collected in the engine tier)
+_ADAPTIVE_FLAGS = {"adaptive_batch", "flush_window_ms"}
+
+_ROLE_FLAGS = {
+    "mono": {"listen", "tls_cert", "tls_key", "expiry_period",
+             "msg_capacity", "recipient_capacity", "batch_size",
+             "batch_wait_ms", "seed", "identity_seed", "verbose", "role",
+             "metrics_port", "metrics_host", "device"}
+            | _LEAKMON_FLAGS | _DURABILITY_FLAGS | _TRACE_SLO_FLAGS
+            | _ENGINE_GEOM_FLAGS | _REPLICATION_FLAGS
+            | _HOSTPIPE_FLAGS | _ADAPTIVE_FLAGS,
+    "engine": {"engine_listen", "expiry_period", "msg_capacity",
+               "recipient_capacity", "batch_size", "batch_wait_ms",
+               "seed", "verbose", "role", "metrics_port", "metrics_host",
+               "device"}
+              | _LEAKMON_FLAGS | _DURABILITY_FLAGS | _TRACE_SLO_FLAGS
+              | _ENGINE_GEOM_FLAGS | _REPLICATION_FLAGS
+              | _HOSTPIPE_FLAGS | _ADAPTIVE_FLAGS,
+    "frontend": {"engine", "listen", "tls_cert", "tls_key",
+                 "batch_size", "identity_seed", "verbose", "role",
+                 "metrics_port", "metrics_host", "worker_restart"}
+                | _HOSTPIPE_FLAGS,
+    # the fleet role owns no device, no listener, no sessions: it
+    # scrapes declared members and serves the merged view — the only
+    # non-fleet flag it takes is the bind interface
+    "fleet": {"role", "verbose", "metrics_host"} | _FLEET_FLAGS,
+    # the standby owns a durable device engine (it replays into one)
+    # and, after promotion, serves the internal Submit API — so it
+    # takes geometry + durability + the engine tier's listener, but no
+    # client-facing session flags and no --replicate-to (it is the
+    # replication *target*; chaining standbys is not supported)
+    "standby": {"role", "verbose", "seed", "expiry_period",
+                "msg_capacity", "recipient_capacity", "batch_size",
+                "batch_wait_ms", "engine_listen", "metrics_port",
+                "metrics_host"}
+               | _STANDBY_FLAGS | _DURABILITY_FLAGS | _LEAKMON_FLAGS
+               | _TRACE_SLO_FLAGS | _ENGINE_GEOM_FLAGS
+               | _ADAPTIVE_FLAGS,
+}
+
+#: roles and flags whose features the port does not carry yet → the
+#: ROADMAP.md queue A item that ports them; each raises
+#: NotImplementedError (never a silent drop)
+_UNPORTED_ROLES = {
+    "fleet": "item 16 (obs/fleet.py, the scrape aggregator)",
+    "standby": "item 13 rest (engine/replication.py, the standby replica)",
+}
+_UNPORTED_FLAGS = {
+    **{d: "item 16 (obs/leakmon.py, the leak monitor)" for d in _LEAKMON_FLAGS},
+    "trace_ring_size": "item 16 (obs/tracer.py, the round tracer)",
+    "slo_commit_p99_ms": "item 16 (obs/slo.py, the commit-latency SLO)",
+    "profile_enable": "item 16 (obs/profiler.py, the profiler gate)",
+    "adaptive_batch": "item 16 (server/adaptive.py, the adaptive window)",
+    **{d: "item 13 rest (engine/replication.py, journal shipping)"
+       for d in _REPLICATION_FLAGS | _STANDBY_FLAGS},
+    **{d: "item 16 (obs/fleet.py, the scrape aggregator)"
+       for d in _FLEET_FLAGS},
+}
+
+
+def _durability_config(args):
+    """The DurabilityConfig for --state-dir, or None when off."""
+    if not args.state_dir:
+        return None
+    from ..config import DurabilityConfig
+
+    return DurabilityConfig(
+        state_dir=args.state_dir,
+        checkpoint_every_rounds=args.checkpoint_every_rounds,
+        journal_fsync_every=args.journal_fsync_every,
+        seal_key_file=args.seal_key_file,
+    )
+
+
+def _install_drain_handlers(drain):
+    """SIGTERM/SIGINT → drain (settle queued ops, finish the in-flight
+    round, seal a final checkpoint), then exit 0. Idempotent: a second
+    signal while draining is ignored rather than re-entering stop()."""
+    import signal
+    import threading
+
+    fired = threading.Event()
+
+    def _handler(signum, frame):
+        if fired.is_set():
+            return
+        fired.set()
+        drain()
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _handler)
+    signal.signal(signal.SIGINT, _handler)
+
+
+def _supplied(parser, argv) -> set:
+    """Dests whose option token actually appears in argv (exact match or
+    --opt=value form; abbreviations are disabled on the parser), so even
+    a flag supplied WITH its default value counts."""
+    supplied = set()
+    tokens = list(argv if argv is not None else sys.argv[1:])
+    for action in parser._actions:
+        for opt in action.option_strings:
+            if any(t == opt or t.startswith(opt + "=") for t in tokens):
+                supplied.add(action.dest)
+    return supplied
+
+
+def _refuse_unported(parser, args, argv):
+    todo = []
+    if args.role in _UNPORTED_ROLES:
+        todo.append(f"--role {args.role} ({_UNPORTED_ROLES[args.role]})")
+    for dest in sorted(_supplied(parser, argv) & _UNPORTED_FLAGS.keys()):
+        todo.append(f"--{dest.replace('_', '-')} ({_UNPORTED_FLAGS[dest]})")
+    if todo:
+        raise NotImplementedError(
+            "not ported to the PyTorch serving tier yet, ROADMAP.md queue "
+            "A: " + "; ".join(todo)
+        )
+
+
+def _reject_misapplied_flags(parser, args, argv):
+    allowed = _ROLE_FLAGS[args.role]
+    supplied = _supplied(parser, argv)
+    # every parser dest must be claimed by some role — catches a flag
+    # added to build_parser but missed in the matrix at dev time
+    dests = {a.dest for a in parser._actions if a.dest != "help"}
+    unclaimed = dests - set().union(*_ROLE_FLAGS.values())
+    if unclaimed:  # not assert: must survive python -O
+        raise SystemExit(f"flags missing from _ROLE_FLAGS: {unclaimed}")
+    bad = [
+        f"--{dest.replace('_', '-')}"
+        for dest in supplied
+        if dest not in allowed
+    ]
+    if bad:
+        raise SystemExit(
+            f"--role {args.role} does not take {', '.join(sorted(bad))} "
+            "(engine = internal plaintext Submit API only; frontend = "
+            "client-facing sessions forwarding to --engine; see "
+            "server/tier.py)"
+        )
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _refuse_unported(parser, args, argv)
+    _reject_misapplied_flags(parser, args, argv)
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
+    config = GrapevineConfig(
+        max_messages=args.msg_capacity,
+        max_recipients=args.recipient_capacity,
+        expiry_period=args.expiry_period,
+        batch_size=args.batch_size,
+        posmap_impl=args.posmap_impl,
+        tree_top_cache_levels=args.tree_top_cache_levels,
+        pipeline_depth=args.pipeline_depth,
+        evict_every=args.evict_every,
+        evict_buffer_slots=args.evict_buffer_slots,
+        shards=args.shards,
+    )
+    identity = None
+    if args.identity_seed:
+        from ..session.channel import ServerIdentity
+
+        try:
+            identity = ServerIdentity.from_seed(bytes.fromhex(args.identity_seed))
+        except ValueError as exc:
+            raise SystemExit(
+                f"--identity-seed must be 64 hex chars (32 bytes): {exc}"
+            ) from None
+
+    if args.role == "engine":
+        import threading
+
+        from .tier import EngineServer
+
+        engine = EngineServer(config, seed=args.seed,
+                              max_wait_ms=args.batch_wait_ms,
+                              durability=_durability_config(args),
+                              worker_restart=args.worker_restart,
+                              host_workers=args.host_workers,
+                              flush_window_ms=args.flush_window_ms,
+                              device=args.device)
+        port = engine.start(args.engine_listen)
+        print(f"grapevine engine tier listening on port {port}",
+              flush=True)
+        if args.metrics_port is not None:
+            mport = engine.start_metrics(args.metrics_port,
+                                         host=args.metrics_host)
+            print(f"metrics endpoint on port {mport}", flush=True)
+        # drain-then-checkpoint on SIGTERM/SIGINT: queued ops settle
+        # with UNAVAILABLE, the in-flight round commits, the final
+        # state seals — restart loses nothing (OPERATIONS.md §11)
+        _install_drain_handlers(lambda: engine.stop(checkpoint=True))
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:  # pragma: no cover - handler owns it
+            engine.stop(checkpoint=True)
+        return 0
+
+    if args.role == "frontend":
+        if not args.engine:
+            raise SystemExit("--role frontend requires --engine host:port")
+        from .tier import FrontendServer
+
+        server = FrontendServer(args.engine, config=config,
+                                identity=identity,
+                                host_workers=args.host_workers,
+                                worker_restart=args.worker_restart)
+    else:
+        # imported here (not at module top) so role/flag validation
+        # fails fast without paying the session/service import
+        from .service import GrapevineServer
+
+        server = GrapevineServer(
+            config, seed=args.seed, max_wait_ms=args.batch_wait_ms,
+            identity=identity,
+            durability=_durability_config(args),
+            worker_restart=args.worker_restart,
+            host_workers=args.host_workers,
+            flush_window_ms=args.flush_window_ms,
+            device=args.device,
+        )
+    tls_cert = open(args.tls_cert, "rb").read() if args.tls_cert else None
+    tls_key = open(args.tls_key, "rb").read() if args.tls_key else None
+    port = server.start(args.listen, tls_cert=tls_cert, tls_key=tls_key)
+    print(f"grapevine listening on port {port}", flush=True)
+    if args.metrics_port is not None:
+        mport = server.start_metrics(args.metrics_port, host=args.metrics_host)
+        print(f"metrics endpoint on port {mport}", flush=True)
+    # the pinnable IX static (clients: GrapevineClient(server_static=...))
+    print(f"server static key: {server.identity.public.hex()}", flush=True)
+    if args.role == "frontend":
+        _install_drain_handlers(server.stop)  # no engine state to seal
+    else:
+        _install_drain_handlers(lambda: server.stop(checkpoint=True))
+    try:
+        server.wait()
+    except KeyboardInterrupt:  # pragma: no cover - handler owns it
+        server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,516 @@
+"""Cross-connection request batcher (+ batched signature verification); a
+copy of ``grapevine_tpu/server/scheduler.py`` over the port's engine.
+
+The north-star component the reference never needed (its enclave
+serialized per-op ECALLs; SURVEY.md §2c): concurrent gRPC handler threads
+submit single operations, and a collector thread packs them into
+fixed-size engine rounds — up to ``batch_size`` ops or ``max_wait_ms``,
+whichever first. Under-full rounds are dummy-padded by the engine, so the
+device cadence carries no information about load bursts beyond the round
+count itself.
+
+Challenge-signature verification rides the same batching: the round's
+signatures are checked with ONE random-linear-combination multi-scalar
+multiplication (session/ristretto.py:batch_verify — SURVEY.md §2b
+"consider batch verify"); only a failing round pays per-item verification
+to identify offenders, which are rejected without reaching the engine.
+
+The collector is a staged pipeline: it keeps up to ``pipeline_depth``
+dispatched rounds in a bounded in-flight ledger and settles them
+oldest-first, so at depth 2 round k+2's collection window, batch
+verification, and journal fsync all overlap rounds k and k+1 on the
+device (engine/batcher.py module docstring has the stage contract).
+Depth 1 is the serial dispatch-then-settle loop.
+
+On the card the collector thread dispatches and resolves while the
+expiry thread sweeps and gRPC handler threads sample the stash; all of
+them enqueue on the legacy default stream (shared across threads), so
+the engine lock's serialization of dispatches is also their device
+order. No caller may wrap engine calls in a ``torch.cuda.stream``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+
+from typing import TYPE_CHECKING
+
+from ..session import schnorrkel
+from ..wire.records import QueryRequest, QueryResponse
+
+if TYPE_CHECKING:
+    from ..engine.batcher import GrapevineEngine
+
+#: (pub, context, message, signature) as taken by the scheme's verify
+AuthItem = tuple[bytes, bytes, bytes, bytes]
+
+
+class AuthFailure(Exception):
+    """The request's challenge signature did not verify."""
+
+
+class SchedulerShutdown(RuntimeError):
+    """The op was settled (or refused) because the scheduler is
+    draining: the explicit shutdown error clients get instead of a
+    silently dropped future. The serving layers map it to gRPC
+    UNAVAILABLE so clients retry elsewhere."""
+
+
+class BatchScheduler:
+    def __init__(
+        self,
+        engine: "GrapevineEngine",
+        max_wait_ms: float = 8.0,
+        idle_gap_ms: float = 2.0,
+        clock=None,
+        scheme=None,
+        restart_on_crash: bool = False,
+        pipeline_depth: int | None = None,
+        flush_window_ms: float | None = None,
+    ):
+        self.engine = engine
+        self.max_wait = max_wait_ms / 1000.0
+        self.idle_gap = idle_gap_ms / 1000.0
+        self.clock = clock or (lambda: int(time.time()))
+        #: round-pipeline depth — max dispatched-but-unsettled rounds
+        #: the collector keeps in flight (the bounded in-flight ledger;
+        #: engine/batcher.py module docstring).
+        #: Default: the engine's resolved ``config.pipeline_depth``
+        #: (stub engines in tests have none → 1, the serial program);
+        #: the explicit parameter exists for the bench's depth A/B.
+        depth = (
+            pipeline_depth
+            if pipeline_depth is not None
+            else getattr(engine, "pipeline_depth", 1)
+        )
+        if int(depth) < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {depth}")
+        self.pipeline_depth = int(depth)
+        #: signature scheme module (sign/verify/batch_verify); default is
+        #: the reference-compatible sr25519 (session/schnorrkel.py)
+        self.scheme = scheme or schnorrkel
+        #: optional multiprocess verify fan-out (server/hostpipe.py):
+        #: when GrapevineServer runs a host pipeline it plants the pool
+        #: here, and the round's first-pass batch_verify splits across
+        #: worker processes. None = the historical in-process MSM.
+        self.hostpipe = None
+        #: flush-aware collection (the reference's server/adaptive.py
+        #: module docstring has the obliviousness argument; its
+        #: SLO-adaptive window is ROADMAP.md queue A item 16): when the
+        #: engine reports a delayed-eviction flush is on the device (flush_bubble_pending
+        #: — a pure function of the round counter), the next collection
+        #: window may stretch by this declared extra wait, harvesting
+        #: arrivals into a fuller round instead of dispatching a thin
+        #: round that queues behind the flush anyway. None/0 = off.
+        self.flush_window = (flush_window_ms or 0.0) / 1000.0
+        if self.flush_window < 0:
+            raise ValueError("flush_window_ms must be >= 0")
+        #: batch-level telemetry sink (engine/metrics.py on an
+        #: obs.TelemetryRegistry); the scheduler records into the
+        #: engine's registry so /metrics serves one merged view
+        self.metrics = getattr(engine, "metrics", None)
+        self._c_flush_stretch = None
+        registry = getattr(self.metrics, "registry", None)
+        if self.flush_window > 0 and registry is not None:
+            # successive schedulers over one engine (bench arms, standby
+            # promotion) share the counter instead of re-registering
+            existing = registry.get(
+                "grapevine_host_flush_window_stretches_total")
+            self._c_flush_stretch = existing if existing is not None \
+                else registry.counter(
+                "grapevine_host_flush_window_stretches_total",
+                "collection windows stretched into a delayed-eviction "
+                "flush bubble (--flush-window; round-count cadence only)")
+        #: (request, auth, future, perf_counter enqueue time)
+        self._queue: list[
+            tuple[QueryRequest, AuthItem | None, Future, float]
+        ] = []
+        self._inflight: list[Future] = []
+        self._last_enqueue = 0.0
+        #: monotonic enqueue time of the current queue head — the age of
+        #: the oldest waiting op is the healthz stall signal (obs/httpd)
+        self._head_enqueue = 0.0
+        #: monotonic dispatch time of the round currently in flight on
+        #: the device, None when none is. A wedge inside resolve() (the
+        #: device never returning) empties the queue but freezes this —
+        #: stall_age() must see it, or healthz serves 200 while every
+        #: in-flight client hangs on fut.result() forever
+        self._inflight_since: float | None = None
+        self._cv = threading.Condition()
+        self._closed = False
+        #: explicit close() vs crash-closure: restart_on_crash revives
+        #: the collector only for the latter
+        self._shutdown = False
+        self._restart_on_crash = restart_on_crash
+        #: consecutive crashes without a successfully settled round in
+        #: between; past the cap the collector stays dead so /healthz
+        #: flips and the orchestrator replaces the process — supervised
+        #: restart must not convert a persistent fault (disk full,
+        #: wedged device) into a "healthy" server failing every request
+        self._crash_streak = 0
+        self.max_crash_streak = 8
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def submit(
+        self, req: QueryRequest, auth: AuthItem | None = None
+    ) -> QueryResponse:
+        """Block until the op's round commits; returns its response.
+
+        With ``auth`` set, the signature is verified as part of the
+        round's batch; raises AuthFailure (and the op never reaches the
+        engine) if it does not verify."""
+        return self.submit_nowait(req, auth).result()
+
+    def submit_nowait(
+        self, req: QueryRequest, auth: AuthItem | None = None
+    ) -> Future:
+        """Enqueue one op and return its Future without waiting.
+
+        The open-loop entry point (the reference's load generators): an arrival
+        joins the queue at its scheduled time regardless of how earlier
+        ops are faring, so overload latency is *measured* (the queue
+        grows and enqueue→settle waits stretch) instead of silently
+        self-throttled by a blocked caller. The Future resolves to the
+        op's QueryResponse, or raises AuthFailure / SchedulerShutdown /
+        the round's error exactly as ``submit`` would."""
+        fut: Future = Future()
+        # perf_counter enqueue stamp: the SLO's enqueue→settle anchor
+        # (one clock domain with the batcher's round spans); the
+        # scheduler's own deadline math stays on time.monotonic
+        t_enq = time.perf_counter()
+        with self._cv:
+            if self._closed:
+                raise SchedulerShutdown("scheduler closed")
+            self._queue.append((req, auth, fut, t_enq))
+            depth = len(self._queue)
+            self._last_enqueue = time.monotonic()
+            if depth == 1:
+                self._head_enqueue = self._last_enqueue
+            if self.metrics is not None:
+                self.metrics.observe_queue_depth(depth)
+            self._cv.notify()
+        return fut
+
+    # -- health probes (obs/httpd.py's /healthz) ------------------------
+
+    def worker_alive(self) -> bool:
+        """False once the collector thread has died (crash or close)."""
+        return self._worker.is_alive()
+
+    def stall_age(self) -> float:
+        """Seconds the oldest un-delivered op has been waiting: the max
+        of the queue head's wait and the in-flight round's age. A
+        healthy collector drains the head within max_wait + one device
+        round and settles an in-flight round promptly, so a growing
+        stall age means the engine thread has wedged — whether the ops
+        are still queued or already on the device (the healthz
+        trip-wire)."""
+        now = time.monotonic()
+        with self._cv:
+            q_age = now - self._head_enqueue if self._queue else 0.0
+        t = self._inflight_since  # benign unlocked float read
+        return max(q_age, now - t if t is not None else 0.0)
+
+    def _run(self):
+        """Collector loop wrapper: a crash in the loop must not strand
+        blocked submitters (submit() waits on fut.result() with no
+        timeout — a dead worker would mean a hung client forever).
+        Fail every queued and in-flight future and count the crash;
+        with ``restart_on_crash`` the loop is revived in place (the
+        supervised-restart mode — the thread never reads as dead),
+        otherwise re-raise so the death is loud in logs and subsequent
+        submits fail immediately."""
+        while True:
+            try:
+                self._run_inner()
+                return
+            except BaseException as exc:
+                with self._cv:
+                    self._closed = True
+                    stranded = [fut for _, _, fut, _ in self._queue]
+                    self._queue.clear()
+                    self._cv.notify_all()
+                stranded += self._inflight
+                for fut in stranded:
+                    if not fut.done():
+                        fut.set_exception(
+                            RuntimeError(f"scheduler worker died: {exc!r}")
+                        )
+                crash_counter = getattr(
+                    self.metrics, "record_worker_crash", None
+                )
+                if crash_counter is not None:
+                    crash_counter()
+                self._crash_streak += 1
+                if (
+                    not self._restart_on_crash
+                    or self._shutdown
+                    or self._crash_streak > self.max_crash_streak
+                ):
+                    raise
+                import logging
+
+                logging.getLogger("grapevine_tpu_torch.scheduler").exception(
+                    "collector crashed (streak %d/%d); supervised "
+                    "restart (--worker-restart)",
+                    self._crash_streak, self.max_crash_streak,
+                )
+                # jittered backoff so a hot fault loop cannot spin the
+                # core; capped well under the healthz stall threshold
+                time.sleep(min(5.0, 0.1 * (2 ** (self._crash_streak - 1))))
+                self._inflight = []
+                self._inflight_since = None
+                with self._cv:
+                    self._closed = self._shutdown
+
+    def _run_inner(self):
+        bs = self.engine.ecfg.batch_size
+        depth = self.pipeline_depth
+        #: the bounded in-flight ledger: (PendingRound, live futures,
+        #: monotonic dispatch time) in dispatch order. After a dispatch
+        #: the collector settles the ledger down to ``depth`` rounds, so
+        #: at depth 2 round k+2's collection window, verification, and
+        #: journal fsync all run while rounds k and k+1 are still on the
+        #: device; at depth 1 the sequence is the serial
+        #: dispatch-then-settle loop. The bound is enforced AFTER
+        #: dispatch on purpose (dispatch-then-settle IS the depth-1
+        #: legacy ordering): depth+1 rounds are transiently dispatched-
+        #: but-unresolved for the duration of each settle wait — size
+        #: device resp/transcript buffer residency as depth+1 rounds,
+        #: not depth (config.py knob docstring).
+        #: Rounds always settle oldest-first (= dispatch = journal
+        #: order), so responses, tracer ledgers, and leakmon hand-offs
+        #: stay in round order at every depth.
+        ledger: deque = deque()
+
+        def settle_head():
+            pending_h, live_h, t_h = ledger.popleft()
+            # the round being settled is the oldest in flight — its
+            # dispatch time anchors the stall signal while we block
+            self._inflight_since = t_h
+            self._settle(pending_h, live_h)
+            self._crash_streak = 0  # a settled round = recovered
+            self._inflight_since = ledger[0][2] if ledger else None
+
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    if ledger:
+                        break  # drain the in-flight pipeline, then sleep
+                    self._cv.wait()
+                if self._closed and not self._queue and not ledger:
+                    return
+                has_work = bool(self._queue)
+            # per-round window decision OUTSIDE the cv: its input is the
+            # engine's round-counter flush cadence, never queue or buffer
+            # contents
+            w_wait = self.max_wait
+            if has_work and self.flush_window > 0 and getattr(
+                self.engine, "flush_bubble_pending", lambda: False
+            )():
+                # the device is busy with the delayed-eviction flush (a
+                # round-count fact): stretch this window into the bubble
+                # and harvest a fuller round
+                w_wait += self.flush_window
+                if self._c_flush_stretch is not None:
+                    self._c_flush_stretch.inc()
+            with self._cv:
+                chunk = []
+                if self._queue:
+                    # Quiescence-based collection: a client wave
+                    # re-arrives staggered over several ms after the
+                    # previous round's responses land (decrypt → decode
+                    # → sign → resubmit), so a fixed short window caught
+                    # only the fastest few (measured 26% occupancy at 8
+                    # clients). Keep the window open while arrivals are
+                    # still trickling in (inter-arrival gap < idle_gap),
+                    # capped at the window's wait total; a lone client
+                    # still commits after the idle gap. The wait runs
+                    # while the device executes the previous round (see
+                    # below), so it costs no device idle time under load.
+                    t_asm0 = time.monotonic()
+                    t_asm0_pc = time.perf_counter()  # tracer clock
+                    deadline = t_asm0 + w_wait
+                    hit_cap = False
+                    while len(self._queue) < bs and not self._closed:
+                        now = time.monotonic()
+                        wait_until = min(
+                            deadline, self._last_enqueue + self.idle_gap
+                        )
+                        if now >= wait_until:
+                            hit_cap = now >= deadline
+                            break
+                        self._cv.wait(timeout=wait_until - now)
+                    chunk, self._queue = self._queue[:bs], self._queue[bs:]
+                    backlog = len(self._queue)
+                    asm_s = time.monotonic() - t_asm0
+                    if self._queue:
+                        # remaining head has been waiting since roughly
+                        # now (it arrived during this window)
+                        self._head_enqueue = time.monotonic()
+                    if self.metrics is not None:
+                        self.metrics.observe_queue_depth(len(self._queue))
+                        self.metrics.observe_phase("assembly", asm_s)
+                        if hit_cap and len(chunk) < bs:
+                            # window closed by the max_wait cap, not by
+                            # quiescence or a full batch: arrivals are
+                            # starving mid-wave (the stall signal)
+                            self.metrics.record_stall()
+
+            # everything the death-guard must fail if we crash from here:
+            # the rounds still in flight on the device plus the chunk
+            # just popped off the queue (no longer reachable from _queue)
+            self._inflight = [
+                f for _, lv, _ in ledger for _, f in lv
+            ] + [f for _, _, f, _ in chunk]
+            pending, live = (None, [])
+            if chunk:
+                t_v0 = time.monotonic()
+                t_v0_pc = time.perf_counter()
+                if self.metrics is not None:
+                    with self.metrics.time_phase("verify"):
+                        live = self._verify_chunk(chunk)
+                else:
+                    live = self._verify_chunk(chunk)
+                ver_s = time.monotonic() - t_v0
+                if live:
+                    reqs = [r for r, _ in live]
+                    try:
+                        # async dispatch: the device starts this round
+                        # while we resolve the previous one and collect
+                        # the next (the dispatch/compute overlap)
+                        pending = self.engine.handle_queries_async(
+                            reqs, self.clock()
+                        )
+                        t_disp = time.monotonic()
+                        # collector-side spans + the oldest op's enqueue
+                        # stamp ride the round handle itself, so the
+                        # tracer/SLO pair them with THIS round even
+                        # while the pipeline overlaps the next window
+                        # (getattr: test fakes return bare objects)
+                        if getattr(pending, "note_span", None) is not None:
+                            pending.note_span("assembly", t_asm0_pc, asm_s)
+                            pending.note_span("verify", t_v0_pc, ver_s)
+                            # post-dispatch backlog: the queue-depth
+                            # sample obs/workload.py histograms at
+                            # round cadence (and flightrec records)
+                            pending.set_queue_depth(backlog)
+                            # anchor on the ops that actually entered
+                            # the round: an auth-rejected op's queue
+                            # wait is not a commit latency, and letting
+                            # it in would hand an attacker (garbage
+                            # signatures are their cheapest input) a
+                            # lever on the SLO burn rate
+                            enq_by_fut = {f: t for _, _, f, t in chunk}
+                            pending.set_enqueued_at(
+                                min(enq_by_fut[f] for _, f in live)
+                            )
+                    except Exception as exc:  # pragma: no cover - defensive
+                        for _, fut in live:
+                            if not fut.done():
+                                fut.set_exception(exc)
+                        live = []
+            if pending is not None:
+                ledger.append((pending, live, t_disp))
+                self._inflight_since = ledger[0][2]
+                # the pipeline bound: settle oldest-first down to depth,
+                # so the NEXT collection window opens with exactly
+                # ``depth`` rounds overlapping it
+                while len(ledger) > depth:
+                    settle_head()
+            elif ledger:
+                # nothing dispatched this pass (idle tail, drain, or an
+                # all-rejected chunk): settle the oldest round so its
+                # clients are answered promptly and close() can drain
+                settle_head()
+
+    def _batch_verify_fanout(self, items) -> bool:
+        """First-pass batch verify, fanned across the hostpipe pool when
+        one is attached. The happy path (everything verifies) gets the
+        multiprocess speedup; a False answer hands off to the inline
+        bisect below, which stays in-process — failure is the attacker-
+        funded path and does not deserve the parallel hardware. Any pool
+        fault degrades to the in-process MSM rather than rejecting
+        honest traffic."""
+        if self.hostpipe is not None:
+            from .hostpipe import HostPipeError
+
+            try:
+                return self.hostpipe.verify_parallel(items)
+            except HostPipeError:
+                pass  # degraded pool: verified correctness beats speed
+        return bool(self.scheme.batch_verify(items))
+
+    def _verify_chunk(self, chunk):
+        """Batch signature verification; returns surviving (req, fut)."""
+        # --- one multi-scalar multiplication for the round ------------
+        authed = [i for i, (_, a, _, _) in enumerate(chunk) if a is not None]
+        rejected: set[int] = set()
+        if authed and not self._batch_verify_fanout(
+            [chunk[i][1] for i in authed]
+        ):
+            # bisect to the offenders: O(bad · log n) batch checks, so
+            # one client spraying garbage signatures cannot force
+            # per-item verification of every honest request
+            stack = [authed]
+            while stack:
+                idxs = stack.pop()
+                mid = len(idxs) // 2
+                for half in (idxs[:mid], idxs[mid:]):
+                    if not half:
+                        continue
+                    if len(half) == 1:
+                        i = half[0]
+                        if not self.scheme.verify(*chunk[i][1]):
+                            rejected.add(i)
+                            chunk[i][2].set_exception(
+                                AuthFailure("bad challenge signature")
+                            )
+                    elif not self.scheme.batch_verify(
+                        [chunk[i][1] for i in half]
+                    ):
+                        stack.append(half)
+        if authed and self.metrics is not None:
+            self.metrics.record_auth(failures=len(rejected))
+        return [
+            (req, fut)
+            for i, (req, _, fut, _) in enumerate(chunk)
+            if i not in rejected
+        ]
+
+    def _settle(self, pending, live):
+        """Resolve a dispatched round and deliver its responses."""
+        try:
+            resps = pending.resolve()
+            for (_, fut), resp in zip(live, resps):
+                fut.set_result(resp)
+        except Exception as exc:  # pragma: no cover - defensive
+            for _, fut in live:
+                if not fut.done():
+                    fut.set_exception(exc)
+
+    def close(self):
+        """Graceful drain: stop admitting, settle queued-but-undispatched
+        ops with an explicit SchedulerShutdown (never silently dropped —
+        the serving layer maps it to gRPC UNAVAILABLE so clients retry
+        elsewhere), and let the worker finish the round already on the
+        device before joining."""
+        with self._cv:
+            self._shutdown = True
+            self._closed = True
+            undispatched = [fut for _, _, fut, _ in self._queue]
+            self._queue.clear()
+            self._cv.notify_all()
+        for fut in undispatched:
+            if not fut.done():
+                fut.set_exception(
+                    SchedulerShutdown(
+                        "scheduler draining: op was queued but not yet "
+                        "dispatched; retry against a serving replica"
+                    )
+                )
+        self._worker.join(timeout=5)

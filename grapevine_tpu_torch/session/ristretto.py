@@ -1,0 +1,419 @@
+"""ristretto255 group and Schnorr request signatures (pure Python).
+
+The reference authenticates every request with a deterministic Schnorrkel
+(sr25519) signature over the 32-byte challenge, under the signing context
+``b"grapevine-challenge"`` (reference README.md:193-199,
+types/src/lib.rs:13,44-52). This module provides the same *shape* of
+scheme on the same group: 32-byte ristretto255 public keys, 64-byte
+(R ‖ s) Schnorr signatures, deterministic nonces, context-separated
+hashing — implemented against RFC 9496 (ristretto255) with SHA-512 as the
+hash. It is deliberately **not** byte-compatible with schnorrkel (which
+uses merlin/STROBE transcripts); the signature scheme is a session-layer
+choice and the wire sizes are identical.
+
+Host-side only and not constant-time (Python ints): the server only
+*verifies* public signatures; client signing keys never touch the
+service. A constant-time native implementation is a later hardening item.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+
+from .. import native as _native
+
+P = 2**255 - 19
+L = 2**252 + 27742317777372353535851937790883648493
+D = (-121665 * pow(121666, P - 2, P)) % P
+SQRT_M1 = pow(2, (P - 1) // 4, P)
+
+_NONCE_DOMAIN = b"grapevine-tpu-schnorr-nonce"
+_CHAL_DOMAIN = b"grapevine-tpu-schnorr-chal"
+
+
+def _inv(x: int) -> int:
+    return pow(x, P - 2, P)
+
+
+def _is_neg(x: int) -> bool:
+    return (x & 1) == 1
+
+
+def _abs(x: int) -> int:
+    return (-x) % P if _is_neg(x) else x
+
+
+def _sqrt_ratio_m1(u: int, v: int) -> tuple[bool, int]:
+    """RFC 9496 SQRT_RATIO_M1: (was_square, sqrt(u/v) or sqrt(i·u/v))."""
+    v3 = v * v % P * v % P
+    v7 = v3 * v3 % P * v % P
+    r = u * v3 % P * pow(u * v7 % P, (P - 5) // 8, P) % P
+    check = v * r % P * r % P
+    u_neg = (-u) % P
+    correct = check == u % P
+    flipped = check == u_neg
+    flipped_i = check == u_neg * SQRT_M1 % P
+    if flipped or flipped_i:
+        r = r * SQRT_M1 % P
+    return (correct or flipped), _abs(r)
+
+
+INVSQRT_A_MINUS_D = _sqrt_ratio_m1(1, (-1 - D) % P)[1]
+
+
+class RistrettoPoint:
+    """Extended Edwards coordinates on edwards25519 (a = -1)."""
+
+    __slots__ = ("x", "y", "z", "t")
+
+    def __init__(self, x: int, y: int, z: int, t: int):
+        self.x, self.y, self.z, self.t = x % P, y % P, z % P, t % P
+
+    # -- group ops ------------------------------------------------------
+
+    def __add__(self, other: "RistrettoPoint") -> "RistrettoPoint":
+        a = (self.y - self.x) * (other.y - other.x) % P
+        b = (self.y + self.x) * (other.y + other.x) % P
+        c = self.t * (2 * D) % P * other.t % P
+        d = self.z * 2 % P * other.z % P
+        e, f, g, h = (b - a) % P, (d - c) % P, (d + c) % P, (b + a) % P
+        return RistrettoPoint(e * f, g * h, f * g, e * h)
+
+    def __neg__(self) -> "RistrettoPoint":
+        return RistrettoPoint((-self.x) % P, self.y, self.z, (-self.t) % P)
+
+    def __mul__(self, k: int) -> "RistrettoPoint":
+        k %= L
+        acc = IDENTITY
+        add = self
+        while k:
+            if k & 1:
+                acc = acc + add
+            add = add + add
+            k >>= 1
+        return acc
+
+    __rmul__ = __mul__
+
+    def __eq__(self, other) -> bool:
+        # ristretto equality over the coset (RFC 9496 §4.5):
+        # X1·Y2 == Y1·X2  OR  Y1·Y2 == X1·X2 (curve parameter a = -1)
+        if not isinstance(other, RistrettoPoint):
+            return NotImplemented
+        return (
+            self.x * other.y % P == self.y * other.x % P
+            or self.y * other.y % P == self.x * other.x % P
+        )
+
+    def __hash__(self):
+        return hash(self.encode())
+
+    # -- RFC 9496 encode / decode --------------------------------------
+
+    def encode(self) -> bytes:
+        x0, y0, z0, t0 = self.x, self.y, self.z, self.t
+        u1 = (z0 + y0) * (z0 - y0) % P
+        u2 = x0 * y0 % P
+        _, invsqrt = _sqrt_ratio_m1(1, u1 * u2 % P * u2 % P)
+        den1 = invsqrt * u1 % P
+        den2 = invsqrt * u2 % P
+        z_inv = den1 * den2 % P * t0 % P
+        ix0 = x0 * SQRT_M1 % P
+        iy0 = y0 * SQRT_M1 % P
+        enchanted = den1 * INVSQRT_A_MINUS_D % P
+        rotate = _is_neg(t0 * z_inv % P)
+        if rotate:
+            x, y, den_inv = iy0, ix0, enchanted
+        else:
+            x, y, den_inv = x0, y0, den2
+        if _is_neg(x * z_inv % P):
+            y = (-y) % P
+        s = _abs(den_inv * ((z0 - y) % P) % P)
+        return s.to_bytes(32, "little")
+
+    @classmethod
+    def decode(cls, data: bytes) -> "RistrettoPoint":
+        if len(data) != 32:
+            raise ValueError("ristretto encoding must be 32 bytes")
+        s = int.from_bytes(data, "little")
+        if s >= P or _is_neg(s):
+            raise ValueError("non-canonical ristretto encoding")
+        ss = s * s % P
+        u1 = (1 - ss) % P
+        u2 = (1 + ss) % P
+        u2_sqr = u2 * u2 % P
+        v = (-(D * u1 % P * u1 % P) - u2_sqr) % P
+        was_square, invsqrt = _sqrt_ratio_m1(1, v * u2_sqr % P)
+        den_x = invsqrt * u2 % P
+        den_y = invsqrt * den_x % P * v % P
+        x = _abs(2 * s % P * den_x % P)
+        y = u1 * den_y % P
+        t = x * y % P
+        if not was_square or _is_neg(t) or y == 0:
+            raise ValueError("invalid ristretto encoding")
+        return cls(x, y, 1, t)
+
+
+IDENTITY = RistrettoPoint(0, 1, 1, 0)
+BASEPOINT = RistrettoPoint(
+    15112221349535400772501151409588531511454012693041857206046113283949847762202,
+    46316835694926478169428394003475163141307993866256225615783033603165251855960,
+    1,
+    15112221349535400772501151409588531511454012693041857206046113283949847762202
+    * 46316835694926478169428394003475163141307993866256225615783033603165251855960
+    % P,
+)
+
+
+# -- Schnorr signatures ------------------------------------------------
+
+
+def _h_scalar(*parts: bytes) -> int:
+    h = hashlib.sha512()
+    for part in parts:
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    return int.from_bytes(h.digest(), "little") % L
+
+
+def keygen(seed: bytes) -> tuple[bytes, bytes]:
+    """Derive (private_scalar_bytes, public_key_bytes) from a 32-byte seed."""
+    if len(seed) != 32:
+        raise ValueError("seed must be 32 bytes")
+    a = _h_scalar(b"grapevine-tpu-keygen", seed)
+    if a == 0:
+        a = 1
+    pub = (a * BASEPOINT).encode()
+    return a.to_bytes(32, "little"), pub
+
+
+def _mult_base_enc(scalar: int) -> bytes:
+    """Encoded ``scalar·B``, native when available (~0.05 ms vs ~2 ms
+    pure Python — the client-side signing hot path)."""
+    if _native.lib is not None:
+        enc = _native.mult_base((scalar % L).to_bytes(32, "little"))
+        if enc is not None:
+            return enc
+    return (scalar % L * BASEPOINT).encode()
+
+
+@functools.lru_cache(maxsize=4096)
+def public_key(sk: bytes) -> bytes:
+    """sk bytes → encoded public point. LRU-cached: sign() is on the
+    client per-request path and must not redo the basepoint mult."""
+    return _mult_base_enc(int.from_bytes(sk, "little") % L)
+
+
+def sign(sk: bytes, context: bytes, message: bytes) -> bytes:
+    """Deterministic context-separated Schnorr signature (64 bytes: R ‖ s)."""
+    a = int.from_bytes(sk, "little") % L
+    if a == 0:
+        raise ValueError("invalid private key")
+    pub = public_key(sk)
+    r = _h_scalar(_NONCE_DOMAIN, sk, context, message)
+    if r == 0:
+        r = 1
+    big_r = _mult_base_enc(r)
+    k = _h_scalar(_CHAL_DOMAIN, context, big_r, pub, message)
+    s = (r + k * a) % L
+    return big_r + s.to_bytes(32, "little")
+
+
+def verify_core(pub: bytes, r_enc: bytes, s: int, k: int) -> bool:
+    """Scheme-independent single-signature check: s·B == R + k·A.
+
+    Native library when available (~0.1 ms/verify), pure Python as the
+    fallback and correctness oracle (tests/test_native_r255.py). Shared
+    by this module's plain Schnorr and session/schnorrkel.py — the
+    schemes differ only in how k is derived and how s is parsed."""
+    if _native.lib is not None:
+        return (
+            _native.verify1(
+                pub, r_enc, s.to_bytes(32, "little"), k.to_bytes(32, "little")
+            )
+            == 1
+        )
+    try:
+        big_r = RistrettoPoint.decode(r_enc)
+        a_pt = _decode_pub_cached(pub)
+    except ValueError:
+        return False
+    return _fixed_base_mult(s) == (big_r + k * a_pt)
+
+
+def verify(pub: bytes, context: bytes, message: bytes, signature: bytes) -> bool:
+    """True iff the signature is valid. Never raises on malformed input."""
+    if len(signature) != 64 or len(pub) != 32:
+        return False
+    s = int.from_bytes(signature[32:], "little")
+    if s >= L:
+        return False
+    k = _h_scalar(_CHAL_DOMAIN, context, signature[:32], pub, message)
+    return verify_core(pub, signature[:32], s, k)
+
+
+# -- batch verification (one multi-scalar multiplication per round) ----
+#
+# The per-request path costs two scalar multiplications in pure Python —
+# ~9 ms/verify measured, capping the gRPC server far below engine
+# throughput (SURVEY.md §2b mc-crypto-keys: "consider batch verify").
+# Standard random-linear-combination batching: with fresh random z_i,
+#
+#     Σ z_i·s_i · B  ==  Σ z_i·R_i + Σ (z_i·k_i mod L)·A_i
+#
+# holds for all-valid batches, and a batch containing any forgery passes
+# with probability ≤ 2^-128. The right side is one Straus interleaved
+# multi-scalar multiplication (window 4), the left one fixed-base
+# multiply from a precomputed nibble table — ~15× fewer group ops than
+# verifying individually.
+
+
+#: max items per native MSM call (2 points each; r255.c MSM_MAX = 4096)
+_NATIVE_CHUNK = 2048
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_pub_cached(pub: bytes) -> RistrettoPoint:
+    """Clients re-send the same identity every request; cache the decode."""
+    return RistrettoPoint.decode(pub)
+
+
+@functools.lru_cache(maxsize=1)
+def _fixed_base_table():
+    """table[w][d] = d · 16^w · B for w < 64, d < 16."""
+    table = []
+    base = BASEPOINT
+    for _ in range(64):
+        row = [IDENTITY]
+        for d in range(15):
+            row.append(row[-1] + base)
+        table.append(row)
+        base = row[1] + row[15]  # 16 · 16^w · B
+    return table
+
+
+def _fixed_base_mult(s: int) -> RistrettoPoint:
+    table = _fixed_base_table()
+    acc = IDENTITY
+    s %= L
+    for w in range(64):
+        d = (s >> (4 * w)) & 0xF
+        if d:
+            acc = acc + table[w][d]
+    return acc
+
+
+def _msm(points: list[RistrettoPoint], scalars: list[int]) -> RistrettoPoint:
+    """Straus interleaved multi-scalar multiplication, 4-bit windows."""
+    if not points:
+        return IDENTITY
+    tables = []
+    for p in points:
+        row = [IDENTITY, p]
+        for _ in range(14):
+            row.append(row[-1] + p)
+        tables.append(row)
+    n_windows = (max(s.bit_length() for s in scalars) + 3) // 4 or 1
+    acc = IDENTITY
+    for w in range(n_windows - 1, -1, -1):
+        if acc is not IDENTITY:
+            acc = acc + acc
+            acc = acc + acc
+            acc = acc + acc
+            acc = acc + acc
+        for t, s in zip(tables, scalars):
+            d = (s >> (4 * w)) & 0xF
+            if d:
+                acc = acc + t[d]
+    return acc
+
+
+def batch_verify_core(
+    parsed: list[tuple[bytes, bytes, int, int]],
+    rng=None,
+) -> bool:
+    """Random-linear-combination batch check over pre-parsed items.
+
+    ``parsed`` holds (R_enc, pub_enc, s, k) per signature — the scheme
+    layer (this module's plain Schnorr, or session/schnorrkel.py's
+    merlin-transcript challenge) computes k; the group equation
+
+        Σ z_i·s_i · B  ==  Σ z_i·R_i + Σ (z_i·k_i mod L)·A_i
+
+    is scheme-independent. Shared so both schemes ride the same native
+    one-MSM path. ``rng`` must be unpredictable to clients."""
+    import os
+
+    # the native MSM scratch caps one call at _NATIVE_CHUNK items; larger
+    # batches split into independently-checked chunks (each chunk is its
+    # own random-linear-combination equation), so there is no silent
+    # fallback cliff at any batch size
+    if len(parsed) > _NATIVE_CHUNK:
+        return all(
+            batch_verify_core(parsed[i : i + _NATIVE_CHUNK], rng)
+            for i in range(0, len(parsed), _NATIVE_CHUNK)
+        )
+    if not parsed:
+        return True
+
+    randbytes = rng.randbytes if rng is not None else os.urandom
+    use_native = _native.lib is not None
+    rs: list[bytes] = []
+    pubs: list[bytes] = []
+    zs: list[bytes] = []
+    zks: list[bytes] = []
+    points: list[RistrettoPoint] = []
+    scalars: list[int] = []
+    sb = 0
+    for r_enc, pub, s, k in parsed:
+        if not use_native:
+            try:
+                points.append(RistrettoPoint.decode(r_enc))
+                points.append(_decode_pub_cached(pub))
+            except ValueError:
+                return False
+        z = int.from_bytes(randbytes(16), "little") | 1
+        sb = (sb + z * s) % L
+        if use_native:
+            rs.append(r_enc)
+            pubs.append(pub)
+            zs.append(z.to_bytes(32, "little"))
+            zks.append((z * k % L).to_bytes(32, "little"))
+        else:
+            scalars.append(z)
+            scalars.append(z * k % L)
+    if use_native:
+        return (
+            _native.batch_check(
+                b"".join(rs),
+                b"".join(pubs),
+                b"".join(zs),
+                b"".join(zks),
+                sb.to_bytes(32, "little"),
+            )
+            == 1
+        )
+    return _fixed_base_mult(sb) == _msm(points, scalars)
+
+
+def batch_verify(
+    items: list[tuple[bytes, bytes, bytes, bytes]],
+    rng=None,
+) -> bool:
+    """True iff EVERY (pub, context, message, signature) verifies.
+
+    One multi-scalar multiplication for the whole batch (native library
+    when available: ~0.05 ms/signature at batch 64). On False the caller
+    falls back to per-item verify to identify offenders. ``rng`` must be
+    unpredictable to clients (default: os.urandom)."""
+    parsed = []
+    for pub, context, message, signature in items:
+        if len(signature) != 64 or len(pub) != 32:
+            return False
+        s = int.from_bytes(signature[32:], "little")
+        if s >= L:
+            return False
+        k = _h_scalar(_CHAL_DOMAIN, context, signature[:32], pub, message)
+        parsed.append((signature[:32], pub, s, k))
+    return batch_verify_core(parsed, rng)

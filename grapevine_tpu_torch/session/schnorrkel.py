@@ -1,0 +1,243 @@
+"""Schnorrkel (sr25519) signatures, byte-compatible with the reference.
+
+The reference authenticates every request with a deterministic
+Schnorrkel signature over the 32-byte challenge under the signing
+context ``b"grapevine-challenge"`` (reference README.md:193-199,
+types/src/lib.rs:13,44-52; ``schnorrkel-og 0.11.0-pre.0`` pinned at
+Cargo.toml:62). Round 3 shipped a same-shape RFC-9496 Schnorr instead
+(session/ristretto.py); this module closes the gap so a reference-stack
+client's ``sign_schnorrkel`` output verifies here unchanged.
+
+The construction (schnorrkel sign.rs / context.rs, v0.11):
+
+- transcript: ``Transcript::new(b"SigCtx")`` ‖ ``append_message(b"",
+  context)`` ‖ ``append_message(b"sign-bytes", message)`` — the
+  ``SigningContext::new(ctx).bytes(msg)`` path used by
+  ``verify_simple`` / ``sign_simple``;
+- challenge: append ``proto-name``=``Schnorr-sig``, ``sign:pk``=
+  compressed public, ``sign:R``=compressed nonce point, then 64
+  challenge bytes at label ``sign:c`` reduced mod L;
+- signature bytes: ``R ‖ s`` with bit 7 of byte 63 set as the
+  "marked schnorrkel" flag (sign.rs ``to_bytes``); ``from_bytes``
+  REQUIRES the marker and clears it before the canonical-scalar check;
+- verify: ``s·B == R + k·A``.
+
+Nonce choice is signer-local (any ``r`` verifies): ours is
+deterministic, SHA-512 over a domain-separated (sk, context, message)
+tuple — same determinism property the reference's fork provides.
+
+The merlin layer is vector-pinned (tests/test_merlin.py); the group and
+batch equation ride session/ristretto.py's RFC-9496 machinery and its
+native one-MSM path.
+
+**Validation status** (stated precisely): three of the four layers are
+pinned against externally-generated bytes —
+
+- merlin/STROBE/Keccak: published merlin + FIPS-202 vectors
+  (tests/test_merlin.py);
+- key derivation + group arithmetic + point encoding:
+  ``expand_mini_secret`` reproduces substrate's well-known sr25519 dev
+  keypairs (``subkey inspect //Alice`` → seed ``e5be9a50…`` → public
+  ``d43593c7…``), byte strings this codebase did not generate
+  (tests/test_schnorrkel.py::test_expand_mini_secret_substrate_vectors).
+  This transits SHA-512 expansion, ed25519 clamping, schnorrkel's
+  divide-by-cofactor, ristretto255 scalar·basepoint (including the
+  native r255.c path) and compressed encoding end to end;
+- the signing-transcript label order itself (``proto-name``/``sign:pk``/
+  ``sign:R``/``sign:c``) has NO externally-generated signature vector
+  in-tree, because schnorrkel signing is randomized (published
+  signature vectors don't exist the way keypair vectors do) and this
+  build environment has no Rust toolchain and no network. It is
+  construction-verified against schnorrkel-og's sign.rs/context.rs line
+  by line. To close it against the real crate:
+  ``let kp = Keypair::from(SecretKey::from_bytes(..));
+  let sig = kp.sign_simple(b"grapevine-challenge", msg);`` then assert
+  ``verify(pub, b"grapevine-challenge", msg, sig.to_bytes())`` here.
+  tests/test_schnorrkel.py pins this implementation's own golden values
+  so any drift is at least loud.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+
+from . import ristretto as _r
+from .merlin import Transcript
+
+__all__ = [
+    "sign", "verify", "batch_verify", "keygen", "public_key",
+    "expand_mini_secret",
+]
+
+_NONCE_DOMAIN = b"grapevine-tpu-sr25519-nonce"
+
+#: schnorrkel signing-context transcript label (context.rs)
+_SIGCTX = b"SigCtx"
+#: schnorrkel protocol name (sign.rs)
+_PROTO = b"Schnorr-sig"
+
+
+@functools.lru_cache(maxsize=64)
+def _context_prefix(context: bytes) -> Transcript:
+    """SigningContext prefix transcript, cached per context.
+
+    The context is a handful of fixed strings (this service:
+    ``b"grapevine-challenge"``); cloning the absorbed prefix per
+    signature skips re-running the init permutations on the hot path.
+    Callers must clone — never mutate the cached instance."""
+    t = Transcript(_SIGCTX)
+    t.append_message(b"", context)
+    return t
+
+
+@functools.lru_cache(maxsize=64)
+def _context_prefix_blob(context: bytes) -> bytes:
+    """The cached SigningContext prefix as an immutable 203-byte STROBE
+    blob, for the one-crossing native challenge derivation."""
+    return bytes(_context_prefix(context).strobe.blob)
+
+
+def _challenge_scalar(
+    context: bytes, message: bytes, pub: bytes, r_enc: bytes
+) -> int:
+    """The Fiat–Shamir challenge k, exactly as schnorrkel derives it.
+
+    Native fast path: one library crossing for clone + the sign.rs
+    label sequence + the 64-byte PRF (native/r255.c
+    r255_schnorrkel_challenge); the transcript framing below is the
+    oracle (tests/test_schnorrkel.py pins both to the same golden)."""
+    from .. import native as _native
+
+    if _native.lib is not None:
+        wide = _native.schnorrkel_challenge(
+            _context_prefix_blob(bytes(context)), message, pub, r_enc
+        )
+        return int.from_bytes(wide, "little") % _r.L
+    return _challenge_scalar_pure(context, message, pub, r_enc)
+
+
+def _challenge_scalar_pure(
+    context: bytes, message: bytes, pub: bytes, r_enc: bytes
+) -> int:
+    """The transcript-framing oracle for the native fast path (also what
+    tools/host_ceiling.py --legacy pins itself to, so the two label
+    sequences can never drift apart silently)."""
+    t = _context_prefix(bytes(context)).clone()
+    t.append_message(b"sign-bytes", message)
+    t.append_message(b"proto-name", _PROTO)
+    t.append_message(b"sign:pk", pub)
+    t.append_message(b"sign:R", r_enc)
+    wide = t.challenge_bytes(b"sign:c", 64)
+    return int.from_bytes(wide, "little") % _r.L
+
+
+# keys are plain ristretto scalars exactly like the reference's
+# RistrettoPrivate (mc-crypto-keys builds the schnorrkel keypair from
+# the bare scalar); reuse ristretto.py's derivation and caching
+keygen = _r.keygen
+public_key = _r.public_key
+
+
+def expand_mini_secret(seed: bytes) -> tuple[bytes, bytes]:
+    """schnorrkel ``MiniSecretKey::expand(ExpandMode::Ed25519)``.
+
+    32-byte mini secret → (secret scalar bytes LE, 32-byte nonce seed):
+    ``h = SHA-512(seed)``; scalar = ed25519-clamp(h[:32]) then
+    schnorrkel's ``divide_scalar_bytes_by_cofactor`` (a little-endian
+    right-shift by 3 — the clamp guarantees the low 3 bits are zero, so
+    the division is exact); nonce = h[32:]. The clamped value has bit
+    254 set, so the shifted scalar is < 2^252 < L and needs no
+    reduction. This is the expansion substrate's sp-core uses for
+    sr25519 accounts, which makes its well-known dev keypairs
+    (``subkey inspect //Alice``) usable as external cross-stack vectors
+    — see tests/test_schnorrkel.py.
+
+    The returned scalar bytes feed ``public_key``/``sign`` directly
+    (they interpret sk as a little-endian scalar). The nonce seed is
+    returned for completeness; this module's ``sign`` derives its
+    deterministic nonce from the scalar instead, which is signer-local
+    and does not affect verifiability.
+    """
+    if len(seed) != 32:
+        raise ValueError("mini secret must be 32 bytes")
+    h = hashlib.sha512(seed).digest()
+    key = bytearray(h[:32])
+    key[0] &= 248
+    key[31] &= 63
+    key[31] |= 64
+    low = 0
+    for i in range(31, -1, -1):
+        rem = key[i] & 7
+        key[i] = (key[i] >> 3) | low
+        low = rem << 5
+    return bytes(key), h[32:]
+
+
+def sign(sk: bytes, context: bytes, message: bytes) -> bytes:
+    """Deterministic sr25519 signature (64 bytes, schnorrkel-marked)."""
+    a = int.from_bytes(sk, "little") % _r.L
+    if a == 0:
+        raise ValueError("invalid private key")
+    pub = public_key(sk)
+    h = hashlib.sha512()
+    for part in (_NONCE_DOMAIN, sk, context, message):
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    r = int.from_bytes(h.digest(), "little") % _r.L
+    if r == 0:
+        r = 1
+    r_enc = _r._mult_base_enc(r)
+    k = _challenge_scalar(context, message, pub, r_enc)
+    s = (r + k * a) % _r.L
+    sig = bytearray(r_enc + s.to_bytes(32, "little"))
+    sig[63] |= 0x80  # schnorrkel marker bit (sign.rs to_bytes)
+    return bytes(sig)
+
+
+def _parse(signature: bytes) -> tuple[bytes, int] | None:
+    """(R_enc, s) from marked signature bytes, or None if malformed.
+
+    Mirrors schnorrkel ``Signature::from_bytes``: the marker bit MUST
+    be set (unmarked ed25519-style bytes are rejected), and s must be a
+    canonical scalar after clearing it."""
+    if len(signature) != 64 or not signature[63] & 0x80:
+        return None
+    s_bytes = bytearray(signature[32:])
+    s_bytes[31] &= 0x7F
+    s = int.from_bytes(s_bytes, "little")
+    if s >= _r.L:
+        return None
+    return signature[:32], s
+
+
+def verify(pub: bytes, context: bytes, message: bytes, signature: bytes) -> bool:
+    """True iff a schnorrkel signature verifies. Never raises."""
+    if len(pub) != 32:
+        return False
+    parsed = _parse(signature)
+    if parsed is None:
+        return False
+    r_enc, s = parsed
+    k = _challenge_scalar(context, message, pub, r_enc)
+    return _r.verify_core(pub, r_enc, s, k)
+
+
+def batch_verify(
+    items: list[tuple[bytes, bytes, bytes, bytes]],
+    rng=None,
+) -> bool:
+    """True iff EVERY (pub, context, message, signature) verifies —
+    one multi-scalar multiplication per chunk, shared with the RFC-9496
+    scheme through ristretto.batch_verify_core."""
+    parsed_items = []
+    for pub, context, message, signature in items:
+        if len(pub) != 32:
+            return False
+        parsed = _parse(signature)
+        if parsed is None:
+            return False
+        r_enc, s = parsed
+        k = _challenge_scalar(context, message, pub, r_enc)
+        parsed_items.append((r_enc, pub, s, k))
+    return _r.batch_verify_core(parsed_items, rng)

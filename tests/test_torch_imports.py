@@ -56,6 +56,57 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
 
 
+def test_import_scan_covers_the_serving_tier():
+    """The wire codec, the session layer, the native loader and the
+    serving tier are port modules of their own (own copies of the
+    reference's jax-free ``wire/protowire.py``, ``session/``, ``native/``
+    and ``server/``), so the boundary scan reads each of them."""
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    mods = ["wire/protowire.py", "native/__init__.py"]
+    mods += [f"session/{m}.py" for m in ("__init__", "stdcrypto", "chacha", "merlin",
+                                         "ristretto", "schnorrkel", "channel")]
+    mods += [f"server/{m}.py" for m in ("__init__", "uri", "scheduler", "service", "client",
+                                        "tier", "hostpipe", "cli")]
+    for mod in mods:
+        path = f"grapevine_tpu_torch/{mod}"
+        assert path in scanned, path
+        assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
+
+
+def test_native_loader_compiles_only_the_ports_own_source():
+    """``native/__init__.py`` builds the ``r255.c`` beside it (the port's
+    copy) into the repository's ``build/``, never the reference's source or
+    shared object."""
+    from grapevine_tpu_torch import native
+
+    here = ROOT / "grapevine_tpu_torch" / "native"
+    assert native._SRC == here / "r255.c" and native._SRC.exists()
+    assert native.BUILD_DIR == ROOT / "build"
+    assert native.library_path().parent == ROOT / "build"
+    assert native.library_path().name.startswith("libgv_r255-")
+    text = (here / "__init__.py").read_text()
+    assert "grapevine_tpu/" not in text.replace("``grapevine_tpu/native/__init__.py``", "")
+    assert "_r255.so" not in text
+
+
+def test_serving_modules_import_no_torch_at_the_top():
+    """The client, the session layer, the wire codec, the CLI module and
+    the host-pipeline worker's imports stay torch-free (a client process
+    and a host-pipeline worker need no device runtime)."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import grapevine_tpu_torch.server.client, grapevine_tpu_torch.server.cli\n"
+            "import grapevine_tpu_torch.server.hostpipe, grapevine_tpu_torch.server.scheduler\n"
+            "import grapevine_tpu_torch.wire.protowire, grapevine_tpu_torch.wire.validate\n"
+            "import grapevine_tpu_torch.session.schnorrkel, grapevine_tpu_torch.session.channel\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'grapevine_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
 def test_import_scan_sees_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\nfrom grapevine_tpu.config import X\n")
