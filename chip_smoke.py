@@ -96,7 +96,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    alone under the profiler (every thread): its busy share; 3 B3 a round
    and 2 B5 a flush; (c) an ``EngineServer`` (``"pallas_fused_tiled"``,
    E=1) behind a ``FrontendServer``, 4 clients x 4 ops, each response
-   checked, 3 B4 and 3 B6 a round.
+   checked, 3 B4 and 3 B6 a round;
+12. the hot standby (``engine/replication.py``), with every launch also
+   counted by the thread that made it (the standby applies frames on its
+   listener thread): (a) at the production point, E=4 ``"pallas_fused"``,
+   an fsync per record, depth 2, a primary ``GrapevineEngine`` ships
+   through ``JournalShipper`` to a ``StandbyReplica`` on the same card
+   over loopback while it runs 12 full rounds of phase 10's stream (3
+   windows, 3 flushes) and a sweep; the standby catches up and equals the
+   primary on every leaf and in the generator, its applies launching 3 B3
+   a round, 2 B5 a flush and 516 B2 a sweep, as the primary's rounds do;
+   the shipper's books (frames, bytes, every frame a legal size); the
+   link is cut, 3 more rounds reach the primary's disk only, the primary
+   closes, and ``promote(primary_state_dir=...)`` fences it, drains the 3
+   frames (9 B3) and equals the dead primary; three doors hold (a shipped
+   frame to the promoted replica, a revived primary on the fenced dir, a
+   second replica's promote); then the promoted engine serves behind
+   ``EngineServer(engine=...)`` and a ``FrontendServer``: 4 clients read
+   back by id every message the dead primary acknowledged into their
+   mailboxes and run a create, reads, an update and a delete, every
+   response checked against the model. Per-frame apply ms against the
+   primary's round wall, the frames trailing when the 12th round
+   returned, the catch-up wait, the RTO and the memory both engines hold;
+   (b) the runbook over real processes at 2^14 messages, B=64, E=1,
+   ``"pallas_fused_tiled"``: ``python -m grapevine_tpu_torch.server.cli
+   --role engine --device cuda --replicate-to ...`` and ``--role
+   standby``; 16 signed writes acknowledged over gRPC, the primary
+   SIGKILLed and the standby SIGUSR1ed, every acknowledged write read
+   back from the promoted port (each wait has a wall limit); (c) at 2^14,
+   B=64, E=4 ``"pallas_fused"``: the primary checkpoints before the
+   standby first connects, the standby installs the shipped checkpoint on
+   the card, follows 4 rounds and a sweep and equals the primary.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -1365,6 +1395,13 @@ class PipeStream:
                 self.live.append((r.record.msg_id, q.auth_identity, q.record.recipient))
 
 
+def _check_statuses(resp, want, where: str) -> None:
+    got = [r.status_code for r in resp]
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"{where} op {bad}: status {got[bad]}, expected {want[bad]}")
+
+
 def drive_pipeline(eng, depth: int, gk, ck, profile: bool) -> dict:
     """Phase 10 on one engine: PIPE_CALLS calls of PIPE_CHUNKS rounds
     through ``handle_queries``, then one more (profiled if ``profile``).
@@ -1439,11 +1476,7 @@ def drive_pipeline(eng, depth: int, gk, ck, profile: bool) -> dict:
             gc1, gs1, seg1 = host_counters()
             host.append(dict(gc_gen2=gc1 - gc0, gc_gen2_ms=(gs1 - gs0) * 1e3,
                              cuda_segments=seg1 - seg0))
-        got = [r.status_code for r in resp]
-        if got != want:
-            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
-            raise AssertionError(f"phase 10 depth {depth} call {k} op {bad}: status "
-                                 f"{got[bad]}, expected {want[bad]}")
+        _check_statuses(resp, want, f"phase 10 depth {depth} call {k}")
         stream.note(reqs, resp)
         for r in resp:
             digest.update(r.pack())
@@ -2114,6 +2147,712 @@ def run_serving_phase(GrapevineConfig, geo: dict, gk, ck, card) -> dict:
     return dict(a=part_a, b=part_b, c=part_c, phase_s=time.perf_counter() - t_phase)
 
 
+#: phase 12: the hot standby. 12a at the production point: phase 10's
+#: stream for STANDBY_CALLS calls of PIPE_CHUNKS rounds while the standby
+#: follows, a sweep (nothing expires at this clock), the cut, then
+#: STANDBY_TAIL rounds only the disk sees
+STANDBY_CALLS, STANDBY_TAIL = 3, 3
+STANDBY_NOW = NOW + 8000
+STANDBY_SWEEP = (STANDBY_NOW + 50, 1 << 20)
+#: seconds a phase 12 wait may take: the catch-up, a subprocess's start,
+#: one of its steps
+CATCH_UP_S, PROC_START_S, PROC_STEP_S = 300, 240, 120
+
+
+class ThreadLaunches(dict):
+    """A kernel module's ``LAUNCHES`` dict that also counts each launch by
+    the thread that made it. A wrapper stores its count plus one once a
+    launch; this counts the store, not the value, so two threads launching
+    at once can neither lose nor double a thread's count."""
+
+    def __init__(self, base):
+        import threading
+
+        super().__init__(base)
+        self.by_thread: dict = {}
+        self._lock = threading.Lock()
+
+    def __setitem__(self, k, v):
+        import threading
+
+        if v > 0:
+            with self._lock:
+                t = self.by_thread.setdefault(threading.current_thread().name, {})
+                t[k] = t.get(k, 0) + 1
+        super().__setitem__(k, v)
+
+
+class CallClock:
+    """Calls, wall seconds and thread CPU seconds spent in wrapped
+    functions, by the thread that called them."""
+
+    def __init__(self):
+        self.by: dict = {}
+
+    def wrap(self, fn):
+        import threading
+
+        def call(*a, **k):
+            w, c = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **k)
+            finally:
+                rec = self.by.setdefault(threading.current_thread().name, [0, 0.0, 0.0])
+                rec[0] += 1
+                rec[1] += time.perf_counter() - w
+                rec[2] += time.thread_time() - c
+        return call
+
+    def report(self) -> dict:
+        return {t: dict(calls=n, wall_s=w, cpu_s=c) for t, (n, w, c) in self.by.items()}
+
+
+def _thread_launches(gk, ck, thread: str) -> dict:
+    out = {k: 0 for k in (*gk.LAUNCHES, *ck.LAUNCHES)}
+    for mod in (gk, ck):
+        out.update(getattr(mod.LAUNCHES, "by_thread", {}).get(thread, {}))
+    return out
+
+
+def _reset_thread_launches(gk, ck) -> None:
+    _reset_launches(gk, ck)
+    for mod in (gk, ck):
+        mod.LAUNCHES.by_thread.clear()
+
+
+def _plant_root_key(*dirs: str) -> None:
+    """One root seal key for a replication pair's state dirs."""
+    key = os.urandom(32)
+    for d in dirs:
+        os.makedirs(d)
+        fd = os.open(f"{d}/root.key", os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
+        try:
+            os.write(fd, key)
+        finally:
+            os.close(fd)
+
+
+def _wait_for(pred, limit_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"phase 12: {what} took over {limit_s} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _door(fn, exc, text: str, where: str) -> str:
+    """Run ``fn``; it must raise ``exc`` with ``text`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        if text not in str(e):
+            raise AssertionError(f"{where}: raised {e!r}, expected {text!r}") from e
+        return str(e)[:90]
+    raise AssertionError(f"{where}: the door is open (no {exc.__name__})")
+
+
+def model_apply(model: dict, reqs, resp) -> None:
+    """msg_id → (sender, recipient, payload) after a round's successes."""
+    from grapevine_tpu_torch.wire import constants as C
+
+    for q, r in zip(reqs, resp):
+        if r.status_code != C.STATUS_CODE_SUCCESS:
+            continue
+        mid = q.record.msg_id
+        if q.request_type == C.REQUEST_TYPE_CREATE:
+            model[r.record.msg_id] = (q.auth_identity, q.record.recipient, q.record.payload)
+        elif q.request_type == C.REQUEST_TYPE_UPDATE:
+            model[mid] = model[mid][:2] + (q.record.payload,)
+        elif q.request_type == C.REQUEST_TYPE_DELETE:
+            model.pop(mid)
+
+
+def serve_promoted(eng, model: dict, seeds, gk, ck) -> dict:
+    """Phase 12a's serving part: the promoted engine behind
+    ``EngineServer(engine=...)`` and a ``FrontendServer`` on gRPC loopback.
+    Each of TIER_CLIENTS clients reads back by id every message the dead
+    primary acknowledged into its mailbox, then creates one for the next
+    client, reads it by id, updates it and reads it back, and deletes one
+    of its own; every response checked against the model."""
+    import threading
+
+    from grapevine_tpu_torch.server.client import GrapevineClient
+    from grapevine_tpu_torch.server.tier import EngineServer, FrontendServer
+    from grapevine_tpu_torch.wire import constants as C
+
+    OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+    engine = EngineServer(engine=eng, clock=lambda: STANDBY_NOW + 100)
+    eport = engine.start("127.0.0.1:0")
+    fe = FrontendServer(f"127.0.0.1:{eport}", config=eng.config)
+    port = fe.start("insecure-grapevine://127.0.0.1:0")
+    clients = [GrapevineClient(f"insecure-grapevine://127.0.0.1:{port}", identity_seed=s)
+               for s in seeds]
+    for c in clients:
+        c.auth()
+    n = len(clients)
+    mine = [sorted(m for m, (_s, r, _p) in model.items() if r == c.public_key)
+            for c in clients]
+    if min(map(len, mine)) < 2:
+        raise AssertionError(f"phase 12a: mailboxes of {list(map(len, mine))} messages")
+    errors, counts = [], [0] * n
+    rounds0, flushes0 = eng.metrics.snapshot()["rounds"], eng.flushes
+    _reset_launches(gk, ck)
+
+    def expect(r, status, want, where):
+        counts[i_of[threading.current_thread().name]] += 1
+        got = (r.record.sender, r.record.recipient, r.record.payload)
+        if r.status_code != status or (want is not None and got != want):
+            raise AssertionError(f"phase 12a serve {where}: status {r.status_code}, "
+                                 f"expected {status}, or the record differs from the model")
+
+    def script(i):
+        c, nxt = clients[i], clients[(i + 1) % n]
+        try:
+            for mid in mine[i]:
+                expect(c.read(mid), OK, model[mid], f"client {i} read-back")
+            pay = _payload(170, i)
+            r = c.create(nxt.public_key, pay)
+            expect(r, OK, None, f"client {i} create")
+            mid = r.record.msg_id
+            expect(c.read(mid), OK, (c.public_key, nxt.public_key, pay), f"client {i} read")
+            pay2 = _payload(171, i)
+            expect(c.update(mid, nxt.public_key, pay2), OK, None, f"client {i} update")
+            expect(c.read(mid), OK, (c.public_key, nxt.public_key, pay2), f"client {i} re-read")
+            gone = mine[i][0]
+            expect(c.delete(gone, c.public_key), OK, None, f"client {i} delete")
+            expect(c.read(gone), NF, None, f"client {i} read of the deleted")
+        except BaseException as exc:
+            errors.append(exc)
+
+    threads = [threading.Thread(target=script, args=(i,), name=f"sby-client-{i}")
+               for i in range(n)]
+    i_of = {t.name: i for i, t in enumerate(threads)}
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    serve_s = time.perf_counter() - t0
+    launches = _launches(gk, ck)
+    rounds = eng.metrics.snapshot()["rounds"] - rounds0
+    flushes = eng.flushes - flushes0
+    for c in clients:
+        c.close()
+    fe.stop()
+    engine.stop()
+    if errors:
+        raise errors[0]
+    require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+                                "scatter_encrypt_rows": 2 * flushes}, "phase 12a serving")
+    return dict(clients=n, read_back=sum(map(len, mine)), ops=sum(counts),
+                responses_checked=sum(counts), rounds=rounds, flushes=flushes,
+                serve_s=serve_s, launches=launches)
+
+
+def run_standby_prod(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card) -> dict:
+    """Phase 12a: a primary ``GrapevineEngine`` at the production point
+    (E=4 ``"pallas_fused"``, an fsync per record, depth 2) ships through
+    ``JournalShipper`` to a ``StandbyReplica`` on the same card, over
+    loopback; live rounds and a sweep, catch-up and leaf equality; the
+    cut and a tail; the fenced promote; three doors; serving."""
+    import shutil
+    import tempfile
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine import checkpoint as cp
+    from grapevine_tpu_torch.engine import expiry
+    from grapevine_tpu_torch.engine.journal import KIND_FLUSH, KIND_ROUND, JournalError
+    from grapevine_tpu_torch.engine.replication import (
+        JournalShipper,
+        ReplicationError,
+        StandbyReplica,
+    )
+    from grapevine_tpu_torch.session import get_signature_scheme
+
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY)
+    dkw = dict(checkpoint_every_rounds=1 << 20, journal_fsync_every=1)
+    b = cfg.batch_size
+    seeds = [_key("sby", i) for i in range(TIER_CLIENTS)]
+    scheme = get_signature_scheme(cfg.signature_scheme)
+    tmp = tempfile.mkdtemp()
+    pdir, sdir = f"{tmp}/primary", f"{tmp}/standby"
+    _plant_root_key(pdir, sdir, f"{tmp}/loser")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    shipper = primary = replica = None
+    seal, unseal = cp.seal, cp.unseal
+    try:
+        t0 = time.perf_counter()
+        primary = GrapevineEngine(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=pdir, **dkw))
+        replica = StandbyReplica(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=sdir, **dkw))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if primary.pipeline_depth != 2:
+            raise AssertionError(f"phase 12a: the primary runs depth {primary.pipeline_depth}")
+        # each applied frame's wall on the standby's thread, by kind, and
+        # where it goes: the seal checks (the shipper's rescans of the
+        # segment, the standby's decode), the local append, the replay
+        apply_ms: dict = {"round": [], "flush": [], "sweep": []}
+        replay_ms: dict = {"round": [], "flush": [], "sweep": []}
+        kind_of = {KIND_ROUND: "round", KIND_FLUSH: "flush"}
+        seen: list = []
+        replay, apply_locked = replica.engine._replay_record, replica._apply_locked
+        seals = CallClock()
+        cp.seal, cp.unseal = seals.wrap(cp.seal), seals.wrap(cp.unseal)
+        appends = CallClock()
+        replica.dm.append_raw_frame = appends.wrap(replica.dm.append_raw_frame)
+        primary_journal = JournalClock(primary.durability)
+
+        def noted_replay(state, rec):
+            kind = kind_of.get(rec.kind, "sweep")
+            seen.append(kind)
+            t = time.perf_counter()
+            out = replay(state, rec)
+            replay_ms[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def timed_apply(seq, frame):
+            t = time.perf_counter()
+            out = apply_locked(seq, frame)
+            if out:
+                apply_ms[seen.pop()].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        replica.engine._replay_record = noted_replay
+        replica._apply_locked = timed_apply
+        shipper = JournalShipper(primary, ("127.0.0.1", replica.listen()))
+        shipper.start()
+        stream = PipeStream(b)
+        stream.recips[:TIER_CLIENTS] = [scheme.keygen(s)[1] for s in seeds]
+        model: dict = {}
+        gc.collect()
+        _reset_thread_launches(gk, ck)
+        call_s = []
+        for k in range(STANDBY_CALLS):
+            reqs, want = stream.call(k)
+            t0 = time.perf_counter()
+            resp = primary.handle_queries(reqs, STANDBY_NOW + k)
+            call_s.append(time.perf_counter() - t0)
+            _check_statuses(resp, want, f"phase 12a call {k}")
+            stream.note(reqs, resp)
+            model_apply(model, reqs, resp)
+        trailing = primary.durability.seq - replica.dm.applied_seq
+        t0 = time.perf_counter()
+        evicted = primary.expire(*STANDBY_SWEEP)
+        sweep_s = time.perf_counter() - t0
+        catch_up_s = _wait_for(lambda: replica.dm.applied_seq == primary.durability.seq,
+                               CATCH_UP_S, "the standby's catch-up")
+        n_rounds = STANDBY_CALLS * PIPE_CHUNKS
+        flushes = n_rounds // EVICT_EVERY
+        per_sweep = 2 * sum(t.n_buckets_padded // expiry._chunk_rows(t)
+                            for t in (primary.ecfg.rec, primary.ecfg.mb))
+        want_l = {"gather_decrypt_rows": 3 * n_rounds, "scatter_encrypt_rows": 2 * flushes,
+                  "cipher_rows_pallas": per_sweep}
+        live = {"primary": _thread_launches(gk, ck, "MainThread"),
+                "standby": _thread_launches(gk, ck, "standby-listener")}
+        require_launches(live["primary"], want_l, "phase 12a primary")
+        require_launches(live["standby"], want_l, "phase 12a standby applies")
+        if evicted or primary.flushes != flushes:
+            raise AssertionError(f"phase 12a: {evicted} evicted, {primary.flushes} flushes")
+        with replica.engine._lock:
+            diff = states_differ(primary.ecfg, primary.state, replica.engine.state)
+        if diff is not None:
+            raise AssertionError(f"phase 12a: the standby differs from the primary at {diff}")
+        ship = shipper.stats()
+        if ship["illegal_frames"] or not ship["cadence_ok"] \
+                or ship["frames_shipped"] != primary.durability.seq:
+            raise AssertionError(f"phase 12a: shipper books {ship}")
+        live_apply = {k: list(v) for k, v in apply_ms.items()}
+        breakdown = dict(
+            seal_and_check=seals.report(), standby_append_raw=appends.report(),
+            standby_replay_ms={k: dict(median=statistics.median(v), max=max(v))
+                               for k, v in replay_ms.items() if v},
+            primary_append_fsync_ms={k: statistics.median(v)
+                                     for k, v in primary_journal.ms.items() if v})
+        held_live = torch.cuda.memory_allocated() - base_bytes
+        # the cut: the tail reaches the primary's disk only
+        shipper.close()
+        reqs, want = stream.call(STANDBY_CALLS)
+        reqs, want = reqs[:STANDBY_TAIL * b], want[:STANDBY_TAIL * b]
+        resp = primary.handle_queries(reqs, STANDBY_NOW + STANDBY_CALLS)
+        _check_statuses(resp, want, "phase 12a tail")
+        model_apply(model, reqs, resp)
+        dead_seq = primary.durability.seq
+        primary.close()
+        _reset_thread_launches(gk, ck)
+        info = replica.promote(primary_state_dir=pdir)
+        require_launches(_thread_launches(gk, ck, "MainThread"),
+                         {"gather_decrypt_rows": 3 * STANDBY_TAIL}, "phase 12a promote")
+        promote_apply_ms = apply_ms["round"][len(live_apply["round"]):]
+        if (info["epoch"], info["drained_frames"], info["applied_seq"]) != (
+                1, STANDBY_TAIL, dead_seq):
+            raise AssertionError(f"phase 12a: promote returned {info}")
+        diff = states_differ(primary.ecfg, primary.state, replica.engine.state)
+        if diff is not None:
+            raise AssertionError(f"phase 12a: the promoted state differs from the dead "
+                                 f"primary's at {diff}")
+        held_both = torch.cuda.memory_allocated() - base_bytes
+        peak_both = torch.cuda.max_memory_allocated() - base_bytes
+        promote_launches = _launches(gk, ck)
+        primary = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        doors = {
+            "shipped_frame": _door(lambda: replica.apply_frame(replica.dm.seq + 1, bytes(64)),
+                                   ReplicationError, "promoted", "phase 12a door 1"),
+            "revived_primary": _door(lambda: GrapevineEngine(cfg, seed=SEED,
+                                                             durability=DurabilityConfig(
+                                                                 state_dir=pdir, **dkw)),
+                                     JournalError, "fenced", "phase 12a door 2"),
+        }
+        gc.collect()
+        torch.cuda.empty_cache()
+        loser = StandbyReplica(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=f"{tmp}/loser", **dkw))
+        doors["second_promote"] = _door(lambda: loser.promote(primary_state_dir=pdir),
+                                        JournalError, "already fenced", "phase 12a door 3")
+        loser.close()
+        del loser
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving = serve_promoted(replica.engine, model, seeds, gk, ck)
+        rnd_ms = sorted(s * 1e3 / PIPE_CHUNKS for s in call_s)
+        every = [x for v in live_apply.values() for x in v]
+        return dict(
+            max_messages=cfg.max_messages, batch_size=b, evict_every=EVICT_EVERY,
+            bucket_cipher_impl=cfg.bucket_cipher_impl, pipeline_depth=2, init_s=init_s,
+            rounds=n_rounds, flushes=flushes, sweeps=1,
+            primary_round_ms=rnd_ms, primary_median_round_ms=statistics.median(rnd_ms),
+            apply_ms={k: dict(median=statistics.median(v), max=max(v), n=len(v))
+                      for k, v in live_apply.items() if v},
+            apply_median_ms=statistics.median(every), apply_max_ms=max(every),
+            apply_ms_all=live_apply, sweep_s=sweep_s,
+            frames_trailing_at_last_round=trailing, catch_up_s=catch_up_s,
+            frames_shipped=ship["frames_shipped"], bytes_shipped=ship["bytes_shipped"],
+            cadence_ok=ship["cadence_ok"], illegal_frames=ship["illegal_frames"],
+            standby_equal=True, breakdown=breakdown, promote_apply_ms=promote_apply_ms,
+            rto_ms=info["rto_seconds"] * 1e3,
+            drained_frames=info["drained_frames"], applied_seq=info["applied_seq"],
+            epoch=info["epoch"], promoted_equal=True, rpo_frames=0, doors=doors,
+            held_bytes_both_live=held_live, held_bytes_both_after_promote=held_both,
+            peak_bytes_both=peak_both, launches_live=live, launches_promote=promote_launches,
+            serving=serving, phase_s=time.perf_counter() - t_phase, card=card)
+    finally:
+        cp.seal, cp.unseal = seal, unseal
+        if shipper is not None:
+            shipper.close()
+        if replica is not None:
+            replica.close()
+        del primary, replica
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _Proc:
+    """A subprocess whose stdout lines are read by a thread; every wait on
+    it has a wall limit, and a limit passed fails the phase."""
+
+    def __init__(self, argv, log_path: str):
+        import queue
+        import threading
+
+        self.log_path = log_path
+        self._err = open(log_path, "w")
+        self.p = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                  stdout=subprocess.PIPE, stderr=self._err, text=True)
+        self.lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.p.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def expect(self, needle: str, limit_s: float) -> str:
+        import queue
+
+        deadline = time.perf_counter() + limit_s
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(f"phase 12b: no {needle!r} within {limit_s} s") from None
+            if line is None:
+                with open(self.log_path) as fh:
+                    tail = fh.read()[-2000:]
+                raise AssertionError(f"phase 12b: the process exited before {needle!r}: "
+                                     f"{tail}")
+            if needle in line:
+                return line.strip()
+
+    def close(self):
+        if self.p.poll() is None:
+            self.p.kill()
+        self.p.wait(timeout=60)
+        self._err.close()
+
+
+def _healthz(port: int) -> dict:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            return json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read().decode())
+
+
+def run_standby_runbook(card) -> dict:
+    """Phase 12b: the runbook over real processes on the card, at 2^14
+    messages, B=64, E=1, ``"pallas_fused_tiled"`` (B4 and B6 on the
+    standby's replays and its promoted rounds; a CUDA tensor launches them
+    or raises, so a run that passes ran them): an engine-role primary
+    ships to a standby-role process; signed writes are acknowledged over
+    gRPC; the primary is SIGKILLed and the standby SIGUSR1ed; every
+    acknowledged write reads back from the promoted port."""
+    import shutil
+    import signal
+    import tempfile
+
+    from grapevine_tpu_torch.server.tier import _EngineStub
+    from grapevine_tpu_torch.session import get_signature_scheme
+    from grapevine_tpu_torch.wire import constants as C
+    from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+
+    scheme = get_signature_scheme("schnorrkel")
+    OK = C.STATUS_CODE_SUCCESS
+    tmp = tempfile.mkdtemp()
+    pdir, sdir = f"{tmp}/primary", f"{tmp}/standby"
+    _plant_root_key(pdir, sdir)
+    cli = [sys.executable, "-m", "grapevine_tpu_torch.server.cli", "--device", "cuda"]
+    geometry = ["--msg-capacity", str(2**14), "--recipient-capacity", str(2**10),
+                "--batch-size", "64", "--evict-every", "1",
+                "--bucket-cipher-impl", "pallas_fused_tiled", "--batch-wait-ms", "20"]
+    procs = []
+    t_phase = time.perf_counter()
+
+    def signed(seed, rt, recipient, payload, challenge, msg_id=C.ZERO_MSG_ID):
+        sk, pub = scheme.keygen(seed)
+        sig = scheme.sign(sk, C.GRAPEVINE_CHALLENGE_SIGNING_CONTEXT, challenge)
+        req = QueryRequest(request_type=rt, auth_identity=pub, auth_signature=sig,
+                           record=RequestRecord(msg_id=msg_id, recipient=recipient,
+                                                payload=payload))
+        return req, (pub, C.GRAPEVINE_CHALLENGE_SIGNING_CONTEXT, challenge, sig)
+
+    try:
+        t0 = time.perf_counter()
+        standby = _Proc(cli + ["--role", "standby", "--state-dir", sdir, "--standby-listen",
+                               "127.0.0.1:0", "--promote-from", pdir, "--engine-listen",
+                               "127.0.0.1:0", "--metrics-port", "0"] + geometry,
+                        f"{tmp}/standby.log")
+        procs.append(standby)
+        feed = int(standby.expect("standby replica on port", PROC_START_S).rsplit(" ", 1)[1])
+        smport = int(standby.expect("metrics endpoint on port", PROC_STEP_S).rsplit(" ", 1)[1])
+        standby_start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        primary = _Proc(cli + ["--role", "engine", "--engine-listen", "127.0.0.1:0",
+                               "--state-dir", pdir, "--replicate-to", f"127.0.0.1:{feed}",
+                               "--metrics-port", "0"] + geometry, f"{tmp}/primary.log")
+        procs.append(primary)
+        eport = int(primary.expect("engine tier listening on port", PROC_START_S)
+                    .rsplit(" ", 1)[1])
+        pmport = int(primary.expect("metrics endpoint on port", PROC_STEP_S).rsplit(" ", 1)[1])
+        primary_start_s = time.perf_counter() - t0
+        # acknowledged writes: 4 into mailbox X, 12 elsewhere
+        x_seed = _key("sbx", 0)
+        x_sk, x_pub = scheme.keygen(x_seed)
+        stub = _EngineStub(f"127.0.0.1:{eport}", deadline_s=PROC_STEP_S)
+        acked = []
+        t0 = time.perf_counter()
+        for i in range(16):
+            rcp = x_pub if i < 4 else _key("sbr", i)
+            req, auth = signed(_key("sbs", i), C.REQUEST_TYPE_CREATE, rcp, _payload(180, i),
+                               bytes([i + 1]) * C.CHALLENGE_SIZE)
+            r = stub.submit(req, auth=auth)
+            if r.status_code != OK:
+                raise AssertionError(f"phase 12b: write {i} got {r.status_code}")
+            acked.append((i, r.record.msg_id, rcp))
+        writes_s = time.perf_counter() - t0
+        stub.close()
+        seq = _healthz(pmport)["durability"]["journal_seq"]
+        lag = {}
+
+        def caught_up():
+            lag.update(_healthz(smport))
+            return lag.get("replication_connected") and lag["durability"]["applied_seq"] >= seq
+
+        catch_up_s = _wait_for(caught_up, PROC_STEP_S, "phase 12b's catch-up")
+        primary.p.send_signal(signal.SIGKILL)
+        primary.p.wait(timeout=PROC_STEP_S)
+        t0 = time.perf_counter()
+        standby.p.send_signal(signal.SIGUSR1)
+        promoted = standby.expect("standby promoted: epoch", PROC_STEP_S)
+        pport = int(standby.expect("promoted engine tier listening on port", PROC_STEP_S)
+                    .rsplit(" ", 1)[1])
+        flip_s = time.perf_counter() - t0
+        if "epoch 1," not in promoted or not _healthz(smport)["promoted"]:
+            raise AssertionError(f"phase 12b: {promoted}")
+        stub = _EngineStub(f"127.0.0.1:{pport}", deadline_s=PROC_STEP_S)
+        read_back = 0
+        for i, mid, rcp in acked[4:]:
+            req, auth = signed(_key("sbs", i), C.REQUEST_TYPE_READ, rcp, bytes(C.PAYLOAD_SIZE),
+                               bytes([0x40 + i]) * C.CHALLENGE_SIZE, msg_id=mid)
+            r = stub.submit(req, auth=auth)
+            if r.status_code != OK or r.record.payload != _payload(180, i):
+                raise AssertionError(f"phase 12b: acknowledged write {i} did not read back")
+            read_back += 1
+        for i in range(4):
+            req, auth = signed(x_seed, C.REQUEST_TYPE_DELETE, C.ZERO_PUBKEY,
+                               bytes(C.PAYLOAD_SIZE), bytes([0x80 + i]) * C.CHALLENGE_SIZE)
+            r = stub.submit(req, auth=auth)
+            if r.status_code != OK or r.record.payload != _payload(180, i):
+                raise AssertionError(f"phase 12b: mailbox X pop {i} differs")
+            read_back += 1
+        req, auth = signed(_key("sbs", 99), C.REQUEST_TYPE_CREATE, _key("sbr", 99),
+                           _payload(181, 0), b"\xaa" * C.CHALLENGE_SIZE)
+        if stub.submit(req, auth=auth).status_code != OK:
+            raise AssertionError("phase 12b: the promoted engine refused a new write")
+        stub.close()
+        standby.p.send_signal(signal.SIGTERM)
+        rc = standby.p.wait(timeout=PROC_STEP_S)
+        if rc != 0:
+            raise AssertionError(f"phase 12b: the promoted standby exited {rc}")
+        return dict(max_messages=2**14, batch_size=64, evict_every=1,
+                    bucket_cipher_impl="pallas_fused_tiled", device="cuda",
+                    standby_start_s=standby_start_s, primary_start_s=primary_start_s,
+                    acked_writes=len(acked), writes_s=writes_s, journal_seq=seq,
+                    catch_up_s=catch_up_s, promoted_line=promoted, flip_s=flip_s,
+                    read_back=read_back, dropped=len(acked) - read_back,
+                    phase_s=time.perf_counter() - t_phase, card=card)
+    finally:
+        for p in procs:
+            p.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_standby_bootstrap(GrapevineConfig, GrapevineEngine, gk, ck, card) -> dict:
+    """Phase 12c at 2^14 messages, B=64, E=4 ``"pallas_fused"``: the
+    primary checkpoints mid-window before the standby first connects, so
+    the standby gets the sealed checkpoint (MSG_CKPT) and installs it on
+    the card, then follows 4 more rounds and a sweep, its applies launching
+    B3/B5/B2 at their counts, and equals the primary leaf for leaf."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine import expiry
+    from grapevine_tpu_torch.engine.replication import JournalShipper, StandbyReplica
+
+    cfg = GrapevineConfig(max_messages=2**14, max_recipients=2**10, batch_size=64,
+                          bucket_cipher_impl="pallas_fused", vphases_impl="dense",
+                          evict_every=EVICT_EVERY)
+    dkw = dict(checkpoint_every_rounds=1 << 20)
+    tmp = tempfile.mkdtemp()
+    pdir, sdir = f"{tmp}/primary", f"{tmp}/standby"
+    _plant_root_key(pdir, sdir)
+    rng = np.random.default_rng(SEED + 12)
+    users = [_key("usr", i) for i in range(24)]
+    created: list = []
+    shipper = primary = replica = None
+    try:
+        primary = GrapevineEngine(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=pdir, **dkw))
+        for rnd in range(6):
+            reqs = mixed_requests(rng, users, created, rnd)
+            note_created(reqs, primary.handle_queries(reqs, NOW + 10 * rnd), created)
+        t0 = time.perf_counter()
+        ck_seq = primary.checkpoint_now()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        ck_bytes = os.path.getsize(f"{pdir}/ckpt-{ck_seq:016d}.sealed")
+        replica = StandbyReplica(cfg, seed=SEED, durability=DurabilityConfig(
+            state_dir=sdir, **dkw))
+        installs = []
+        install = replica.dm.install_checkpoint
+
+        def timed_install(seq, blob):
+            t = time.perf_counter()
+            out = install(seq, blob)
+            torch.cuda.synchronize()
+            installs.append((seq, (time.perf_counter() - t) * 1e3))
+            return out
+
+        replica.dm.install_checkpoint = timed_install
+        shipper = JournalShipper(primary, ("127.0.0.1", replica.listen()))
+        _reset_thread_launches(gk, ck)
+        t0 = time.perf_counter()
+        shipper.start()
+        _wait_for(lambda: replica.dm.applied_seq == ck_seq, CATCH_UP_S,
+                  "phase 12c's checkpoint install")
+        install_wall_s = time.perf_counter() - t0
+        if [s for s, _ in installs] != [ck_seq] or replica.dm.ckpt_seq != ck_seq:
+            raise AssertionError(f"phase 12c: installs {installs}, standby at "
+                                 f"{replica.dm.ckpt_seq}, checkpoint {ck_seq}")
+        flushes0 = primary.flushes
+        for rnd in range(6, 10):
+            reqs = mixed_requests(rng, users, created, rnd)
+            note_created(reqs, primary.handle_queries(reqs, NOW + 10 * rnd), created)
+        evicted = primary.expire(NOW + 55, 30)
+        _wait_for(lambda: replica.dm.applied_seq == primary.durability.seq, CATCH_UP_S,
+                  "phase 12c's catch-up")
+        per_sweep = 2 * sum(t.n_buckets_padded // expiry._chunk_rows(t)
+                            for t in (primary.ecfg.rec, primary.ecfg.mb))
+        standby_l = _thread_launches(gk, ck, "standby-listener")
+        require_launches(standby_l, {"gather_decrypt_rows": 3 * 4,
+                                     "scatter_encrypt_rows": 2 * (primary.flushes - flushes0),
+                                     "cipher_rows_pallas": per_sweep},
+                         "phase 12c standby applies")
+        if not evicted:
+            raise AssertionError("phase 12c: the sweep evicted nothing")
+        with replica.engine._lock:
+            diff = states_differ(primary.ecfg, primary.state, replica.engine.state)
+        if diff is not None:
+            raise AssertionError(f"phase 12c: the bootstrapped standby differs at {diff}")
+        return dict(max_messages=cfg.max_messages, batch_size=cfg.batch_size,
+                    evict_every=EVICT_EVERY, bucket_cipher_impl=cfg.bucket_cipher_impl,
+                    checkpoint_seq=ck_seq, checkpoint_bytes=ck_bytes,
+                    checkpoint_write_ms=write_ms, install_ms=installs[0][1],
+                    install_wall_s=install_wall_s, frames_after=primary.durability.seq - ck_seq,
+                    evicted=evicted, standby_launches=standby_l, standby_equal=True,
+                    card=card)
+    finally:
+        if shipper is not None:
+            shipper.close()
+        if primary is not None:
+            primary.close()
+        if replica is not None:
+            replica.close()
+        del primary, replica
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_standby_phase(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card) -> dict:
+    """Phase 12 (a, b, c) with the launch counts kept by thread, so the
+    standby's applies are counted apart from the primary's rounds."""
+    originals = gk.LAUNCHES, ck.LAUNCHES
+    gk.LAUNCHES, ck.LAUNCHES = ThreadLaunches(gk.LAUNCHES), ThreadLaunches(ck.LAUNCHES)
+    try:
+        a = run_standby_prod(GrapevineConfig, GrapevineEngine, geo, gk, ck, card)
+        c = run_standby_bootstrap(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    finally:
+        for mod, orig in zip((gk, ck), originals):
+            orig.update(mod.LAUNCHES)
+            mod.LAUNCHES = orig
+    b = run_standby_runbook(card)
+    return dict(a=a, b=b, c=c)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -2238,20 +2977,35 @@ def main() -> int:
     serve_launches = {k: sum(serve[p]["launches"].get(k, 0) for p in "abc") for k in KERNELS}
     split("serving")
 
+    # phase 12: the hot standby — ship, catch up, cut, promote, serve at the
+    # production point (B3, B5, B2 on the standby's applies), the runbook
+    # over processes (B4, B6), the checkpoint bootstrap (B3, B5, B2)
+    standby = run_standby_phase(GrapevineConfig, GrapevineEngine, geo, gk, ck, card)
+    sa, sc = standby["a"], standby["c"]
+    standby_launches = {k: (sa["launches_live"]["primary"].get(k, 0)
+                            + sa["launches_live"]["standby"].get(k, 0)
+                            + sa["launches_promote"].get(k, 0)
+                            + sa["serving"]["launches"].get(k, 0)
+                            + sc["standby_launches"].get(k, 0)) for k in KERNELS}
+    split("standby")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (pallas_launches["cipher_rows_pallas"]
                                + exp1["launches"]["cipher_rows_pallas"]
                                + exp4["launches"]["cipher_rows_pallas"]
-                               + serve_launches["cipher_rows_pallas"]),
+                               + serve_launches["cipher_rows_pallas"]
+                               + standby_launches["cipher_rows_pallas"]),
         "gather_decrypt_rows": (evict_launches["gather_decrypt_rows"]
                                 + pipe_launches["gather_decrypt_rows"]
-                                + serve_launches["gather_decrypt_rows"]),
+                                + serve_launches["gather_decrypt_rows"]
+                                + standby_launches["gather_decrypt_rows"]),
         "gather_decrypt_rows_tiled": (launches["gather_decrypt_rows_tiled"]
                                       + pipe_launches["gather_decrypt_rows_tiled"]
                                       + serve_launches["gather_decrypt_rows_tiled"]),
         "scatter_encrypt_rows": (evict_launches["scatter_encrypt_rows"]
                                  + pipe_launches["scatter_encrypt_rows"]
-                                 + serve_launches["scatter_encrypt_rows"]),
+                                 + serve_launches["scatter_encrypt_rows"]
+                                 + standby_launches["scatter_encrypt_rows"]),
         "scatter_encrypt_rows_tiled": (launches["scatter_encrypt_rows_tiled"]
                                        + pipe_launches["scatter_encrypt_rows_tiled"]
                                        + serve_launches["scatter_encrypt_rows_tiled"]),
@@ -2269,6 +3023,9 @@ def main() -> int:
     emit({"serving_sessions": serve["a"]})
     emit({"serving_rounds": serve["b"]})
     emit({"serving_tier": serve["c"]})
+    emit({"standby_prod": sa})
+    emit({"standby_runbook": standby["b"]})
+    emit({"standby_bootstrap": sc})
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -561,6 +561,53 @@ class DurabilityManager:
         toward the checkpoint cadence like rounds and sweeps."""
         return self._appended(self.journal.append_flush())
 
+    def append_raw_frame(self, seq: int, frame: bytes) -> int:
+        """Follower path (``engine/replication.py``): persist one shipped
+        journal frame verbatim. It counts in the records telemetry like a
+        locally encoded record; the caller notes the applied seq only
+        after the apply on the device was enqueued."""
+        seq = self.journal.append_raw(seq, frame)
+        if self._c_records is not None:
+            self._c_records.inc()
+        return seq
+
+    def install_checkpoint(self, seq: int, blob: bytes) -> EngineState:
+        """Standby bootstrap: persist a sealed checkpoint the primary
+        shipped, load it onto this manager's device and re-base the local
+        journal at it. The blob goes through the normal load path (seal,
+        geometry fingerprint, payload seq) before anything is re-based, so
+        a cross-knob or tampered checkpoint is refused with the usual
+        error. Returns the loaded state."""
+        path = checkpoint_path(self.dcfg.state_dir, seq)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o600)
+        try:
+            write_all(fd, blob)
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        os.replace(tmp, path)
+        _fsync_dir(self.dcfg.state_dir)
+        got_seq, state = load_checkpoint(path, self.root_key, self.ecfg, self.device)
+        if got_seq != seq:
+            raise CheckpointError(
+                f"{path}: shipped checkpoint payload seq {got_seq} != "
+                f"advertised {seq}"
+            )
+        # re-base: a fresh segment at seq+1; every older file is covered
+        self.journal.seq = seq
+        self.journal.durable_seq = seq
+        self.journal.roll()
+        prune_checkpoints(self.dcfg.state_dir, seq)
+        self.ckpt_seq = seq
+        self.recovered_from_checkpoint = True
+        if self._c_ckpts is not None:
+            self._c_ckpts.inc()
+            self._g_ckpt.set(seq)
+            self._g_durable.set(seq)
+        self.note_applied_seq(seq)
+        return state
+
     def should_checkpoint(self) -> bool:
         return self.journal.seq - self.ckpt_seq >= self.dcfg.checkpoint_every_rounds
 

@@ -222,6 +222,12 @@ class BatchJournal:
         #: refused the moment a fence marker with a newer epoch appears
         #: (the split-brain guard).
         self.epoch = read_epoch(state_dir)
+        #: replication doorbell: ``on_append(seq, frame_bytes)`` is called
+        #: after each frame lands in the file (page-cache durable, what a
+        #: SIGKILL leaves behind) and before its fsync. It runs under the
+        #: engine lock with the append, so it may only count and signal,
+        #: never block on I/O (``engine/replication.py:JournalShipper``).
+        self.on_append = None
         #: the only two legal blob lengths for this geometry (round
         #: bodies are constant-size given B; sweeps are fixed). Replay
         #: uses this to tell a corrupted length field (raise) from a
@@ -439,7 +445,8 @@ class BatchJournal:
         raise AssertionError("unreachable")
 
     def _follow_scan(self, after_seq: int):
-        """Hardened live-tail scan behind :meth:`follow`: yield ``(seq, body, frame_bytes)`` for
+        """Hardened live-tail scan shared by :meth:`follow` and
+        :meth:`follow_frames`: yield ``(seq, body, frame_bytes)`` for
         every frame with seq > ``after_seq``, oldest first, stopping
         silently at the physical tail.
 
@@ -579,6 +586,20 @@ class BatchJournal:
         for seq, body, _frame in self._follow_scan(after_seq):
             yield self._decode_body(seq, body)
 
+    def follow_frames(self, after_seq: int = 0) -> Iterator[tuple[int, bytes]]:
+        """Raw shipping tail: ``(seq, frame_bytes)`` with seq >
+        ``after_seq``, integrity-verified but not decoded. The shipper
+        streams these bytes verbatim and the standby journals them as they
+        are (``engine/replication.py``). Same liveness contract as
+        :meth:`follow`."""
+        if self._fd is not None:
+            raise RuntimeError(
+                "follow_frames() is for read-only followers; this journal "
+                "is open for append"
+            )
+        for seq, _body, frame in self._follow_scan(after_seq):
+            yield seq, frame
+
     # -- append ---------------------------------------------------------
 
     def open_for_append(self) -> None:
@@ -648,6 +669,10 @@ class BatchJournal:
             faults.crash("journal.append.post_write")
         self.seq = seq
         self._since_fsync += 1
+        if self.on_append is not None:
+            # the frame is page-cache durable: shipping it before the fsync
+            # keeps a standby at most the fsync batch behind
+            self.on_append(seq, frame)
         if self._since_fsync >= self.fsync_every:
             self.sync()
         if faults.active():
@@ -699,6 +724,41 @@ class BatchJournal:
                     os.unlink(path)
                 except OSError:  # pragma: no cover - concurrent cleanup
                     pass
+
+    def append_raw(self, seq: int, frame: bytes) -> int:
+        """Follower-side append of a shipped frame verbatim (the bytes the
+        primary wrote, seal and all; the standby verified the seal when it
+        decoded the frame). Contiguity, the header and the blob length are
+        checked here, so a shipping fault can never write a gap or a
+        mislabelled frame that the next recovery would refuse."""
+        from .checkpoint import write_all
+
+        if self._fd is None:
+            raise RuntimeError("journal not open for append")
+        self._check_fence()
+        if seq != self.seq + 1:
+            raise JournalError(
+                f"raw append out of order: frame {seq}, journal at {self.seq}"
+            )
+        if len(frame) < _HEADER.size:
+            raise JournalError(f"raw append: frame {seq} shorter than a header")
+        magic, hseq, blob_len = _HEADER.unpack_from(frame, 0)
+        if (
+            magic != FRAME_MAGIC
+            or hseq != seq
+            or blob_len not in self._valid_blob_lens
+            or len(frame) != _HEADER.size + blob_len
+        ):
+            raise JournalError(
+                f"raw append: malformed frame for seq {seq} "
+                f"(header seq {hseq}, {len(frame)} bytes)"
+            )
+        write_all(self._fd, frame)
+        self.seq = seq
+        self._since_fsync += 1
+        if self._since_fsync >= self.fsync_every:
+            self.sync()
+        return seq
 
     def close(self) -> None:
         if self._fd is not None:

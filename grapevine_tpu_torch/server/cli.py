@@ -5,12 +5,15 @@
     python -m grapevine_tpu_torch.server.cli --device cpu \\
         --listen insecure-grapevine://127.0.0.1:3229
 
-Roles ``mono`` (default), ``engine`` and ``frontend`` serve as the
-reference's do. The engine runs on the CUDA card unless ``--device cpu``
-is given, and raises without a card. The ``standby`` and ``fleet`` roles
-and the flags of unported features (leak monitor, tracer, SLO, profiler,
-adaptive window, journal shipping) raise ``NotImplementedError`` naming
-their ROADMAP.md queue A item. This module imports no ``torch`` at the
+Roles ``mono`` (default), ``engine``, ``frontend`` and ``standby`` serve
+as the reference's do. The engine runs on the CUDA card unless ``--device
+cpu`` is given, and raises without a card. A primary with ``--state-dir``
+ships its journal to a standby with ``--replicate-to``; the standby
+(``--role standby --state-dir S --standby-listen host:port``) promotes on
+SIGUSR1 (fencing ``--promote-from``) and then serves the Submit API on
+``--engine-listen``. The ``fleet`` role and the flags of unported features
+(leak monitor, tracer, SLO, profiler, adaptive window) raise
+``NotImplementedError`` naming their ROADMAP.md queue A item. This module imports no ``torch`` at the
 top, so host-pipeline workers (which re-import the main module) stay
 torch-free.
 """
@@ -70,6 +73,19 @@ def build_parser() -> argparse.ArgumentParser:
         "OPERATIONS.md §13). Responses are bit-identical either way. "
         "Device-owning roles only — the frontend never touches a "
         "position map",
+    )
+    p.add_argument(
+        "--bucket-cipher-impl",
+        choices=["jnp", "pallas", "pallas_fused", "pallas_fused_tiled"],
+        default="jnp",
+        help="at-rest bucket cipher implementation: 'jnp' (the plain "
+        "PyTorch cipher, default) or the hand-written CUDA kernels: "
+        "'pallas' (the row cipher, B2), 'pallas_fused' (the ring "
+        "gather+decrypt and encrypt+scatter, B3/B5) or "
+        "'pallas_fused_tiled' (B4/B6). Bit-identical ciphertext in all "
+        "four; the kernels need the card (a CUDA tensor launches or "
+        "raises). A primary and its standby must agree. Device-owning "
+        "roles only",
     )
     p.add_argument(
         "--tree-top-cache-levels",
@@ -175,8 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
         "standby = hot replica replaying a primary's shipped journal "
         "(engine/replication.py, OPERATIONS.md §23) — SIGUSR1 "
         "promotes it and it starts serving the Submit API on "
-        "--engine-listen. fleet and standby are not ported (ROADMAP.md "
-        "queue A items 16 and 13) and raise",
+        "--engine-listen. fleet is not ported (ROADMAP.md queue A item "
+        "16) and raises",
     )
     p.add_argument(
         "--fleet-members",
@@ -216,8 +232,8 @@ def build_parser() -> argparse.ArgumentParser:
         "replica's --standby-listen endpoint: stream every sealed "
         "journal frame there at round cadence (engine/replication.py). "
         "Shipping traffic is a pure function of round count — the "
-        "frames are the sealed constant-size journal records, so the "
-        "leak monitor's cadence policing covers the wire verbatim "
+        "frames are the sealed constant-size journal records, and the "
+        "shipper's cadence books check every frame's size "
         "(OPERATIONS.md §23)",
     )
     p.add_argument(
@@ -446,7 +462,7 @@ _TRACE_SLO_FLAGS = {"trace_ring_size", "slo_commit_p99_ms",
 #: engine take them — a frontend supplying --posmap-impl,
 #: --tree-top-cache-levels, --pipeline-depth, or --evict-every would
 #: silently configure nothing (its engine lives in another process)
-_ENGINE_GEOM_FLAGS = {"posmap_impl", "tree_top_cache_levels",
+_ENGINE_GEOM_FLAGS = {"posmap_impl", "bucket_cipher_impl", "tree_top_cache_levels",
                       "pipeline_depth", "evict_every",
                       "evict_buffer_slots", "shards"}
 
@@ -510,7 +526,7 @@ _ROLE_FLAGS = {
     "standby": {"role", "verbose", "seed", "expiry_period",
                 "msg_capacity", "recipient_capacity", "batch_size",
                 "batch_wait_ms", "engine_listen", "metrics_port",
-                "metrics_host"}
+                "metrics_host", "device"}
                | _STANDBY_FLAGS | _DURABILITY_FLAGS | _LEAKMON_FLAGS
                | _TRACE_SLO_FLAGS | _ENGINE_GEOM_FLAGS
                | _ADAPTIVE_FLAGS,
@@ -521,7 +537,6 @@ _ROLE_FLAGS = {
 #: NotImplementedError (never a silent drop)
 _UNPORTED_ROLES = {
     "fleet": "item 16 (obs/fleet.py, the scrape aggregator)",
-    "standby": "item 13 rest (engine/replication.py, the standby replica)",
 }
 _UNPORTED_FLAGS = {
     **{d: "item 16 (obs/leakmon.py, the leak monitor)" for d in _LEAKMON_FLAGS},
@@ -529,8 +544,6 @@ _UNPORTED_FLAGS = {
     "slo_commit_p99_ms": "item 16 (obs/slo.py, the commit-latency SLO)",
     "profile_enable": "item 16 (obs/profiler.py, the profiler gate)",
     "adaptive_batch": "item 16 (server/adaptive.py, the adaptive window)",
-    **{d: "item 13 rest (engine/replication.py, journal shipping)"
-       for d in _REPLICATION_FLAGS | _STANDBY_FLAGS},
     **{d: "item 16 (obs/fleet.py, the scrape aggregator)"
        for d in _FLEET_FLAGS},
 }
@@ -631,6 +644,7 @@ def main(argv=None) -> int:
         expiry_period=args.expiry_period,
         batch_size=args.batch_size,
         posmap_impl=args.posmap_impl,
+        bucket_cipher_impl=args.bucket_cipher_impl,
         tree_top_cache_levels=args.tree_top_cache_levels,
         pipeline_depth=args.pipeline_depth,
         evict_every=args.evict_every,
@@ -648,6 +662,60 @@ def main(argv=None) -> int:
                 f"--identity-seed must be 64 hex chars (32 bytes): {exc}"
             ) from None
 
+    if args.role == "standby":
+        import signal
+        import threading
+
+        from ..engine.replication import StandbyReplica
+
+        dcfg = _durability_config(args)
+        if dcfg is None:
+            raise SystemExit(
+                "--role standby requires --state-dir (the replica "
+                "appends shipped frames to its own sealed journal)"
+            )
+        replica = StandbyReplica(config, seed=args.seed, durability=dcfg,
+                                 device=args.device)
+        host, _, port_s = args.standby_listen.rpartition(":")
+        sport = replica.listen(host or "127.0.0.1", int(port_s or 0))
+        print(f"grapevine standby replica on port {sport}", flush=True)
+        if args.metrics_port is not None:
+            mport = replica.start_metrics(args.metrics_port,
+                                          host=args.metrics_host)
+            print(f"metrics endpoint on port {mport}", flush=True)
+        # SIGUSR1 = the operator's (or orchestrator's) promotion order;
+        # the handler only sets an event — the takeover itself (fence,
+        # tail drain, flush completion) runs on the main thread
+        promote_wake = threading.Event()
+        signal.signal(signal.SIGUSR1, lambda s, f: promote_wake.set())
+        _install_drain_handlers(replica.close)
+        try:
+            promote_wake.wait()
+        except KeyboardInterrupt:  # pragma: no cover - handler owns it
+            replica.close()
+            return 0
+        info = replica.promote(primary_state_dir=args.promote_from)
+        print(
+            f"standby promoted: epoch {info['epoch']}, drained "
+            f"{info['drained_frames']} durable frames, "
+            f"rto {info['rto_seconds']:.3f}s", flush=True,
+        )
+        from .tier import EngineServer
+
+        server = EngineServer(engine=replica.engine,
+                              max_wait_ms=args.batch_wait_ms,
+                              worker_restart=args.worker_restart,
+                              flush_window_ms=args.flush_window_ms)
+        eport = server.start(args.engine_listen)
+        print(f"promoted engine tier listening on port {eport}",
+              flush=True)
+        _install_drain_handlers(lambda: server.stop(checkpoint=True))
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:  # pragma: no cover - handler owns it
+            server.stop(checkpoint=True)
+        return 0
+
     if args.role == "engine":
         import threading
 
@@ -659,6 +727,8 @@ def main(argv=None) -> int:
                               worker_restart=args.worker_restart,
                               host_workers=args.host_workers,
                               flush_window_ms=args.flush_window_ms,
+                              replicate_to=args.replicate_to,
+                              ship_every=args.ship_every,
                               device=args.device)
         port = engine.start(args.engine_listen)
         print(f"grapevine engine tier listening on port {port}",
@@ -698,6 +768,8 @@ def main(argv=None) -> int:
             worker_restart=args.worker_restart,
             host_workers=args.host_workers,
             flush_window_ms=args.flush_window_ms,
+            replicate_to=args.replicate_to,
+            ship_every=args.ship_every,
             device=args.device,
         )
     tls_cert = open(args.tls_cert, "rb").read() if args.tls_cert else None

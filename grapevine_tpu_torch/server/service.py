@@ -19,10 +19,11 @@ hard-error behavior, grapevine.proto:57-64).
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"`` (and raises without a card, as the facade does). The
 reference's round observability (tracer, SLO, workload and cost
-telemetry, leak monitor, profiler gate) and its adaptive window and
-journal shipping are not ported yet: their knobs raise
-``NotImplementedError`` naming the ROADMAP.md item, and ``tracer``,
-``slo`` and ``profiler`` are None.
+telemetry, leak monitor, profiler gate) and its adaptive window are not
+ported yet: their knobs raise ``NotImplementedError`` naming the
+ROADMAP.md item, and ``tracer``, ``slo`` and ``profiler`` are None.
+``replicate_to`` ships the durable engine's journal to a hot standby
+(``engine/replication.py``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,6 @@ UNPORTED = {
     "leakmon": "item 16 (serving observability: obs/leakmon.py)",
     "adaptive_batch": "item 16 (server/adaptive.py reads the workload and "
                       "SLO telemetry)",
-    "replicate_to": "item 13 rest (the replication standby)",
 }
 
 
@@ -133,15 +133,20 @@ class GrapevineServer:
         slo=None,
         profile_enable: bool = False,
         replicate_to: str | None = None,
+        ship_every: int = 1,
         host_workers: int = 0,
         adaptive_batch: bool = False,
         flush_window_ms: float | None = None,
         device=None,
     ):
         refuse_unported(slo=slo, profile_enable=profile_enable,
-                        leakmon=leakmon, adaptive_batch=adaptive_batch,
-                        replicate_to=replicate_to)
+                        leakmon=leakmon, adaptive_batch=adaptive_batch)
         self.config = config or GrapevineConfig()
+        if scheduler is not None and replicate_to is not None:
+            raise ValueError(
+                "replication needs the journal in-process (the frontend "
+                "role has no journal to ship)"
+            )
         if scheduler is not None:
             # injected op sink (server/tier.py's FrontendServer passes
             # its engine-tier RPC stub): no in-process device engine
@@ -225,6 +230,16 @@ class GrapevineServer:
                 # scheduler-side verify fan-out shares the same pool
                 self.scheduler.hostpipe = self.hostpipe
         self._metrics_server = None
+        #: primary-side journal shipping (engine/replication.py): stream
+        #: every sealed frame to a hot standby. Device owner only: the
+        #: frontend role has no journal.
+        self.shipper = None
+        if replicate_to is not None:
+            from ..engine.replication import JournalShipper
+
+            self.shipper = JournalShipper(self.engine, replicate_to,
+                                          ship_every=ship_every)
+            self.shipper.start()
         #: the reference's round tracer, commit-latency SLO and profiler
         #: gate (obs.attach_round_observability) are ROADMAP.md queue A
         #: item 16: nothing is attached
@@ -552,9 +567,13 @@ class GrapevineServer:
             detail["host_workers_alive"] = self.hostpipe.alive_count()
             detail["host_workers"] = self.hostpipe.workers
             healthy = healthy and alive
-        # the reference also folds the replication shipper, the leak
-        # audit verdict and the SLO burn rates here: not ported
-        # (ROADMAP.md queue A items 13 and 16)
+        if self.shipper is not None:
+            detail["replication"] = self.shipper.stats()
+            # a fatally refused shipper means a standby promoted out from
+            # under this primary: it must stop serving (split brain)
+            healthy = healthy and self.shipper.fatal is None
+        # the reference also folds the leak audit verdict and the SLO
+        # burn rates here: not ported (ROADMAP.md queue A item 16)
         return healthy, detail
 
     def start_metrics(self, port: int, host: str = "127.0.0.1",
@@ -591,6 +610,8 @@ class GrapevineServer:
             self._metrics_server = None
         if self._grpc_server is not None:
             self._grpc_server.stop(grace).wait()
+        if self.shipper is not None:
+            self.shipper.close()
         self.scheduler.close()
         if self.hostpipe is not None:
             self.hostpipe.close()

@@ -65,9 +65,9 @@ class EngineServer:
     def __init__(self, config: GrapevineConfig | None = None, seed: int = 0,
                  max_wait_ms: float | None = None, clock=None, leakmon=None,
                  durability=None, worker_restart: bool = False, slo=None,
-                 profile_enable: bool = False,
-                 replicate_to: str | None = None, host_workers: int = 0,
-                 adaptive_batch: bool = False,
+                 profile_enable: bool = False, engine=None,
+                 replicate_to: str | None = None, ship_every: int = 1,
+                 host_workers: int = 0, adaptive_batch: bool = False,
                  flush_window_ms: float | None = None, device=None):
         from ..session import get_signature_scheme
         from .scheduler import BatchScheduler
@@ -76,15 +76,26 @@ class EngineServer:
         import time as _time
 
         refuse_unported(slo=slo, profile_enable=profile_enable,
-                        leakmon=leakmon, adaptive_batch=adaptive_batch,
-                        replicate_to=replicate_to)
+                        leakmon=leakmon, adaptive_batch=adaptive_batch)
         from ..engine.batcher import GrapevineEngine
 
-        self.config = config or GrapevineConfig()
+        self.config = (engine.config if engine is not None
+                       else config or GrapevineConfig())
         # durable construction runs recovery before the listener binds;
-        # device=None is the card (raises without one)
-        self.engine = GrapevineEngine(self.config, seed=seed, device=device,
-                                      durability=durability)
+        # device=None is the card (raises without one). ``engine`` lets a
+        # promoted StandbyReplica serve its warm state in-process, with no
+        # second recovery
+        self.engine = engine or GrapevineEngine(self.config, seed=seed, device=device,
+                                                durability=durability)
+        #: primary-side journal shipping (engine/replication.py): the
+        #: engine tier owns the journal, so it owns the feed
+        self.shipper = None
+        if replicate_to is not None:
+            from ..engine.replication import JournalShipper
+
+            self.shipper = JournalShipper(self.engine, replicate_to,
+                                          ship_every=ship_every)
+            self.shipper.start()
         #: the reference's round tracer, commit-latency SLO and profiler
         #: gate are ROADMAP.md queue A item 16: nothing is attached
         self.tracer = self.slo = self.profiler = None
@@ -209,9 +220,13 @@ class EngineServer:
             detail["host_workers_alive"] = self.hostpipe.alive_count()
             detail["host_workers"] = self.hostpipe.workers
             healthy = healthy and self.hostpipe.alive()
-        # the reference also folds the replication shipper, the leak
-        # audit verdict and the SLO burn rates here: not ported
-        # (ROADMAP.md queue A items 13 and 16)
+        if self.shipper is not None:
+            detail["replication"] = self.shipper.stats()
+            # a fatally refused shipper means a standby promoted out from
+            # under this primary: it must stop serving (split brain)
+            healthy = healthy and self.shipper.fatal is None
+        # the reference also folds the leak audit verdict and the SLO
+        # burn rates here: not ported (ROADMAP.md queue A item 16)
         return healthy, detail
 
     def start_metrics(self, port: int, host: str = "127.0.0.1",
@@ -243,6 +258,8 @@ class EngineServer:
             self._metrics_server = None
         if self._grpc_server is not None:
             self._grpc_server.stop(grace).wait()
+        if self.shipper is not None:
+            self.shipper.close()
         self.scheduler.close()
         if self.hostpipe is not None:
             self.hostpipe.close()

@@ -42,12 +42,14 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_import_scan_covers_the_expiry_and_durability_modules():
-    """The sweep, the durability layer, the telemetry and their helpers
-    are port modules of their own (own copies of the reference's jax-free
-    journal, fault injection, obs registry/exporter/httpd and engine
-    metrics), so the boundary scan reads each of them."""
+    """The sweep, the durability layer, the replication standby, the
+    telemetry and their helpers are port modules of their own (own copies
+    of the reference's jax-free journal, replication, fault injection, obs
+    registry/exporter/httpd and engine metrics), so the boundary scan
+    reads each of them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
+                "engine/replication.py",
                 "oblivious/radix.py", "testing/faults.py", "engine/metrics.py",
                 "obs/__init__.py", "obs/registry.py", "obs/phases.py",
                 "obs/exporter.py", "obs/httpd.py"):

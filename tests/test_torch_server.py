@@ -345,7 +345,6 @@ def test_metrics_endpoint_serves_the_registry(server):
 @pytest.mark.parametrize("knob,item", [
     (dict(slo=object()), "item 16"), (dict(profile_enable=True), "item 16"),
     (dict(leakmon=object()), "item 16"), (dict(adaptive_batch=True), "item 16"),
-    (dict(replicate_to="127.0.0.1:1"), "item 13"),
 ])
 @pytest.mark.parametrize("tier", ["mono", "engine"])
 def test_unported_knobs_raise_naming_their_item(knob, item, tier):
@@ -354,6 +353,74 @@ def test_unported_knobs_raise_naming_their_item(knob, item, tier):
     cls = GrapevineServer if tier == "mono" else EngineServer
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A: .*{item}"):
         cls(CFG, device="cpu", **knob)
+
+
+@pytest.mark.parametrize("tier", ["mono", "engine"])
+def test_replicate_to_needs_a_state_dir(tier):
+    from grapevine_tpu_torch.engine.replication import ReplicationError
+    from grapevine_tpu_torch.server.tier import EngineServer
+
+    cls = GrapevineServer if tier == "mono" else EngineServer
+    with pytest.raises(ReplicationError, match="state-dir"):
+        cls(CFG, device="cpu", replicate_to="127.0.0.1:1")
+
+
+def test_frontend_scheduler_refuses_replicate_to():
+    with pytest.raises(ValueError, match="no journal to ship"):
+        GrapevineServer(CFG, scheduler=object(), replicate_to="127.0.0.1:1")
+
+
+@pytest.mark.parametrize("tier", ["mono", "engine"])
+def test_replicating_server_ships_folds_healthz_and_closes(tmp_path, tier):
+    """``replicate_to`` + ``ship_every``: the server's shipper feeds a
+    standby; ``healthz`` carries its books and turns unhealthy on a fatal
+    refusal; ``stop`` closes it (the journal's doorbell is unhooked)."""
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine.replication import StandbyReplica
+    from grapevine_tpu_torch.server.tier import EngineServer
+
+    for d in ("p", "s"):
+        (tmp_path / d).mkdir()
+        (tmp_path / d / "root.key").write_bytes(bytes(range(32)))
+    replica = StandbyReplica(CFG, seed=2, device="cpu",
+                             durability=DurabilityConfig(state_dir=str(tmp_path / "s")))
+    cls = GrapevineServer if tier == "mono" else EngineServer
+    srv = cls(CFG, seed=2, device="cpu", durability=DurabilityConfig(
+        state_dir=str(tmp_path / "p")), replicate_to=f"127.0.0.1:{replica.listen()}",
+        ship_every=2)
+    try:
+        assert srv.shipper.ship_every == 2
+        eng = srv.engine
+        for i in range(3):
+            eng.handle_queries([QueryRequest(
+                request_type=C.REQUEST_TYPE_CREATE, auth_identity=bytes([i + 1]) * 32,
+                record=RequestRecord(recipient=bytes([9]) * 32, payload=pl(b"x")))], NOW + i)
+        deadline = time.monotonic() + 30
+        while replica.dm.applied_seq < 3 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert replica.dm.applied_seq == eng.durability.seq == 3
+        healthy, detail = srv.healthz()
+        assert healthy and detail["replication"]["frames_shipped"] == 3
+        assert detail["replication"]["cadence_ok"]
+        srv.shipper.fatal = "standby promoted"
+        assert srv.healthz()[0] is False
+    finally:
+        srv.stop()
+        replica.close()
+    assert not srv.shipper._thread.is_alive()
+    assert eng.durability.journal.on_append is None
+
+
+def test_engine_server_serves_an_injected_engine():
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.server.tier import EngineServer
+
+    eng = GrapevineEngine(CFG, seed=4, device="cpu")
+    srv = EngineServer(engine=eng, max_wait_ms=5.0)
+    try:
+        assert srv.engine is eng and srv.config is eng.config and srv.scheduler.engine is eng
+    finally:
+        srv.stop()
 
 
 def test_servers_default_to_the_card(monkeypatch):

@@ -5,7 +5,9 @@ loopback, driven by the reference's and the port's clients; the internal
 Submit API failing closed; the expiry loop on the engine tier; the CLI
 started as a subprocess (``--device cpu``) serving one signed op; and the
 role/flag matrix, which refuses the unported roles and flags by their
-ROADMAP.md item. Modelled on the reference's ``tests/test_tier.py`` and
+ROADMAP.md item (the standby role and the replication flags are ported:
+their valid combinations are accepted and their misapplied ones refused;
+``test_torch_standby_cli.py`` drives them). Modelled on the reference's ``tests/test_tier.py`` and
 ``tests/test_cli_roles.py``."""
 
 from __future__ import annotations
@@ -259,6 +261,17 @@ def test_cli_without_a_card_refuses_to_start(monkeypatch):
                   "--batch-size", "4"])
 
 
+def test_cli_standby_needs_a_state_dir_and_a_card(tmp_path, monkeypatch):
+    import torch
+
+    with pytest.raises(SystemExit, match="requires --state-dir"):
+        cli.main(["--role", "standby", "--device", "cpu", "--msg-capacity", "64"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--role", "standby", "--state-dir", str(tmp_path), "--msg-capacity", "64",
+                  "--recipient-capacity", "8", "--batch-size", "4"])
+
+
 def _check(argv):
     parser = cli.build_parser()
     args = parser.parse_args(argv)
@@ -268,7 +281,6 @@ def _check(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--role", "standby", "--state-dir", "/x"], "item 13"),
     (["--role", "fleet", "--fleet-members", "h0:1"], "item 16"),
     (["--leakmon"], "item 16"),
     (["--leakmon-window", "256"], "item 16"),
@@ -276,10 +288,8 @@ def _check(argv):
     (["--slo-commit-p99-ms", "250"], "item 16"),
     (["--role", "engine", "--profile-enable"], "item 16"),
     (["--adaptive-batch"], "item 16"),
-    (["--state-dir", "/x", "--replicate-to", "127.0.0.1:4100"], "item 13"),
-    (["--ship-every", "1"], "item 13"),
-    (["--standby-listen", "127.0.0.1:0"], "item 13"),
     (["--fleet-port", "0"], "item 16"),
+    (["--role", "standby", "--state-dir", "/x", "--leakmon"], "item 16"),
 ])
 def test_unported_roles_and_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A: .*{item}"):
@@ -300,6 +310,15 @@ def test_unported_roles_and_flags_raise_naming_their_item(argv, item):
     ["--role", "frontend", "--flush-window", "4"],
     ["--role", "mono", "--engine", "x:1"],
     ["--role", "mono", "--engine-listen", "127.0.0.1:0"],
+    ["--standby-listen", "127.0.0.1:0"],
+    ["--role", "mono", "--promote-from", "/p"],
+    ["--role", "engine", "--standby-listen", "127.0.0.1:0"],
+    ["--role", "frontend", "--replicate-to", "127.0.0.1:4100"],
+    ["--role", "frontend", "--ship-every", "2"],
+    ["--role", "standby", "--state-dir", "/x", "--replicate-to", "127.0.0.1:4100"],
+    ["--role", "standby", "--state-dir", "/x", "--listen", "insecure-grapevine://0.0.0.0:1"],
+    ["--role", "standby", "--state-dir", "/x", "--host-workers", "2"],
+    ["--role", "frontend", "--bucket-cipher-impl", "pallas_fused_tiled"],
 ])
 def test_misapplied_flags_rejected(argv):
     with pytest.raises(SystemExit, match="does not take"):
@@ -316,6 +335,17 @@ def test_misapplied_flags_rejected(argv):
      "--worker-restart"],
     ["--role", "mono", "--pipeline-depth", "2", "--evict-every", "4", "--host-workers", "2",
      "--flush-window", "4", "--state-dir", "/x", "--journal-fsync-every", "1"],
+    ["--role", "standby", "--state-dir", "/x"],
+    ["--state-dir", "/x", "--replicate-to", "127.0.0.1:4100"],
+    ["--ship-every", "1"],
+    ["--role", "engine", "--device", "cpu", "--state-dir", "/x",
+     "--replicate-to", "127.0.0.1:4100", "--ship-every", "4"],
+    ["--role", "standby", "--device", "cuda", "--state-dir", "/s", "--standby-listen",
+     "127.0.0.1:0", "--promote-from", "/p", "--engine-listen", "127.0.0.1:0",
+     "--metrics-port", "0", "--evict-every", "2", "--batch-wait-ms", "30",
+     "--worker-restart", "--seal-key-file", "/k", "--bucket-cipher-impl",
+     "pallas_fused_tiled"],
+    ["--role", "engine", "--bucket-cipher-impl", "pallas_fused"],
 ])
 def test_valid_role_flag_combinations_accepted(argv):
     _check(argv)
