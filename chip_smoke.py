@@ -128,6 +128,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    standby first connects, the standby installs the shipped checkpoint on
    the card, follows 4 rounds and a sweep and equals the primary.
 
+13. every round observer the reference attaches to a production engine
+   (``obs.attach_round_observability``, the leak monitor, the adaptive
+   window, the profiler gate): (a) a ``GrapevineServer`` at the
+   production point, E=4 ``"pallas_fused"``, durable, depth 2, its expiry
+   thread sweeping (B2), with ``leakmon``, an enforced SLO whose target is
+   10 x phase 11b's median wall, ``adaptive_batch`` and
+   ``profile_enable``; a 2 GiB device-to-device copy (best of 5, CUDA
+   events) sets ``GRAPEVINE_COST_GBPS`` first (the cost monitor's
+   bandwidth); ``start_metrics`` runs the sort and posmap calibrations
+   (seconds, wall, memory added over the engine's); phase 11b's stream
+   through the server's own scheduler, every response checked, the 3rd to
+   10th dispatches under ``set_sync_debug_mode("error")`` with the leak
+   monitor on (the transcript rides the round's copies and event), the
+   expiry thread stopped before a ``/profile?ms=300`` capture around the
+   12th dispatch (which flushes) holding B3 and B5, a concurrent second
+   request 409; then ``/leakaudit``
+   200 PASS over every round, ``/flightrec``, ``/trace`` (one round per
+   seq), ``/healthz`` (SLO and leak folds), ``/metrics`` with every
+   reference cost, load, SLO and trace family; a second monitor fed the
+   same rounds with a fixed records leaf turns SUSPECT and its
+   ``/leakaudit`` 503; the cost residual of each round, the leak
+   monitor's thread CPU, and round wall, ops/s and verify beside phase
+   11b's; 3 B3 a round, 2 B5 a flush, 516 B2 a sweep; (b) an
+   ``EngineServer`` at 2^14, B=64, E=1 ``"pallas_fused_tiled"`` with the
+   leak monitor and tracer behind a ``FrontendServer`` (phase 11c's
+   clients; 3 B4 and 3 B6 a round, the same endpoint checks), and a
+   ``FleetAggregator`` over (a)'s and (b)'s metrics ports: its merged
+   family count, ``/healthz``, ``/leakaudit`` and lag gauges.
+
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -714,18 +743,15 @@ def profile_round(fn, all_threads: bool = False) -> dict:
     (kernel time summed; one stream, so kernels do not overlap). The
     result of ``fn`` is returned under ``"result"``. With ``all_threads``
     the profiler records every thread's ops (the scheduler's collector
-    thread dispatches the round), not only the caller's."""
+    thread dispatches the round), not only the caller's. The session is
+    the process's one live capture (``obs.profiler.exclusive_profile``), so
+    it can never overlap phase 13's profiler gate."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    kw = {}
-    if all_threads:
-        from torch._C._profiler import _ExperimentalConfig
+    from grapevine_tpu_torch.obs.profiler import exclusive_profile
 
-        kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True, **kw) as prof:
+    with exclusive_profile("cuda", all_threads=all_threads, acc_events=True) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -1880,7 +1906,7 @@ class ServeStream:
                 self.live.append((req.record.msg_id, snd, rcp, pay))
 
 
-def serve_rounds(eng, gk, ck, card) -> dict:
+def serve_rounds(eng, gk, ck, card, sched=None, on_dispatch=None) -> dict:
     """Phase 11b: SERVE_ROUNDS full rounds of signed ops through a
     ``BatchScheduler`` over the phase's engine (its own, with windows only
     a full batch closes), submitted with ``submit_nowait`` SERVE_LOOKAHEAD
@@ -1888,7 +1914,14 @@ def serve_rounds(eng, gk, ck, card) -> dict:
     the profiler with every thread recorded. Per round: the collector's
     assembly wait, the host batch verify, dispatch and settle ms, the
     wall between dispatch starts, and whether the previous round was still
-    running on the card when this round's dispatch returned."""
+    running on the card when this round's dispatch returned.
+
+    Phase 13a passes its server's own scheduler (``sched``, with the
+    adaptive window): each round's B ops then enter its queue under the
+    scheduler's lock, so the window opens on a whole round, as on a
+    saturated server; the last round runs unprofiled (the server's own
+    profiler gate captures in 13a), and ``on_dispatch(k)`` runs before the
+    k-th dispatch (0-based)."""
     from grapevine_tpu_torch.server.scheduler import BatchScheduler
 
     b = eng.ecfg.batch_size
@@ -1897,18 +1930,31 @@ def serve_rounds(eng, gk, ck, card) -> dict:
     dispatch = eng.handle_queries_async
 
     def watched_dispatch(reqs, now):
+        if on_dispatch is not None:
+            on_dispatch(len(pendings))
         prev = pendings[-1] if pendings else None
         p = dispatch(reqs, now)
         overlapped.append(prev is not None and prev.running())
         pendings.append(p)
         return p
 
+    own = sched is None
+    if own:
+        sched = BatchScheduler(eng, max_wait_ms=600_000.0, idle_gap_ms=600_000.0,
+                               clock=lambda: SERVE_NOW)
+
+    def submit_round(ops):
+        if own:
+            return [sched.submit_nowait(q, a) for q, a in ops]
+        with sched._cv:  # reentrant: the collector sees the whole round at once
+            return [sched.submit_nowait(q, a) for q, a in ops]
+
     eng.handle_queries_async = watched_dispatch
-    sched = BatchScheduler(eng, max_wait_ms=600_000.0, idle_gap_ms=600_000.0,
-                           clock=lambda: SERVE_NOW)
     rounds0, flushes0 = eng.metrics.snapshot()["rounds"], eng.flushes
     gc.collect()
-    _reset_launches(gk, ck)
+    with eng._lock:  # an expiry sweep holds the lock through all its launches
+        _reset_launches(gk, ck)
+        sweeps0 = eng.metrics.snapshot()["sweeps"]
     try:
         queued: dict = {}
         gc0, gs0, _ = host_counters()
@@ -1922,19 +1968,22 @@ def serve_rounds(eng, gk, ck, card) -> dict:
             if r == SERVE_ROUNDS:
                 break
             ops, want = stream.round(r)
-            queued[r] = (ops, want, [sched.submit_nowait(q, a) for q, a in ops])
+            queued[r] = (ops, want, submit_round(ops))
         wall_s = time.perf_counter() - t0
         gc1, gs1, _ = host_counters()
         ops, want = stream.round(SERVE_ROUNDS)
 
         def one_round():
-            futs = [sched.submit_nowait(q, a) for q, a in ops]
-            return [f.result(timeout=600) for f in futs]
+            return [f.result(timeout=600) for f in submit_round(ops)]
 
-        prof = profile_round(one_round, all_threads=True)
-        stream.settle(ops, want, prof.pop("result"), SERVE_ROUNDS)
-        if not prof["device_kernels"]:
-            raise AssertionError("phase 11b: the profiler saw no kernel of the round")
+        if own:
+            prof = profile_round(one_round, all_threads=True)
+            stream.settle(ops, want, prof.pop("result"), SERVE_ROUNDS)
+            if not prof["device_kernels"]:
+                raise AssertionError("phase 11b: the profiler saw no kernel of the round")
+        else:
+            prof = None
+            stream.settle(ops, want, one_round(), SERVE_ROUNDS)
         # the same batch verify with no other thread running: what the
         # collector's verify costs without contention for the interpreter
         items = [a for _, a in ops]
@@ -1943,15 +1992,17 @@ def serve_rounds(eng, gk, ck, card) -> dict:
             raise AssertionError("phase 11b: the round's signatures do not verify")
         verify_alone_ms = (time.perf_counter() - t_v) * 1e3
     finally:
-        sched.close()
+        if own:
+            sched.close()
         del eng.handle_queries_async
     launches = _launches(gk, ck)
     rounds = eng.metrics.snapshot()["rounds"] - rounds0
     flushes = eng.flushes - flushes0
     if rounds != SERVE_ROUNDS + 1 or len(pendings) != rounds:
         raise AssertionError(f"phase 11b: {rounds} rounds for {SERVE_ROUNDS + 1} full batches")
-    require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
-                                "scatter_encrypt_rows": 2 * flushes}, "phase 11b")
+    if own:  # phase 13a's expiry thread also launches B2: it checks its own
+        require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+                                    "scatter_encrypt_rows": 2 * flushes}, "phase 11b")
     if flushes != (rounds0 + rounds) // EVICT_EVERY - rounds0 // EVICT_EVERY:
         raise AssertionError(f"phase 11b: {flushes} flushes in rounds {rounds0 + 1}-"
                              f"{rounds0 + rounds}")
@@ -1974,21 +2025,25 @@ def serve_rounds(eng, gk, ck, card) -> dict:
                 pool=SERVE_POOL, lookahead_rounds=SERVE_LOOKAHEAD,
                 pipeline_depth=sched.pipeline_depth, wall_s=wall_s,
                 ops_per_s=b * SERVE_ROUNDS / wall_s,
-                median=med, verify_alone_ms=verify_alone_ms,
+                median=med, max_wall_ms=max(x["wall_ms"] for x in steady),
+                verify_alone_ms=verify_alone_ms, sweeps_at_reset=sweeps0,
                 gc_gen2=gc1 - gc0, gc_gen2_ms=(gs1 - gs0) * 1e3, per_round=per,
                 overlapped_rounds=sum(overlapped[:SERVE_ROUNDS]),
-                profile={k: v for k, v in prof.items() if k != "top_kernels"},
-                top_kernels=prof["top_kernels"][:5], launches=launches,
+                profile=prof and {k: v for k, v in prof.items() if k != "top_kernels"},
+                top_kernels=prof and prof["top_kernels"][:5], launches=launches,
                 responses_checked=b * (SERVE_ROUNDS + 1), card=card)
 
 
-def serve_tier(GrapevineConfig, geo, gk, ck, card) -> dict:
+def serve_tier(GrapevineConfig, geo, gk, ck, card, engine_kw=None, before_stop=None,
+               where: str = "phase 11c") -> dict:
     """Phase 11c: an ``EngineServer`` on the card at
     ``"pallas_fused_tiled"``, E=1, behind a ``FrontendServer`` on gRPC
     loopback; TIER_CLIENTS clients run TIER_OPS ops each (a create to the
     next client, a zero-id read of their own mailbox, a read by id and an
     update of what they sent), every response checked; B4 and B6 launch 3
-    times a round."""
+    times a round. Phase 13b passes the engine tier's observability knobs
+    (``engine_kw``) and ``before_stop(engine_server) -> dict``, run with
+    the tier still up and merged into the line."""
     import threading
 
     from grapevine_tpu_torch.server.client import GrapevineClient
@@ -1998,7 +2053,7 @@ def serve_tier(GrapevineConfig, geo, gk, ck, card) -> dict:
     OK = C.STATUS_CODE_SUCCESS
     cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
     t0 = time.perf_counter()
-    engine = EngineServer(cfg, seed=SEED, clock=lambda: SERVE_NOW)
+    engine = EngineServer(cfg, seed=SEED, clock=lambda: SERVE_NOW, **(engine_kw or {}))
     eport = engine.start("127.0.0.1:0")
     fe = FrontendServer(f"127.0.0.1:{eport}", config=cfg)
     port = fe.start("insecure-grapevine://127.0.0.1:0")
@@ -2017,20 +2072,20 @@ def serve_tier(GrapevineConfig, geo, gk, ck, card) -> dict:
             pay = _payload(160, i)
             r = c.create(nxt.public_key, pay)
             if r.status_code != OK:
-                raise AssertionError(f"phase 11c client {i}: create {r.status_code}")
+                raise AssertionError(f"{where} client {i}: create {r.status_code}")
             mid = r.record.msg_id
             barrier.wait()
             r = c.read()
             want = (clients[(i - 1) % n].public_key, c.public_key, _payload(160, (i - 1) % n))
             if r.status_code != OK or (r.record.sender, r.record.recipient,
                                        r.record.payload) != want:
-                raise AssertionError(f"phase 11c client {i}: zero-id read differs")
+                raise AssertionError(f"{where} client {i}: zero-id read differs")
             r = c.read(mid)
             if r.status_code != OK or r.record.payload != pay:
-                raise AssertionError(f"phase 11c client {i}: read by id differs")
+                raise AssertionError(f"{where} client {i}: read by id differs")
             r = c.update(mid, nxt.public_key, _payload(161, i))
             if r.status_code != OK or r.record.payload != _payload(161, i):
-                raise AssertionError(f"phase 11c client {i}: update differs")
+                raise AssertionError(f"{where} client {i}: update differs")
         except BaseException as exc:
             errors.append(exc)
             barrier.abort()
@@ -2046,15 +2101,20 @@ def serve_tier(GrapevineConfig, geo, gk, ck, card) -> dict:
     rounds = engine.engine.metrics.snapshot()["rounds"]
     for c in clients:
         c.close()
-    fe.stop()
-    engine.stop()
+    extra = {}
+    try:
+        if before_stop is not None and not errors:
+            extra = before_stop(engine)
+    finally:
+        fe.stop()
+        engine.stop()
     if errors:
         raise errors[0]
     require_launches(launches, {"gather_decrypt_rows_tiled": 3 * rounds,
-                                "scatter_encrypt_rows_tiled": 3 * rounds}, "phase 11c")
+                                "scatter_encrypt_rows_tiled": 3 * rounds}, where)
     out = dict(bucket_cipher_impl="pallas_fused_tiled", evict_every=1, clients=n,
                ops=n * TIER_OPS, rounds=rounds, init_s=init_s, serve_s=serve_s,
-               launches=launches, responses_checked=n * TIER_OPS, card=card)
+               launches=launches, responses_checked=n * TIER_OPS, **extra, card=card)
     del engine, fe
     torch.cuda.empty_cache()
     return out
@@ -2853,6 +2913,472 @@ def run_standby_phase(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card)
     return dict(a=a, b=b, c=c)
 
 
+#: phase 13: the serving tier with every round observer the reference
+#: attaches to a production engine. 13a at the production point (phase
+#: 11b's stream through the server's own scheduler), 13b the engine tier at
+#: 2^14 behind a frontend, and a fleet aggregator over both metrics ports
+OBS_NOW = NOW + 12000
+#: 13a's enforced SLO target, in multiples of phase 11b's median wall
+#: between dispatches in the same run: an op's commit waits up to
+#: SERVE_LOOKAHEAD rounds of queue, so honest rounds stay inside it
+OBS_SLO_FACTOR = 10
+#: 13a's dispatches OBS_GUARD[0] to OBS_GUARD[1] - 1 (0-based) run under
+#: set_sync_debug_mode("error"); the profiler gate's capture brackets
+#: dispatch OBS_PROFILE_AT, which closes the third window (its flush
+#: launches B5), outside the guard
+OBS_GUARD, OBS_PROFILE_AT, OBS_PROFILE_MS = (2, 10), 11, 300
+#: the metric families the reference's attach_round_observability
+#: registers (cost monitor, workload telemetry, SLO tracker, round
+#: tracer); tests/test_torch_observability_jax.py holds this list equal
+#: to the reference's
+OBS_FAMILIES = (
+    "grapevine_cost_bandwidth_gbps", "grapevine_cost_phase_cipher_rows",
+    "grapevine_cost_phase_gather_rows", "grapevine_cost_phase_hbm_bytes",
+    "grapevine_cost_phase_scatter_rows", "grapevine_cost_phase_sort_keys",
+    "grapevine_cost_roofline_floor_ms", "grapevine_cost_roofline_residual",
+    "grapevine_cost_roofline_residual_max", "grapevine_cost_steady_round_hbm_bytes",
+    "grapevine_load_arrival_rate_ops_s", "grapevine_load_arrivals_total",
+    "grapevine_load_backpressure_arrivals_total", "grapevine_load_batch_fill",
+    "grapevine_load_phase_utilization", "grapevine_load_queue_depth",
+    "grapevine_load_saturated_rounds_total", "grapevine_slo_alert",
+    "grapevine_slo_breaches_total", "grapevine_slo_burn_rate_fast",
+    "grapevine_slo_burn_rate_slow", "grapevine_slo_commit_latency_seconds",
+    "grapevine_slo_rounds_total", "grapevine_slo_target_ms",
+    "grapevine_trace_ring_rounds", "grapevine_trace_rounds_total",
+    "grapevine_round_bubble_ratio",
+)
+#: the achieved-bandwidth calibration's copy: bytes read (as many written)
+HBM_COPY_BYTES = 2 << 30
+
+
+def hbm_copy_gbps(n_bytes: int = HBM_COPY_BYTES, reps: int = 5) -> dict:
+    """Achieved device-memory bandwidth: a device-to-device copy of
+    ``n_bytes`` (read once, written once), best of ``reps`` by CUDA events
+    after one warm-up copy. Phase 13a's ``cost_calibrate``."""
+    src = torch.ones(n_bytes // 4, dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    ms = []
+    for _ in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        dst.copy_(src)
+        t1.record()
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    if not torch.equal(dst[-4:], src[-4:]):
+        raise AssertionError("phase 13a: the bandwidth copy is wrong")
+    del src, dst
+    torch.cuda.empty_cache()
+    best = min(ms)
+    return dict(bytes_read=n_bytes, bytes_moved=2 * n_bytes, reps=reps, ms=ms, best_ms=best,
+                gbps=2 * n_bytes / (best / 1e3) / 1e9)
+
+
+class SyncGuard:
+    """Run an engine's dispatches number ``first`` to ``last - 1`` (0-based,
+    counted here) and the flush their lock hold closes under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronizing call in
+    the upload, the admission decision, the round, the flush or the output
+    copies (the transcript's included) raises in the dispatching thread.
+    The wrappers sit inside the engine lock (``_dispatch_round`` and
+    ``_flush_window_locked``), so a sweep or a scrape on another thread,
+    which take the same lock, never runs under the guard. The admission
+    bound's exact read, the one sync allowed, is counted by dispatch (a
+    sweep's read of the same values, under the lock between dispatches,
+    is not a dispatch's)."""
+
+    def __init__(self, eng, first: int, last: int):
+        self.eng, self.first, self.last = eng, first, last
+        self.n = self.guarded = 0
+        self.on = self.dispatching = False
+        self.fallback_reads: list = []
+
+    def install(self) -> None:
+        eng = self.eng
+        dispatch, flush, read = (eng._dispatch_round, eng._flush_window_locked,
+                                 eng._read_bound_locked)
+
+        def guarded(fn, *a, **k):
+            if not self.on:
+                return fn(*a, **k)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def dispatch_round(*a, **k):
+            self.on = self.first <= self.n < self.last
+            self.guarded += self.on
+            self.n += 1
+            self.dispatching = True
+            try:
+                return guarded(dispatch, *a, **k)
+            finally:
+                self.dispatching = False
+
+        def flush_window_locked(*a, **k):
+            try:
+                return guarded(flush, *a, **k)
+            finally:
+                self.on = False
+
+        def counted_read():
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return read()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                if self.dispatching:
+                    self.fallback_reads.append(self.n - 1)
+
+        eng._dispatch_round = dispatch_round
+        eng._flush_window_locked = flush_window_locked
+        eng._read_bound_locked = counted_read
+
+    def remove(self) -> None:
+        del self.eng._dispatch_round, self.eng._flush_window_locked
+        del self.eng._read_bound_locked
+
+
+def _get(url: str):
+    """(status, body bytes) of a GET; an HTTP error status is a result."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def obs_endpoints(url: str, rounds: int, where: str) -> dict:
+    """/leakaudit 200 PASS, /flightrec holding every round, /trace as
+    Chrome trace JSON with one round per seq, /healthz 200 with the SLO
+    and the leak fold, and /metrics with every reference family."""
+    from grapevine_tpu_torch.obs import parse_exposition
+
+    st, body = _get(f"{url}/leakaudit")
+    audit = json.loads(body)
+    if st != 200 or audit["verdict"] != "PASS" or audit["rounds_observed"] != rounds \
+            or audit["rounds_dropped"]:
+        raise AssertionError(f"{where}: /leakaudit {st} {audit['verdict']}, "
+                             f"{audit['rounds_observed']} of {rounds} rounds")
+    st, body = _get(f"{url}/flightrec")
+    if st != 200 or json.loads(body)["retained"] != rounds:
+        raise AssertionError(f"{where}: /flightrec {st}")
+    st, body = _get(f"{url}/trace")
+    trace = json.loads(body)
+    seqs = {e["args"]["seq"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    if st != 200 or len(seqs) != rounds or trace["otherData"]["rounds_recorded_total"] != rounds:
+        raise AssertionError(f"{where}: /trace {st}, {len(seqs)} rounds of {rounds}")
+    st, body = _get(f"{url}/healthz")
+    hz = json.loads(body)
+    if st != 200 or hz.get("leakaudit") != "PASS" or "slo" not in hz:
+        raise AssertionError(f"{where}: /healthz {st} {hz}")
+    st, body = _get(f"{url}/metrics")
+    fams = parse_exposition(body.decode())
+    missing = [f for f in OBS_FAMILIES if f not in fams]
+    if st != 200 or missing:
+        raise AssertionError(f"{where}: /metrics lacks {missing}")
+    return dict(leakaudit=dict(status=200, verdict=audit["verdict"],
+                               detectors={f"{d['name']}/{d['tree']}": d["statistic"]
+                                          for d in audit["detectors"]}),
+                trace_events=len(trace["traceEvents"]), trace_rounds=len(seqs),
+                bubble_ratio=trace["otherData"]["bubble_ratio"],
+                healthz=dict(status=200, healthy=hz["healthy"], leakaudit=hz["leakaudit"],
+                             slo={k: hz["slo"][k] for k in ("ok", "enforced", "target_ms",
+                                                            "fast_burn_rate", "fast_rounds")}),
+                metric_families=len(fams), reference_families_present=len(OBS_FAMILIES))
+
+
+def leak_canary(eng, seen: list) -> dict:
+    """A second EngineLeakMonitor (its own registry and endpoint) fed the
+    rounds phase 13a's monitor saw with the records column fixed at leaf
+    0: its uniformity detector turns SUSPECT and ``/leakaudit`` 503."""
+    from grapevine_tpu_torch.obs import MetricsServer, TelemetryRegistry
+    from grapevine_tpu_torch.obs.leakmon import EngineLeakMonitor
+
+    ecfg = eng.ecfg
+    d = ecfg.mb_choices
+    canary = EngineLeakMonitor(ecfg.mb.leaves, ecfg.rec.leaves, d, registry=TelemetryRegistry())
+    try:
+        for batch, tr in seen:
+            tr = tr.copy()
+            tr[:, d] = 0
+            canary.submit_round(batch, tr, ecfg.batch_size, ecfg.batch_size)
+        if not canary.flush(60):
+            raise AssertionError("phase 13a: the canary monitor did not drain")
+        v = canary.verdict()
+        srv = MetricsServer(TelemetryRegistry(), health=lambda: (True, {}), port=0,
+                            leakaudit=canary.verdict)
+        st, body = _get(f"http://127.0.0.1:{srv.start()}/leakaudit")
+        srv.stop()
+    finally:
+        canary.close()
+    tripped = [f"{x['name']}/{x['tree']}" for x in v["detectors"] if x["verdict"] == "SUSPECT"]
+    if v["verdict"] != "SUSPECT" or "uniformity/rec" not in tripped or st != 503 \
+            or json.loads(body)["verdict"] != "SUSPECT":
+        raise AssertionError(f"phase 13a: the fixed-leaf canary got {v['verdict']}, {st}")
+    return dict(verdict=v["verdict"], status=st, tripped=tripped, rounds=len(seen))
+
+
+def run_observability_phase(GrapevineConfig, geo: dict, gk, ck, card, serve_b: dict) -> dict:
+    """Phase 13. (a) A ``GrapevineServer`` at the production point, E=4
+    ``"pallas_fused"``, durable (an fsync per record), depth 2, its expiry
+    thread running, with the leak monitor, an enforced SLO (OBS_SLO_FACTOR
+    times phase 11b's median wall), the adaptive window and the profiler
+    gate, ``GRAPEVINE_COST_GBPS`` set from this run's copy bandwidth
+    (the expiry thread sweeps until the capture below);
+    ``start_metrics`` runs the sort and posmap calibrations (their seconds,
+    wall and the memory they add on top of the engine); phase 11b's stream
+    through the server's scheduler, every response checked, with
+    dispatches OBS_GUARD under the sync guard (the transcript rides the
+    round's copies and event) and a ``/profile?ms=OBS_PROFILE_MS`` capture
+    around dispatch OBS_PROFILE_AT (B3, B5 in its trace; a second request
+    409); then the endpoints, the fixed-leaf canary, the costmon residual
+    of each round and the leak monitor's thread CPU, beside phase 11b's
+    numbers. (b) An ``EngineServer`` at 2^14, E=1 ``"pallas_fused_tiled"``,
+    with the leak monitor and tracer, behind a ``FrontendServer`` (phase
+    11c's clients); a ``FleetAggregator`` over (a)'s and (b)'s metrics
+    ports: merged family count, ``healthz``, ``leakaudit`` and lag."""
+    import shutil
+    import tempfile
+    import threading
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine import expiry
+    from grapevine_tpu_torch.obs import FleetAggregator, FleetConfig, parse_exposition
+    from grapevine_tpu_torch.obs.leakmon import LeakMonitorConfig
+    from grapevine_tpu_torch.obs.slo import SloConfig
+    from grapevine_tpu_torch.server.service import GrapevineServer
+
+    t_phase = time.perf_counter()
+    bw = hbm_copy_gbps()
+    os.environ["GRAPEVINE_COST_GBPS"] = repr(bw["gbps"])
+    target_ms = OBS_SLO_FACTOR * serve_b["median"]["wall_ms"]
+    tmp = tempfile.mkdtemp()
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY,
+                          expiry_period=10)
+    dcfg = DurabilityConfig(state_dir=f"{tmp}/state", checkpoint_every_rounds=1 << 20,
+                            journal_fsync_every=1)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server = GrapevineServer(cfg, seed=SEED, clock=lambda: OBS_NOW, durability=dcfg,
+                                 leakmon=LeakMonitorConfig(),
+                                 slo=SloConfig(commit_p99_ms=target_ms),
+                                 adaptive_batch=True, profile_enable=True)
+        eng = server.engine
+        if eng.pipeline_depth != 2:
+            raise AssertionError(f"phase 13a: the engine runs depth {eng.pipeline_depth}")
+        server.start("insecure-grapevine://127.0.0.1:0")
+        init_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mport = server.start_metrics(0)
+        calib_wall_s = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        calib = {ph: snap[f"grapevine_phase_seconds{{phase={ph}}}_sum"] for ph in ("sort",
+                                                                              "posmap")}
+        if any(snap[f"grapevine_phase_seconds{{phase={ph}}}_count"] != 1 for ph in calib):
+            raise AssertionError(f"phase 13a: calibrations {calib}")
+        calibration = dict(sort_s=calib["sort"], posmap_s=calib["posmap"],
+                           wall_s=calib_wall_s, engine_held_bytes=held,
+                           peak_added_bytes=torch.cuda.max_memory_allocated() - held)
+        url = f"http://127.0.0.1:{mport}"
+        # a first, 1 ms capture pays the profiler's one-time start-up in
+        # this process before any round is timed
+        t0 = time.perf_counter()
+        st, body = _get(f"{url}/profile?ms=1")
+        if st != 200:
+            raise AssertionError(f"phase 13a: the warm-up capture got {st} {body[:200]}")
+        shutil.rmtree(json.loads(body)["trace_dir"], ignore_errors=True)
+        warm_capture_s = time.perf_counter() - t0
+        lm = server.leakmon
+        clock = CallClock()
+        lm._process = clock.wrap(lm._process)
+        seen: list = []
+        submit = lm.submit_round
+
+        def keep(batch, transcript, *a, **k):
+            seen.append((batch, transcript))
+            return submit(batch, transcript, *a, **k)
+
+        lm.submit_round = keep
+        device_ms: list = []  # each round's device span, which the monitor scores
+        observe = eng.costmon.observe_round
+
+        def scored(spans):
+            observe(spans)
+            device_ms.append(spans["device"][1] * 1e3)
+
+        eng.costmon.observe_round = scored
+        cap, waiters = {}, []
+
+        def capture():
+            st, body = _get(f"{url}/profile?ms={OBS_PROFILE_MS}")
+            cap["first"] = (st, json.loads(body) if st == 200 else body[:200])
+
+        def second():
+            cap["second"] = _get(f"{url}/profile?ms=10")[0]
+
+        def on_dispatch(k):
+            if k != OBS_PROFILE_AT:
+                return
+            # the expiry thread stops here (waiting out a sweep in
+            # progress): a sweep holds the engine lock for up to ~300 ms
+            # and would push this round out of the capture's window
+            server._expiry_stop.set()
+            server._expiry_thread.join(timeout=60)
+            waiters.append(threading.Thread(target=capture, name="profile-first"))
+            waiters[-1].start()
+            # this round's kernels (and its flush's) land in the capture
+            if not server.profiler.live.wait(60):
+                raise AssertionError("phase 13a: the profiler gate never started")
+            waiters.append(threading.Thread(target=second, name="profile-second"))
+            waiters[-1].start()
+
+        sweep_s0 = eng.metrics.snapshot()["grapevine_phase_seconds{phase=sweep}_sum"]
+        guard = SyncGuard(eng, *OBS_GUARD)
+        guard.install()
+        try:
+            part = serve_rounds(eng, gk, ck, card, sched=server.scheduler,
+                                on_dispatch=on_dispatch)
+        finally:
+            guard.remove()
+            for t in waiters:
+                t.join(timeout=120)
+        if server._expiry_thread.is_alive():
+            raise AssertionError("phase 13a: the expiry thread outlived the capture")
+        launches = _launches(gk, ck)
+        rounds, flushes = part["rounds"], part["flushes"]
+        snap = eng.metrics.snapshot()
+        sweeps = snap["sweeps"] - part["sweeps_at_reset"]
+        sweep_s = snap["grapevine_phase_seconds{phase=sweep}_sum"] - sweep_s0
+        per_sweep = 2 * sum(t.n_buckets_padded // expiry._chunk_rows(t)
+                            for t in (eng.ecfg.rec, eng.ecfg.mb))
+        require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+                                    "scatter_encrypt_rows": 2 * flushes,
+                                    "cipher_rows_pallas": per_sweep * sweeps}, "phase 13a")
+        if guard.guarded != OBS_GUARD[1] - OBS_GUARD[0]:
+            raise AssertionError(f"phase 13a: {guard.guarded} guarded dispatches")
+        if not lm.flush(120):
+            raise AssertionError("phase 13a: the leak monitor did not drain")
+        if len(seen) != rounds:
+            raise AssertionError(f"phase 13a: the monitor got {len(seen)} of {rounds} rounds")
+        st, prof = cap.get("first", (None, None))
+        if st != 200 or cap.get("second") != 409:
+            raise AssertionError(f"phase 13a: /profile {st} {prof}, second {cap.get('second')}")
+        with open(os.path.join(prof["trace_dir"], "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        profiled = {name: sum(1 for e in events if e.get("cat") == "kernel"
+                              and f"ring_kernel<{inst}>" in e["name"])
+                    for name, inst in (("gather_decrypt_rows", "128, 1, 1"),
+                                       ("scatter_encrypt_rows", "128, 1, 0"))}
+        if not all(profiled.values()):
+            raise AssertionError(f"phase 13a: the capture's kernels lack B3/B5: {profiled}")
+        shutil.rmtree(prof["trace_dir"], ignore_errors=True)
+        endpoints = obs_endpoints(url, rounds, "phase 13a")
+        canary = leak_canary(eng, seen)
+        lm_cpu = clock.report()
+        health = server.health()
+        if health["stash_overflow"]:
+            raise AssertionError("phase 13a: stash overflow")
+        residual_max = eng.metrics.registry.snapshot()["grapevine_cost_roofline_residual_max"]
+        if abs(residual_max - max(device_ms) / eng.costmon.floor_ms) > 1e-9 * residual_max:
+            raise AssertionError(f"phase 13a: residual max {residual_max}")
+        part_a = dict(
+            rounds=rounds, flushes=flushes, sweeps=sweeps, sweep_s=sweep_s,
+            batch_size=part["batch_size"],
+            responses_checked=part["responses_checked"], init_s=init_s,
+            slo_target_ms=target_ms, hbm_copy=bw, cost_bandwidth_gbps=eng.costmon.bandwidth_gbps,
+            cost_floor_ms=eng.costmon.floor_ms,
+            residual_per_round=[d / eng.costmon.floor_ms for d in device_ms],
+            device_span_ms_per_round=device_ms, calibration=calibration,
+            sync_guarded_dispatches=guard.guarded, fallback_reads=guard.fallback_reads,
+            profile=dict(ms=prof["ms"], status=st, second_status=cap["second"],
+                         warm_up_capture_s=warm_capture_s,
+                         events=len(events), kernel_names=len(kernels),
+                         kernel_events=profiled),
+            leakmon_thread=lm_cpu, leak_verdict=lm.verdict()["verdict"],
+            canary=canary, endpoints=endpoints,
+            adaptive_decisions={k.split("=")[1][:-1]: v for k, v in snap.items()
+                                if k.startswith("grapevine_host_adaptive_decisions_total")},
+            beside_11b=dict(
+                round_wall_median_ms=(serve_b["median"]["wall_ms"], part["median"]["wall_ms"]),
+                round_wall_max_ms=(serve_b["max_wall_ms"], part["max_wall_ms"]),
+                ops_per_s=(serve_b["ops_per_s"], part["ops_per_s"]),
+                verify_median_ms=(serve_b["median"]["verify_ms"], part["median"]["verify_ms"]),
+                dispatch_median_ms=(serve_b["median"]["dispatch_ms"],
+                                    part["median"]["dispatch_ms"]),
+                settle_median_ms=(serve_b["median"]["settle_ms"], part["median"]["settle_ms"]),
+                leakmon_cpu_s_per_round=(None, sum(v["cpu_s"] for v in lm_cpu.values())
+                                         / rounds)),
+            per_round=part["per_round"], launches=launches, card=card)
+        geo_b = dict(max_messages=2**14, max_recipients=2**10, batch_size=64,
+                     vphases_impl="dense")
+
+        def fleet_view(engine_server) -> dict:
+            mport_b = engine_server.start_metrics(0)
+            rounds_b = engine_server.engine.metrics.snapshot()["rounds"]
+            if not engine_server.leakmon.flush(60):
+                raise AssertionError("phase 13b: the leak monitor did not drain")
+            ep_b = obs_endpoints(f"http://127.0.0.1:{mport_b}", rounds_b, "phase 13b")
+            agg = FleetAggregator(FleetConfig(members=(f"127.0.0.1:{mport}",
+                                                       f"127.0.0.1:{mport_b}"),
+                                              scrape_interval_s=0.5))
+            t_s = time.perf_counter()
+            agg.scrape_once()
+            scrape_s = time.perf_counter() - t_s
+            fport = agg.serve(0)
+            try:
+                furl = f"http://127.0.0.1:{fport}"
+                st_m, body = _get(f"{furl}/metrics")
+                fams = parse_exposition(body.decode())
+                st_h, hz = _get(f"{furl}/healthz")
+                st_l, la = _get(f"{furl}/leakaudit")
+                hz, la = json.loads(hz), json.loads(la)
+                fsnap = agg.registry.snapshot()
+            finally:
+                agg.stop()
+            if st_m != 200 or not all(f in fams for f in OBS_FAMILIES):
+                raise AssertionError(f"phase 13b: the fleet's /metrics {st_m}")
+            if st_l != 200 or [m["verdict"] for m in la["members"]] != ["PASS", "PASS"]:
+                raise AssertionError(f"phase 13b: the fleet's /leakaudit {st_l} {la}")
+            if st_h != 200 or not all(m["up"] for m in hz["members"]):
+                raise AssertionError(f"phase 13b: the fleet's /healthz {st_h} {hz}")
+            lag = {k: v for k, v in fsnap.items()
+                   if k.startswith(("grapevine_fleet_journal_lag",
+                                    "grapevine_fleet_member_stale_age"))}
+            return dict(endpoints=ep_b, fleet=dict(
+                merged_families=len(fams), healthz=dict(status=st_h, healthy=hz["healthy"],
+                                                       members=hz["members"]),
+                leakaudit=dict(status=st_l, verdict=la["verdict"],
+                               members=[m["verdict"] for m in la["members"]]),
+                scrape_once_s=scrape_s, lag=lag))
+
+        part_b = serve_tier(GrapevineConfig, geo_b, gk, ck, card,
+                            engine_kw=dict(leakmon=LeakMonitorConfig(), trace_ring_size=64),
+                            before_stop=fleet_view, where="phase 13b")
+        server.stop(checkpoint=False)
+        server = None
+    finally:
+        if server is not None:
+            server.stop(checkpoint=False)
+        os.environ.pop("GRAPEVINE_COST_GBPS", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(a=part_a, b=part_b, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -2989,26 +3515,40 @@ def main() -> int:
                             + sc["standby_launches"].get(k, 0)) for k in KERNELS}
     split("standby")
 
+    # phase 13: every round observer on the serving tier — the production
+    # point with the leak monitor, SLO, adaptive window and profiler gate
+    # (B3, B5, and B2 on its expiry thread), the engine tier at 2^14 (B4,
+    # B6), and the fleet aggregator over both
+    obs = run_observability_phase(GrapevineConfig, geo, gk, ck, card, serve["b"])
+    obs_launches = {k: obs["a"]["launches"].get(k, 0) + obs["b"]["launches"].get(k, 0)
+                    for k in KERNELS}
+    split("observability")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (pallas_launches["cipher_rows_pallas"]
                                + exp1["launches"]["cipher_rows_pallas"]
                                + exp4["launches"]["cipher_rows_pallas"]
                                + serve_launches["cipher_rows_pallas"]
-                               + standby_launches["cipher_rows_pallas"]),
+                               + standby_launches["cipher_rows_pallas"]
+                               + obs_launches["cipher_rows_pallas"]),
         "gather_decrypt_rows": (evict_launches["gather_decrypt_rows"]
                                 + pipe_launches["gather_decrypt_rows"]
                                 + serve_launches["gather_decrypt_rows"]
-                                + standby_launches["gather_decrypt_rows"]),
+                                + standby_launches["gather_decrypt_rows"]
+                                + obs_launches["gather_decrypt_rows"]),
         "gather_decrypt_rows_tiled": (launches["gather_decrypt_rows_tiled"]
                                       + pipe_launches["gather_decrypt_rows_tiled"]
-                                      + serve_launches["gather_decrypt_rows_tiled"]),
+                                      + serve_launches["gather_decrypt_rows_tiled"]
+                                      + obs_launches["gather_decrypt_rows_tiled"]),
         "scatter_encrypt_rows": (evict_launches["scatter_encrypt_rows"]
                                  + pipe_launches["scatter_encrypt_rows"]
                                  + serve_launches["scatter_encrypt_rows"]
-                                 + standby_launches["scatter_encrypt_rows"]),
+                                 + standby_launches["scatter_encrypt_rows"]
+                                 + obs_launches["scatter_encrypt_rows"]),
         "scatter_encrypt_rows_tiled": (launches["scatter_encrypt_rows_tiled"]
                                        + pipe_launches["scatter_encrypt_rows_tiled"]
-                                       + serve_launches["scatter_encrypt_rows_tiled"]),
+                                       + serve_launches["scatter_encrypt_rows_tiled"]
+                                       + obs_launches["scatter_encrypt_rows_tiled"]),
     }
     emit(slice_line)
     emit({"profile": prof, "card": card})
@@ -3026,6 +3566,8 @@ def main() -> int:
     emit({"standby_prod": sa})
     emit({"standby_runbook": standby["b"]})
     emit({"standby_bootstrap": sc})
+    emit({"observability_prod": obs["a"]})
+    emit({"observability_tier_fleet": obs["b"], "phase_s": obs["phase_s"]})
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -35,8 +35,13 @@ rounds (in the window-closing round's lock hold), the expiry sweep
 and recovers on construction by replaying the journal through the same
 programs (``engine/checkpoint.py``, ``engine/journal.py``). Telemetry is
 ``self.metrics`` (``engine/metrics.py``) on an obs registry; the
-``attach_*`` hooks (tracer, SLO, workload, cost and leak monitors) are
-ROADMAP.md queue A item 16.
+``attach_*`` hooks take the round tracer, SLO tracker, workload and cost
+telemetry and the leak monitor, and ``PendingRound.resolve`` hands each
+round to them. With a leak monitor attached, the round's transcript comes
+down with its responses, by the same pinned asynchronous copies before
+the same event: no host sync and no second event. The serving layers
+call ``calibrate_sort_phase`` and ``calibrate_posmap_phase`` once at
+start-up to fill the ``sort`` and ``posmap`` phase series.
 """
 
 from __future__ import annotations
@@ -178,14 +183,18 @@ class PendingRound:
     until the round's own outputs are on the host."""
 
     __slots__ = ("_engine", "_host", "_done", "_staging", "_tag", "_n", "_t0",
-                 "_spans", "_enq", "_qdepth")
+                 "_spans", "_enq", "_qdepth", "_batch")
 
-    def __init__(self, engine, host, done, staging, tag, n, t0, spans=None):
+    def __init__(self, engine, host, done, staging, tag, n, t0, spans=None,
+                 batch=None):
         self._engine = engine
         #: the round's outputs on the host (pinned copies in flight on the
         #: card): responses, the state's free_top and recipients, and the
         #: transcript when asked for
         self._host = host
+        #: leak-monitor hand-off (engine.leakmon set): the batch's key
+        #: columns (numpy) the transcript's key groups derive from
+        self._batch = batch
         #: CUDA event recorded after the copies (None on the CPU)
         self._done = done
         #: the batch's pinned staging buffer, alive until the round is done
@@ -264,6 +273,26 @@ class PendingRound:
         r0 = min(s for s, _ in spans.values())
         spans["round"] = (r0, t_done - r0)
         self._spans = spans
+        eng = self._engine
+        if eng.tracer is not None:
+            eng.tracer.record_round(spans)
+        if eng.slo is not None:
+            # enqueue→settle commit latency, worst op in the batch: the
+            # scheduler stamped the oldest op's enqueue; the direct path
+            # anchors at the round's first span
+            eng.slo.observe(t_done - (self._enq if self._enq is not None else r0))
+        if eng.workload is not None:
+            eng.workload.observe_round(self._n, eng.ecfg.batch_size, self._qdepth, spans)
+        if eng.costmon is not None:
+            eng.costmon.observe_round(spans)
+        if eng.leakmon is not None and "transcript" in host:
+            # one non-blocking queue put; the detectors run on the
+            # monitor's own thread. "device" stays tracer-only: the
+            # flight recorder's phase schema is the canonical PHASES
+            phases = {k: d for k, (_, d) in spans.items() if k != "device"}
+            eng.leakmon.submit_round(self._batch, host["transcript"], self._n,
+                                     eng.ecfg.batch_size, phases,
+                                     queue_depth=self._qdepth)
         return out
 
 
@@ -308,6 +337,18 @@ class GrapevineEngine:
         self.metrics = EngineMetrics()
         #: last sampled per-tree eviction-buffer occupancy (health view)
         self._ebuf_counts: dict = {}
+        #: round observers, attached by the serving layer (``attach_*``);
+        #: None = not observed. The leak monitor audits every round's
+        #: transcript (obs/leakmon.py), the tracer keeps span ledgers
+        #: (obs/tracer.py), the SLO tracker the commit latency
+        #: (obs/slo.py), the workload telemetry fill, backlog and
+        #: utilization (obs/workload.py), the cost monitor the roofline
+        #: residual (obs/costmon.py)
+        self.leakmon = None
+        self.tracer = None
+        self.slo = None
+        self.workload = None
+        self.costmon = None
         #: the admission bound (``_admission``): exact (free_top,
         #: recipients) after dispatch number ``_known[0]``, the CREATE
         #: count of every round dispatched since, and the state's
@@ -520,11 +561,16 @@ class GrapevineEngine:
             self._inflight.append((self._dispatched, creates))
             self._bound_ref = self.state.free_top
         outs = dict(resp, free_top=self.state.free_top, recipients=self.state.recipients)
+        key_cols = None
         if transcript:
+            # the transcript rides the same pinned copies and event as the
+            # responses; the monitor gets only the key-material columns
+            # (the payload column would sit in its queue unread)
             outs["transcript"] = tr
+            key_cols = {k: batch[k] for k in ("req_type", "auth", "msg_id", "recipient")}
         host, done = _stage_to_host(outs)
         return PendingRound(self, host, done, staging, self._dispatched, n_real, t0,
-                            spans=spans)
+                            spans=spans, batch=key_cols)
 
     def handle_queries_async(self, reqs: list[QueryRequest], now: int) -> PendingRound:
         """Dispatch one round without waiting for the device.
@@ -542,7 +588,8 @@ class GrapevineEngine:
             # device round itself lands in "evict" at resolve
             with self.metrics.time_phase("dispatch"):
                 self._journal_round(batch, len(reqs), spans)
-                pending = self._dispatch_round(batch, len(reqs), spans)
+                pending = self._dispatch_round(batch, len(reqs), spans,
+                                               transcript=self.leakmon is not None)
             if faults.active():
                 faults.crash("round.post_dispatch")
             t_f0 = time.perf_counter()
@@ -609,6 +656,11 @@ class GrapevineEngine:
         self.metrics.record_flush()
         if faults.active():
             faults.crash("flush.post_dispatch")
+        if self.leakmon is not None:
+            # flush-cadence audit (obs/leakmon.py note_flush): the
+            # observed interval before the counter resets; only the
+            # automatic cadence is judged
+            self.leakmon.note_flush(self._rounds_since_flush, scheduled=count_round)
         self.flushes += 1
         self._rounds_since_flush = 0
         return True
@@ -626,6 +678,130 @@ class GrapevineEngine:
         device time. A pure function of the cadence counter, itself a pure
         function of the round count. Benign unlocked int read."""
         return self._flush_step is not None and self._rounds_since_flush == 0
+
+    # -- round observers and phase calibrations ------------------------
+
+    def attach_leakmon(self, monitor) -> None:
+        """Attach an EngineLeakMonitor; subsequent rounds bring their
+        transcripts down with their responses and hand them to it
+        (PendingRound.resolve)."""
+        self.leakmon = monitor
+
+    def attach_tracer(self, tracer) -> None:
+        """Attach a RoundTracer; subsequent rounds append their span
+        ledgers to its ring (PendingRound.resolve)."""
+        self.tracer = tracer
+
+    def attach_slo(self, slo) -> None:
+        """Attach an SloTracker; subsequent rounds observe their
+        enqueue→settle commit latency against it."""
+        self.slo = slo
+
+    def attach_workload(self, workload) -> None:
+        """Attach a WorkloadTelemetry; subsequent rounds observe their
+        fill/backlog/utilization and the scheduler notes arrivals."""
+        self.workload = workload
+
+    def attach_costmon(self, costmon) -> None:
+        """Attach a CostMonitor; subsequent rounds score their device
+        span against the modeled roofline floor."""
+        self.costmon = costmon
+
+    def _calibrate(self, phase: str, setup, run, reps: int) -> float:
+        """Time ``run(setup())`` ``reps`` times after one warm-up call (CUDA
+        events on the card, ``perf_counter`` on the CPU), record the
+        minimum under ``phase`` and return it in seconds. Runs on fresh
+        tensors at the round's shapes and never takes the engine lock:
+        the workload is shape-static and data-independent, so it prices
+        the live round without touching its state."""
+        inputs = setup()
+        run(inputs)  # warm-up: allocator, kernel caches
+        cuda = self.device.type == "cuda"
+        best = None
+        for _ in range(max(1, reps)):
+            if cuda:
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                t0.record()
+                run(inputs)
+                t1.record()
+                t1.synchronize()
+                dt = t0.elapsed_time(t1) / 1e3
+            else:
+                w0 = time.perf_counter()
+                run(inputs)
+                dt = time.perf_counter() - w0
+            best = dt if best is None else min(best, dt)
+        self.metrics.observe_phase(phase, best)
+        return best
+
+    def calibrate_sort_phase(self, reps: int = 5) -> float:
+        """Measure the round's sort workload standalone and record it
+        under the ``sort`` phase (the reference's ``calibrate_sort_phase``).
+
+        The host cannot time inside the round, but every sort it runs is
+        shape-static and data-independent (oblivious), so the same sort
+        machinery at the same shapes IS the per-round sort cost: the three
+        eviction leaf sorts at their working-set sizes (W = stash +
+        nb·path_len·Z + nb per ORAM round: mailbox A, records B, mailbox C;
+        ``oram/round.py:_assign_evictions``) and the admission walk's slot
+        grouping (``segmented.group_sort``). Returns the min-of-``reps``
+        seconds."""
+        from ..oblivious.segmented import group_sort
+        from ..oram.path_oram import random_below
+        from ..u32 import widen
+
+        ecfg, dev = self.ecfg, self.device
+        b, d = ecfg.batch_size, ecfg.mb_choices
+        slot_bits = max(1, (b - 1).bit_length())
+
+        def setup():
+            gen = torch.Generator(device=dev).manual_seed(0)
+            leaves = [random_below(gen, 1 << cfg.height,
+                                   (cfg.stash_size + nb * cfg.path_len * cfg.bucket_slots
+                                    + nb,), dev)
+                      for cfg, nb in ((ecfg.mb, b * d), (ecfg.rec, b), (ecfg.mb, b * d))]
+            return leaves, random_below(gen, 1 << slot_bits, (b,), dev)
+
+        def run(inputs):
+            leaves, rslot = inputs
+            for leaf in leaves:
+                torch.sort(widen(leaf), stable=True)
+            group_sort(rslot)
+
+        return self._calibrate("sort", setup, run, reps)
+
+    def calibrate_posmap_phase(self, reps: int = 5) -> float:
+        """Measure the round's position-resolution workload standalone and
+        record it under the ``posmap`` phase (the reference's
+        ``calibrate_posmap_phase``): for each ORAM round (mailbox A,
+        records B, mailbox C) the duplicate masks and the flat map's
+        lookup and remap (``oram/round.py:occurrence_masks``,
+        ``oram/posmap.py:lookup_remap_round``) at the round's batch, on a
+        fresh map of the engine's geometry. Returns the min-of-``reps``
+        seconds."""
+        from ..oram.path_oram import random_below
+        from ..oram.posmap import lookup_remap_round
+        from ..oram.round import occurrence_masks
+
+        ecfg, dev = self.ecfg, self.device
+        b, d = ecfg.batch_size, ecfg.mb_choices
+        jobs = ((ecfg.mb, b * d), (ecfg.rec, b), (ecfg.mb, b * d))
+
+        def setup():
+            gen = torch.Generator(device=dev).manual_seed(17)
+            return [(cfg,
+                     random_below(gen, cfg.leaves, (cfg.blocks + 1,), dev),
+                     random_below(gen, cfg.blocks + 1, (nb,), dev),
+                     random_below(gen, cfg.leaves, (nb,), dev),
+                     random_below(gen, cfg.leaves, (nb,), dev)) for cfg, nb in jobs]
+
+        def run(inputs):
+            for cfg, table, idxs, nl, dl in inputs:
+                fo, lo, _ = occurrence_masks(idxs, cfg.dummy_index)
+                lookup_remap_round(cfg, table, idxs, nl, dl, fo, lo)
+
+        return self._calibrate("posmap", setup, run, reps)
 
     # -- sweep, checkpoints, close ---------------------------------------
 

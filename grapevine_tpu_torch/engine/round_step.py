@@ -9,12 +9,15 @@ The round's random draws (fresh remap leaves, dummy-fetch leaves, id
 nonces) come from :func:`round_draws` on the state's generator;
 ``engine_round_step(..., draws=)`` accepts them from the caller instead,
 which is how the tests feed both packages the same numbers.
+:func:`transcript_key_groups` is the host-side mirror of the round's key
+selection the leak monitor groups the transcript by (``obs/leakmon.py``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -64,6 +67,65 @@ def admission_fast_ok(ecfg: EngineConfig, free_top: int, recipients: int, b: int
     vectorized branch needs B free blocks and room for B new recipients
     (``grapevine_tpu/engine/vphases.py:629-631``)."""
     return free_top >= b and recipients + b <= ecfg.max_recipients
+
+
+def transcript_key_groups(batch: dict, mb_choices: int):
+    """Host-side mirror of this step's key selection, for the leak
+    monitor (obs/leakmon.py; the reference's ``round_step.py:127``).
+
+    ``batch`` is the round's numpy u32 batch columns (``pack_batch``).
+    Returns ``((mb_keys, mb_stable), (rec_keys, rec_stable))`` aligned
+    to the transcript columns ``[a_0..a_{D-1}, b, c_0..c_{D-1}]``:
+
+    - ``mb_keys`` i64[B·D]: within-round group ids over the flattened
+      mailbox fetch slots — two slots share a group iff they fetch the
+      same candidate bucket on the device, i.e. same ``ka`` (the
+      recipient for CREATE/explicit-id ops, else the auth identity) and
+      same choice column. ``-1`` = padding dummy (no key). Grouping by
+      ``ka`` rather than the keyed bucket hash (device-resident
+      ``hash_key``) can only *miss* accidental hash collisions between
+      distinct ``ka`` — an undercount of same-key pairs, never a false
+      SUSPECT.
+    - ``rec_keys`` i64[B]: records-round groups; explicit-id non-CREATE
+      ops group by ``msg_id`` (one msg_id = one PRP-resolved block).
+      CREATE (allocates a fresh block) and zero-id ops (block selected
+      inside the oblivious round) are not host-resolvable → ``-1``.
+    - ``*_stable``: per-slot cross-round-stable ids (bytes) for the
+      repeat tracker, ``None`` where keyless.
+
+    The key material stays in process memory (the monitor's standing —
+    same as the position map); only windowed aggregates are exported.
+    """
+    rt = np.asarray(batch["req_type"]).astype(np.uint32)
+    auth = np.asarray(batch["auth"], dtype=np.uint32)
+    recipient = np.asarray(batch["recipient"], dtype=np.uint32)
+    msg_id = np.asarray(batch["msg_id"], dtype=np.uint32)
+    b = rt.shape[0]
+    is_real = (rt >= C.REQUEST_TYPE_CREATE) & (rt <= C.REQUEST_TYPE_DELETE)
+    is_create = rt == C.REQUEST_TYPE_CREATE
+    id_zero = ~msg_id.any(axis=1)
+    ka = np.where((is_create | ~id_zero)[:, None], recipient, auth)
+
+    d = mb_choices
+    mb_keys = np.full((b * d,), -1, np.int64)
+    mb_stable: list[bytes | None] = [None] * (b * d)
+    mb_groups: dict[bytes, int] = {}
+    rec_keys = np.full((b,), -1, np.int64)
+    rec_stable: list[bytes | None] = [None] * b
+    rec_groups: dict[bytes, int] = {}
+    for j in range(b):
+        if not is_real[j]:
+            continue
+        kb = ka[j].tobytes()
+        g = mb_groups.setdefault(kb, len(mb_groups))
+        for c in range(d):
+            mb_keys[j * d + c] = g * d + c
+            mb_stable[j * d + c] = kb + bytes([c])
+        if not is_create[j] and not id_zero[j]:
+            mid = msg_id[j].tobytes()
+            rec_keys[j] = rec_groups.setdefault(mid, len(rec_groups))
+            rec_stable[j] = mid
+    return (mb_keys, mb_stable), (rec_keys, rec_stable)
 
 
 def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,

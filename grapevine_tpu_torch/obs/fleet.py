@@ -1,0 +1,616 @@
+"""Fleet observatory: multi-process scrape aggregation with a leak-safe
+re-export policy (a copy of ``grapevine_tpu/obs/fleet.py``, stdlib only).
+
+Every serving direction left on the roadmap is multi-process — pod-scale
+recipient sharding, N frontend processes, journal-shipped hot standby —
+while the per-process surfaces are single-process: one /metrics, one
+/healthz, one transcript verdict. This module makes the fleet a
+first-class observable object: a stdlib aggregator scrapes N member
+processes' /metrics, /healthz, /leakaudit, and /flightrec and serves
+merged fleet endpoints, plus the cross-shard schedule-uniformity
+detectors (obs/leakmon.py :class:`FleetUniformityMonitor`) that BOLT's
+fleet-level adversary model demands (arXiv:2509.01742 — at fleet scale
+the *inter-shard schedule* is the access pattern).
+
+Two leak-policy obligations are structural here, not conventions:
+
+- **scrape cadence is a pure function of config.** The aggregator
+  scrapes on a fixed wall-clock grid (``t0 + k·interval``) in declared
+  member order, never adapting to observed traffic, queue depths, or
+  verdicts. An aggregator that scraped "interesting" members faster
+  would itself encode which shard's recipients are busy into observable
+  network timing — the exact side channel the fleet detectors exist to
+  catch (OPERATIONS.md §20 has the full argument).
+- **shard identity is public topology; member identity is not.** The
+  merged /metrics re-exports member families under a ``shard`` label
+  whose values are the declared integer indices (position in
+  ``--fleet-members``). The registry enforces integer-only shard values
+  (obs/registry.py), so a hostname or address can never ride a label —
+  audited by tools/check_telemetry_policy.py.
+
+Degraded-but-served: a member that flaps mid-scrape (timeout, refused,
+truncated exposition) surfaces as ``grapevine_fleet_member_up == 0``
+with a growing stale-age while its last-good families stay in the
+merged view — the fleet endpoint never answers 500 because one member
+wobbled. Partial evidence slows the uniformity verdict (ticks with a
+missing shard contribute nothing) instead of distorting it.
+
+Replication-lag telemetry (ROADMAP item 4): every member's
+``grapevine_last_durable_seq`` and ``grapevine_journal_applied_seq``
+(engine/checkpoint.py) are folded into per-shard
+``grapevine_fleet_journal_lag_seq`` / ``_lag_seconds`` gauges — the
+hot-standby RPO as a dashboard number before the standby exists.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import re
+import threading
+import time
+import urllib.error
+import urllib.request
+
+from .exporter import _escape_label_value, render_prometheus
+from .leakmon import PASS, SUSPECT, FleetUniformityConfig, FleetUniformityMonitor
+from .registry import TelemetryRegistry
+
+log = logging.getLogger("grapevine_tpu_torch.obs.fleet")
+
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$"
+)
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _unescape(value: str) -> str:
+    return (
+        value.replace("\\n", "\n").replace('\\"', '"').replace("\\\\", "\\")
+    )
+
+
+def parse_exposition(text: str) -> dict:
+    """Parse a Prometheus 0.0.4 text exposition into ordered families.
+
+    Returns ``{family_name: {"kind", "help", "samples"}}`` where each
+    sample is ``(sample_name, ((k, v), ...), value)``. Strict on
+    purpose: any malformed sample line raises ``ValueError``, so a
+    truncated body from a member dying mid-write rejects the whole
+    scrape (last-good view retained) instead of merging half a family.
+    """
+    families: dict = {}
+    kinds: dict = {}
+    helps: dict = {}
+
+    def family_of(sample_name: str) -> str:
+        if sample_name in kinds:
+            return sample_name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if sample_name.endswith(suffix):
+                base = sample_name[: -len(suffix)]
+                if base in kinds:
+                    return base
+        return sample_name
+
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) >= 3 and parts[1] == "TYPE":
+                kinds[parts[2]] = parts[3] if len(parts) > 3 else "untyped"
+            elif len(parts) >= 3 and parts[1] == "HELP":
+                helps[parts[2]] = parts[3] if len(parts) > 3 else ""
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            raise ValueError(f"malformed exposition line: {raw[:80]!r}")
+        name, labelstr, value = m.groups()
+        try:
+            val = float(value)
+        except ValueError:
+            raise ValueError(f"bad sample value in line: {raw[:80]!r}")
+        labels: list = []
+        if labelstr:
+            pos = 0
+            for lm in _LABEL_RE.finditer(labelstr):
+                if labelstr[pos:lm.start()].strip(", ") != "":
+                    raise ValueError(
+                        f"bad label syntax in line: {raw[:80]!r}")
+                labels.append((lm.group(1), _unescape(lm.group(2))))
+                pos = lm.end()
+            if labelstr[pos:].strip(", ") != "":
+                raise ValueError(f"bad label syntax in line: {raw[:80]!r}")
+        fam = family_of(name)
+        entry = families.setdefault(
+            fam, {"kind": kinds.get(fam, "untyped"),
+                  "help": helps.get(fam, ""), "samples": []}
+        )
+        entry["kind"] = kinds.get(fam, entry["kind"])
+        entry["help"] = helps.get(fam, entry["help"])
+        entry["samples"].append((name, tuple(labels), val))
+    return families
+
+
+def _sample_value(families: dict, family: str, sample: str | None = None,
+                  default: float | None = None) -> float | None:
+    """The (first) unlabeled-or-any sample value of a family."""
+    fam = families.get(family)
+    if fam is None:
+        return default
+    want = sample or family
+    for name, _labels, value in fam["samples"]:
+        if name == want:
+            return value
+    return default
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Fleet aggregator topology + cadence (all public, all declared).
+
+    ``members``: scrape endpoints as ``host:port``, one per member role
+    process; list position IS the shard index — the only member
+    identity that ever reaches a metric label."""
+
+    members: tuple[str, ...]
+    #: fixed scrape period in seconds — with the start instant, the
+    #: ENTIRE scrape schedule (a pure function of config, never of
+    #: observed traffic; see module docstring)
+    scrape_interval_s: float = 1.0
+    #: per-request timeout; None = min(2s, scrape_interval_s)
+    scrape_timeout_s: float | None = None
+    uniformity: FleetUniformityConfig | None = None
+
+    def __post_init__(self):
+        if not self.members:
+            raise ValueError("fleet needs at least one member")
+        if self.scrape_interval_s <= 0:
+            raise ValueError("scrape_interval_s must be positive")
+
+    @property
+    def timeout_s(self) -> float:
+        if self.scrape_timeout_s is not None:
+            return self.scrape_timeout_s
+        return min(2.0, self.scrape_interval_s)
+
+
+class _MemberState:
+    """Last-known view of one member (the degraded-view substrate)."""
+
+    __slots__ = ("up", "t_good", "families", "healthz", "flightrec",
+                 "leakaudit", "t_caught_up", "ever_scraped")
+
+    def __init__(self):
+        self.up = False
+        self.t_good: float | None = None
+        self.families: dict | None = None
+        self.healthz: dict | None = None
+        self.leakaudit: dict | None = None
+        self.flightrec: dict | None = None
+        self.t_caught_up: float | None = None
+        self.ever_scraped = False
+
+
+class FleetAggregator:
+    """Scrape N members on a fixed cadence; serve the merged fleet view.
+
+    ``scrape_once()`` runs one synchronous cycle (tests drive it
+    directly); ``start()``/``serve()`` run the cadence thread and the
+    merged HTTP endpoint. All HTTP fetching is stdlib
+    (``urllib.request``) — the container policy bakes no client
+    library, and four small GETs per member per tick need none.
+    """
+
+    def __init__(self, cfg: FleetConfig, clock=time.monotonic,
+                 fetch=None):
+        self.cfg = cfg
+        self.n = len(cfg.members)
+        self._clock = clock
+        #: injectable fetcher (tests): (url, timeout_s) -> bytes
+        self._fetch = fetch or self._http_get
+        self._lock = threading.Lock()
+        self._members = [_MemberState() for _ in range(self.n)]
+        self.registry = TelemetryRegistry()
+        shards = tuple(str(i) for i in range(self.n))
+        labels = {"shard": shards}
+        self._g_members = self.registry.gauge(
+            "grapevine_fleet_members",
+            "declared fleet member count (config, not liveness)")
+        self._g_members.set(float(self.n))
+        self._g_up = self.registry.gauge(
+            "grapevine_fleet_member_up",
+            "1 when the shard's last /metrics scrape succeeded "
+            "(0 = degraded: last-good families still served, see "
+            "stale_age)", labels=labels)
+        self._g_stale = self.registry.gauge(
+            "grapevine_fleet_member_stale_age_seconds",
+            "seconds since the shard's last successful /metrics scrape "
+            "(-1 = never scraped)", labels=labels)
+        self._c_scrapes = self.registry.counter(
+            "grapevine_fleet_scrapes_total",
+            "scrape cycles attempted against the shard (fixed public "
+            "cadence — a pure function of config)", labels=labels)
+        self._c_failures = self.registry.counter(
+            "grapevine_fleet_scrape_failures_total",
+            "scrape cycles that failed against the shard (timeout, "
+            "refused, or malformed exposition)", labels=labels)
+        self._g_lag_seq = self.registry.gauge(
+            "grapevine_fleet_journal_lag_seq",
+            "journal records the shard's applied-seq trails the fleet's "
+            "newest durable seq by (hot-standby RPO in records — "
+            "OPERATIONS.md §20)", labels=labels)
+        self._g_lag_sec = self.registry.gauge(
+            "grapevine_fleet_journal_lag_seconds",
+            "seconds the shard has spent behind the fleet's newest "
+            "durable seq (0 while caught up)", labels=labels)
+        self._g_standbys = self.registry.gauge(
+            "grapevine_fleet_standbys",
+            "members whose /healthz reports role=standby — live hot "
+            "replicas replaying the shipped journal (a promoted "
+            "standby leaves this count and starts serving; "
+            "OPERATIONS.md §23)")
+        self._g_promotions = self.registry.gauge(
+            "grapevine_fleet_promotions",
+            "sum of members' promotion counters — a nonzero value "
+            "means a takeover happened and the fenced old primary "
+            "needs operator attention (OPERATIONS.md §23 runbook)")
+        self.uniformity = (
+            FleetUniformityMonitor(
+                self.n, cfg.uniformity, registry=self.registry)
+            if self.n >= 2 else None
+        )
+        for i in range(self.n):
+            self._g_stale.set(-1.0, shard=str(i))
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        self._httpd = None
+
+    # -- fetching -------------------------------------------------------
+
+    @staticmethod
+    def _http_get(url: str, timeout_s: float) -> bytes:
+        try:
+            with urllib.request.urlopen(url, timeout=timeout_s) as resp:
+                return resp.read()
+        except urllib.error.HTTPError as e:
+            # /healthz 503 and /leakaudit 503 still carry their JSON
+            # body — an unhealthy member is a *successful* scrape; only
+            # 404 (endpoint not configured) returns nothing
+            if e.code == 404:
+                return b""
+            body = e.read()
+            if body:
+                return body
+            raise
+
+    def _get_json(self, addr: str, path: str) -> dict | None:
+        body = self._fetch(f"http://{addr}{path}", self.cfg.timeout_s)
+        if not body:
+            return None
+        return json.loads(body)
+
+    # -- one scrape cycle ----------------------------------------------
+
+    def scrape_once(self) -> None:
+        """One synchronous scrape cycle over every member, in declared
+        order (fixed — ordering by anything observed would leak)."""
+        samples: list = []
+        now = self._clock()
+        for i, addr in enumerate(self.cfg.members):
+            st = self._members[i]
+            self._c_scrapes.inc(shard=str(i))
+            try:
+                body = self._fetch(
+                    f"http://{addr}/metrics", self.cfg.timeout_s)
+                families = parse_exposition(body.decode("utf-8"))
+            except Exception as exc:
+                # degraded, not dead: keep the last-good view, mark the
+                # member down, keep serving (the whole point)
+                self._c_failures.inc(shard=str(i))
+                with self._lock:
+                    st.up = False
+                    st.ever_scraped = True
+                self._g_up.set(0.0, shard=str(i))
+                log.debug("scrape of shard %d (%s) failed: %r",
+                          i, addr, exc)
+                samples.append(None)
+            else:
+                with self._lock:
+                    st.up = True
+                    st.ever_scraped = True
+                    st.t_good = now
+                    st.families = families
+                self._g_up.set(1.0, shard=str(i))
+                samples.append(self._uniformity_sample(families))
+            # auxiliary endpoints are best-effort: their absence or
+            # failure never degrades the /metrics view
+            for path, attr in (("/healthz", "healthz"),
+                               ("/leakaudit", "leakaudit"),
+                               ("/flightrec", "flightrec")):
+                try:
+                    doc = self._get_json(addr, path)
+                except Exception:
+                    continue
+                if doc is not None:
+                    with self._lock:
+                        setattr(st, attr, doc)
+        for i in range(self.n):
+            st = self._members[i]
+            self._g_stale.set(
+                round(now - st.t_good, 3) if st.t_good is not None
+                else -1.0,
+                shard=str(i))
+        self._update_lag(now)
+        self._update_standbys()
+        if self.uniformity is not None:
+            self.uniformity.observe_tick(samples)
+            self.uniformity.verdict()  # refresh the exported gauges
+
+    @staticmethod
+    def _uniformity_sample(families: dict) -> dict | None:
+        """Per-shard public series for the uniformity monitor; None
+        when the member exports no round counter (not a device owner
+        — e.g. a frontend), which contributes no evidence."""
+        rounds = _sample_value(families, "grapevine_rounds_total")
+        if rounds is None:
+            return None
+        return {
+            "rounds_total": rounds,
+            "fill_sum": _sample_value(
+                families, "grapevine_load_batch_fill",
+                "grapevine_load_batch_fill_sum", 0.0),
+            "fill_count": _sample_value(
+                families, "grapevine_load_batch_fill",
+                "grapevine_load_batch_fill_count", 0.0),
+            "flushes_total": _sample_value(
+                families, "grapevine_evict_flushes_total", default=0.0),
+            "queue_depth": _sample_value(
+                families, "grapevine_queue_depth", default=0.0),
+        }
+
+    def _update_lag(self, now: float) -> None:
+        """Fold member durable/applied seqs into the per-shard lag
+        gauges. Fleet-newest durable seq is the replication frontier;
+        a shard's applied-seq trailing it is the standby RPO."""
+        durable = []
+        applied = []
+        for st in self._members:
+            fams = st.families or {}
+            durable.append(_sample_value(
+                fams, "grapevine_last_durable_seq", default=None))
+            applied.append(_sample_value(
+                fams, "grapevine_journal_applied_seq", default=None))
+        frontier = max(
+            (d for d in durable if d is not None), default=None)
+        if frontier is None:
+            return
+        for i, st in enumerate(self._members):
+            a = applied[i]
+            if a is None:
+                # a member with no durability exports no lag (unknown
+                # is not zero and not infinite) — leave the gauge at 0
+                continue
+            lag = max(0.0, frontier - a)
+            self._g_lag_seq.set(lag, shard=str(i))
+            if lag == 0.0:
+                st.t_caught_up = now
+                self._g_lag_sec.set(0.0, shard=str(i))
+            else:
+                base = st.t_caught_up if st.t_caught_up is not None else now
+                st.t_caught_up = st.t_caught_up or base
+                self._g_lag_sec.set(round(now - base, 3), shard=str(i))
+
+    def _update_standbys(self) -> None:
+        """Count live standbys and sum promotion counters across the
+        fleet. Role comes from /healthz (the body tag every member
+        carries) — an un-promoted standby exports no round counter, so
+        nothing else in the merge distinguishes it from a dead shard."""
+        standbys = 0
+        promotions = 0.0
+        with self._lock:
+            for st in self._members:
+                hz = st.healthz or {}
+                if st.up and hz.get("role") == "standby" \
+                        and not hz.get("promoted"):
+                    standbys += 1
+                p = _sample_value(
+                    st.families or {},
+                    "grapevine_replication_promotions_total",
+                    default=None)
+                if p is not None:
+                    promotions += p
+        self._g_standbys.set(float(standbys))
+        self._g_promotions.set(promotions)
+
+    # -- merged views ---------------------------------------------------
+
+    def render_merged(self) -> str:
+        """The fleet /metrics body: every member family re-exported
+        under its shard label (declared integer indices only), then the
+        fleet's own ``grapevine_fleet_*`` registry."""
+        with self._lock:
+            views = [
+                (i, dict(st.families)) for i, st in enumerate(self._members)
+                if st.families is not None
+            ]
+        names: list = []
+        seen = set()
+        for _i, fams in views:
+            for name in fams:
+                if name not in seen:
+                    seen.add(name)
+                    names.append(name)
+        lines: list = []
+        for name in names:
+            first = next(f[name] for _i, f in views if name in f)
+            if first["help"]:
+                lines.append(f"# HELP {name} {first['help']}")
+            lines.append(f"# TYPE {name} {first['kind']}")
+            for i, fams in views:
+                fam = fams.get(name)
+                if fam is None:
+                    continue
+                for sname, labels, value in fam["samples"]:
+                    # the ONE label the merge may add: the declared
+                    # integer shard index; a member's own stray shard
+                    # label is dropped rather than re-exported
+                    pairs = [
+                        (k, v) for k, v in labels if k != "shard"
+                    ] + [("shard", str(i))]
+                    ls = ",".join(
+                        f'{k}="{_escape_label_value(v)}"' for k, v in pairs
+                    )
+                    val = ("%g" % value) if value == value else "NaN"
+                    lines.append(f"{sname}{{{ls}}} {val}")
+        merged = "\n".join(lines)
+        own = render_prometheus(self.registry)
+        return (merged + "\n" + own) if merged else own
+
+    def healthz(self) -> tuple[bool, dict]:
+        """Fold member health + merged SLO burn rates + the fleet
+        uniformity verdict. Healthy iff every member is up and itself
+        healthy and no cross-shard detector trips — a degraded or
+        skewed fleet stops routing as a unit."""
+        with self._lock:
+            members = []
+            healthy = True
+            worst_fast = worst_slow = 0.0
+            for i, st in enumerate(self._members):
+                hz = st.healthz or {}
+                m_healthy = hz.get("healthy")
+                entry = {
+                    "shard": i,
+                    "address": self.cfg.members[i],
+                    "up": bool(st.up),
+                    "healthy": m_healthy,
+                    "leakaudit": hz.get("leakaudit"),
+                }
+                if hz.get("role") is not None:
+                    entry["role"] = hz["role"]
+                if hz.get("role") == "standby":
+                    # the DR surface an operator pages on: is the
+                    # replica fed, and at what epoch (OPERATIONS.md §23)
+                    entry["promoted"] = bool(hz.get("promoted"))
+                    entry["replication_connected"] = bool(
+                        hz.get("replication_connected"))
+                    entry["journal_epoch"] = hz.get("journal_epoch")
+                members.append(entry)
+                healthy = healthy and st.up and bool(m_healthy)
+                slo = hz.get("slo") or {}
+                worst_fast = max(worst_fast,
+                                 float(slo.get("fast_burn_rate", 0.0)))
+                worst_slow = max(worst_slow,
+                                 float(slo.get("slow_burn_rate", 0.0)))
+        detail: dict = {
+            "role": "fleet",
+            "n_members": self.n,
+            "n_standbys": sum(
+                1 for m in members
+                if m.get("role") == "standby" and not m.get("promoted")),
+            "members": members,
+            # merged burn rates: the fleet burns as fast as its
+            # worst-burning shard (error budgets do not average away)
+            "slo_fast_burn_rate": round(worst_fast, 4),
+            "slo_slow_burn_rate": round(worst_slow, 4),
+        }
+        if self.uniformity is not None:
+            uv = self.uniformity.verdict()
+            detail["uniformity"] = uv["verdict"]
+            healthy = healthy and uv["verdict"] == PASS
+        return healthy, detail
+
+    def leakaudit(self) -> dict:
+        """Fold member /leakaudit verdicts + the cross-shard detectors
+        (the fleet /leakaudit body; 200/503 semantics ride on the
+        overall verdict like the single-process endpoint)."""
+        with self._lock:
+            members = []
+            suspect = False
+            for i, st in enumerate(self._members):
+                v = (st.leakaudit or {}).get("verdict")
+                members.append({
+                    "shard": i,
+                    "up": bool(st.up),
+                    "verdict": v,
+                })
+                # a member with no leak monitor (no /leakaudit) cannot
+                # testify either way; only an explicit SUSPECT trips
+                suspect = suspect or v == SUSPECT
+        out: dict = {"members": members}
+        if self.uniformity is not None:
+            uv = self.uniformity.verdict()
+            out["fleet_detectors"] = uv["detectors"]
+            out["window_ticks"] = uv["window_ticks"]
+            suspect = suspect or uv["verdict"] == SUSPECT
+        out["verdict"] = SUSPECT if suspect else PASS
+        return out
+
+    def flightrec(self) -> dict:
+        """Last-scraped member flight-recorder dumps, by shard."""
+        with self._lock:
+            return {
+                "members": [
+                    {"shard": i, "up": bool(st.up),
+                     "flightrec": st.flightrec}
+                    for i, st in enumerate(self._members)
+                ]
+            }
+
+    # -- lifecycle ------------------------------------------------------
+
+    def start(self) -> None:
+        """Run the scrape cadence thread: cycles fire on the fixed grid
+        ``t0 + k·interval`` (monotonic clock). A cycle that overruns
+        skips to the next grid point — the schedule stays a pure
+        function of config even under slow members."""
+        if self._thread is not None:
+            return
+        self._stop.clear()
+
+        def _loop():
+            t0 = self._clock()
+            k = 0
+            while not self._stop.is_set():
+                self.scrape_once()
+                k += 1
+                target = t0 + k * self.cfg.scrape_interval_s
+                now = self._clock()
+                while target <= now:  # overran: skip, never compress
+                    k += 1
+                    target = t0 + k * self.cfg.scrape_interval_s
+                if self._stop.wait(timeout=target - now):
+                    return
+
+        self._thread = threading.Thread(
+            target=_loop, daemon=True, name="grapevine-fleet-scrape")
+        self._thread.start()
+
+    def serve(self, port: int = 0, host: str = "127.0.0.1") -> int:
+        """Start the cadence thread + the merged HTTP endpoint; returns
+        the bound port."""
+        from .httpd import MetricsServer
+
+        self.start()
+        self._httpd = MetricsServer(
+            self.registry,
+            health=self.healthz,
+            host=host,
+            port=port,
+            leakaudit=self.leakaudit,
+            flightrec=self.flightrec,
+            render=self.render_merged,
+        )
+        return self._httpd.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        if self._httpd is not None:
+            self._httpd.stop()
+            self._httpd = None

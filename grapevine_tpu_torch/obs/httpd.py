@@ -2,11 +2,11 @@
 /profile) endpoint: a stdlib http.server thread (a copy of
 ``grapevine_tpu/obs/httpd.py``).
 
-The port serves ``/metrics`` and ``/healthz``. ``/leakaudit``,
-``/flightrec``, ``/trace`` and ``/profile`` keep their constructor
-arguments but nothing in the port supplies them yet (the leak monitor,
-flight recorder, round tracer and profiler gate are ROADMAP.md queue A
-item 16), so each answers 404 until a caller passes its callable.
+The device-owning servers pass the round tracer's ``/trace``, and with
+``leakmon=``/``profile_enable=`` the leak monitor's ``/leakaudit`` and
+``/flightrec`` and the profiler gate's ``/profile``
+(``server/service.py``, ``server/tier.py``); an endpoint without its
+callable answers 404.
 
 Deliberately not a gRPC method on the public service: scrapers and
 load-balancer health checks speak plain HTTP, and the endpoint must stay

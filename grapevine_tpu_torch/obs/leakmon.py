@@ -1,0 +1,1015 @@
+"""Streaming transcript leak monitor — continuous obliviousness auditing (a
+copy of ``grapevine_tpu/obs/leakmon.py``, numpy only).
+
+The framework's whole value claim is that the public transcript of ORAM
+leaf fetches is indistinguishable from independent uniform draws (Path
+ORAM, arXiv:1202.5150). The reference repo gets that from SGX for free;
+here it is an *empirical* property, and until now it was only checked
+inside pytest (testing/leakcheck.py + tests/test_leak_canary.py). A
+production bus serving millions of users needs the invariant watched
+continuously — the way a race detector is observability for a lock
+discipline — which is what this module does:
+
+- :class:`TranscriptLeakMonitor` maintains sliding-window statistics
+  for the three testable leak facets, reusing the pytest detectors
+  (testing/leakcheck.py — the statistics are bit-identical, only the
+  windowing is new):
+
+  1. **same-key leaf collision rate** (within-round independence; a
+     missing dedup makes same-key ops show equal leaves),
+  2. **cross-round leaf repeat rate** (position-map freshness; a
+     no-remap bug makes every re-access repeat the previous leaf),
+  3. **chi-square marginal uniformity** of the pooled leaves (a
+     constant or biased dummy leaf skews the histogram).
+
+- :class:`EngineLeakMonitor` adapts the engine: it consumes the
+  ``leaves`` transcript each ORAM round already returns
+  (oram/round.py:oram_round), copied to the host behind the round by
+  the facade (engine/batcher.py, the same pinned asynchronous copy and
+  CUDA event as the round's responses), **off the round path**, on its
+  own daemon thread behind a bounded queue — a slow detector can never stall the
+  round pipeline; overload drops rounds and counts the drops. Key
+  grouping comes from the host-side mirror of the round's key selection
+  (engine/round_step.py:transcript_key_groups).
+
+Leak stance: the monitor *inspects* private data (which ops share keys
+— the same standing the position map already has, host process memory)
+but *publishes* only aggregates: windowed rates, z-scores, and sample
+counts, through the TelemetryRegistry under its label allowlist
+(``tree`` is the only label). The flight recorder it feeds
+(obs/flightrec.py) enforces the same property schema-structurally.
+
+Verdict semantics: each detector reports its statistic, threshold, and
+sample count; a detector with fewer than its minimum samples reports
+PASS (insufficient evidence is not suspicion — thresholds and the
+false-positive budget live in OPERATIONS.md). The overall verdict is
+SUSPECT iff any detector trips; /leakaudit (obs/httpd.py) serves it
+machine-readable and /healthz folds it into liveness.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import queue
+import threading
+import time
+from collections import OrderedDict, deque
+
+import numpy as np
+
+from ..testing.leakcheck import (
+    _leaf_hist,
+    samekey_collision_counts,
+    uniformity_z_from_counts,
+)
+from .flightrec import FlightRecorder
+from .registry import TelemetryRegistry
+
+log = logging.getLogger("grapevine_tpu_torch.obs.leakmon")
+
+PASS = "PASS"
+SUSPECT = "SUSPECT"
+
+
+@dataclasses.dataclass(frozen=True)
+class LeakMonitorConfig:
+    """Thresholds and window sizing (defaults justified in
+    OPERATIONS.md §"continuous obliviousness auditing")."""
+
+    #: sliding window length in observe() calls per stream. An engine
+    #: round contributes TWO mailbox observations (rounds A and C) and
+    #: one records observation, so a window of 256 covers ≥128 engine
+    #: rounds on the mailbox stream and 256 on the records stream.
+    window_rounds: int = 256
+    #: histogram bins for the uniformity detector (clamped to the leaf
+    #: count; bins always divide the power-of-two leaf range)
+    uniformity_bins: int = 16
+    #: |z| above this on the pooled window histogram → SUSPECT. Honest
+    #: transcripts give |z| = O(1); the no-FP budget is ~1e-9 per
+    #: verdict at 8.0 under the normal approximation (heavier chi-square
+    #: tails still leave orders of magnitude of margin — the canary
+    #: leaks push z past 50 within a few rounds).
+    uniformity_z_threshold: float = 8.0
+    #: rate floor for the same-key collision detector (honest rate is
+    #: 1/leaves; a no-dedup leak drives it to 1.0). The *effective*
+    #: threshold is max(floor, 1/leaves + rate_z_margin·σ) so small
+    #: dev/test trees — where 1/leaves itself is a few percent — do not
+    #: false-positive (the binomial-z form of the canary separation)
+    collision_threshold: float = 0.02
+    #: rate floor for the cross-round repeat detector (honest rate is
+    #: 1/leaves; a no-remap leak drives it to 1.0); same effective-
+    #: threshold rule as collision_threshold
+    repeat_threshold: float = 0.05
+    #: sampling-noise margin in binomial standard deviations for the two
+    #: rate detectors' effective thresholds
+    rate_z_margin: float = 8.0
+    #: minimum evidence before a detector may trip (insufficient samples
+    #: report PASS): same-key pairs / repeat opportunities / pooled
+    #: leaves in the window
+    min_pairs: int = 32
+    min_opportunities: int = 32
+    min_pooled_leaves: int = 256
+    #: cross-round tracker capacity (LRU over stable key ids — private
+    #: host memory, never exported)
+    track_keys: int = 8192
+    #: bounded hand-off queue between the round path and the monitor
+    #: thread; a full queue drops the round (counted) instead of
+    #: blocking the scheduler
+    queue_depth: int = 64
+    #: flight recorder ring size (engine rounds retained)
+    flight_capacity: int = 512
+    #: where a PASS→SUSPECT transition dumps the flight recorder
+    #: (None = no automatic dump; /flightrec still serves it on demand)
+    dump_path: str | None = None
+
+
+class _Stream:
+    """Sliding-window state for one leaf space (one ORAM tree)."""
+
+    __slots__ = (
+        "n_leaves", "bins", "window", "hist_sum", "collisions", "pairs",
+        "repeats", "opportunities", "last_leaf", "_window_max", "_track",
+    )
+
+    def __init__(self, n_leaves: int, bins: int, window: int, track: int):
+        if n_leaves & (n_leaves - 1):
+            raise ValueError("leaf spaces are powers of two")
+        self.n_leaves = n_leaves
+        self.bins = min(bins, n_leaves)
+        #: deque of (hist, collisions, pairs, repeats, opportunities)
+        self.window: deque = deque(maxlen=None)
+        self._window_max = window
+        self.hist_sum = np.zeros((self.bins,), np.int64)
+        self.collisions = 0
+        self.pairs = 0
+        self.repeats = 0
+        self.opportunities = 0
+        self.last_leaf: OrderedDict = OrderedDict()
+        self._track = track
+
+
+class TranscriptLeakMonitor:
+    """Synchronous sliding-window core over named leaf streams.
+
+    ``trees`` maps stream name → leaf-space size (e.g. ``{"rec": 2**20,
+    "mb": 2**12}``). ``observe()`` feeds one round of one stream;
+    ``verdict()`` evaluates the three detectors over every stream's
+    current window. Thread-safe (one lock; observe and verdict may race
+    from the monitor worker and the scrape thread).
+    """
+
+    def __init__(
+        self,
+        trees: dict[str, int],
+        cfg: LeakMonitorConfig | None = None,
+        registry: TelemetryRegistry | None = None,
+    ):
+        if not trees:
+            raise ValueError("leak monitor needs at least one stream")
+        self.cfg = cfg or LeakMonitorConfig()
+        self._lock = threading.Lock()
+        self._streams = {
+            name: _Stream(
+                n_leaves, self.cfg.uniformity_bins,
+                self.cfg.window_rounds, self.cfg.track_keys,
+            )
+            for name, n_leaves in trees.items()
+        }
+        self._g_collision = self._g_repeat = self._g_unif = None
+        self._g_pairs = self._g_opps = self._g_pool = None
+        if registry is not None:
+            labels = {"tree": tuple(trees)}
+            self._g_collision = registry.gauge(
+                "grapevine_leakmon_samekey_collision_rate",
+                "windowed same-key transcript leaf collision rate "
+                "(honest ≈ 1/leaves; no-dedup leak → 1)", labels=labels)
+            self._g_repeat = registry.gauge(
+                "grapevine_leakmon_cross_round_repeat_rate",
+                "windowed cross-round same-key leaf repeat rate "
+                "(honest ≈ 1/leaves; no-remap leak → 1)", labels=labels)
+            self._g_unif = registry.gauge(
+                "grapevine_leakmon_uniformity_z",
+                "chi-square z of the windowed pooled transcript leaf "
+                "histogram (honest |z| = O(1))", labels=labels)
+            self._g_pairs = registry.gauge(
+                "grapevine_leakmon_window_pairs",
+                "same-key op pairs in the current window (collision "
+                "detector sample size)", labels=labels)
+            self._g_opps = registry.gauge(
+                "grapevine_leakmon_window_repeat_opportunities",
+                "cross-round re-accesses in the current window (repeat "
+                "detector sample size)", labels=labels)
+            self._g_pool = registry.gauge(
+                "grapevine_leakmon_window_leaves",
+                "pooled transcript leaves in the current window "
+                "(uniformity detector sample size)", labels=labels)
+
+    @property
+    def streams(self) -> tuple:
+        """Declared stream names (e.g. ("rec", "mb", "rec_pm", "mb_pm"))."""
+        return tuple(self._streams)
+
+    # -- feeding --------------------------------------------------------
+
+    def observe(
+        self,
+        tree: str,
+        keys: np.ndarray | None,
+        leaves: np.ndarray,
+        stable=None,
+    ) -> None:
+        """Feed one round of one stream.
+
+        ``leaves``: the round's public transcript leaves (all of them —
+        real, dummy, and padding fetches are all part of the public
+        sequence). ``keys``: per-leaf within-round key group ids,
+        ``-1`` = no key (padding / host-unresolvable); None disables the
+        keyed detectors for this call. ``stable``: optional per-leaf
+        cross-round-stable ids (hashable; e.g. recipient-key bytes) for
+        the repeat tracker — defaults to the key group values, which is
+        only correct when the caller's group ids are themselves stable
+        across rounds (block indices in the oram-level tests)."""
+        st = self._streams[tree]  # KeyError = undeclared stream, loudly
+        leaves = np.asarray(leaves, np.int64).ravel()
+        hist = _leaf_hist(leaves, st.n_leaves, st.bins)
+        collisions = pairs = repeats = opportunities = 0
+        if keys is not None:
+            keys = np.asarray(keys, np.int64).ravel()
+            if keys.shape != leaves.shape:
+                raise ValueError("keys and leaves must align")
+            collisions, pairs = samekey_collision_counts(keys, leaves)
+        with self._lock:
+            if keys is not None:
+                repeats, opportunities = self._track_repeats(
+                    st, keys, leaves, stable
+                )
+            st.window.append((hist, collisions, pairs, repeats, opportunities))
+            st.hist_sum += hist
+            st.collisions += collisions
+            st.pairs += pairs
+            st.repeats += repeats
+            st.opportunities += opportunities
+            while len(st.window) > st._window_max:
+                h0, c0, p0, r0, o0 = st.window.popleft()
+                st.hist_sum -= h0
+                st.collisions -= c0
+                st.pairs -= p0
+                st.repeats -= r0
+                st.opportunities -= o0
+            self._export_locked(tree, st)
+
+    def _track_repeats(self, st: _Stream, keys, leaves, stable):
+        """Cross-round freshness: compare each key's authoritative
+        (first-occurrence — the real path fetch; later occurrences are
+        dummies) leaf against its previous round's. The tracker is an
+        LRU over stable key ids — private host state, like the posmap;
+        only the windowed rate leaves this module."""
+        repeats = opportunities = 0
+        real_idx = np.nonzero(keys >= 0)[0]
+        if real_idx.size == 0:
+            return 0, 0
+        _, first = np.unique(keys[real_idx], return_index=True)
+        for i in real_idx[first]:
+            skey = stable[i] if stable is not None else int(keys[i])
+            leaf = int(leaves[i])
+            prev = st.last_leaf.pop(skey, None)
+            if prev is not None:
+                opportunities += 1
+                if prev == leaf:
+                    repeats += 1
+            st.last_leaf[skey] = leaf
+            while len(st.last_leaf) > st._track:
+                st.last_leaf.popitem(last=False)
+        return repeats, opportunities
+
+    def _export_locked(self, tree: str, st: _Stream) -> None:
+        if self._g_collision is None:
+            return
+        pooled = int(st.hist_sum.sum())
+        self._g_collision.set(
+            st.collisions / st.pairs if st.pairs else 0.0, tree=tree)
+        self._g_repeat.set(
+            st.repeats / st.opportunities if st.opportunities else 0.0,
+            tree=tree)
+        self._g_unif.set(
+            uniformity_z_from_counts(st.hist_sum) if pooled else 0.0,
+            tree=tree)
+        self._g_pairs.set(st.pairs, tree=tree)
+        self._g_opps.set(st.opportunities, tree=tree)
+        self._g_pool.set(pooled, tree=tree)
+
+    # -- judging --------------------------------------------------------
+
+    def stats(self, tree: str) -> dict:
+        """Windowed statistics for one stream (flight-recorder food)."""
+        st = self._streams[tree]
+        with self._lock:
+            pooled = int(st.hist_sum.sum())
+            return {
+                "collision_rate": round(
+                    st.collisions / st.pairs, 6) if st.pairs else 0.0,
+                "collision_pairs": st.pairs,
+                "repeat_rate": round(
+                    st.repeats / st.opportunities, 6
+                ) if st.opportunities else 0.0,
+                "repeat_opportunities": st.opportunities,
+                "uniformity_z": float(round(
+                    uniformity_z_from_counts(st.hist_sum), 3
+                )) if pooled else 0.0,
+                "pooled_leaves": pooled,
+            }
+
+    def _rate_threshold(self, floor: float, n_leaves: int, n: int) -> float:
+        """Effective threshold for a rate detector: the configured floor
+        OR the honest expectation (1/leaves) plus ``rate_z_margin``
+        binomial standard deviations of sampling noise, whichever is
+        larger — scale-free across tree geometries (a 2^4-leaf dev tree
+        has an honest repeat rate of 6%; a 2^20-leaf production tree,
+        1e-6; a leak drives either to ~1)."""
+        p = 1.0 / n_leaves
+        if n <= 0:
+            return max(floor, p)
+        return max(floor, p + self.cfg.rate_z_margin
+                   * math.sqrt(p * (1.0 - p) / n))
+
+    def verdict(self) -> dict:
+        """Machine-readable verdict: per-detector statistic, threshold,
+        sample count, and PASS/SUSPECT, per stream (the /leakaudit
+        body). Overall SUSPECT iff any detector trips."""
+        cfg = self.cfg
+        detectors = []
+        for tree in self._streams:
+            s = self.stats(tree)
+            n_leaves = self._streams[tree].n_leaves
+            coll_thr = self._rate_threshold(
+                cfg.collision_threshold, n_leaves, s["collision_pairs"])
+            detectors.append({
+                "name": "samekey_collision",
+                "tree": tree,
+                "statistic": s["collision_rate"],
+                "threshold": round(coll_thr, 6),
+                "samples": s["collision_pairs"],
+                "min_samples": cfg.min_pairs,
+                "verdict": SUSPECT if (
+                    s["collision_pairs"] >= cfg.min_pairs
+                    and s["collision_rate"] > coll_thr
+                ) else PASS,
+            })
+            rep_thr = self._rate_threshold(
+                cfg.repeat_threshold, n_leaves, s["repeat_opportunities"])
+            detectors.append({
+                "name": "cross_round_repeat",
+                "tree": tree,
+                "statistic": s["repeat_rate"],
+                "threshold": round(rep_thr, 6),
+                "samples": s["repeat_opportunities"],
+                "min_samples": cfg.min_opportunities,
+                "verdict": SUSPECT if (
+                    s["repeat_opportunities"] >= cfg.min_opportunities
+                    and s["repeat_rate"] > rep_thr
+                ) else PASS,
+            })
+            detectors.append({
+                "name": "uniformity",
+                "tree": tree,
+                "statistic": s["uniformity_z"],
+                "threshold": cfg.uniformity_z_threshold,
+                "samples": s["pooled_leaves"],
+                "min_samples": cfg.min_pooled_leaves,
+                "verdict": SUSPECT if (
+                    s["pooled_leaves"] >= cfg.min_pooled_leaves
+                    and abs(s["uniformity_z"]) > cfg.uniformity_z_threshold
+                ) else PASS,
+            })
+        overall = SUSPECT if any(
+            d["verdict"] == SUSPECT for d in detectors) else PASS
+        return {
+            "verdict": overall,
+            "window_rounds": cfg.window_rounds,
+            "detectors": detectors,
+        }
+
+
+class EngineLeakMonitor:
+    """Async engine adapter: transcript hand-off queue + worker thread
+    + flight recorder + verdict cache.
+
+    The round path (PendingRound.resolve, engine/batcher.py) calls
+    ``submit_round`` — one non-blocking queue put of the transcript the
+    round's event already brought to the host. Everything heavy (key
+    grouping, detector updates, verdict evaluation, flight recording)
+    happens on the daemon worker, so enabling the monitor costs the
+    round pipeline nothing but the enqueue.
+    """
+
+    def __init__(
+        self,
+        mb_leaves: int,
+        rec_leaves: int,
+        mb_choices: int,
+        cfg: LeakMonitorConfig | None = None,
+        registry: TelemetryRegistry | None = None,
+        recorder: FlightRecorder | None = None,
+        mb_pm_leaves: int | None = None,
+        rec_pm_leaves: int | None = None,
+        flush_every: int | None = None,
+    ):
+        self.cfg = cfg or LeakMonitorConfig()
+        self.mb_choices = mb_choices
+        trees = {"rec": rec_leaves, "mb": mb_leaves}
+        # recursive position map (oram/posmap.py): the internal ORAM's
+        # accesses ride the transcript as appended columns — they get
+        # their own detector streams sized to the *internal* leaf space
+        self._has_pm = mb_pm_leaves is not None and rec_pm_leaves is not None
+        if self._has_pm:
+            trees["rec_pm"] = rec_pm_leaves
+            trees["mb_pm"] = mb_pm_leaves
+        self.monitor = TranscriptLeakMonitor(trees, self.cfg, registry)
+        self.recorder = recorder or FlightRecorder(self.cfg.flight_capacity)
+        self._c_rounds = self._c_dropped = self._c_transitions = None
+        self._g_suspect = None
+        if registry is not None:
+            self._c_rounds = registry.counter(
+                "grapevine_leakmon_rounds_total",
+                "engine rounds whose transcripts the leak monitor audited")
+            self._c_dropped = registry.counter(
+                "grapevine_leakmon_rounds_dropped_total",
+                "engine rounds dropped at the monitor hand-off queue "
+                "(monitor slower than the round rate)")
+            self._c_transitions = registry.counter(
+                "grapevine_leakmon_suspect_transitions_total",
+                "PASS→SUSPECT verdict transitions")
+            self._g_suspect = registry.gauge(
+                "grapevine_leakmon_suspect",
+                "1 while the leak audit verdict is SUSPECT")
+        self._q: queue.Queue = queue.Queue(maxsize=self.cfg.queue_depth)
+        self._submitted = 0
+        self._processed = 0
+        self._seq = 0
+        self._suspect = False
+        self._last_verdict: dict | None = None
+        #: replication cadence books (engine/replication.py): when a
+        #: JournalShipper is attached, its byte-cadence stats join the
+        #: verdict schema as a ``ship_cadence`` detector — shipping
+        #: traffic must be a pure function of the round counter
+        #: (constant frame sizes, constant framing), so any
+        #: content-sized byte on the wire is a SUSPECT exactly like an
+        #: access-pattern detector tripping
+        self._shipper = None
+        #: delayed-eviction flush cadence books (engine/batcher.py
+        #: _flush_window_locked): the schedule-independence claim says
+        #: the automatic flush fires strictly every ``flush_every``
+        #: dispatched rounds — a pure function of the round counter.
+        #: The engine reports each scheduled flush's observed interval
+        #: via note_flush(); any interval that deviates from the
+        #: declared cadence is content-modulated scheduling (the
+        #: flush_on_buffer_contents mutant's signature) and trips the
+        #: ``flush_cadence`` detector exactly like an access-pattern
+        #: detector. None = immediate eviction, detector absent.
+        self._flush_every = flush_every
+        self._flush_samples = 0
+        self._flush_illegal = 0
+        self._worker = threading.Thread(
+            target=self._run, daemon=True, name="grapevine-leakmon"
+        )
+        self._worker.start()
+
+    @classmethod
+    def for_engine(cls, engine, cfg: LeakMonitorConfig | None = None):
+        """Build a monitor sized to an engine's ORAM geometry, publishing
+        into the engine's own telemetry registry (one merged /metrics)."""
+        ecfg = engine.ecfg
+        delayed = getattr(engine, "_flush_step", None) is not None
+        # the port's engine runs a flat position map (the recursive one
+        # is refused by engine/state.py), so no internal posmap streams
+        return cls(
+            mb_leaves=ecfg.mb.leaves,
+            rec_leaves=ecfg.rec.leaves,
+            mb_choices=ecfg.mb_choices,
+            cfg=cfg,
+            registry=engine.metrics.registry,
+            flush_every=engine.evict_every if delayed else None,
+        )
+
+    # -- round-path API (must stay O(1) and non-blocking) ---------------
+
+    def submit_round(
+        self, batch: dict, transcript, n_real: int, batch_size: int,
+        phases: dict | None = None, queue_depth: int | None = None,
+    ) -> bool:
+        """Enqueue one round's transcript; False = dropped (queue full)."""
+        try:
+            self._q.put_nowait((batch, transcript, n_real, batch_size,
+                                dict(phases) if phases else {},
+                                queue_depth))
+        except queue.Full:
+            if self._c_dropped is not None:
+                self._c_dropped.inc()
+            return False
+        self._submitted += 1
+        return True
+
+    def note_flush(self, interval_rounds: int, scheduled: bool = True) -> None:
+        """Record one delayed-eviction flush's observed interval (rounds
+        since the previous flush; engine/batcher.py calls this under the
+        engine lock just before the cadence counter resets). Only
+        ``scheduled`` flushes are audited — flush_now() and recovery
+        completion are operator/restart actions outside the steady-state
+        cadence claim. O(1), two int bumps."""
+        if not scheduled or self._flush_every is None:
+            return
+        self._flush_samples += 1
+        if int(interval_rounds) != int(self._flush_every):
+            self._flush_illegal += 1
+
+    # -- verdict views --------------------------------------------------
+
+    def attach_shipper(self, shipper) -> None:
+        """Fold a JournalShipper's cadence books into the verdict
+        schema (see the ``_shipper`` field note). Pass None to detach."""
+        self._shipper = shipper
+
+    def verdict(self) -> dict:
+        """Fresh verdict over the current windows (the /leakaudit body)."""
+        v = self.monitor.verdict()
+        v["rounds_observed"] = self._processed
+        v["rounds_dropped"] = int(
+            self._c_dropped.get()) if self._c_dropped else 0
+        if self._shipper is not None:
+            rep = self._shipper.stats()
+            v["replication"] = rep
+            v["detectors"].append({
+                "name": "ship_cadence",
+                "tree": "journal",
+                "statistic": float(rep["illegal_frames"]),
+                "threshold": 0.0,
+                "samples": int(rep["frames_shipped"]),
+                "min_samples": 1,
+                "verdict": PASS if rep["cadence_ok"] else SUSPECT,
+            })
+            if not rep["cadence_ok"]:
+                v["verdict"] = SUSPECT
+        if self._flush_every is not None:
+            illegal = self._flush_illegal
+            v["detectors"].append({
+                "name": "flush_cadence",
+                "tree": "evict",
+                "statistic": float(illegal),
+                "threshold": 0.0,
+                "samples": int(self._flush_samples),
+                "min_samples": 1,
+                "verdict": SUSPECT if illegal else PASS,
+            })
+            if illegal:
+                v["verdict"] = SUSPECT
+        return v
+
+    def last_verdict(self) -> dict:
+        """The worker's cached verdict — lock-free for /healthz, which
+        must answer while a wedged round holds other locks."""
+        return self._last_verdict or self.verdict()
+
+    # -- worker ---------------------------------------------------------
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            try:
+                self._process(*item)
+            except Exception:
+                log.exception("leak monitor failed on a round "
+                              "(monitoring continues)")
+            finally:
+                self._processed += 1
+                self._q.task_done()
+
+    def _process(self, batch, transcript, n_real, batch_size, phases,
+                 queue_depth=None):
+        # lazy import: obs must stay importable without the engine
+        # package (and this breaks the obs ↔ engine import cycle)
+        from ..engine.round_step import transcript_key_groups
+
+        # the facade hands the transcript over already on the host (numpy
+        # u32, copied behind the round under its event)
+        tr = np.asarray(transcript)
+        # columns are [a_0..a_{D-1}, b, c_0..c_{D-1}] for the phase-major
+        # engine (D = configured mb_choices) and [a, b, c] for the
+        # op-major one (always one fetch per mailbox round); a recursive
+        # position map appends the internal ORAM's columns in the same
+        # layout, doubling the width (engine/round_step.py) — fall back
+        # to the width-derived D when the configured one doesn't match
+        d = self.mb_choices
+        pm_tr = None
+        if self._has_pm and tr.shape[1] == 2 * (2 * d + 1):
+            pm_tr = tr[:, 2 * d + 1:]
+            tr = tr[:, : 2 * d + 1]
+        elif tr.shape[1] != 2 * d + 1:
+            d = max(1, (tr.shape[1] - 1) // 2)
+        (mb_keys, mb_stable), (rec_keys, rec_stable) = transcript_key_groups(
+            batch, d
+        )
+        # transcript columns: [a_0..a_{D-1}, b, c_0..c_{D-1}]
+        # (engine/round_step.py); mailbox rounds A and C are successive
+        # observations of the mb stream — same keys, independent leaves
+        self.monitor.observe("mb", mb_keys, tr[:, :d].ravel(), mb_stable)
+        self.monitor.observe("rec", rec_keys, tr[:, d], rec_stable)
+        self.monitor.observe("mb", mb_keys, tr[:, d + 1:].ravel(), mb_stable)
+        if pm_tr is not None:
+            # internal posmap accesses: grouped by the same host-visible
+            # keys as their outer rounds (two ops sharing an outer key
+            # share an internal block; distinct keys *may* also share a
+            # block — an undercount of same-key pairs, never a false
+            # SUSPECT — the transcript_key_groups stance). The internal
+            # round's own dedup makes every entry an independent uniform
+            # internal leaf, which these streams verify continuously.
+            self.monitor.observe(
+                "mb_pm", mb_keys, pm_tr[:, :d].ravel(), mb_stable
+            )
+            self.monitor.observe("rec_pm", rec_keys, pm_tr[:, d], rec_stable)
+            self.monitor.observe(
+                "mb_pm", mb_keys, pm_tr[:, d + 1:].ravel(), mb_stable
+            )
+        if self._c_rounds is not None:
+            self._c_rounds.inc()
+        self._seq += 1
+
+        v = self.monitor.verdict()
+        self._last_verdict = v
+        suspect = v["verdict"] == SUSPECT
+        if suspect and not self._suspect:
+            if self._c_transitions is not None:
+                self._c_transitions.inc()
+            tripped = [
+                f"{x['name']}/{x['tree']}={x['statistic']}"
+                for x in v["detectors"] if x["verdict"] == SUSPECT
+            ]
+            log.warning(
+                "leak audit verdict PASS->SUSPECT (%s) — see /leakaudit "
+                "and the OPERATIONS.md runbook", ", ".join(tripped)
+            )
+            if self.cfg.dump_path:
+                try:
+                    self.recorder.dump_to(self.cfg.dump_path)
+                    log.warning("flight recorder dumped to %s",
+                                self.cfg.dump_path)
+                except OSError:
+                    log.exception("flight recorder dump failed")
+        elif not suspect and self._suspect:
+            log.warning("leak audit verdict SUSPECT->PASS (window drained)")
+        self._suspect = suspect
+        if self._g_suspect is not None:
+            self._g_suspect.set(1.0 if suspect else 0.0)
+
+        # phases arrive exact-paired on the round's own span ledger
+        # (engine/batcher.py PendingRound) — assembly/verify included
+        self.recorder.record({
+            "seq": self._seq,
+            "t_mono_s": round(time.monotonic(), 3),
+            "batch_size": int(batch_size),
+            "n_real": int(n_real),
+            "fill": round(n_real / batch_size, 4) if batch_size else 0.0,
+            "queue_depth": int(queue_depth) if queue_depth is not None else 0,
+            "phase_s": {k: round(float(x), 6) for k, x in phases.items()},
+            "stats": {t: self.monitor.stats(t)
+                      for t in self.monitor.streams},
+            "verdict": v["verdict"],
+        })
+
+    # -- lifecycle ------------------------------------------------------
+
+    def flush(self, timeout: float = 30.0) -> bool:
+        """Block until every submitted round has been processed (tests
+        and orderly shutdown); False on timeout."""
+        deadline = time.monotonic() + timeout
+        while self._processed < self._submitted:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.002)
+        return True
+
+    def close(self, timeout: float = 5.0) -> None:
+        if not self._worker.is_alive():
+            return
+        self._q.put(None)
+        self._worker.join(timeout=timeout)
+
+
+# ----------------------------------------------------------------------
+# cross-shard schedule uniformity (the fleet observatory's detector leg)
+# ----------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetUniformityConfig:
+    """Thresholds and window sizing for the cross-shard detectors
+    (defaults justified in OPERATIONS.md §20)."""
+
+    #: sliding window length in aligned fleet ticks (one tick = one
+    #: same-instant observation of every shard — a scrape cycle in
+    #: production, a dispatch tick in the load drill)
+    window_ticks: int = 128
+    #: minimum aligned ticks before the correlation detector may trip
+    min_ticks: int = 24
+    #: minimum per-shard rounds in the window before the cadence and
+    #: flush detectors may trip (insufficient evidence reports PASS —
+    #: the min-samples stance)
+    min_rounds: int = 16
+    #: |log cadence ratio| floor for the pairwise cadence detector: an
+    #: honest uniformly-scheduled fleet keeps every pair's windowed
+    #: round-count ratio near 1 (drift |log r| = O(sqrt(1/R))); 0.35
+    #: tolerates a 1.4x transient imbalance before suspicion
+    cadence_ratio_floor: float = 0.35
+    #: Fisher-z threshold for the dispatch-vs-offered-load correlation
+    #: detector (honest uniform scheduling dispatches unconditionally,
+    #: so the correlation is sampling noise: |z| = O(1))
+    corr_z_threshold: float = 6.0
+    #: pairwise flush-per-round rate drift floor (honest shards all
+    #: flush at the declared 1/evict_every cadence)
+    flush_rate_floor: float = 0.1
+    #: sampling-noise margin in standard deviations for the cadence and
+    #: flush thresholds (the leakmon rate_z_margin analog)
+    rate_z_margin: float = 8.0
+
+
+class FleetUniformityMonitor:
+    """Cross-shard schedule-uniformity detectors over PUBLIC series.
+
+    The single-process monitors above judge one engine's transcript.
+    A recipient-sharded fleet has a second obliviousness obligation the
+    ROADMAP (item 1) names explicitly: per-shard round cadence and
+    batch shape must stay recipient-independent — a scheduler that
+    dispatches shard s's round only when s's own queue is hot encodes
+    *which shard's recipients are busy* into the public round schedule,
+    exactly the signal BOLT's fleet-level adversary reads. This monitor
+    consumes only per-shard batch-level time series (round cadence,
+    batch fill, flush cadence, queue depth at round/scrape grain — all
+    already public on each member's /metrics) and flags
+    recipient-dependent skew:
+
+    1. **pairwise cadence-ratio drift** — windowed round-count ratios
+       between shards must stay near 1 (uniform scheduling dispatches
+       every shard on the same public cadence);
+    2. **dispatch/fill correlation with offered shard load** — a
+       shard's round activity must not correlate with its own queue
+       depth beyond the declared partition (honest scheduling is
+       unconditional; only a load-gated scheduler correlates);
+    3. **flush-phase alignment** — delayed-eviction flush-per-round
+       rates must match the declared cadence on every shard alike.
+
+    Feeding: ``observe_tick(samples)`` with one aligned sample per
+    shard. A tick with any shard missing (scrape failure) updates the
+    cumulative baselines but contributes no evidence — a degraded
+    fleet accumulates verdicts more slowly instead of falsely.
+
+    Verdict semantics mirror :class:`TranscriptLeakMonitor`: each
+    detector reports statistic, threshold, and sample count; below
+    min-samples reports PASS; overall SUSPECT iff any detector trips.
+    Exports are statistic/threshold/verdict/sample-count only, under
+    the ``grapevine_fleet_*`` namespace with ``shard`` (declared
+    integer indices) as the only label — audited by
+    tools/check_telemetry_policy.py.
+    """
+
+    def __init__(
+        self,
+        n_shards: int,
+        cfg: FleetUniformityConfig | None = None,
+        registry: TelemetryRegistry | None = None,
+    ):
+        if n_shards < 2:
+            raise ValueError("fleet uniformity needs at least 2 shards")
+        self.n_shards = int(n_shards)
+        self.cfg = cfg or FleetUniformityConfig()
+        self._lock = threading.Lock()
+        #: last cumulative (rounds, fill_sum, fill_count, flushes) per
+        #: shard, None until first observed
+        self._base: list = [None] * self.n_shards
+        #: aligned tick window: each entry is (d_rounds, fill_mean,
+        #: d_flushes, queue_depth) arrays over shards
+        self._window: deque = deque(maxlen=self.cfg.window_ticks)
+        self._g_stat = self._g_thr = self._g_suspect = None
+        self._g_rounds = self._g_ticks = None
+        if registry is not None:
+            shards = tuple(str(i) for i in range(self.n_shards))
+            # one unlabeled statistic/threshold pair per detector: the
+            # grapevine_fleet_* namespace permits ONLY the shard label
+            # (tools/check_telemetry_policy.py audit_fleet_registry),
+            # so detector identity lives in the metric name
+            self._g_stat = {}
+            self._g_thr = {}
+            for det, what in (
+                ("cadence_ratio", "pairwise windowed round-count "
+                 "|log ratio| (honest uniform scheduling ~ 0)"),
+                ("fill_load_correlation", "max per-shard Fisher |z| of "
+                 "corr(round activity, own queue depth) — honest "
+                 "unconditional dispatch gives sampling noise"),
+                ("flush_phase", "pairwise flush-per-round rate drift "
+                 "(honest shards all flush at the declared cadence)"),
+            ):
+                self._g_stat[det] = registry.gauge(
+                    f"grapevine_fleet_uniformity_{det}_statistic",
+                    f"cross-shard uniformity detector statistic: {what}")
+                self._g_thr[det] = registry.gauge(
+                    f"grapevine_fleet_uniformity_{det}_threshold",
+                    "effective (scale-aware) threshold for the "
+                    f"{det} detector")
+            self._g_suspect = registry.gauge(
+                "grapevine_fleet_uniformity_suspect",
+                "1 while any cross-shard uniformity detector trips")
+            self._g_rounds = registry.gauge(
+                "grapevine_fleet_uniformity_window_rounds",
+                "per-shard rounds in the current uniformity window "
+                "(cadence/flush detector sample size)",
+                labels={"shard": shards})
+            self._g_ticks = registry.gauge(
+                "grapevine_fleet_uniformity_window_ticks",
+                "aligned fleet ticks in the current uniformity window "
+                "(correlation detector sample size)")
+
+    # -- feeding --------------------------------------------------------
+
+    def observe_tick(self, samples) -> None:
+        """Feed one aligned fleet tick.
+
+        ``samples``: sequence of length ``n_shards``; each element is a
+        dict with cumulative ``rounds_total``, ``flushes_total``,
+        optional cumulative ``fill_sum``/``fill_count``, and
+        instantaneous ``queue_depth`` — or None for a shard whose
+        scrape failed this tick."""
+        if len(samples) != self.n_shards:
+            raise ValueError(
+                f"tick has {len(samples)} samples for {self.n_shards} shards"
+            )
+        with self._lock:
+            complete = all(s is not None for s in samples)
+            d_rounds = np.zeros(self.n_shards)
+            fill_mean = np.zeros(self.n_shards)
+            d_flush = np.zeros(self.n_shards)
+            qdepth = np.zeros(self.n_shards)
+            for i, s in enumerate(samples):
+                if s is None:
+                    continue
+                cur = (
+                    float(s["rounds_total"]),
+                    float(s.get("fill_sum", 0.0)),
+                    float(s.get("fill_count", 0.0)),
+                    float(s.get("flushes_total", 0.0)),
+                )
+                base = self._base[i]
+                self._base[i] = cur
+                if base is None:
+                    complete = False  # first sight: no delta yet
+                    continue
+                # counters only go up; a reset (member restart) would
+                # produce a negative delta — clamp and treat the tick
+                # as evidence-free for that shard
+                dr = cur[0] - base[0]
+                if dr < 0:
+                    complete = False
+                    continue
+                d_rounds[i] = dr
+                dfc = cur[2] - base[2]
+                fill_mean[i] = (
+                    (cur[1] - base[1]) / dfc if dfc > 0 else 0.0
+                )
+                d_flush[i] = max(0.0, cur[3] - base[3])
+                qdepth[i] = float(s.get("queue_depth", 0.0))
+            if complete:
+                self._window.append((d_rounds, fill_mean, d_flush, qdepth))
+            self._export_locked()
+
+    def _export_locked(self) -> None:
+        if self._g_rounds is None:
+            return
+        rounds = self._rounds_locked()
+        for i in range(self.n_shards):
+            self._g_rounds.set(float(rounds[i]), shard=str(i))
+        self._g_ticks.set(float(len(self._window)))
+
+    def _rounds_locked(self) -> np.ndarray:
+        if not self._window:
+            return np.zeros(self.n_shards)
+        return np.sum([w[0] for w in self._window], axis=0)
+
+    # -- judging --------------------------------------------------------
+
+    def verdict(self) -> dict:
+        """Machine-readable fleet uniformity verdict, in the
+        TranscriptLeakMonitor detector-dict shape (folded into the
+        fleet /leakaudit body by obs/fleet.py)."""
+        cfg = self.cfg
+        with self._lock:
+            ticks = len(self._window)
+            if ticks:
+                d_rounds = np.stack([w[0] for w in self._window])
+                d_flush = np.stack([w[2] for w in self._window])
+                qdepth = np.stack([w[3] for w in self._window])
+            else:
+                d_rounds = d_flush = qdepth = np.zeros((0, self.n_shards))
+        R = d_rounds.sum(axis=0)  # per-shard rounds in window
+        F = d_flush.sum(axis=0)
+        detectors = []
+
+        # 1. pairwise cadence-ratio drift (max over pairs)
+        worst = (0, 1, 0.0, cfg.cadence_ratio_floor)
+        for a in range(self.n_shards):
+            for b in range(a + 1, self.n_shards):
+                stat = abs(math.log((R[a] + 0.5) / (R[b] + 0.5)))
+                thr = max(
+                    cfg.cadence_ratio_floor,
+                    cfg.rate_z_margin * math.sqrt(
+                        1.0 / (R[a] + 0.5) + 1.0 / (R[b] + 0.5)),
+                )
+                # rank pairs by threshold exceedance, not raw drift — a
+                # low-evidence pair with a big ratio must not outrank a
+                # well-evidenced drifting pair
+                if stat - thr > worst[2] - worst[3]:
+                    worst = (a, b, stat, thr)
+        a, b, stat, thr = worst
+        samples = int(min(R[a], R[b])) if ticks else 0
+        detectors.append({
+            "name": "cadence_ratio",
+            "pair": [a, b],
+            "statistic": round(stat, 4),
+            "threshold": round(thr, 4),
+            "samples": samples,
+            "min_samples": cfg.min_rounds,
+            "verdict": SUSPECT if (
+                samples >= cfg.min_rounds and stat > thr
+            ) else PASS,
+        })
+
+        # 2. per-shard dispatch/load correlation (max Fisher |z|)
+        worst_s, worst_z = 0, 0.0
+        for s in range(self.n_shards):
+            z = self._fisher_z(d_rounds[:, s], qdepth[:, s])
+            if z > worst_z:
+                worst_s, worst_z = s, z
+        detectors.append({
+            "name": "fill_load_correlation",
+            "shard": worst_s,
+            "statistic": round(worst_z, 3),
+            "threshold": cfg.corr_z_threshold,
+            "samples": ticks,
+            "min_samples": cfg.min_ticks,
+            "verdict": SUSPECT if (
+                ticks >= cfg.min_ticks and worst_z > cfg.corr_z_threshold
+            ) else PASS,
+        })
+
+        # 3. pairwise flush-per-round rate drift
+        f = (F + 0.5) / (R + 1.0)
+        fa, fb = (int(np.argmax(f)), int(np.argmin(f)))
+        stat = float(f[fa] - f[fb])
+        fbar = min(max(float(np.mean(f)), 1e-6), 1.0 - 1e-6)
+        samples = int(min(R[fa], R[fb])) if ticks else 0
+        thr = max(
+            cfg.flush_rate_floor,
+            cfg.rate_z_margin * math.sqrt(
+                fbar * (1.0 - fbar)
+                * (1.0 / (R[fa] + 1.0) + 1.0 / (R[fb] + 1.0))),
+        )
+        detectors.append({
+            "name": "flush_phase",
+            "pair": [fa, fb],
+            "statistic": round(stat, 4),
+            "threshold": round(thr, 4),
+            "samples": samples,
+            "min_samples": cfg.min_rounds,
+            "verdict": SUSPECT if (
+                samples >= cfg.min_rounds and stat > thr
+            ) else PASS,
+        })
+
+        overall = SUSPECT if any(
+            d["verdict"] == SUSPECT for d in detectors) else PASS
+        if self._g_stat is not None:
+            for d in detectors:
+                self._g_stat[d["name"]].set(float(d["statistic"]))
+                self._g_thr[d["name"]].set(float(d["threshold"]))
+            self._g_suspect.set(1.0 if overall == SUSPECT else 0.0)
+        return {
+            "verdict": overall,
+            "n_shards": self.n_shards,
+            "window_ticks": ticks,
+            "detectors": detectors,
+        }
+
+    @staticmethod
+    def _fisher_z(x: np.ndarray, y: np.ndarray) -> float:
+        """|Fisher z| of the Pearson correlation; 0 when either series
+        is constant (an unconditionally-dispatching shard has zero
+        round-count variance — the honest case, by construction)."""
+        n = len(x)
+        if n < 4 or float(np.std(x)) == 0.0 or float(np.std(y)) == 0.0:
+            return 0.0
+        r = float(np.corrcoef(x, y)[0, 1])
+        if not math.isfinite(r):
+            return 0.0
+        r = max(-0.999999, min(0.999999, r))
+        return abs(math.atanh(r)) * math.sqrt(n - 3)

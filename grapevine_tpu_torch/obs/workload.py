@@ -1,0 +1,198 @@
+"""Batch-level workload telemetry: what the service *sees* under load (a
+copy of ``grapevine_tpu/obs/workload.py``).
+
+Uniform closed-loop drains show none of this. This module is the
+measurement half of adaptive batching: the arrival/utilization signals
+the adaptive window (server/adaptive.py) controls on, and a view of
+bursty, diurnal or pop-heavy traffic as operable telemetry:
+
+- **batch fill fraction** and **queue depth** as fixed-bucket
+  histograms sampled at round cadence (one observation per committed
+  round, from ``PendingRound.resolve`` — never per op);
+- an **arrival-rate EWMA gauge** updated at enqueue time (exponentially
+  decayed event weight — for a Poisson stream of rate λ the decayed
+  weight settles at λ·τ, so weight/τ estimates λ without per-op
+  timestamps ever leaving the process);
+- **per-phase utilization fractions** derived from the round tracer's
+  span ledgers (phase duration / round duration, windowed EWMA) — the
+  host/device balance per phase that sizes the pipeline refactor;
+- **saturation / backpressure counters**: rounds that dispatched full
+  with work still queued behind them, and arrivals that landed on a
+  queue already at least one full batch deep.
+
+Leak stance (the registry's contract): everything here is batch-level. The
+histograms' buckets are fixed at registration; the only label anywhere
+is ``phase`` with registration-declared values; arrivals are counted,
+never keyed — there is no per-op, per-client, or per-type dimension in
+which an identity could travel, and the reference's tools/check_telemetry_policy.py
+audits the ``grapevine_load_*`` namespace.
+
+Thread-safety: one lock; ``note_arrival`` runs on gRPC handler / load
+dispatcher threads, ``observe_round`` on the collector thread
+(PendingRound.resolve), gauge reads on the scrape thread.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+
+from .registry import TelemetryRegistry
+
+#: fixed batch-fill-fraction boundaries (fraction of slots real). The
+#: last edge is 1.0 — a full round; the +Inf bucket stays empty.
+FILL_BUCKETS = (
+    0.0625, 0.125, 0.1875, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0,
+)
+
+#: fixed queue-depth boundaries (ops waiting at round dispatch):
+#: log-spaced from "empty" to far past any sane batch size, so the same
+#: schema serves a B=4 dev engine and a B=4096 production round
+DEPTH_BUCKETS = (
+    0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+    512.0, 1024.0, 2048.0, 4096.0,
+)
+
+#: span names whose utilization fraction is exported — the host spans
+#: of the round tracer's ledger plus the host-observed device window
+#: (obs/tracer.py HOST_SPANS + "device"); declared at registration so a
+#: typo'd (or per-op) phase value raises instead of minting a series
+UTILIZATION_SPANS = (
+    "assembly", "verify", "dispatch", "journal", "checkpoint",
+    "evict", "demux", "device",
+)
+
+
+class WorkloadTelemetry:
+    """Arrival/fill/depth/utilization telemetry on a TelemetryRegistry.
+
+    Attach to an engine via ``GrapevineEngine.attach_workload``; the
+    scheduler notes arrivals (``note_arrival``) and every committed
+    round contributes one ``observe_round`` from its span ledger.
+    """
+
+    def __init__(
+        self,
+        registry: TelemetryRegistry,
+        batch_size: int,
+        ewma_tau_s: float = 5.0,
+        util_alpha: float = 1.0 / 16.0,
+        clock=time.monotonic,
+    ):
+        if batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        if ewma_tau_s <= 0:
+            raise ValueError("ewma_tau_s must be positive")
+        self.batch_size = int(batch_size)
+        self._tau = float(ewma_tau_s)
+        self._alpha = float(util_alpha)
+        self._clock = clock
+        self._lock = threading.Lock()
+        #: exponentially decayed arrival weight; weight/τ estimates the
+        #: instantaneous arrival rate (see module docstring)
+        self._weight = 0.0
+        self._t_last = None
+        #: per-span utilization EWMA state
+        self._util = {name: 0.0 for name in UTILIZATION_SPANS}
+
+        self._h_fill = registry.histogram(
+            "grapevine_load_batch_fill",
+            "real ops / batch slots per committed round (round cadence; "
+            "the batch-occupancy histogram adaptive batching sizes from)",
+            buckets=FILL_BUCKETS)
+        self._h_depth = registry.histogram(
+            "grapevine_load_queue_depth",
+            "scheduler queue depth at round dispatch (ops left waiting "
+            "after the round's chunk was taken; round cadence)",
+            buckets=DEPTH_BUCKETS)
+        self._c_arrivals = registry.counter(
+            "grapevine_load_arrivals_total",
+            "ops enqueued into the scheduler (count only, never keyed)")
+        self._g_rate = registry.gauge(
+            "grapevine_load_arrival_rate_ops_s",
+            "EWMA arrival rate (decayed event weight / tau; tau = "
+            f"{ewma_tau_s:g}s by default)")
+        self._g_util = registry.gauge(
+            "grapevine_load_phase_utilization",
+            "windowed mean fraction of each round's wall clock spent in "
+            "the phase (from the round tracer's span ledgers; 'device' = the "
+            "host-observed device window)",
+            labels={"phase": UTILIZATION_SPANS})
+        self._c_saturated = registry.counter(
+            "grapevine_load_saturated_rounds_total",
+            "rounds dispatched completely full with ops still queued "
+            "behind them (sustained-overload signal)")
+        self._c_backpressure = registry.counter(
+            "grapevine_load_backpressure_arrivals_total",
+            "arrivals that found the queue already >= one full batch "
+            "deep (the op will wait at least one extra round)")
+
+    # -- arrival path (scheduler submit; any thread) --------------------
+
+    def note_arrival(self, queue_depth: int) -> None:
+        """Record one enqueue; ``queue_depth`` is the depth *after* the
+        op joined the queue."""
+        now = self._clock()
+        with self._lock:
+            if self._t_last is not None:
+                dt = max(0.0, now - self._t_last)
+                self._weight *= math.exp(-dt / self._tau)
+            self._weight += 1.0
+            self._t_last = now
+            rate = self._weight / self._tau
+        self._c_arrivals.inc()
+        self._g_rate.set(rate)
+        # pre-join depth: an op joining at exactly batch_size depth
+        # (itself included) still rides the very next round — only a
+        # queue ALREADY a full batch deep costs it an extra round
+        if queue_depth - 1 >= self.batch_size:
+            self._c_backpressure.inc()
+
+    def arrival_rate(self) -> float:
+        """Current decayed arrival-rate estimate (ops/s)."""
+        now = self._clock()
+        with self._lock:
+            if self._t_last is None:
+                return 0.0
+            dt = max(0.0, now - self._t_last)
+            return self._weight * math.exp(-dt / self._tau) / self._tau
+
+    # -- round path (PendingRound.resolve; collector thread) ------------
+
+    def observe_round(
+        self,
+        n_real: int,
+        batch_size: int,
+        queue_depth: int | None,
+        spans: dict | None = None,
+    ) -> None:
+        """Record one committed round: fill, post-dispatch queue depth,
+        and per-phase utilization from the round's span ledger."""
+        fill = (n_real / batch_size) if batch_size else 0.0
+        self._h_fill.observe(fill)
+        depth = int(queue_depth) if queue_depth is not None else 0
+        self._h_depth.observe(depth)
+        # round cadence is also when the arrival gauge decays toward
+        # zero: updated only at enqueue time it would freeze at the
+        # last burst's rate forever on an idle service
+        self._g_rate.set(self.arrival_rate())
+        if n_real >= batch_size and depth > 0:
+            self._c_saturated.inc()
+        if not spans:
+            return
+        round_dur = spans.get("round", (0.0, 0.0))[1]
+        if round_dur <= 0.0:
+            return
+        with self._lock:
+            a = self._alpha
+            for name in UTILIZATION_SPANS:
+                span = spans.get(name)
+                frac = max(0.0, min(1.0, span[1] / round_dur)) if span else 0.0
+                self._util[name] = (1 - a) * self._util[name] + a * frac
+                self._g_util.set(self._util[name], phase=name)
+
+    def utilization(self) -> dict:
+        """Current per-span utilization EWMA (a copy)."""
+        with self._lock:
+            return dict(self._util)

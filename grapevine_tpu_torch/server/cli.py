@@ -11,11 +11,13 @@ cpu`` is given, and raises without a card. A primary with ``--state-dir``
 ships its journal to a standby with ``--replicate-to``; the standby
 (``--role standby --state-dir S --standby-listen host:port``) promotes on
 SIGUSR1 (fencing ``--promote-from``) and then serves the Submit API on
-``--engine-listen``. The ``fleet`` role and the flags of unported features
-(leak monitor, tracer, SLO, profiler, adaptive window) raise
-``NotImplementedError`` naming their ROADMAP.md queue A item. This module imports no ``torch`` at the
-top, so host-pipeline workers (which re-import the main module) stay
-torch-free.
+``--engine-listen``. The device-owning roles take the leak monitor
+(``--leakmon*``), the round tracer (``--trace-ring-size``), the SLO
+(``--slo-commit-p99-ms``), the profiler gate (``--profile-enable``) and
+the adaptive window (``--adaptive-batch``); ``--role fleet`` scrapes
+``--fleet-members`` and serves the merged view on ``--fleet-port``. This
+module imports no ``torch`` at the top, so host-pipeline workers (which
+re-import the main module) stay torch-free.
 """
 
 from __future__ import annotations
@@ -191,8 +193,7 @@ def build_parser() -> argparse.ArgumentParser:
         "standby = hot replica replaying a primary's shipped journal "
         "(engine/replication.py, OPERATIONS.md §23) — SIGUSR1 "
         "promotes it and it starts serving the Submit API on "
-        "--engine-listen. fleet is not ported (ROADMAP.md queue A item "
-        "16) and raises",
+        "--engine-listen",
     )
     p.add_argument(
         "--fleet-members",
@@ -352,8 +353,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile-enable",
         action="store_true",
         help="expose /profile?ms=N on the metrics endpoint: a live "
-        "profiler capture of the serving process (not ported: ROADMAP.md "
-        "queue A item 16; one at a time, "
+        "torch.profiler capture of the serving process (one at a time, "
         "duration-clamped; obs/profiler.py). Off by default — a "
         "capture costs real overhead and writes device traces to "
         "disk. Device-owning roles only",
@@ -532,23 +532,6 @@ _ROLE_FLAGS = {
                | _ADAPTIVE_FLAGS,
 }
 
-#: roles and flags whose features the port does not carry yet → the
-#: ROADMAP.md queue A item that ports them; each raises
-#: NotImplementedError (never a silent drop)
-_UNPORTED_ROLES = {
-    "fleet": "item 16 (obs/fleet.py, the scrape aggregator)",
-}
-_UNPORTED_FLAGS = {
-    **{d: "item 16 (obs/leakmon.py, the leak monitor)" for d in _LEAKMON_FLAGS},
-    "trace_ring_size": "item 16 (obs/tracer.py, the round tracer)",
-    "slo_commit_p99_ms": "item 16 (obs/slo.py, the commit-latency SLO)",
-    "profile_enable": "item 16 (obs/profiler.py, the profiler gate)",
-    "adaptive_batch": "item 16 (server/adaptive.py, the adaptive window)",
-    **{d: "item 16 (obs/fleet.py, the scrape aggregator)"
-       for d in _FLEET_FLAGS},
-}
-
-
 def _durability_config(args):
     """The DurabilityConfig for --state-dir, or None when off."""
     if not args.state_dir:
@@ -596,17 +579,32 @@ def _supplied(parser, argv) -> set:
     return supplied
 
 
-def _refuse_unported(parser, args, argv):
-    todo = []
-    if args.role in _UNPORTED_ROLES:
-        todo.append(f"--role {args.role} ({_UNPORTED_ROLES[args.role]})")
-    for dest in sorted(_supplied(parser, argv) & _UNPORTED_FLAGS.keys()):
-        todo.append(f"--{dest.replace('_', '-')} ({_UNPORTED_FLAGS[dest]})")
-    if todo:
-        raise NotImplementedError(
-            "not ported to the PyTorch serving tier yet, ROADMAP.md queue "
-            "A: " + "; ".join(todo)
-        )
+def _slo_config(args):
+    """The SloConfig for --slo-commit-p99-ms (always built for
+    device-owning roles; the tracker itself is always on). No explicit
+    target = observe-only: /healthz reports the burn rates but never
+    gates on them, so upgrading a fleet whose honest latency exceeds
+    the reference target cannot 503 every replica at once."""
+    from ..obs.slo import SloConfig
+
+    if args.slo_commit_p99_ms is None:
+        return SloConfig(enforce=False)
+    return SloConfig(commit_p99_ms=args.slo_commit_p99_ms)
+
+
+def _leakmon_config(args):
+    """The LeakMonitorConfig for --leakmon, or None when off."""
+    if not args.leakmon:
+        return None
+    from ..obs.leakmon import LeakMonitorConfig
+
+    return LeakMonitorConfig(
+        window_rounds=args.leakmon_window,
+        uniformity_z_threshold=args.leakmon_uniformity_z,
+        collision_threshold=args.leakmon_collision_threshold,
+        repeat_threshold=args.leakmon_repeat_threshold,
+        dump_path=args.leakmon_dump_path,
+    )
 
 
 def _reject_misapplied_flags(parser, args, argv):
@@ -635,7 +633,6 @@ def _reject_misapplied_flags(parser, args, argv):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args, argv)
     _reject_misapplied_flags(parser, args, argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
     config = GrapevineConfig(
@@ -661,6 +658,34 @@ def main(argv=None) -> int:
             raise SystemExit(
                 f"--identity-seed must be 64 hex chars (32 bytes): {exc}"
             ) from None
+
+    if args.role == "fleet":
+        import threading
+
+        from ..obs.fleet import FleetAggregator, FleetConfig
+
+        if not args.fleet_members:
+            raise SystemExit(
+                "--role fleet requires --fleet-members host:port,..."
+            )
+        members = tuple(
+            m.strip() for m in args.fleet_members.split(",") if m.strip()
+        )
+        agg = FleetAggregator(FleetConfig(
+            members=members,
+            scrape_interval_s=args.fleet_scrape_interval,
+        ))
+        fport = agg.serve(args.fleet_port, host=args.metrics_host)
+        print(f"grapevine fleet aggregator on port {fport} "
+              f"({len(members)} members)", flush=True)
+        # the aggregator holds no engine state: drain = stop scraping
+        # and close the endpoint
+        _install_drain_handlers(agg.stop)
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:  # pragma: no cover - handler owns it
+            agg.stop()
+        return 0
 
     if args.role == "standby":
         import signal
@@ -702,10 +727,15 @@ def main(argv=None) -> int:
         )
         from .tier import EngineServer
 
-        server = EngineServer(engine=replica.engine,
-                              max_wait_ms=args.batch_wait_ms,
-                              worker_restart=args.worker_restart,
-                              flush_window_ms=args.flush_window_ms)
+        server = EngineServer(
+            engine=replica.engine, max_wait_ms=args.batch_wait_ms,
+            leakmon=_leakmon_config(args),
+            worker_restart=args.worker_restart,
+            trace_ring_size=args.trace_ring_size, slo=_slo_config(args),
+            profile_enable=args.profile_enable,
+            adaptive_batch=args.adaptive_batch,
+            flush_window_ms=args.flush_window_ms,
+        )
         eport = server.start(args.engine_listen)
         print(f"promoted engine tier listening on port {eport}",
               flush=True)
@@ -723,9 +753,14 @@ def main(argv=None) -> int:
 
         engine = EngineServer(config, seed=args.seed,
                               max_wait_ms=args.batch_wait_ms,
+                              leakmon=_leakmon_config(args),
                               durability=_durability_config(args),
                               worker_restart=args.worker_restart,
+                              trace_ring_size=args.trace_ring_size,
+                              slo=_slo_config(args),
+                              profile_enable=args.profile_enable,
                               host_workers=args.host_workers,
+                              adaptive_batch=args.adaptive_batch,
                               flush_window_ms=args.flush_window_ms,
                               replicate_to=args.replicate_to,
                               ship_every=args.ship_every,
@@ -763,10 +798,14 @@ def main(argv=None) -> int:
 
         server = GrapevineServer(
             config, seed=args.seed, max_wait_ms=args.batch_wait_ms,
-            identity=identity,
+            identity=identity, leakmon=_leakmon_config(args),
             durability=_durability_config(args),
             worker_restart=args.worker_restart,
+            trace_ring_size=args.trace_ring_size,
+            slo=_slo_config(args),
+            profile_enable=args.profile_enable,
             host_workers=args.host_workers,
+            adaptive_batch=args.adaptive_batch,
             flush_window_ms=args.flush_window_ms,
             replicate_to=args.replicate_to,
             ship_every=args.ship_every,

@@ -97,10 +97,13 @@ class BatchScheduler:
         #: here, and the round's first-pass batch_verify splits across
         #: worker processes. None = the historical in-process MSM.
         self.hostpipe = None
-        #: flush-aware collection (the reference's server/adaptive.py
-        #: module docstring has the obliviousness argument; its
-        #: SLO-adaptive window is ROADMAP.md queue A item 16): when the
-        #: engine reports a delayed-eviction flush is on the device (flush_bubble_pending
+        #: optional SLO-adaptive window policy (server/adaptive.py),
+        #: planted by the serving layer after observability attaches;
+        #: None = the static max_wait/idle_gap/full-batch window
+        self.adaptive = None
+        #: flush-aware collection (server/adaptive.py module docstring
+        #: has the obliviousness argument): when the engine reports a
+        #: delayed-eviction flush is on the device (flush_bubble_pending
         #: — a pure function of the round counter), the next collection
         #: window may stretch by this declared extra wait, harvesting
         #: arrivals into a fuller round instead of dispatching a thin
@@ -193,6 +196,11 @@ class BatchScheduler:
             if self.metrics is not None:
                 self.metrics.observe_queue_depth(depth)
             self._cv.notify()
+        wl = getattr(self.engine, "workload", None)
+        if wl is not None:
+            # outside the cv: a couple of registry samples must never
+            # extend the collector's critical section
+            wl.note_arrival(depth)
         return fut
 
     # -- health probes (obs/httpd.py's /healthz) ------------------------
@@ -305,19 +313,28 @@ class BatchScheduler:
                 if self._closed and not self._queue and not ledger:
                     return
                 has_work = bool(self._queue)
-            # per-round window decision OUTSIDE the cv: its input is the
-            # engine's round-counter flush cadence, never queue or buffer
-            # contents
-            w_wait = self.max_wait
-            if has_work and self.flush_window > 0 and getattr(
-                self.engine, "flush_bubble_pending", lambda: False
-            )():
-                # the device is busy with the delayed-eviction flush (a
-                # round-count fact): stretch this window into the bubble
-                # and harvest a fuller round
-                w_wait += self.flush_window
-                if self._c_flush_stretch is not None:
-                    self._c_flush_stretch.inc()
+                depth0 = len(self._queue)
+            # per-round window decision OUTSIDE the cv (the burn-rate
+            # scans and registry samples must never extend the
+            # collector's critical section — the note_arrival stance).
+            # Inputs are public aggregates only: the queue DEPTH (an
+            # integer), the arrival EWMA, the SLO burn rates, and the
+            # engine's round-counter flush cadence — never queue or
+            # buffer contents (server/adaptive.py)
+            w_wait, w_gap, w_target = self.max_wait, self.idle_gap, bs
+            if has_work:
+                if self.adaptive is not None:
+                    w_wait, w_gap, w_target = self.adaptive.decide(depth0)
+                if self.flush_window > 0 and getattr(
+                    self.engine, "flush_bubble_pending", lambda: False
+                )():
+                    # the device is busy with the delayed-eviction flush
+                    # (a round-count fact): stretch this window into the
+                    # bubble and harvest a fuller round
+                    w_wait += self.flush_window
+                    w_target = bs
+                    if self._c_flush_stretch is not None:
+                        self._c_flush_stretch.inc()
             with self._cv:
                 chunk = []
                 if self._queue:
@@ -336,10 +353,10 @@ class BatchScheduler:
                     t_asm0_pc = time.perf_counter()  # tracer clock
                     deadline = t_asm0 + w_wait
                     hit_cap = False
-                    while len(self._queue) < bs and not self._closed:
+                    while len(self._queue) < w_target and not self._closed:
                         now = time.monotonic()
                         wait_until = min(
-                            deadline, self._last_enqueue + self.idle_gap
+                            deadline, self._last_enqueue + w_gap
                         )
                         if now >= wait_until:
                             hit_cap = now >= deadline

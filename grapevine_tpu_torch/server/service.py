@@ -18,10 +18,11 @@ hard-error behavior, grapevine.proto:57-64).
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"`` (and raises without a card, as the facade does). The
-reference's round observability (tracer, SLO, workload and cost
-telemetry, leak monitor, profiler gate) and its adaptive window are not
-ported yet: their knobs raise ``NotImplementedError`` naming the
-ROADMAP.md item, and ``tracer``, ``slo`` and ``profiler`` are None.
+device owner attaches the reference's round observability
+(``obs.attach_round_observability``: round tracer, commit-latency SLO,
+workload and cost telemetry, and with ``profile_enable`` the profiler
+gate), with ``leakmon`` the transcript leak monitor, and with
+``adaptive_batch`` the scheduler's adaptive window;
 ``replicate_to`` ships the durable engine's journal to a hot standby
 (``engine/replication.py``).
 """
@@ -52,27 +53,6 @@ from .scheduler import AuthFailure, BatchScheduler, SchedulerShutdown
 log = logging.getLogger("grapevine_tpu_torch.server")
 
 from .uri import SERVICE_NAME  # noqa: E402  (re-export, see uri.py)
-
-
-#: knob → the ROADMAP.md queue A item that ports what it needs
-UNPORTED = {
-    "slo": "item 16 (serving observability: obs/slo.py)",
-    "profile_enable": "item 16 (serving observability: obs/profiler.py)",
-    "leakmon": "item 16 (serving observability: obs/leakmon.py)",
-    "adaptive_batch": "item 16 (server/adaptive.py reads the workload and "
-                      "SLO telemetry)",
-}
-
-
-def refuse_unported(**knobs) -> None:
-    """Raise ``NotImplementedError`` for every knob set to a value the
-    port cannot serve yet, naming its ROADMAP.md item."""
-    todo = [f"{k} ({UNPORTED[k]})" for k, v in knobs.items() if v]
-    if todo:
-        raise NotImplementedError(
-            "not ported to the PyTorch serving tier yet, ROADMAP.md queue "
-            "A: " + "; ".join(todo)
-        )
 
 
 #: bytes appended to the challenge seed inside the Auth ciphertext: the
@@ -130,6 +110,7 @@ class GrapevineServer:
         leakmon=None,
         durability=None,
         worker_restart: bool = False,
+        trace_ring_size: int = 512,
         slo=None,
         profile_enable: bool = False,
         replicate_to: str | None = None,
@@ -139,8 +120,6 @@ class GrapevineServer:
         flush_window_ms: float | None = None,
         device=None,
     ):
-        refuse_unported(slo=slo, profile_enable=profile_enable,
-                        leakmon=leakmon, adaptive_batch=adaptive_batch)
         self.config = config or GrapevineConfig()
         if scheduler is not None and replicate_to is not None:
             raise ValueError(
@@ -155,9 +134,9 @@ class GrapevineServer:
                     "durability needs the device engine in-process (the "
                     "frontend role has no state to checkpoint)"
                 )
-            if flush_window_ms:
+            if adaptive_batch or flush_window_ms:
                 raise ValueError(
-                    "flush-aware batching shapes the device "
+                    "adaptive/flush-aware batching shapes the device "
                     "round collection window — only the engine owner "
                     "has one (the frontend forwards ops unbatched)"
                 )
@@ -230,6 +209,20 @@ class GrapevineServer:
                 # scheduler-side verify fan-out shares the same pool
                 self.scheduler.hostpipe = self.hostpipe
         self._metrics_server = None
+        #: continuous obliviousness auditing (obs/leakmon.py): pass a
+        #: LeakMonitorConfig to watch every round's transcript. Device
+        #: owner only — the frontend role never sees a transcript.
+        self.leakmon = None
+        if leakmon is not None:
+            if self.engine is None:
+                raise ValueError(
+                    "leak monitoring needs the device engine in-process "
+                    "(the frontend role has no transcript to audit)"
+                )
+            from ..obs.leakmon import EngineLeakMonitor
+
+            self.leakmon = EngineLeakMonitor.for_engine(self.engine, leakmon)
+            self.engine.attach_leakmon(self.leakmon)
         #: primary-side journal shipping (engine/replication.py): stream
         #: every sealed frame to a hot standby. Device owner only: the
         #: frontend role has no journal.
@@ -240,10 +233,37 @@ class GrapevineServer:
             self.shipper = JournalShipper(self.engine, replicate_to,
                                           ship_every=ship_every)
             self.shipper.start()
-        #: the reference's round tracer, commit-latency SLO and profiler
-        #: gate (obs.attach_round_observability) are ROADMAP.md queue A
-        #: item 16: nothing is attached
+            if self.leakmon is not None:
+                # fold the shipper's frame-length books into the audit
+                # verdict (ship_cadence detector, obs/leakmon.py)
+                self.leakmon.attach_shipper(self.shipper)
+        #: round tracer + commit-latency SLO + optional capture gate —
+        #: one shared attach policy (obs.attach_round_observability has
+        #: the rationale and the observe-only default contract)
         self.tracer = self.slo = self.profiler = None
+        if self.engine is not None:
+            from ..obs import attach_round_observability
+
+            self.tracer, self.slo, self.profiler = attach_round_observability(
+                self.engine, self.metrics_registry,
+                trace_ring_size=trace_ring_size, slo=slo,
+                profile_enable=profile_enable,
+            )
+            if adaptive_batch:
+                # SLO-adaptive window sizing (server/adaptive.py has the
+                # policy and its obliviousness argument), planted after
+                # observability attaches so the policy reads the same
+                # arrival EWMA and burn rates /metrics exports
+                from .adaptive import AdaptiveBatchPolicy
+
+                self.scheduler.adaptive = AdaptiveBatchPolicy(
+                    self.engine.ecfg.batch_size,
+                    self.scheduler.max_wait,
+                    self.scheduler.idle_gap,
+                    workload=self.engine.workload,
+                    slo=self.slo,
+                    registry=self.metrics_registry,
+                )
 
     # -- RPC handlers (raw-bytes serializers) ---------------------------
 
@@ -572,8 +592,21 @@ class GrapevineServer:
             # a fatally refused shipper means a standby promoted out from
             # under this primary: it must stop serving (split brain)
             healthy = healthy and self.shipper.fatal is None
-        # the reference also folds the leak audit verdict and the SLO
-        # burn rates here: not ported (ROADMAP.md queue A item 16)
+        if self.leakmon is not None:
+            # the leak audit verdict is part of liveness: a SUSPECT
+            # transcript means the engine is misbehaving even though it
+            # is serving — stop routing to it. Cached verdict: /healthz
+            # must not pay detector math on the probe path.
+            v = self.leakmon.last_verdict()
+            detail["leakaudit"] = v["verdict"]
+            healthy = healthy and v["verdict"] == "PASS"
+        if self.slo is not None:
+            # multi-window burn-rate verdict (obs/slo.py): a breached
+            # commit-latency SLO is a serving fault like any other — 503
+            # stops routing before the error budget is gone
+            sv = self.slo.verdict()
+            detail["slo"] = sv
+            healthy = healthy and sv["ok"]
         return healthy, detail
 
     def start_metrics(self, port: int, host: str = "127.0.0.1",
@@ -583,9 +616,17 @@ class GrapevineServer:
         wires ``--metrics-port`` here."""
         from ..obs import MetricsServer
 
-        # the reference first calibrates the "sort" and "posmap" phase
-        # splits and also serves /leakaudit, /flightrec, /trace and
-        # /profile: ROADMAP.md queue A item 16
+        if self.engine is not None:
+            # populate the "sort" and "posmap" phase splits before the
+            # first scrape (standalone runs at the round's shapes, outside
+            # the engine lock); best-effort: metrics must still bind
+            for calibrate in (self.engine.calibrate_sort_phase,
+                              self.engine.calibrate_posmap_phase):
+                try:
+                    calibrate()
+                except Exception:
+                    log.exception("phase calibration failed")
+        lm = self.leakmon
         self._metrics_server = MetricsServer(
             self.metrics_registry,
             health=lambda: self.healthz(stall_threshold),
@@ -593,6 +634,12 @@ class GrapevineServer:
                      else None),
             host=host,
             port=port,
+            leakaudit=lm.verdict if lm is not None else None,
+            flightrec=lm.recorder.dump if lm is not None else None,
+            trace=(self.tracer.chrome_trace if self.tracer is not None
+                   else None),
+            profile=(self.profiler.capture if self.profiler is not None
+                     else None),
         )
         return self._metrics_server.start()
 
@@ -615,6 +662,8 @@ class GrapevineServer:
         self.scheduler.close()
         if self.hostpipe is not None:
             self.hostpipe.close()
+        if self.leakmon is not None:
+            self.leakmon.close()
         if self.engine is not None:
             if checkpoint:
                 self.engine.checkpoint_now()

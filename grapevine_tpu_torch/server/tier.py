@@ -64,20 +64,17 @@ class EngineServer:
 
     def __init__(self, config: GrapevineConfig | None = None, seed: int = 0,
                  max_wait_ms: float | None = None, clock=None, leakmon=None,
-                 durability=None, worker_restart: bool = False, slo=None,
+                 durability=None, worker_restart: bool = False,
+                 trace_ring_size: int = 512, slo=None,
                  profile_enable: bool = False, engine=None,
                  replicate_to: str | None = None, ship_every: int = 1,
                  host_workers: int = 0, adaptive_batch: bool = False,
                  flush_window_ms: float | None = None, device=None):
+        from ..engine.batcher import GrapevineEngine
         from ..session import get_signature_scheme
         from .scheduler import BatchScheduler
-        from .service import refuse_unported
 
         import time as _time
-
-        refuse_unported(slo=slo, profile_enable=profile_enable,
-                        leakmon=leakmon, adaptive_batch=adaptive_batch)
-        from ..engine.batcher import GrapevineEngine
 
         self.config = (engine.config if engine is not None
                        else config or GrapevineConfig())
@@ -96,9 +93,28 @@ class EngineServer:
             self.shipper = JournalShipper(self.engine, replicate_to,
                                           ship_every=ship_every)
             self.shipper.start()
-        #: the reference's round tracer, commit-latency SLO and profiler
-        #: gate are ROADMAP.md queue A item 16: nothing is attached
-        self.tracer = self.slo = self.profiler = None
+        #: continuous obliviousness auditing (obs/leakmon.py) — the
+        #: engine tier owns the device, so it owns the transcript audit
+        self.leakmon = None
+        if leakmon is not None:
+            from ..obs.leakmon import EngineLeakMonitor
+
+            self.leakmon = EngineLeakMonitor.for_engine(self.engine, leakmon)
+            self.engine.attach_leakmon(self.leakmon)
+            if self.shipper is not None:
+                # ship-cadence detector: the audit verdict folds the
+                # shipper's frame-length books (leakmon.py rationale)
+                self.leakmon.attach_shipper(self.shipper)
+        #: round tracing + commit-latency SLO + optional capture gate —
+        #: one shared attach policy (obs.attach_round_observability has
+        #: the rationale and the observe-only default contract)
+        from ..obs import attach_round_observability
+
+        self.tracer, self.slo, self.profiler = attach_round_observability(
+            self.engine, self.engine.metrics.registry,
+            trace_ring_size=trace_ring_size, slo=slo,
+            profile_enable=profile_enable,
+        )
         kwargs = {} if max_wait_ms is None else {"max_wait_ms": max_wait_ms}
         self.scheduler = BatchScheduler(
             self.engine,
@@ -108,6 +124,20 @@ class EngineServer:
             flush_window_ms=flush_window_ms,
             **kwargs,
         )
+        if adaptive_batch:
+            # SLO-adaptive window sizing (server/adaptive.py): planted
+            # after observability attaches so the policy reads the same
+            # public arrival EWMA and burn rates /metrics exports
+            from .adaptive import AdaptiveBatchPolicy
+
+            self.scheduler.adaptive = AdaptiveBatchPolicy(
+                self.engine.ecfg.batch_size,
+                self.scheduler.max_wait,
+                self.scheduler.idle_gap,
+                workload=self.engine.workload,
+                slo=self.slo,
+                registry=self.engine.metrics.registry,
+            )
         #: optional verify fan-out pool: the engine tier holds no
         #: sessions, so its hostpipe does nothing but split the round's
         #: batch-verify MSM across worker processes (scheduler.py)
@@ -225,8 +255,18 @@ class EngineServer:
             # a fatally refused shipper means a standby promoted out from
             # under this primary: it must stop serving (split brain)
             healthy = healthy and self.shipper.fatal is None
-        # the reference also folds the leak audit verdict and the SLO
-        # burn rates here: not ported (ROADMAP.md queue A item 16)
+        if self.leakmon is not None:
+            # same folding as the monolithic server: a SUSPECT transcript
+            # is a serving fault — 503 stops routing (cached verdict; the
+            # probe path never pays detector math)
+            v = self.leakmon.last_verdict()
+            detail["leakaudit"] = v["verdict"]
+            healthy = healthy and v["verdict"] == "PASS"
+        # commit-latency SLO burn-rate verdict (obs/slo.py): breached =
+        # stop routing, same as the monolithic server
+        sv = self.slo.verdict()
+        detail["slo"] = sv
+        healthy = healthy and sv["ok"]
         return healthy, detail
 
     def start_metrics(self, port: int, host: str = "127.0.0.1",
@@ -237,15 +277,27 @@ class EngineServer:
         session-layer registry."""
         from ..obs import MetricsServer
 
-        # the reference first calibrates the "sort" and "posmap" phase
-        # splits and also serves /leakaudit, /flightrec, /trace and
-        # /profile: ROADMAP.md queue A item 16
+        # populate the "sort" and "posmap" phase splits before the first
+        # scrape (standalone runs at the round's shapes, outside the
+        # engine lock); best-effort: metrics must still bind
+        for calibrate in (self.engine.calibrate_sort_phase,
+                          self.engine.calibrate_posmap_phase):
+            try:
+                calibrate()
+            except Exception:
+                log.exception("phase calibration failed")
+        lm = self.leakmon
         self._metrics_server = MetricsServer(
             self.engine.metrics.registry,
             health=lambda: self.healthz(stall_threshold),
             refresh=self.engine.sample_stash,
             host=host,
             port=port,
+            leakaudit=lm.verdict if lm is not None else None,
+            flightrec=lm.recorder.dump if lm is not None else None,
+            trace=self.tracer.chrome_trace,
+            profile=(self.profiler.capture if self.profiler is not None
+                     else None),
         )
         return self._metrics_server.start()
 
@@ -263,6 +315,8 @@ class EngineServer:
         self.scheduler.close()
         if self.hostpipe is not None:
             self.hostpipe.close()
+        if self.leakmon is not None:
+            self.leakmon.close()
         if checkpoint:
             self.engine.checkpoint_now()
         self.engine.close()

@@ -1,0 +1,190 @@
+"""Transcript leak detectors — the obliviousness "sanitizer" (SURVEY §5; a
+copy of ``grapevine_tpu/testing/leakcheck.py``, numpy only).
+
+The framework's security claim is empirical: the public transcript (the
+sequence of tree leaves fetched per op per round) must be a sequence of
+independent uniform draws, carrying no information about which logical
+keys were touched. The reference gets the equivalent property from SGX
+(the operator sees only encrypted EPC traffic, reference README.md:16);
+here it must be *checked*, the way a race detector checks a lock
+discipline. These detectors operationalize the three testable facets:
+
+1. **within-round independence** — ops sharing a logical key in one
+   round must not show correlated leaves (the dedup dummy-fetch rule,
+   oram/round.py step 1);
+2. **cross-round freshness** — successive rounds touching one key must
+   draw fresh leaves (the position-map remap rule); a no-remap bug makes
+   every re-access repeat the previous leaf;
+3. **marginal uniformity** — pooled transcript leaves must be uniform
+   over [0, leaves); a constant or biased dummy leaf (e.g. "absent keys
+   fetch path 0") skews the histogram.
+
+Each detector returns a plain statistic; thresholds live with the tests.
+The reference's tests/test_leak_canary.py proves the detectors have *teeth* by driving
+deliberately-leaky round variants through them (every leak built via the
+public ``oram_round`` parameters, so the canaries exercise the real
+production code path, not a mock).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def samekey_leaf_collisions(keys: np.ndarray, leaves: np.ndarray) -> int:
+    """# of op pairs in one round sharing a key AND a transcript leaf.
+
+    Under honest dedup the duplicate fetches an independent uniform
+    dummy leaf, so collisions occur w.p. 1/leaves per pair; a missing
+    dedup makes every same-key pair collide.
+    """
+    keys = np.asarray(keys)
+    leaves = np.asarray(leaves)
+    same_key = keys[:, None] == keys[None, :]
+    same_leaf = leaves[:, None] == leaves[None, :]
+    upper = np.triu(np.ones_like(same_key, dtype=bool), k=1)
+    return int(np.sum(same_key & same_leaf & upper))
+
+
+def samekey_collision_counts(
+    keys: np.ndarray, leaves: np.ndarray
+) -> tuple[int, int]:
+    """(collisions, same-key pairs) for one round — the streaming form.
+
+    Same statistic as :func:`samekey_leaf_collisions` plus the pair
+    denominator, but grouped (O(B log B)) instead of all-pairs (O(B²))
+    so the continuous monitor (obs/leakmon.py) can afford it every
+    round at production batch sizes. Entries with ``keys < 0`` are
+    excluded (the caller's "no key" sentinel for padding dummies and
+    host-unresolvable ops); the quadratic detector instead counts
+    whatever key values it is given, so callers there mask dummies
+    themselves. the reference's tests/test_leakmon.py asserts both forms agree.
+    """
+    keys = np.asarray(keys).ravel()
+    leaves = np.asarray(leaves).ravel()
+    real = keys >= 0
+    k, lf = keys[real], leaves[real]
+    if k.size < 2:
+        return 0, 0
+
+    def _pairs(counts: np.ndarray) -> int:
+        counts = counts.astype(np.int64)
+        return int(np.sum(counts * (counts - 1) // 2))
+
+    _, key_counts = np.unique(k, return_counts=True)
+    _, pair_counts = np.unique(
+        np.stack([k.astype(np.int64), np.asarray(lf, np.int64)], axis=1),
+        axis=0,
+        return_counts=True,
+    )
+    return _pairs(pair_counts), _pairs(key_counts)
+
+
+def cross_round_repeat_rate(leaf_seq: np.ndarray) -> float:
+    """Fraction of consecutive accesses to ONE key with equal leaves.
+
+    ``leaf_seq``: the transcript leaves of successive rounds that each
+    touched the same logical key. Honest remap → ~1/leaves; a no-remap
+    leak → 1.0.
+    """
+    leaf_seq = np.asarray(leaf_seq)
+    if leaf_seq.size < 2:
+        return 0.0
+    return float(np.mean(leaf_seq[1:] == leaf_seq[:-1]))
+
+
+def _leaf_hist(leaves: np.ndarray, n_leaves: int, bins: int) -> np.ndarray:
+    """Histogram of leaves into ``bins`` equal ranges (shared binning)."""
+    leaves = np.asarray(leaves).ravel().astype(np.int64)
+    assert n_leaves % bins == 0, "bins must divide the leaf range"
+    return np.bincount(leaves * bins // n_leaves, minlength=bins)[:bins]
+
+
+def twosample_z(
+    leaves_a: np.ndarray, leaves_b: np.ndarray, n_leaves: int, bins: int = 16
+) -> float:
+    """Normal-approximated two-sample chi-square z between two transcript
+    leaf samples (e.g. all-READ rounds vs all-DELETE rounds). Honest
+    engines draw both from the same uniform distribution → |z| = O(1);
+    an op-type-dependent leaf bias separates the histograms and blows z
+    up. Complements the same-seed bit-equality test, which cannot see a
+    bias that affects both runs identically."""
+    ca = _leaf_hist(leaves_a, n_leaves, bins).astype(float)
+    cb = _leaf_hist(leaves_b, n_leaves, bins).astype(float)
+    na, nb = ca.sum(), cb.sum()
+    k1, k2 = np.sqrt(nb / na), np.sqrt(na / nb)
+    tot = ca + cb
+    with np.errstate(invalid="ignore", divide="ignore"):
+        terms = np.where(tot > 0, (k1 * ca - k2 * cb) ** 2 / np.maximum(tot, 1), 0.0)
+    chi2 = float(terms.sum())
+    dof = bins - 1
+    return (chi2 - dof) / np.sqrt(2 * dof)
+
+
+def timing_twosample_z(times_a: np.ndarray, times_b: np.ndarray) -> float:
+    """Mann-Whitney U z-score between two round wall-time samples.
+
+    The obliviousness invariant covers *timing* (reference
+    grapevine.proto:120-122: "access patterns and timings"): rounds of
+    different op mixes must draw round times from one distribution.
+    Rank-based (robust to scheduler outliers), tie-corrected normal
+    approximation — identical distributions give z ~ N(0,1); an
+    op-type-dependent cost shows up as |z| growing like sqrt(N).
+    Callers should *interleave* the two conditions in measurement order
+    so host load drift hits both samples equally.
+    """
+    a = np.asarray(times_a, float).ravel()
+    b = np.asarray(times_b, float).ravel()
+    n1, n2 = a.size, b.size
+    if n1 == 0 or n2 == 0:
+        return 0.0
+    combined = np.concatenate([a, b])
+    order = np.argsort(combined, kind="mergesort")
+    ranks = np.empty_like(combined)
+    ranks[order] = np.arange(1, n1 + n2 + 1, dtype=float)
+    # average ranks over ties
+    uniq, inv, counts = np.unique(
+        combined, return_inverse=True, return_counts=True
+    )
+    sums = np.zeros(uniq.size)
+    np.add.at(sums, inv, ranks)
+    ranks = sums[inv] / counts[inv]
+    r1 = float(ranks[:n1].sum())
+    u1 = r1 - n1 * (n1 + 1) / 2.0
+    n = n1 + n2
+    mu = n1 * n2 / 2.0
+    tie_term = float(((counts**3 - counts).sum())) / (n * (n - 1)) if n > 1 else 0.0
+    var = n1 * n2 / 12.0 * ((n + 1) - tie_term)
+    if var <= 0:
+        return 0.0
+    return (u1 - mu) / np.sqrt(var)
+
+
+def uniformity_z(leaves: np.ndarray, n_leaves: int, bins: int = 16) -> float:
+    """Normal-approximated chi-square z-score of the leaf histogram.
+
+    Bins the pooled leaves into ``bins`` equal ranges and computes
+    z = (chi2 - dof) / sqrt(2 dof), dof = bins - 1. Honest uniform
+    transcripts give |z| = O(1); a constant leaf gives z ≈ sqrt(N·bins)
+    — unambiguous at any realistic sample size. (Normal approximation
+    instead of an exact p-value to avoid a scipy dependency; the canary
+    asserts orders-of-magnitude separation, not a 5% cut.)
+    """
+    return uniformity_z_from_counts(_leaf_hist(leaves, n_leaves, bins))
+
+
+def uniformity_z_from_counts(counts: np.ndarray) -> float:
+    """The chi-square z of :func:`uniformity_z` from a pre-binned
+    histogram. Split out so the streaming monitor (obs/leakmon.py) can
+    keep per-round bin counts in its sliding window — summing fixed-size
+    histograms instead of pooling raw leaf arrays — and still compute
+    the identical statistic."""
+    counts = np.asarray(counts, dtype=float)
+    bins = counts.size
+    n = float(counts.sum())
+    if n == 0 or bins < 2:
+        return 0.0
+    expected = n / bins
+    chi2 = float(np.sum((counts - expected) ** 2) / expected)
+    dof = bins - 1
+    return (chi2 - dof) / np.sqrt(2 * dof)

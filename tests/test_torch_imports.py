@@ -45,14 +45,21 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     """The sweep, the durability layer, the replication standby, the
     telemetry and their helpers are port modules of their own (own copies
     of the reference's jax-free journal, replication, fault injection, obs
-    registry/exporter/httpd and engine metrics), so the boundary scan
-    reads each of them."""
+    registry/exporter/httpd, the leak monitor and its statistics, the
+    flight recorder, round tracer, SLO, workload, cost and profiler
+    observers, the fleet aggregator, the adaptive window and the analytic
+    cost model, and engine metrics), so the boundary scan reads each of
+    them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
                 "engine/replication.py",
                 "oblivious/radix.py", "testing/faults.py", "engine/metrics.py",
                 "obs/__init__.py", "obs/registry.py", "obs/phases.py",
-                "obs/exporter.py", "obs/httpd.py"):
+                "obs/exporter.py", "obs/httpd.py",
+                "obs/flightrec.py", "obs/tracer.py", "obs/slo.py", "obs/workload.py",
+                "obs/costmon.py", "obs/profiler.py", "obs/leakmon.py", "obs/fleet.py",
+                "analysis/__init__.py", "analysis/costmodel.py", "testing/leakcheck.py",
+                "server/adaptive.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]

@@ -4,7 +4,8 @@ over gRPC loopback on the CPU, driven by the reference's
 signed CRUD through the encrypted channel, cross-client batching,
 UNAUTHENTICATED / INVALID_ARGUMENT / UNAVAILABLE, session TTL and cap,
 ``health()``/``healthz()`` keys against the reference server's, the
-metrics endpoint, the refused knobs, the host pipeline (whose workers
+metrics endpoint with every observability endpoint, the observability
+knobs on both device-owning tiers, the host pipeline (whose workers
 import no ``torch``), and the port's client against the reference's
 server. Modelled on the reference's ``tests/test_server.py`` and
 ``tests/test_hostpipe.py``.
@@ -300,26 +301,22 @@ def test_port_client_against_reference_server(ref_server):
     bob.close()
 
 
-#: metric families the reference registers through
-#: ``obs.attach_round_observability`` (cost monitor, workload telemetry,
-#: SLO tracker, round tracer): not ported (ROADMAP.md queue A item 16)
-UNPORTED_FAMILIES = ("grapevine_cost_", "grapevine_load_", "grapevine_slo_",
-                     "grapevine_trace_", "grapevine_round_bubble_ratio")
-
-
 def test_health_keys_equal_reference(server, ref_server):
-    """``health()`` has the reference server's keys, but for the metric
-    families of the unported round observability; ``healthz()`` too, but
-    for the SLO verdict (ROADMAP.md queue A item 16)."""
+    """``health()`` and ``healthz()`` have the reference server's keys,
+    the round observability's metric families and the SLO verdict
+    included."""
     srv, _ = server
     ref, _ = ref_server
-    want = {k for k in ref.health() if not k.startswith(UNPORTED_FAMILIES)}
+    want = set(ref.health())
     assert len(want) > 60
+    assert any(k.startswith(("grapevine_cost_", "grapevine_load_", "grapevine_slo_",
+                             "grapevine_trace_")) for k in want)
     assert set(srv.health()) == want
     ok, detail = srv.healthz()
     ref_ok, ref_detail = ref.healthz()
     assert ok and ref_ok
-    assert set(detail) == set(ref_detail) - {"slo"}
+    assert set(detail) == set(ref_detail)
+    assert set(detail["slo"]) == set(ref_detail["slo"])
     assert (detail["role"], detail["worker_alive"]) == ("mono", True)
 
 
@@ -333,26 +330,92 @@ def test_metrics_endpoint_serves_the_registry(server):
         assert "grapevine_sessions" in body and "grapevine_auth_failures_total" in body
         hz = urllib.request.urlopen(f"http://127.0.0.1:{mport}/healthz")
         assert hz.status == 200 and json.loads(hz.read())["healthy"] is True
-        for path in ("/trace", "/leakaudit", "/flightrec", "/profile"):
+        trace = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{mport}/trace").read())
+        assert any(e["name"] == "grapevine/evict" for e in trace["traceEvents"])
+        for phase in ("sort", "posmap"):  # calibrated by start_metrics
+            assert f'grapevine_phase_seconds_count{{phase="{phase}"}} 1' in body
+        for path in ("/leakaudit", "/flightrec", "/profile"):  # not asked for
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(f"http://127.0.0.1:{mport}{path}")
             assert err.value.code == 404
     finally:
         srv._metrics_server.stop()
         srv._metrics_server = None
+    # with the leak monitor and the profiler gate, all four are served
+    from grapevine_tpu_torch.obs.leakmon import LeakMonitorConfig
+
+    obs = GrapevineServer(CFG, seed=3, device="cpu", leakmon=LeakMonitorConfig(),
+                          profile_enable=True)
+    try:
+        obs.engine.handle_queries([QueryRequest(
+            request_type=C.REQUEST_TYPE_CREATE, auth_identity=bytes([7]) * 32,
+            record=RequestRecord(recipient=bytes([8]) * 32, payload=pl(b"o")))], NOW)
+        assert obs.leakmon.flush()
+        mport = obs.start_metrics(0)
+        url = f"http://127.0.0.1:{mport}"
+        audit = urllib.request.urlopen(f"{url}/leakaudit")
+        assert audit.status == 200 and json.loads(audit.read())["verdict"] == "PASS"
+        assert json.loads(urllib.request.urlopen(f"{url}/flightrec").read())["retained"] == 1
+        assert len(json.loads(urllib.request.urlopen(f"{url}/trace").read())["traceEvents"]) > 5
+        cap = json.loads(urllib.request.urlopen(f"{url}/profile?ms=20").read())
+        assert cap["ms"] == 20 and Path(cap["trace_dir"], "trace.json").exists()
+        assert json.loads(urllib.request.urlopen(f"{url}/healthz").read())["leakaudit"] == "PASS"
+    finally:
+        obs.stop()
 
 
-@pytest.mark.parametrize("knob,item", [
-    (dict(slo=object()), "item 16"), (dict(profile_enable=True), "item 16"),
-    (dict(leakmon=object()), "item 16"), (dict(adaptive_batch=True), "item 16"),
-])
+def _observability_knob(name):
+    from grapevine_tpu_torch.obs import ProfilerGate
+    from grapevine_tpu_torch.obs.leakmon import EngineLeakMonitor, LeakMonitorConfig
+    from grapevine_tpu_torch.obs.slo import SloConfig
+    from grapevine_tpu_torch.server.adaptive import AdaptiveBatchPolicy
+
+    cfg = SloConfig(commit_p99_ms=40.0)
+    return {
+        "slo": (dict(slo=cfg), lambda s: s.slo.cfg is cfg),
+        "profile_enable": (dict(profile_enable=True),
+                           lambda s: isinstance(s.profiler, ProfilerGate)),
+        "leakmon": (dict(leakmon=LeakMonitorConfig(window_rounds=32)),
+                    lambda s: isinstance(s.leakmon, EngineLeakMonitor)
+                    and s.engine.leakmon is s.leakmon
+                    and s.leakmon.monitor.cfg.window_rounds == 32),
+        "adaptive_batch": (dict(adaptive_batch=True),
+                           lambda s: isinstance(s.scheduler.adaptive, AdaptiveBatchPolicy)
+                           and s.scheduler.adaptive.workload is s.engine.workload
+                           and s.scheduler.adaptive.slo is s.slo),
+    }[name]
+
+
+@pytest.mark.parametrize("knob", ["slo", "profile_enable", "leakmon", "adaptive_batch"])
 @pytest.mark.parametrize("tier", ["mono", "engine"])
-def test_unported_knobs_raise_naming_their_item(knob, item, tier):
+def test_observability_knobs_accepted(knob, tier):
+    """Each of the reference's observability knobs is served by both
+    device-owning tiers: the tracer, SLO tracker, workload and cost
+    telemetry are always attached to the engine, and the knob attaches
+    (or configures) its own part."""
+    from grapevine_tpu_torch.obs import CostMonitor, RoundTracer, SloTracker, WorkloadTelemetry
     from grapevine_tpu_torch.server.tier import EngineServer
 
+    kw, attached = _observability_knob(knob)
     cls = GrapevineServer if tier == "mono" else EngineServer
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A: .*{item}"):
-        cls(CFG, device="cpu", **knob)
+    srv = cls(CFG, device="cpu", **kw)
+    try:
+        eng = srv.engine
+        assert isinstance(srv.tracer, RoundTracer) and eng.tracer is srv.tracer
+        assert isinstance(srv.slo, SloTracker) and eng.slo is srv.slo
+        assert isinstance(eng.workload, WorkloadTelemetry)
+        assert isinstance(eng.costmon, CostMonitor)
+        assert attached(srv)
+    finally:
+        srv.stop()
+    if knob == "leakmon":
+        assert not srv.leakmon._worker.is_alive()
+
+
+@pytest.mark.parametrize("knob", [dict(leakmon=object()), dict(adaptive_batch=True)])
+def test_frontend_refuses_device_owner_knobs(knob):
+    with pytest.raises(ValueError, match="frontend"):
+        GrapevineServer(CFG, scheduler=object(), **knob)
 
 
 @pytest.mark.parametrize("tier", ["mono", "engine"])
@@ -433,7 +496,7 @@ def test_servers_default_to_the_card(monkeypatch):
         EngineServer(CFG)
     srv = GrapevineServer(CFG, device="cpu")
     assert srv.engine.device.type == "cpu"
-    assert (srv.tracer, srv.slo, srv.profiler) == (None, None, None)
+    assert srv.tracer is not None and srv.slo is not None and srv.profiler is None
     srv.stop()
 
 

@@ -3,12 +3,13 @@ and its CLI (``grapevine_tpu_torch/server/cli.py``) on the CPU: an
 ``EngineServer(device="cpu")`` behind two ``FrontendServer``s on gRPC
 loopback, driven by the reference's and the port's clients; the internal
 Submit API failing closed; the expiry loop on the engine tier; the CLI
-started as a subprocess (``--device cpu``) serving one signed op; and the
-role/flag matrix, which refuses the unported roles and flags by their
-ROADMAP.md item (the standby role and the replication flags are ported:
-their valid combinations are accepted and their misapplied ones refused;
-``test_torch_standby_cli.py`` drives them). Modelled on the reference's ``tests/test_tier.py`` and
-``tests/test_cli_roles.py``."""
+started as a subprocess (``--device cpu``) serving one signed op, and
+again with every observability flag (leak monitor, SLO target, profiler
+gate, adaptive window) serving the four observability endpoints; and the
+role/flag matrix as the reference's: valid combinations accepted,
+misapplied ones refused (``test_torch_standby_cli.py`` drives the standby
+role, ``test_torch_fleet.py`` the fleet role). Modelled on the
+reference's ``tests/test_tier.py`` and ``tests/test_cli_roles.py``."""
 
 from __future__ import annotations
 
@@ -172,7 +173,9 @@ def test_rounds_batch_across_frontends(tier):
 def test_tier_health_and_refusals(tier):
     ok, detail = tier["engine"].healthz()
     assert ok and detail["role"] == "engine" and detail["worker_alive"]
-    assert tier["engine"].tracer is None and tier["engine"].slo is None
+    assert detail["slo"]["ok"] and not detail["slo"]["enforced"]
+    assert tier["engine"].engine.tracer is tier["engine"].tracer is not None
+    assert tier["engine"].profiler is None and tier["engine"].leakmon is None
     assert "sessions" in tier["fe"].health()
     with pytest.raises(ValueError):
         from grapevine_tpu_torch.server.service import GrapevineServer
@@ -249,6 +252,72 @@ def test_cli_serves_a_signed_op_on_the_cpu(tmp_path):
                for n in os.listdir(tmp_path / "state"))
 
 
+def test_cli_serves_every_observability_endpoint_on_the_cpu():
+    """``--leakmon --slo-commit-p99-ms N --profile-enable --adaptive-batch``
+    with the metrics endpoint: a signed op commits; ``/leakaudit`` (200,
+    PASS, one round audited), ``/flightrec``, ``/trace``, ``/profile``
+    and an enforced SLO in ``/healthz`` are served; SIGTERM exits 0."""
+    import json
+    import urllib.request
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "grapevine_tpu_torch.server.cli", "--device", "cpu",
+         "--listen", "insecure-grapevine://127.0.0.1:0", "--msg-capacity", "64",
+         "--recipient-capacity", "8", "--batch-size", "4", "--batch-wait-ms", "2",
+         "--leakmon", "--leakmon-window", "64", "--slo-commit-p99-ms", "60000",
+         "--profile-enable", "--adaptive-batch", "--trace-ring-size", "32",
+         "--metrics-port", "0"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = int(_wait_line(proc, "grapevine listening on port").split()[-1])
+        url = "http://127.0.0.1:" + _wait_line(proc, "metrics endpoint on port").split()[-1]
+        alice = _port_client(port, 0x31)
+        r = alice.create(alice.public_key, b"obs".ljust(C.PAYLOAD_SIZE, b"\x00"))
+        assert r.status_code == C.STATUS_CODE_SUCCESS
+        alice.close()
+        deadline = time.time() + 30
+        while True:
+            audit = json.loads(urllib.request.urlopen(f"{url}/leakaudit").read())
+            if audit["rounds_observed"] >= 1 or time.time() > deadline:
+                break
+            time.sleep(0.05)
+        assert audit["verdict"] == "PASS" and audit["rounds_observed"] == 1
+        assert audit["window_rounds"] == 64
+        assert json.loads(urllib.request.urlopen(f"{url}/flightrec").read())["retained"] == 1
+        trace = json.loads(urllib.request.urlopen(f"{url}/trace").read())
+        assert trace["otherData"]["rounds_recorded_total"] == 1
+        cap = json.loads(urllib.request.urlopen(f"{url}/profile?ms=10").read())
+        assert cap["ms"] == 10 and os.path.exists(os.path.join(cap["trace_dir"], "trace.json"))
+        hz = json.loads(urllib.request.urlopen(f"{url}/healthz").read())
+        assert hz["healthy"] and hz["leakaudit"] == "PASS"
+        assert hz["slo"]["enforced"] and hz["slo"]["target_ms"] == 60000.0
+        body = urllib.request.urlopen(f"{url}/metrics").read().decode()
+        assert "grapevine_host_adaptive_decisions_total" in body
+        assert 'grapevine_cost_phase_hbm_bytes{phase="fetch"}' in body
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_cli_observability_configs_built_from_flags():
+    args = cli.build_parser().parse_args(
+        ["--leakmon", "--leakmon-window", "99", "--leakmon-uniformity-z", "5",
+         "--leakmon-collision-threshold", "0.1", "--leakmon-repeat-threshold", "0.2",
+         "--leakmon-dump-path", "/d", "--slo-commit-p99-ms", "75"])
+    lm, sc = cli._leakmon_config(args), cli._slo_config(args)
+    assert (lm.window_rounds, lm.uniformity_z_threshold, lm.collision_threshold,
+            lm.repeat_threshold, lm.dump_path) == (99, 5.0, 0.1, 0.2, "/d")
+    assert sc.enforce and sc.commit_p99_ms == 75.0
+    off = cli.build_parser().parse_args([])
+    assert cli._leakmon_config(off) is None and cli._slo_config(off).enforce is False
+    with pytest.raises(SystemExit, match="requires --fleet-members"):
+        cli.main(["--role", "fleet"])
+
+
 def test_cli_without_a_card_refuses_to_start(monkeypatch):
     import torch
 
@@ -275,27 +344,8 @@ def test_cli_standby_needs_a_state_dir_and_a_card(tmp_path, monkeypatch):
 def _check(argv):
     parser = cli.build_parser()
     args = parser.parse_args(argv)
-    cli._refuse_unported(parser, args, argv)
     cli._reject_misapplied_flags(parser, args, argv)
     return args
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["--role", "fleet", "--fleet-members", "h0:1"], "item 16"),
-    (["--leakmon"], "item 16"),
-    (["--leakmon-window", "256"], "item 16"),
-    (["--role", "engine", "--trace-ring-size", "512"], "item 16"),
-    (["--slo-commit-p99-ms", "250"], "item 16"),
-    (["--role", "engine", "--profile-enable"], "item 16"),
-    (["--adaptive-batch"], "item 16"),
-    (["--fleet-port", "0"], "item 16"),
-    (["--role", "standby", "--state-dir", "/x", "--leakmon"], "item 16"),
-])
-def test_unported_roles_and_flags_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A: .*{item}"):
-        _check(argv)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
 
 
 @pytest.mark.parametrize("argv", [
@@ -319,6 +369,13 @@ def test_unported_roles_and_flags_raise_naming_their_item(argv, item):
     ["--role", "standby", "--state-dir", "/x", "--listen", "insecure-grapevine://0.0.0.0:1"],
     ["--role", "standby", "--state-dir", "/x", "--host-workers", "2"],
     ["--role", "frontend", "--bucket-cipher-impl", "pallas_fused_tiled"],
+    ["--fleet-port", "0"],
+    ["--role", "frontend", "--leakmon"],
+    ["--role", "frontend", "--slo-commit-p99-ms", "250"],
+    ["--role", "frontend", "--adaptive-batch"],
+    ["--role", "fleet", "--fleet-members", "h0:1", "--device", "cpu"],
+    ["--role", "fleet", "--fleet-members", "h0:1", "--leakmon"],
+    ["--role", "engine", "--fleet-members", "h0:1"],
 ])
 def test_misapplied_flags_rejected(argv):
     with pytest.raises(SystemExit, match="does not take"):
@@ -346,6 +403,18 @@ def test_misapplied_flags_rejected(argv):
      "--worker-restart", "--seal-key-file", "/k", "--bucket-cipher-impl",
      "pallas_fused_tiled"],
     ["--role", "engine", "--bucket-cipher-impl", "pallas_fused"],
+    ["--role", "fleet", "--fleet-members", "h0:1"],
+    ["--leakmon"],
+    ["--leakmon-window", "256"],
+    ["--role", "engine", "--trace-ring-size", "512"],
+    ["--slo-commit-p99-ms", "250"],
+    ["--role", "engine", "--profile-enable"],
+    ["--adaptive-batch"],
+    ["--role", "standby", "--state-dir", "/x", "--leakmon"],
+    ["--role", "fleet", "--fleet-members", "h0:1,h1:2", "--fleet-port", "0",
+     "--fleet-scrape-interval", "0.5", "--metrics-host", "0.0.0.0"],
+    ["--role", "standby", "--state-dir", "/x", "--slo-commit-p99-ms", "100",
+     "--profile-enable", "--adaptive-batch", "--trace-ring-size", "64"],
 ])
 def test_valid_role_flag_combinations_accepted(argv):
     _check(argv)
