@@ -156,15 +156,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    clients; 3 B4 and 3 B6 a round, the same endpoint checks), and a
    ``FleetAggregator`` over (a)'s and (b)'s metrics ports: its merged
    family count, ``/healthz``, ``/leakaudit`` and lag gauges.
+14. the recursive position map and the radix sort at the production
+   point (``posmap_impl="recursive"``, ``sort_impl="radix"``), each slice
+   run first by a flat, ``"xla"`` twin from the same seed and requests:
+   (a) E=1 ``"pallas_fused_tiled"``, 7 rounds of phase 6's CRUD (3 B4
+   and 3 B6 a round), the 3rd to 6th depth-2 dispatches under
+   ``set_sync_debug_mode("error")``; (b) E=4 ``"pallas_fused"``, 4
+   windows (3 B3 a round, 2 B5 a flush; the internal trees flush inside
+   each flush); (c) phase 8 on (b)'s engines (B2 for the rows, the plain
+   keystream re-keys the leaf plane). Every response is checked against
+   the model and equals the twin's; the payload state (junk masked), the
+   generator and each position table (``read_table``) equal the twin's
+   after each part. Round, fetch-round and flush ms, the device ms of the
+   ``posmap``, ``leaf_plane`` and ``oram_evict_sort`` spans beside the
+   twin's, and the memory the map adds over the twin.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --standby-runbook N
+
+runs phase 12b alone N times instead (a flake rate for the process
+runbook): one line per run with its catch-up wait and the replication
+link events its processes logged, a count of failures, and a non-zero
+exit if any run failed.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -731,9 +754,12 @@ def host_counters() -> tuple[int, float, int]:
 
 #: the round's and the flush's record_function spans (the reference's
 #: device_phase names)
+#: the recursive position map's spans: the internal ORAM round, the leaf
+#: plane's keystream, and the eviction sort (radix or the comparison sort)
+POSMAP_SPANS = ("posmap", "leaf_plane", "oram_evict_sort")
 SPANS = ("round_a_mailbox", "round_b_records", "round_c_mailbox", "oram_fetch",
          "oram_apply", "oram_evict", "oram_writeback", "respond", "engine_flush",
-         "oram_flush", "sweep_records", "sweep_mailbox")
+         "oram_flush", "sweep_records", "sweep_mailbox") + POSMAP_SPANS
 
 
 def profile_round(fn, all_threads: bool = False) -> dict:
@@ -2619,10 +2645,11 @@ class _Proc:
     """A subprocess whose stdout lines are read by a thread; every wait on
     it has a wall limit, and a limit passed fails the phase."""
 
-    def __init__(self, argv, log_path: str):
+    def __init__(self, argv, log_path: str, name: str):
         import queue
         import threading
 
+        self.name = name
         self.log_path = log_path
         self._err = open(log_path, "w")
         self.p = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -2645,18 +2672,30 @@ class _Proc:
             except queue.Empty:
                 raise AssertionError(f"phase 12b: no {needle!r} within {limit_s} s") from None
             if line is None:
-                with open(self.log_path) as fh:
-                    tail = fh.read()[-2000:]
                 raise AssertionError(f"phase 12b: the process exited before {needle!r}: "
-                                     f"{tail}")
+                                     f"{self.tail(2000)}")
             if needle in line:
                 return line.strip()
+
+    def tail(self, n: int) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()[-n:]
 
     def close(self):
         if self.p.poll() is None:
             self.p.kill()
         self.p.wait(timeout=60)
         self._err.close()
+
+
+#: log lines that mark a replication link dropped, by the side that logs them
+LINK_EVENTS = ("replication feed dropped", "replication link lost", "Traceback")
+
+
+def _link_events(log_path: str) -> dict:
+    with open(log_path) as fh:
+        text = fh.read()
+    return {e: text.count(e) for e in LINK_EVENTS}
 
 
 def _healthz(port: int) -> dict:
@@ -2697,6 +2736,7 @@ def run_standby_runbook(card) -> dict:
                 "--batch-size", "64", "--evict-every", "1",
                 "--bucket-cipher-impl", "pallas_fused_tiled", "--batch-wait-ms", "20"]
     procs = []
+    lag, pmport = {}, None
     t_phase = time.perf_counter()
 
     def signed(seed, rt, recipient, payload, challenge, msg_id=C.ZERO_MSG_ID):
@@ -2712,7 +2752,7 @@ def run_standby_runbook(card) -> dict:
         standby = _Proc(cli + ["--role", "standby", "--state-dir", sdir, "--standby-listen",
                                "127.0.0.1:0", "--promote-from", pdir, "--engine-listen",
                                "127.0.0.1:0", "--metrics-port", "0"] + geometry,
-                        f"{tmp}/standby.log")
+                        f"{tmp}/standby.log", "standby")
         procs.append(standby)
         feed = int(standby.expect("standby replica on port", PROC_START_S).rsplit(" ", 1)[1])
         smport = int(standby.expect("metrics endpoint on port", PROC_STEP_S).rsplit(" ", 1)[1])
@@ -2720,7 +2760,8 @@ def run_standby_runbook(card) -> dict:
         t0 = time.perf_counter()
         primary = _Proc(cli + ["--role", "engine", "--engine-listen", "127.0.0.1:0",
                                "--state-dir", pdir, "--replicate-to", f"127.0.0.1:{feed}",
-                               "--metrics-port", "0"] + geometry, f"{tmp}/primary.log")
+                               "--metrics-port", "0"] + geometry, f"{tmp}/primary.log",
+                        "primary")
         procs.append(primary)
         eport = int(primary.expect("engine tier listening on port", PROC_START_S)
                     .rsplit(" ", 1)[1])
@@ -2743,7 +2784,6 @@ def run_standby_runbook(card) -> dict:
         writes_s = time.perf_counter() - t0
         stub.close()
         seq = _healthz(pmport)["durability"]["journal_seq"]
-        lag = {}
 
         def caught_up():
             lag.update(_healthz(smport))
@@ -2791,7 +2831,19 @@ def run_standby_runbook(card) -> dict:
                     acked_writes=len(acked), writes_s=writes_s, journal_seq=seq,
                     catch_up_s=catch_up_s, promoted_line=promoted, flip_s=flip_s,
                     read_back=read_back, dropped=len(acked) - read_back,
+                    link_events={p.name: _link_events(p.log_path) for p in procs},
                     phase_s=time.perf_counter() - t_phase, card=card)
+    except Exception as exc:
+        # the processes' logs die with the phase's directory: keep their
+        # ends, and the standby's last health, in the failure
+        tails = "".join(f"\n--- {p.name} log, last 3000 bytes ---\n{p.tail(3000)}"
+                        for p in procs)
+        try:
+            primary_health = _healthz(pmport) if pmport else None
+        except OSError as e:
+            primary_health = repr(e)
+        raise AssertionError(f"{exc}\nstandby health: {lag}\nprimary health: "
+                             f"{primary_health}{tails}") from exc
     finally:
         for p in procs:
             p.close()
@@ -3379,11 +3431,236 @@ def run_observability_phase(GrapevineConfig, geo: dict, gk, ck, card, serve_b: d
     return dict(a=part_a, b=part_b, phase_s=time.perf_counter() - t_phase)
 
 
+#: phase 14: the recursive position map and the radix sort at the
+#: production point, each slice beside a flat, "xla" twin from the seed
+POSMAP_KNOBS = dict(posmap_impl="recursive", sort_impl="radix")
+
+
+def _record_responses(eng) -> list:
+    """Keep every response of ``eng.handle_queries`` (packed, per call)."""
+    log: list = []
+    real = eng.handle_queries
+
+    def handle(reqs, now):
+        resp = real(reqs, now)
+        log.append([r.pack() for r in resp])
+        return resp
+
+    eng.handle_queries = handle
+    return log
+
+
+def _new_engine(GrapevineEngine, cfg, logs: list):
+    """A production engine (seed ``SEED``) with its responses recorded
+    into ``logs``; returns it with its init seconds and the device bytes
+    it holds once built."""
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = GrapevineEngine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    logs.append(_record_responses(eng))
+    return eng, init_s, torch.cuda.memory_allocated() - m0
+
+
+def posmap_twin_check(convert, eng, twin, where: str) -> None:
+    """A recursive/radix engine against its flat/"xla" twin: every payload
+    leaf (the trees, stashes, buffers, nonces, keys, epochs, freelist and
+    counters; junk bucket masked) and the generator equal, and each
+    recursive map's logical table equal to the twin's flat table."""
+    import numpy as np
+
+    from grapevine_tpu_torch.oram.posmap import read_table
+
+    def payload(e):
+        return {k: v for k, v in convert.to_numpy(e.state).items()
+                if ".posmap" not in k and not k.endswith("_leaf")}
+
+    diff = convert.first_difference(payload(eng), payload(twin), mask_junk=True)
+    if diff is not None:
+        raise AssertionError(f"{where}: the payload state differs from the twin's at {diff}")
+    if not torch.equal(eng.state.rng.get_state(), twin.state.rng.get_state()):
+        raise AssertionError(f"{where}: the generator differs from the twin's")
+    for t in ("rec", "mb"):
+        mine = read_table(getattr(eng.ecfg, t), getattr(eng.state, t).posmap)
+        flat = read_table(getattr(twin.ecfg, t), getattr(twin.state, t).posmap)
+        if not np.array_equal(mine, flat):
+            raise AssertionError(f"{where}: the {t} position table differs from the twin's")
+        if int(getattr(eng.state, t).posmap.inner.overflow):
+            raise AssertionError(f"{where}: the {t} internal ORAM overflowed")
+
+
+def radix_bench(ecfg) -> dict:
+    """``radix_rank`` against the comparison sort on the card (CUDA events,
+    20 launches) at each eviction working set of the round: records,
+    mailbox and the records map's internal round, keys below 2^height."""
+    from grapevine_tpu_torch.oblivious.radix import radix_rank
+    from grapevine_tpu_torch.oram.posmap import inner_oram_config
+    from grapevine_tpu_torch.u32 import widen
+
+    b, d = ecfg.batch_size, ecfg.mb_choices
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, cfg, nb in (("records", ecfg.rec, b), ("mailbox", ecfg.mb, b * d),
+                          ("records_map", inner_oram_config(ecfg.rec.posmap), b)):
+        w = cfg.stash_size + nb * cfg.path_len * cfg.bucket_slots + nb
+        keys = torch.randint(0, cfg.leaves, (w,), generator=gen, device="cuda").to(torch.int32)
+        out[name] = dict(keys=w, key_bits=cfg.height + 1,
+                         radix_ms=cuda_ms(lambda: radix_rank(keys, cfg.height + 1), 20),
+                         sort_ms=cuda_ms(lambda: torch.sort(widen(keys), stable=True), 20))
+    return out
+
+
+def _span_ms(prof: dict) -> dict:
+    return {k: prof["span_device_ms"].get(k) for k in POSMAP_SPANS}
+
+
+def run_posmap_phase(GrapevineConfig, GrapevineEngine, convert, geo: dict, gk, ck,
+                     card) -> dict:
+    """Phase 14: ``posmap_impl="recursive"``, ``sort_impl="radix"`` at the
+    production point, each slice run first by a flat, ``"xla"`` twin from
+    the same seed and requests: (a) E=1 ``"pallas_fused_tiled"``, 7 rounds
+    of phase 6's CRUD (B4, B6), the 3rd to 6th dispatches at depth 2 under
+    ``set_sync_debug_mode("error")``; (b) E=4 ``"pallas_fused"``, 4 windows
+    (B3, B5; the internal trees flush inside each flush); (c) phase 8's
+    sweep on (b)'s engine (B2 for the rows, the plain keystream for the
+    leaf plane). Every response is checked against the dict model and
+    equals the twin's; the payload state and the position tables equal the
+    twin's after each slice."""
+    from grapevine_tpu_torch.oram.posmap import posmap_hbm_bytes, posmap_private_bytes
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # (a) E=1, the tiled kernels
+    cfg_t = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
+    cfg_r = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled", **POSMAP_KNOBS)
+    logs: list = []
+    twin, _, twin_mem = _new_engine(GrapevineEngine, cfg_t, logs)
+    t_rounds, _, t_prof, *_ = run_slice(twin, 7, writes=True, profile_last=True)
+    torch.cuda.reset_peak_memory_stats()
+    eng, init_s, rec_mem = _new_engine(GrapevineEngine, cfg_r, logs)
+    if eng.pipeline_depth != 2:
+        raise AssertionError(f"phase 14a: the engine runs depth {eng.pipeline_depth}")
+    guard = SyncGuard(eng, 2, 6)
+    guard.install()
+    _reset_launches(gk, ck)
+    rounds, health, prof, *_ = run_slice(eng, 7, writes=True, profile_last=True)
+    launches_a = _launches(gk, ck)
+    guard.remove()
+    require_launches(launches_a, {"gather_decrypt_rows_tiled": 21,
+                                  "scatter_encrypt_rows_tiled": 21}, "phase 14a")
+    # the admission bound's exact read is the one sync a dispatch may make
+    # (a fresh engine's first); none of the guarded ones may
+    guarded_reads = [i for i in guard.fallback_reads if guard.first <= i < guard.last]
+    if guard.guarded != 4 or guarded_reads:
+        raise AssertionError(f"phase 14a: {guard.guarded} guarded dispatches, exact "
+                             f"reads in dispatches {guard.fallback_reads}")
+    if logs[0] != logs[1]:
+        raise AssertionError("phase 14a: the responses differ from the twin's")
+    posmap_twin_check(convert, eng, twin, "phase 14a")
+    line_a = slice_stats(cfg_r, rounds, health, init_s, launches_a, card)
+    twin_ms = sorted(r["s"] * 1e3 for r in t_rounds[1:] if not r.get("profiled"))
+    line_a.update(
+        guarded_dispatches=guard.guarded, host_syncs=0,
+        exact_reads=guard.fallback_reads,
+        max_round_ms=max(line_a["round_ms"][1:]),
+        span_device_ms=_span_ms(prof), round_device_ms=prof["device_ms"],
+        twin=dict(median_round_ms=statistics.median(twin_ms), max_round_ms=max(twin_ms),
+                  span_device_ms=_span_ms(t_prof), round_device_ms=t_prof["device_ms"]),
+        engine_bytes=rec_mem, twin_engine_bytes=twin_mem, added_bytes=rec_mem - twin_mem,
+        analytic_added=dict(
+            hbm_bytes={t: posmap_hbm_bytes(getattr(eng.ecfg, t)) for t in ("rec", "mb")},
+            private_bytes={t: posmap_private_bytes(getattr(eng.ecfg, t))
+                           for t in ("rec", "mb")},
+            flat_private_bytes={t: posmap_private_bytes(getattr(twin.ecfg, t))
+                                for t in ("rec", "mb")}),
+        posmap_spec={t: dataclasses.asdict(getattr(eng.ecfg, t).posmap)
+                     for t in ("rec", "mb")},
+        profile_top_kernels=prof["top_kernels"][:6], responses_equal_twin=True)
+    line_a["radix_vs_sort_ms"] = radix_bench(eng.ecfg)
+    out["a"] = line_a
+    del eng, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) E=4, the ring kernels, then (c) the sweep on the same engines
+    logs = []
+
+    def factory(cfg, seed):
+        e, _, mem = _new_engine(GrapevineEngine, cfg, logs)
+        mems.append(mem)
+        return e
+
+    mems: list = []
+    cfg_t = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY)
+    cfg_r = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused",
+                            evict_every=EVICT_EVERY, **POSMAP_KNOBS)
+    t_line, t_prof, _, twin, t_model, t_gone = run_evict_slice(factory, cfg_t, gk, ck, card)
+    line_b, prof_b, launches_b, eng, model, gone = run_evict_slice(factory, cfg_r, gk, ck,
+                                                                   card)
+    if logs[0] != logs[1]:
+        raise AssertionError("phase 14b: the responses differ from the twin's")
+    posmap_twin_check(convert, eng, twin, "phase 14b")
+    line_b.update(
+        span_device_ms=_span_ms(prof_b), added_bytes=mems[1] - mems[0],
+        twin=dict(median_fetch_round_ms=t_line["median_fetch_round_ms"],
+                  median_flush_ms=t_line["median_flush_ms"],
+                  span_device_ms=_span_ms(t_prof)),
+        responses_equal_twin=True)
+    out["b"] = line_b
+    t_exp = run_expiry_phase(twin, t_model, t_gone, gk, ck, card, "phase 14c twin")
+    exp = run_expiry_phase(eng, model, gone, gk, ck, card, "phase 14c")
+    if logs[0] != logs[1] or t_exp["evicted"] != exp["evicted"]:
+        raise AssertionError("phase 14c: the sweep's responses differ from the twin's")
+    posmap_twin_check(convert, eng, twin, "phase 14c")
+    prof_c = exp.pop("profile")
+    exp.update(leaf_plane_device_ms=prof_c["span_device_ms"].get("leaf_plane"),
+               twin_sweep_wall_ms=t_exp["sweep_wall_ms"],
+               twin_sweep_device_ms=t_exp["sweep_device_ms"])
+    out["c"] = exp
+    del eng, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = {k: launches_a.get(k, 0) + launches_b.get(k, 0)
+                       + exp["launches"].get(k, 0) for k in KERNELS}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def repeat_standby_runbook(n: int) -> int:
+    """Phase 12b alone, ``n`` times: each run's outcome on a line of its
+    own, then the count; 1 if any run failed."""
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    gk.build_library()  # once, before the processes that load it
+    failed = 0
+    for i in range(n):
+        try:
+            r = run_standby_runbook(card)
+            emit({"standby_runbook_run": i, "ok": True, "catch_up_s": r["catch_up_s"],
+                  "link_events": r["link_events"], "phase_s": r["phase_s"], "card": card})
+        except Exception as exc:
+            failed += 1
+            emit({"standby_runbook_run": i, "ok": False, "error": str(exc)[-4000:],
+                  "card": card})
+    emit({"standby_runbook_runs": n, "failed": failed, "card": card})
+    return 1 if failed else 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card and check it.")
+    ap.add_argument("--standby-runbook", type=int, default=0, metavar="N",
+                    help="run phase 12b alone N times instead of every phase")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
+    if args.standby_runbook:
+        return repeat_standby_runbook(args.standby_runbook)
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -3524,28 +3801,39 @@ def main() -> int:
                     for k in KERNELS}
     split("observability")
 
+    # phase 14: the recursive position map and the radix sort at the
+    # production point beside flat, "xla" twins — E=1 (B4, B6), E=4 (B3,
+    # B5) and its sweep (B2)
+    pm = run_posmap_phase(GrapevineConfig, GrapevineEngine, convert, geo, gk, ck, card)
+    split("posmap")
+
     launches_by_kernel = {
-        "cipher_rows_pallas": (pallas_launches["cipher_rows_pallas"]
+        "cipher_rows_pallas": (pm["launches"]["cipher_rows_pallas"]
+                               + pallas_launches["cipher_rows_pallas"]
                                + exp1["launches"]["cipher_rows_pallas"]
                                + exp4["launches"]["cipher_rows_pallas"]
                                + serve_launches["cipher_rows_pallas"]
                                + standby_launches["cipher_rows_pallas"]
                                + obs_launches["cipher_rows_pallas"]),
-        "gather_decrypt_rows": (evict_launches["gather_decrypt_rows"]
+        "gather_decrypt_rows": (pm["launches"]["gather_decrypt_rows"]
+                                + evict_launches["gather_decrypt_rows"]
                                 + pipe_launches["gather_decrypt_rows"]
                                 + serve_launches["gather_decrypt_rows"]
                                 + standby_launches["gather_decrypt_rows"]
                                 + obs_launches["gather_decrypt_rows"]),
-        "gather_decrypt_rows_tiled": (launches["gather_decrypt_rows_tiled"]
+        "gather_decrypt_rows_tiled": (pm["launches"]["gather_decrypt_rows_tiled"]
+                                      + launches["gather_decrypt_rows_tiled"]
                                       + pipe_launches["gather_decrypt_rows_tiled"]
                                       + serve_launches["gather_decrypt_rows_tiled"]
                                       + obs_launches["gather_decrypt_rows_tiled"]),
-        "scatter_encrypt_rows": (evict_launches["scatter_encrypt_rows"]
+        "scatter_encrypt_rows": (pm["launches"]["scatter_encrypt_rows"]
+                                 + evict_launches["scatter_encrypt_rows"]
                                  + pipe_launches["scatter_encrypt_rows"]
                                  + serve_launches["scatter_encrypt_rows"]
                                  + standby_launches["scatter_encrypt_rows"]
                                  + obs_launches["scatter_encrypt_rows"]),
-        "scatter_encrypt_rows_tiled": (launches["scatter_encrypt_rows_tiled"]
+        "scatter_encrypt_rows_tiled": (pm["launches"]["scatter_encrypt_rows_tiled"]
+                                       + launches["scatter_encrypt_rows_tiled"]
                                        + pipe_launches["scatter_encrypt_rows_tiled"]
                                        + serve_launches["scatter_encrypt_rows_tiled"]
                                        + obs_launches["scatter_encrypt_rows_tiled"]),
@@ -3568,6 +3856,9 @@ def main() -> int:
     emit({"standby_bootstrap": sc})
     emit({"observability_prod": obs["a"]})
     emit({"observability_tier_fleet": obs["b"], "phase_s": obs["phase_s"]})
+    emit({"posmap_e1": pm["a"]})
+    emit({"posmap_e4": pm["b"]})
+    emit({"posmap_sweep": pm["c"], "phase_s": pm["phase_s"]})
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",

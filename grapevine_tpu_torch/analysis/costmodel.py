@@ -16,9 +16,10 @@ Rows are priced from the round's documented schedule: fetch moves
 planes move ``B·k``, E=1 write-back mirrors the fetch, a flush scatters
 exactly ``flush_target_slots`` rows with zero gathers, and the expiry
 sweep streams every tree plane through its chunked pass exactly once.
-The port runs a flat position map (the recursive one is refused by
-``engine/state.py``), so the reference's internal-posmap terms are
-absent here: they are zero at every geometry the port accepts.
+A recursive position map adds the leaf plane (its own rows, a second
+nonce gather for its keystream, a second cipher stream) and composes the
+internal ORAM's round and flush under the ``pm_`` prefix, as the
+reference does.
 
 Consumer: ``obs/costmon.py`` exports the ledger as ``grapevine_cost_*``
 gauges plus the roofline-residual pairing against the tracer's device
@@ -75,12 +76,16 @@ def oram_round_rows(cfg, b: int, prefix: str = "") -> dict:
       per cache plane;
     - E=1 write-back scatters the same row counts back (nonces only
       when the at-rest cipher is on — plaintext trees commit no epoch);
-    - E>1 rounds are HBM-read-only: zero tree/cache scatters.
+    - E>1 rounds are HBM-read-only: zero tree/cache scatters;
+    - a recursive map adds the leaf plane (and re-gathers the nonce plane
+      for its keystream) and one internal round of the same ``b``,
+      composed under the ``pm_`` prefix.
     """
     z, v = cfg.bucket_slots, cfg.value_words
     n = cfg.n_buckets_padded
     k = cfg.top_cache_levels
     cb = cfg.cache_buckets
+    recursive = cfg.posmap is not None
     wb = 0 if cfg.delayed_eviction else 1  # write-back present?
     R = b * (cfg.path_len - k)
     C = b * k
@@ -90,11 +95,14 @@ def oram_round_rows(cfg, b: int, prefix: str = "") -> dict:
         f"{prefix}tree_val": PlaneRows((n, z * v), 1, z * v, R, wb * R),
         # the fetch always gathers the nonce plane (the keystream input
         # precedes the encrypted? branch); the epoch commit scatter only
-        # exists under the cipher
+        # exists under the cipher. The leaf plane's keystream re-gathers it.
         f"{prefix}nonces": PlaneRows(
-            (n, 2), 1, 2, R, wb * R if cfg.encrypted else 0,
+            (n, 2), 1, 2, R * (2 if recursive else 1),
+            wb * R if cfg.encrypted else 0,
         ),
     }
+    if recursive:
+        rows[f"{prefix}tree_leaf"] = PlaneRows((n, z), 1, z, R, wb * R)
     if cb:
         rows[f"{prefix}cache_idx"] = PlaneRows(
             (cb * z,), z, z, C, wb * C, hbm=False
@@ -102,6 +110,16 @@ def oram_round_rows(cfg, b: int, prefix: str = "") -> dict:
         rows[f"{prefix}cache_val"] = PlaneRows(
             (cb, z * v), 1, z * v, C, wb * C, hbm=False
         )
+        if recursive:
+            rows[f"{prefix}cache_leaf"] = PlaneRows(
+                (cb * z,), z, z, C, wb * C, hbm=False
+            )
+    if recursive:
+        from ..oram.posmap import inner_oram_config
+
+        rows.update(oram_round_rows(
+            inner_oram_config(cfg.posmap), b, prefix=f"{prefix}pm_"
+        ))
     return rows
 
 
@@ -116,10 +134,12 @@ def oram_flush_rows(cfg, prefix: str = "") -> dict:
     """Predicted rows per plane for ONE ``oram_flush(cfg, ·)``: every
     plane scatters exactly ``t = flush_target_rows`` rows (the window's
     fetched buckets, deduplicated), zero gathers anywhere — the window's
-    live rows were pulled into the private buffer at fetch time."""
+    live rows were pulled into the private buffer at fetch time. A
+    recursive map's internal tree flushes inside the same call."""
     z, v = cfg.bucket_slots, cfg.value_words
     n = cfg.n_buckets_padded
     cb = cfg.cache_buckets
+    recursive = cfg.posmap is not None
     t = flush_target_rows(cfg)
 
     rows = {
@@ -129,6 +149,8 @@ def oram_flush_rows(cfg, prefix: str = "") -> dict:
             (n, 2), 1, 2, 0, t if cfg.encrypted else 0
         ),
     }
+    if recursive:
+        rows[f"{prefix}tree_leaf"] = PlaneRows((n, z), 1, z, 0, t)
     if cb:
         rows[f"{prefix}cache_idx"] = PlaneRows(
             (cb * z,), z, z, 0, t, hbm=False
@@ -136,6 +158,16 @@ def oram_flush_rows(cfg, prefix: str = "") -> dict:
         rows[f"{prefix}cache_val"] = PlaneRows(
             (cb, z * v), 1, z * v, 0, t, hbm=False
         )
+        if recursive:
+            rows[f"{prefix}cache_leaf"] = PlaneRows(
+                (cb * z,), z, z, 0, t, hbm=False
+            )
+    if recursive:
+        from ..oram.posmap import inner_oram_config
+
+        rows.update(oram_flush_rows(
+            inner_oram_config(cfg.posmap), prefix=f"{prefix}pm_"
+        ))
     return rows
 
 
@@ -172,10 +204,11 @@ def engine_flush_rows(ecfg) -> dict:
 
 def expiry_sweep_rows(ecfg) -> dict:
     """Predicted full-pass rows per tree plane for one expiry sweep:
-    every chunked plane is read once and the idx/val planes are written
-    once — ``n_buckets_padded`` rows each. The nonce plane is re-keyed
-    by a broadcast store outside the chunk pass (counted in the ledger's
-    sweep bytes)."""
+    every chunked plane is read once and the idx/val (and, under a
+    recursive map with the cipher on, leaf) planes are written once —
+    ``n_buckets_padded`` rows each. The nonce plane is re-keyed by a
+    broadcast store outside the chunk pass (counted in the ledger's sweep
+    bytes)."""
     out = {}
     for prefix, cfg in (("rec_", ecfg.rec), ("mb_", ecfg.mb)):
         n = cfg.n_buckets_padded
@@ -183,6 +216,8 @@ def expiry_sweep_rows(ecfg) -> dict:
         out[f"{prefix}tree_idx"] = PlaneRows((n, z), 1, z, n, n)
         out[f"{prefix}tree_val"] = PlaneRows((n, z * v), 1, z * v, n, n)
         out[f"{prefix}nonces"] = PlaneRows((n, 2), 1, 2, n, n)
+        if cfg.posmap is not None and cfg.encrypted:
+            out[f"{prefix}tree_leaf"] = PlaneRows((n, z), 1, z, n, n)
     return out
 
 
@@ -297,7 +332,7 @@ def _round_sort_keys(cfg, b: int, occ_impl: str) -> int:
     """Sort key-volume of one oram_round: the eviction leaf argsort over
     the working set (E=1 only — fetch rounds recompact with rank_of,
     sort-free) plus the dedup group sort under the scan occurrence
-    machinery."""
+    machinery, composed recursively for the internal map round."""
     z = cfg.bucket_slots
     plen = cfg.path_len
     keys = 0
@@ -306,28 +341,53 @@ def _round_sort_keys(cfg, b: int, occ_impl: str) -> int:
         keys += w
     if occ_impl == "scan":
         keys += b  # occurrence group sort
+    if cfg.posmap is not None:
+        from ..oram.posmap import inner_oram_config
+
+        if occ_impl == "scan":
+            keys += b  # recursive group-last-slot sort
+        keys += _round_sort_keys(inner_oram_config(cfg.posmap), b, occ_impl)
     return keys
 
 
 def _flush_sort_keys(cfg) -> int:
     """One flush: the public window dedup sort plus the eviction
-    argsort over buffer ∪ stash."""
-    return (cfg.evict_window * cfg.evict_fetch_count * cfg.path_len
+    argsort over buffer ∪ stash (recursing into the internal map)."""
+    keys = (cfg.evict_window * cfg.evict_fetch_count * cfg.path_len
             + cfg.evict_buffer_slots + cfg.stash_size)
+    if cfg.posmap is not None:
+        from ..oram.posmap import inner_oram_config
+
+        keys += _flush_sort_keys(inner_oram_config(cfg.posmap))
+    return keys
 
 
 def _round_cipher_rows(cfg, b: int) -> int:
     """Keystream rows of one oram_round: decrypt the fetched bottom
-    rows, and under E=1 encrypt the same counts back."""
-    if not cfg.encrypted:
-        return 0
-    R = b * (cfg.path_len - cfg.top_cache_levels)
-    passes = 1 if cfg.delayed_eviction else 2  # fetch (+ write-back)
-    return R * passes
+    rows (+ the recursive leaf plane's stream), and under E=1 encrypt the
+    same counts back; plus the internal map round's."""
+    rows = 0
+    if cfg.encrypted:
+        R = b * (cfg.path_len - cfg.top_cache_levels)
+        streams = 2 if cfg.posmap is not None else 1  # idx/val + leaf
+        passes = 1 if cfg.delayed_eviction else 2  # fetch (+ write-back)
+        rows = R * streams * passes
+    if cfg.posmap is not None:
+        from ..oram.posmap import inner_oram_config
+
+        rows += _round_cipher_rows(inner_oram_config(cfg.posmap), b)
+    return rows
 
 
 def _flush_cipher_rows(cfg) -> int:
-    return flush_target_rows(cfg) if cfg.encrypted else 0
+    rows = 0
+    if cfg.encrypted:
+        rows = flush_target_rows(cfg) * (2 if cfg.posmap is not None else 1)
+    if cfg.posmap is not None:
+        from ..oram.posmap import inner_oram_config
+
+        rows += _flush_cipher_rows(inner_oram_config(cfg.posmap))
+    return rows
 
 
 def engine_cost_ledger(ecfg, occ_impl: str | None = None,
@@ -365,7 +425,7 @@ def engine_cost_ledger(ecfg, occ_impl: str | None = None,
             sweep.scatter_rows += n
             sweep.scatter_bytes += n * 2 * WORD_BYTES
             sweep.scatter_elems += n * 2
-            sweep.cipher_rows += 2 * n
+            sweep.cipher_rows += 2 * n * (2 if cfg.posmap is not None else 1)
     # round-phase cipher/sort volumes: records once, mailbox twice
     dec_total = (_round_cipher_rows(ecfg.rec, b)
                  + 2 * _round_cipher_rows(ecfg.mb, b * d))

@@ -745,8 +745,9 @@ class GrapevineEngine:
         eviction leaf sorts at their working-set sizes (W = stash +
         nb·path_len·Z + nb per ORAM round: mailbox A, records B, mailbox C;
         ``oram/round.py:_assign_evictions``) and the admission walk's slot
-        grouping (``segmented.group_sort``). Returns the min-of-``reps``
-        seconds."""
+        grouping (``segmented.group_sort``), each under the engine's
+        ``sort_impl``. Returns the min-of-``reps`` seconds."""
+        from ..oblivious.radix import radix_rank
         from ..oblivious.segmented import group_sort
         from ..oram.path_oram import random_below
         from ..u32 import widen
@@ -763,11 +764,16 @@ class GrapevineEngine:
                       for cfg, nb in ((ecfg.mb, b * d), (ecfg.rec, b), (ecfg.mb, b * d))]
             return leaves, random_below(gen, 1 << slot_bits, (b,), dev)
 
+        radix = ecfg.sort_impl == "radix"
+
         def run(inputs):
             leaves, rslot = inputs
-            for leaf in leaves:
-                torch.sort(widen(leaf), stable=True)
-            group_sort(rslot)
+            for cfg, leaf in zip((ecfg.mb, ecfg.rec, ecfg.mb), leaves):
+                if radix:
+                    radix_rank(leaf, cfg.height + 1)
+                else:
+                    torch.sort(widen(leaf), stable=True)
+            group_sort(rslot, sort_impl=ecfg.sort_impl, key_bits=slot_bits)
 
         return self._calibrate("sort", setup, run, reps)
 
@@ -778,10 +784,11 @@ class GrapevineEngine:
         records B, mailbox C) the duplicate masks and the flat map's
         lookup and remap (``oram/round.py:occurrence_masks``,
         ``oram/posmap.py:lookup_remap_round``) at the round's batch, on a
-        fresh map of the engine's geometry. Returns the min-of-``reps``
+        fresh map of the engine's geometry: under ``"recursive"`` that is
+        the internal ORAM's full round. Returns the min-of-``reps``
         seconds."""
         from ..oram.path_oram import random_below
-        from ..oram.posmap import lookup_remap_round
+        from ..oram.posmap import init_posmap, lookup_remap_round
         from ..oram.round import occurrence_masks
 
         ecfg, dev = self.ecfg, self.device
@@ -790,16 +797,28 @@ class GrapevineEngine:
 
         def setup():
             gen = torch.Generator(device=dev).manual_seed(17)
-            return [(cfg,
-                     random_below(gen, cfg.leaves, (cfg.blocks + 1,), dev),
-                     random_below(gen, cfg.blocks + 1, (nb,), dev),
-                     random_below(gen, cfg.leaves, (nb,), dev),
-                     random_below(gen, cfg.leaves, (nb,), dev)) for cfg, nb in jobs]
+            out = []
+            for cfg, nb in jobs:
+                pm = random_below(gen, cfg.leaves, (cfg.blocks + 1,), dev)
+                il = None
+                if cfg.posmap is not None:
+                    pm = init_posmap(cfg, pm, gen, dev)
+                    il = cfg.posmap.inner_leaves
+                out.append([cfg, pm,
+                            random_below(gen, cfg.blocks + 1, (nb,), dev),
+                            random_below(gen, cfg.leaves, (nb,), dev),
+                            random_below(gen, cfg.leaves, (nb,), dev),
+                            *((random_below(gen, il, (nb,), dev),
+                               random_below(gen, il, (nb,), dev)) if il else ())])
+            return out
 
         def run(inputs):
-            for cfg, table, idxs, nl, dl in inputs:
+            for job in inputs:
+                cfg, pm, idxs, nl, dl, *pml = job
                 fo, lo, _ = occurrence_masks(idxs, cfg.dummy_index)
-                lookup_remap_round(cfg, table, idxs, nl, dl, fo, lo)
+                # the internal round consumes its state: carry it on
+                job[1] = lookup_remap_round(cfg, pm, idxs, nl, dl, fo, lo, *pml,
+                                            sort_impl=ecfg.sort_impl)[0]
 
         return self._calibrate("posmap", setup, run, reps)
 

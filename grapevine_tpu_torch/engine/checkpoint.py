@@ -26,7 +26,10 @@ in int32 lanes, so leaves are converted with a view, never a value cast.
 One leaf differs from the reference: the last, ``rng``, holds the
 engine's ``torch.Generator`` state (``get_state()``, u8 ``|u1`` bytes)
 where the reference holds its ``uint32[2]`` PRNG key, so that replayed
-rounds draw exactly what the original rounds drew. The fingerprint
+rounds draw exactly what the original rounds drew; a recursive position
+map adds its side generator (``pm_rng``) after it, the same way. A
+recursive map's internal tree sits inside each ``OramState`` where the
+reference's pytree puts it (``posmap.inner.*``, ``posmap.dummy_entry``). The fingerprint
 hashes ``repr`` of the port's own ``EngineConfig``, so a checkpoint or
 journal written by the JAX package is refused with the reference's
 geometry error, never misread (the two packages' generators differ).
@@ -50,7 +53,7 @@ import torch
 
 from ..config import DurabilityConfig
 from ..device import resolve_device
-from ..oram.path_oram import OramState, oram_leaf_shapes
+from ..oram.path_oram import oram_from_leaves, oram_leaf_shapes, oram_leaves
 from ..testing import faults
 from ..u32 import from_numpy, to_numpy
 from .state import EngineConfig, EngineState
@@ -232,18 +235,22 @@ def engine_fingerprint(ecfg: EngineConfig) -> str:
 
 def state_spec(ecfg: EngineConfig) -> list[tuple]:
     """``(dtype str, shape)`` of every u32 leaf of an ``EngineState`` in
-    serialization order (the rng leaf, last, is checked apart)."""
+    serialization order (the generator leaves, last, are checked apart)."""
     engine = dict(freelist=(ecfg.max_messages,), free_top=(), recipients=(), seq=(2,),
                   hash_key=(2,), id_key=(4,))
-    shapes = [oram_leaf_shapes(cfg)[f] for cfg in (ecfg.rec, ecfg.mb)
-              for f in OramState._fields]
+    shapes = [s for cfg in (ecfg.rec, ecfg.mb) for s in oram_leaf_shapes(cfg).values()]
     shapes += [engine[k] for k in _ENGINE_LEAVES]
     return [("<u4", s) for s in shapes]
 
 
+def _generators(ecfg: EngineConfig) -> int:
+    """Generator leaves a state of this geometry carries: ``rng``, and a
+    recursive map's ``pm_rng``."""
+    return 2 if ecfg.posmap_impl == "recursive" else 1
+
+
 def _u32_leaves(state: EngineState) -> list[torch.Tensor]:
-    return ([getattr(state.rec, f) for f in OramState._fields]
-            + [getattr(state.mb, f) for f in OramState._fields]
+    return (list(oram_leaves(state.rec).values()) + list(oram_leaves(state.mb).values())
             + [getattr(state, k) for k in _ENGINE_LEAVES])
 
 
@@ -252,7 +259,7 @@ def state_to_bytes(ecfg: EngineConfig, state: EngineState) -> bytes:
     reference's pytree order (waits for the device)."""
     # tobytes() writes C order; ascontiguousarray would turn 0-d leaves 1-d
     arrays = [to_numpy(t).astype("<u4", copy=False) for t in _u32_leaves(state)]
-    arrays.append(state.rng.get_state().numpy())
+    arrays += [g.get_state().numpy() for g in (state.rng, state.pm_rng)[:_generators(ecfg)]]
     manifest = {
         "version": VERSION,
         "fingerprint": engine_fingerprint(ecfg),
@@ -286,16 +293,19 @@ def bytes_to_state(ecfg: EngineConfig, data, device=None) -> EngineState:
             "(capacities, heights, batch size, cipher) it was taken under"
         )
     spec = state_spec(ecfg)
+    ngen = _generators(ecfg)
     decl = manifest.get("leaves", [])
-    if len(decl) != len(spec) + 1:
+    if len(decl) != len(spec) + ngen:
         raise CheckpointError(
-            f"state payload has {len(decl)} leaves, geometry wants {len(spec) + 1}")
-    rng_dt, rng_shape = decl[-1]
-    if rng_dt != "|u1" or len(rng_shape) != 1:
-        raise CheckpointError(f"state leaf mismatch: generator state {rng_dt}{rng_shape}")
+            f"state payload has {len(decl)} leaves, geometry wants {len(spec) + ngen}")
+    gens = decl[len(spec):]
+    for rng_dt, rng_shape in gens:
+        if rng_dt != "|u1" or len(rng_shape) != 1:
+            raise CheckpointError(
+                f"state leaf mismatch: generator state {rng_dt}{rng_shape}")
     off = 4 + head_len
     arrays = []
-    for (dt_str, shape), (want_dt, want_shape) in zip(decl, spec + [(rng_dt, rng_shape)]):
+    for (dt_str, shape), (want_dt, want_shape) in zip(decl, spec + gens):
         shape = tuple(shape)
         if dt_str != want_dt or shape != tuple(want_shape):
             raise CheckpointError(
@@ -309,16 +319,21 @@ def bytes_to_state(ecfg: EngineConfig, data, device=None) -> EngineState:
         off += dt.itemsize * count
     if off != len(data):
         raise CheckpointError(f"state payload has {len(data) - off} trailing bytes")
-    gen = torch.Generator(device=dev)
-    try:
-        gen.set_state(torch.from_numpy(arrays.pop().copy()))
-    except RuntimeError as exc:
-        raise CheckpointError(f"generator state does not fit {dev}: {exc}") from None
-    leaves = [from_numpy(a.astype(np.uint32, copy=False), dev) for a in arrays]
-    nf = len(OramState._fields)
+    gens = []
+    for a in arrays[len(spec):]:
+        gen = torch.Generator(device=dev)
+        try:
+            gen.set_state(torch.from_numpy(a.copy()))
+        except RuntimeError as exc:
+            raise CheckpointError(f"generator state does not fit {dev}: {exc}") from None
+        gens.append(gen)
+    leaves = iter(from_numpy(a.astype(np.uint32, copy=False), dev)
+                  for a in arrays[:len(spec)])
+    rec = oram_from_leaves(ecfg.rec, lambda _name: next(leaves))
+    mb = oram_from_leaves(ecfg.mb, lambda _name: next(leaves))
     return EngineState(
-        rec=OramState(*leaves[:nf]), mb=OramState(*leaves[nf:2 * nf]),
-        **dict(zip(_ENGINE_LEAVES, leaves[2 * nf:])), rng=gen,
+        rec=rec, mb=mb, **{k: next(leaves) for k in _ENGINE_LEAVES},
+        rng=gens[0], pm_rng=gens[1] if ngen == 2 else None,
     )
 
 

@@ -17,6 +17,16 @@ mid-sweep memory snapshot exposes at most ~8 M words, not the bus). The
 trees are updated in place; the nonces take the old epoch and the epoch
 advances only after the last chunk, as in the reference.
 
+A recursive position map adds the per-slot leaf plane, encrypted under
+the same per-bucket nonces: the sweep re-keys every nonce, so the plane
+is re-keyed too (``path_oram.leaf_plane_cipher``'s plain keystream): the
+new epoch's keystream and the old nonce's are XORed into the ciphertext
+in place, so no leaf is ever in plaintext, in passes of up to 2^16 rows
+(a plane row is Z words: the rows' chunks would make thousands of tiny
+launches, and a pass's keystream temporaries, ~240 bytes a row, stay
+under one chunk of the rows). Its values never change, and the internal
+position tree is not swept.
+
 The cipher is the round's (``oram/path_oram.py:cipher_rows``): every
 ``pallas*`` impl on CUDA tensors runs the row-cipher kernel
 (``oblivious/cipher_kernels.py:cipher_rows_pallas``, B2), which raises
@@ -33,7 +43,7 @@ from torch.profiler import record_function
 from ..oblivious.bucket_cipher import epoch_next
 from ..oblivious.primitives import is_zero_words, u64_le, u64_sub
 from ..oblivious.radix import partition_rank
-from ..oram.path_oram import OramConfig, OramState, cipher_rows
+from ..oram.path_oram import OramConfig, OramState, cipher_rows, leaf_plane_cipher
 from ..u32 import SENTINEL, c32, ult
 from .state import (
     ENT_SEQ,
@@ -62,6 +72,11 @@ def _expired(ts_lo, ts_hi, now_lo, now_hi, period) -> torch.Tensor:
     return le & ((d_hi != 0) | ult(period, d_lo))
 
 
+#: leaf-plane rows re-keyed a pass (Z words a row; ~16 MB of keystream
+#: temporaries)
+_LEAF_ROWS = 1 << 16
+
+
 def _chunk_rows(cfg: OramConfig) -> int:
     """Rows per chunk: power of two, ~8M words of keystream."""
     n = cfg.n_buckets_padded
@@ -74,12 +89,8 @@ def _chunk_rows(cfg: OramConfig) -> int:
 def _chunked_tree_sweep(cfg: OramConfig, oram: OramState, carry, body):
     """Run ``body(carry, idx [rpc, Z], val [rpc, Z*V]) -> carry`` over the
     whole tree in chunks; ``body`` edits the plaintext chunk in place.
-    Returns (carry, OramState with the swept tree, nonces and epoch)."""
-    if oram.tree_leaf.numel():
-        raise NotImplementedError(
-            "expiry sweep of a tree with a leaf plane (recursive position "
-            "map) is not ported to the PyTorch engine yet (ROADMAP.md queue "
-            "A item 11)")
+    Returns (carry, OramState with the swept tree, leaf plane, nonces and
+    epoch)."""
     z, zv = cfg.bucket_slots, cfg.bucket_slots * cfg.value_words
     n = cfg.n_buckets_padded
     rpc = _chunk_rows(cfg)
@@ -88,6 +99,17 @@ def _chunked_tree_sweep(cfg: OramConfig, oram: OramState, carry, body):
     tree_val = oram.tree_val
     bids = torch.arange(n, dtype=I32, device=dev)
     new_ep = oram.epoch[None, :].expand(rpc, 2).contiguous()
+    if cfg.posmap is not None and cfg.encrypted:
+        # before the nonces move: the old nonce's keystream comes off
+        tree_leaf = oram.tree_leaf.view(n, z)
+        with record_function("leaf_plane"):
+            for lo in range(0, n, _LEAF_ROWS):
+                rows = slice(lo, lo + _LEAF_ROWS)
+                ep = oram.epoch[None, :].expand(tree_leaf[rows].shape[0], 2)
+                tree_leaf[rows] = leaf_plane_cipher(
+                    cfg, oram.cipher_key, bids[rows], oram.nonces[rows],
+                    leaf_plane_cipher(cfg, oram.cipher_key, bids[rows], ep,
+                                      tree_leaf[rows]))
     # the one chunk of plaintext every chunk reuses
     pidx = torch.empty((rpc, z), dtype=I32, device=dev)
     pval = torch.empty((rpc, zv), dtype=I32, device=dev)

@@ -99,19 +99,43 @@ def _send_msg(sock: socket.socket, mtype: int, payload: bytes) -> None:
     sock.sendall(_LEN.pack(1 + len(payload)) + bytes([mtype]) + payload)
 
 
+#: seconds a message already begun may go without a byte before the link
+#: is dropped (the primary then reconnects and resends from the standby's
+#: applied seq)
+MID_MESSAGE_STALL_S = 30.0
+#: largest single ``recv``: a corrupt length must not size one buffer
+_RECV_CHUNK = 1 << 20
+
+
 def _recv_exact(sock: socket.socket, n: int, *, start: bool) -> bytes | None:
     """Read exactly ``n`` bytes. EOF at a message boundary (``start``)
     returns None, a clean disconnect; EOF mid-message raises (the peer died
-    mid-send; the partial bytes are discarded, never applied)."""
-    buf = b""
+    mid-send; the partial bytes are discarded, never applied).
+
+    The socket's timeout is the caller's idle poll: it propagates only at a
+    message boundary. Once a message has begun, a timeout keeps the bytes
+    read so far and waits on (dropping them would leave the rest of the
+    message to be parsed as the next header); a stall past
+    ``MID_MESSAGE_STALL_S`` raises, which drops the link."""
+    buf = bytearray()
+    last = time.monotonic()
     while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
+        try:
+            chunk = sock.recv(min(n - len(buf), _RECV_CHUNK))
+        except socket.timeout:
+            if start and not buf:
+                raise
+            if time.monotonic() - last > MID_MESSAGE_STALL_S:
+                raise ReplicationError(
+                    f"peer stalled mid-message ({len(buf)}/{n} bytes)") from None
+            continue
         if not chunk:
             if start and not buf:
                 return None
             raise ReplicationError(f"peer closed mid-message ({len(buf)}/{n} bytes)")
         buf += chunk
-    return buf
+        last = time.monotonic()
+    return bytes(buf)
 
 
 def _recv_msg(sock: socket.socket) -> tuple[int, bytes] | None:

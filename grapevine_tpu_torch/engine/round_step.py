@@ -6,9 +6,12 @@ of the reference (its module docstring documents them), and under
 delayed eviction one flush of both trees every ``evict_every`` rounds.
 
 The round's random draws (fresh remap leaves, dummy-fetch leaves, id
-nonces) come from :func:`round_draws` on the state's generator;
-``engine_round_step(..., draws=)`` accepts them from the caller instead,
-which is how the tests feed both packages the same numbers.
+nonces) come from :func:`round_draws` on the state's generator; under a
+recursive position map the internal ORAMs' leaves come from
+:func:`pm_draws` on the state's side generator, so the main stream draws
+what it draws under the flat map. ``engine_round_step(..., draws=)``
+accepts them from the caller instead, which is how the tests feed both
+packages the same numbers.
 :func:`transcript_key_groups` is the host-side mirror of the round's key
 selection the leak monitor groups the transcript by (``obs/leakmon.py``).
 """
@@ -33,10 +36,25 @@ from .vphases import phase_a_batch, phase_b_batch, phase_c_batch
 I32 = torch.int32
 
 
+class PosmapDraws(NamedTuple):
+    """One round's internal-ORAM leaves under a recursive position map
+    (the reference's ``round_step.py:224-240``): remap and dummy leaves
+    for rounds A/B/C, each below its internal tree's leaf count."""
+
+    new_a: torch.Tensor  # int32[B*D] < mb inner leaves
+    dummy_a: torch.Tensor
+    new_b: torch.Tensor  # int32[B] < rec inner leaves
+    dummy_b: torch.Tensor
+    new_c: torch.Tensor  # int32[B*D]
+    dummy_c: torch.Tensor
+
+
 class RoundDraws(NamedTuple):
     """One round's private random draws (the reference's
     ``round_step.py:210-222``): remap leaves ``nl_*`` and dummy-fetch
-    leaves ``dl_*`` for rounds A/B/C, and ``id_rand`` int32[B, 3]."""
+    leaves ``dl_*`` for rounds A/B/C, and ``id_rand`` int32[B, 3];
+    ``pm`` the internal leaves (recursive map only; None draws them from
+    the state's side generator)."""
 
     nl_a: torch.Tensor  # int32[B*D] < mb.leaves
     nl_b: torch.Tensor  # int32[B] < rec.leaves
@@ -45,6 +63,7 @@ class RoundDraws(NamedTuple):
     dl_b: torch.Tensor
     dl_c: torch.Tensor
     id_rand: torch.Tensor  # int32[B, 3] u32 words
+    pm: PosmapDraws | None = None
 
 
 def round_draws(ecfg: EngineConfig, gen: torch.Generator, b: int, device) -> RoundDraws:
@@ -60,6 +79,15 @@ def round_draws(ecfg: EngineConfig, gen: torch.Generator, b: int, device) -> Rou
     dl_c = random_below(gen, mbl, (b * d,), device)
     return RoundDraws(nl_a, nl_b, nl_c, dl_a, dl_b, dl_c,
                       random_u32(gen, (b, 3), device))
+
+
+def pm_draws(ecfg: EngineConfig, gen: torch.Generator, b: int, device) -> PosmapDraws:
+    """Draw one round's internal leaves from the side generator ``gen``."""
+    d = ecfg.mb_choices
+    mbl = ecfg.mb.posmap.inner_leaves
+    recl = ecfg.rec.posmap.inner_leaves
+    return PosmapDraws(*(random_below(gen, n, (m,), device) for n, m in (
+        (mbl, b * d), (mbl, b * d), (recl, b), (recl, b), (mbl, b * d), (mbl, b * d))))
 
 
 def admission_fast_ok(ecfg: EngineConfig, free_top: int, recipients: int, b: int) -> bool:
@@ -135,8 +163,10 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     ``batch``: int32 tensors ``req_type[B]``, ``auth[B,8]``,
     ``msg_id[B,4]``, ``recipient[B,8]``, ``payload[B,234]`` and 0-dim
     ``now``/``now_hi`` (u64 clock lanes). Returns ``(state', responses,
-    transcripts int32[B, 2D+1])``. The input ``state``'s tree tensors are
-    updated in place (consumed, like a donated buffer).
+    transcripts int32[B, 2D+1])`` (``[B, 2(2D+1)]`` under a recursive
+    map: the internal ORAMs' columns appended in the same layout). The
+    input ``state``'s tree tensors are updated in place (consumed, like a
+    donated buffer).
 
     ``fast_ok`` is the quota admission branch, the reference's ``lax.cond``
     predicate ``free_top >= B and recipients + B <= max_recipients`` on the
@@ -154,6 +184,11 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     d = ecfg.mb_choices
     if draws is None:
         draws = round_draws(ecfg, state.rng, b, dev)
+    recursive = ecfg.posmap_impl == "recursive"
+    pm = draws.pm
+    if recursive and pm is None:
+        pm = pm_draws(ecfg, state.pm_rng, b, dev)
+    simpl = ecfg.sort_impl
 
     is_create = rt == C.REQUEST_TYPE_CREATE
     is_read = rt == C.REQUEST_TYPE_READ
@@ -197,7 +232,8 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     with record_function("round_a_mailbox"):
         mb1, out_a, leaf_a = oram_round(
             ecfg.mb, state.mb, idxs_mb_flat, draws.nl_a, draws.dl_a,
-            phase_a_batch(ecfg, ctx),
+            phase_a_batch(ecfg, ctx), simpl,
+            *((pm.new_a, pm.dummy_a) if recursive else ()),
         )
     free_top = torch.clamp(state.free_top - out_a["n_allocs"], max=ecfg.max_messages)
     recipients = state.recipients + out_a["n_claims"]
@@ -222,7 +258,8 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     with record_function("round_b_records"):
         rec1, out_b, leaf_b = oram_round(
             ecfg.rec, state.rec, idx_b, draws.nl_b, draws.dl_b,
-            phase_b_batch(ecfg, ctx_b),
+            phase_b_batch(ecfg, ctx_b), simpl,
+            *((pm.new_b, pm.dummy_b) if recursive else ()),
         )
 
     # freed blocks return to the freelist in slot order (next batch)
@@ -237,7 +274,8 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     with record_function("round_c_mailbox"):
         mb2, _out_c, leaf_c = oram_round(
             ecfg.mb, mb1, idxs_mb_flat, draws.nl_c, draws.dl_c,
-            phase_c_batch(ecfg, ctx_c),
+            phase_c_batch(ecfg, ctx_c), simpl,
+            *((pm.new_c, pm.dummy_c) if recursive else ()),
         )
 
     responses = assemble_responses(
@@ -246,14 +284,21 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
         create_ok=create_ok, out_b=out_b, new_id=out_a["new_id"], auth=auth,
         recipient=recipient, payload=payload, now2=torch.stack([now, now_hi]),
     )
-    # transcript: [B, 2D+1] columns (a_0..a_{D-1}, b, c_0..c_{D-1})
-    transcripts = torch.cat(
-        [leaf_a.reshape(b, d), leaf_b[:, None], leaf_c.reshape(b, d)], dim=1
-    )
+    # transcript: [B, 2D+1] columns (a_0..a_{D-1}, b, c_0..c_{D-1});
+    # a recursive map appends the internal ORAMs' in the same layout
+    def cols(a, bb, c):
+        return [a.reshape(b, d), bb[:, None], c.reshape(b, d)]
+
+    if recursive:
+        transcripts = torch.cat(
+            cols(leaf_a[:, 0], leaf_b[:, 0], leaf_c[:, 0])
+            + cols(leaf_a[:, 1], leaf_b[:, 1], leaf_c[:, 1]), dim=1)
+    else:
+        transcripts = torch.cat(cols(leaf_a, leaf_b, leaf_c), dim=1)
     new_state = EngineState(
         rec=rec1, mb=mb2, freelist=freelist, free_top=free_top,
         recipients=recipients.to(I32), seq=seq, hash_key=state.hash_key,
-        id_key=state.id_key, rng=state.rng,
+        id_key=state.id_key, rng=state.rng, pm_rng=state.pm_rng,
     )
     return new_state, responses, transcripts
 
@@ -263,8 +308,9 @@ def engine_flush_step(ecfg: EngineConfig, state: EngineState) -> EngineState:
 
     The engine calls it every ``evict_every`` rounds on the round-count
     cadence — never on buffer contents. Deterministic given the state
-    (no random draws); the trees are updated in place."""
+    (no random draws); the trees are updated in place. A recursive map's
+    internal trees flush inside the same call."""
     with record_function("engine_flush"):
-        rec = oram_flush(ecfg.rec, state.rec)
-        mb = oram_flush(ecfg.mb, state.mb)
+        rec = oram_flush(ecfg.rec, state.rec, ecfg.sort_impl)
+        mb = oram_flush(ecfg.mb, state.mb, ecfg.sort_impl)
     return state._replace(rec=rec, mb=mb)

@@ -16,6 +16,7 @@ import torch
 
 from ..config import GrapevineConfig
 from ..device import resolve_device
+from ..oram.posmap import derive_posmap_spec
 from ..oram.path_oram import (
     OramConfig,
     OramState,
@@ -62,6 +63,13 @@ class EngineConfig:
     mb_choices: int = 1
     #: delayed batched eviction: a flush every E engine rounds (1 = none)
     evict_every: int = 1
+    #: bounded-key sort engine (``oblivious/radix.py``): "xla" comparison
+    #: sorts or "radix" counting passes, the same permutations
+    sort_impl: str = "xla"
+    #: position map: "flat" or "recursive"; the per-tree geometry lives
+    #: in rec.posmap / mb.posmap (PosMapSpec), which ``repr`` and so the
+    #: checkpoint fingerprint cover
+    posmap_impl: str = "flat"
 
     @property
     def id_bits(self) -> int:
@@ -71,12 +79,15 @@ class EngineConfig:
     def from_config(cls, cfg: GrapevineConfig) -> "EngineConfig":
         """Resolve ``cfg`` for the port, refusing what it cannot run yet.
 
-        Auto values resolve to what the port runs: dense vphases, the
-        comparison sorts, a flat position map, a k=4 tree-top cache
-        (clamped per tree) and per-round eviction. Under ``evict_every``
-        E > 1 the records tree's window is E rounds of B fetched paths,
-        the mailbox tree's 2E rounds (rounds A and C) of B·D; buffer
-        sizes are ``evict_buffer_slots`` or derived per tree."""
+        Auto values resolve as the reference's do off the TPU, except
+        that the port's vphases are dense: the comparison sorts, a flat
+        position map, a k=4 tree-top cache (clamped per tree) and
+        per-round eviction. Under ``evict_every`` E > 1 the records
+        tree's window is E rounds of B fetched paths, the mailbox tree's
+        2E rounds (rounds A and C) of B·D; buffer sizes are
+        ``evict_buffer_slots`` or derived per tree. A recursive map
+        derives each tree's ``PosMapSpec`` (internal tree geometry,
+        cache depth and eviction window) as the reference does."""
         _refuse_unported(cfg)
         m = cfg.mailbox_table_buckets
         k = max(1, cfg.mailbox_slots)
@@ -96,6 +107,20 @@ class EngineConfig:
                 rec_c = derive_evict_buffer_slots(cfg.max_messages, rec_w, rec_f,
                                                   cfg.bucket_slots)
                 mb_c = derive_evict_buffer_slots(m, mb_w, mb_f, cfg.bucket_slots)
+        simpl = cfg.sort_impl if cfg.sort_impl is not None else "xla"
+        pimpl = cfg.posmap_impl if cfg.posmap_impl is not None else "flat"
+        rec_pm = mb_pm = None
+        if pimpl == "recursive":
+            rec_pm = derive_posmap_spec(
+                cfg.max_messages, stash_size=cfg.stash_size,
+                cipher_rounds=cfg.bucket_cipher_rounds, top_cache_levels=tc,
+                evict_window=rec_w, evict_fetch_count=rec_f,
+            )
+            mb_pm = derive_posmap_spec(
+                m, stash_size=cfg.stash_size,
+                cipher_rounds=cfg.bucket_cipher_rounds, top_cache_levels=tc,
+                evict_window=mb_w, evict_fetch_count=mb_f,
+            )
         return cls(
             max_messages=cfg.max_messages,
             max_recipients=cfg.max_recipients,
@@ -109,6 +134,7 @@ class EngineConfig:
                 cipher_rounds=cfg.bucket_cipher_rounds,
                 cipher_impl=cfg.bucket_cipher_impl,
                 n_blocks=cfg.max_messages,
+                posmap=rec_pm,
                 top_cache_levels=min(tc, cfg.records_height),
                 evict_window=rec_w,
                 evict_fetch_count=rec_f,
@@ -122,6 +148,7 @@ class EngineConfig:
                 cipher_rounds=cfg.bucket_cipher_rounds,
                 cipher_impl=cfg.bucket_cipher_impl,
                 n_blocks=m,
+                posmap=mb_pm,
                 top_cache_levels=min(tc, cfg.mailbox_height),
                 evict_window=mb_w,
                 evict_fetch_count=mb_f,
@@ -131,6 +158,8 @@ class EngineConfig:
             mb_slots=k,
             mb_choices=cfg.resolved_mailbox_choices,
             evict_every=ee,
+            sort_impl=simpl,
+            posmap_impl=pimpl,
         )
 
 
@@ -142,10 +171,6 @@ def _refuse_unported(cfg: GrapevineConfig) -> None:
         todo.append("commit='op' (ROADMAP.md queue A item 14, op-major engine)")
     if cfg.shards != 1:
         todo.append("shards > 1 (ROADMAP.md queue A item 15, multi-GPU sharding)")
-    if cfg.posmap_impl not in (None, "flat"):
-        todo.append("posmap_impl='recursive' (ROADMAP.md queue A item 11)")
-    if cfg.sort_impl not in (None, "xla"):
-        todo.append("sort_impl='radix' (ROADMAP.md queue A item 12)")
     if cfg.vphases_impl not in (None, "dense"):
         todo.append("vphases_impl='scan' (ROADMAP.md queue A item 7, _SortedGroups)")
     if todo:
@@ -164,18 +189,26 @@ class EngineState(NamedTuple):
     hash_key: torch.Tensor  # int32[2]: keyed mailbox-bucket PRF
     id_key: torch.Tensor  # int32[4]: block-index PRP key
     rng: torch.Generator  # the engine's private random stream
+    #: recursive position map only (None flat): the side stream the
+    #: internal ORAMs draw from, so ``rng`` advances exactly as under the
+    #: flat map (the reference folds its key with 0x504D)
+    pm_rng: torch.Generator | None = None
 
 
 def init_engine(ecfg: EngineConfig, seed: int = 0, device=None) -> EngineState:
     """Fresh engine state on ``device`` (``None`` → the CUDA card; raises
     without one); every random draw comes from one generator on that
     device seeded with ``seed`` (the reference's jax.random key has the
-    same standing; the two give different numbers)."""
+    same standing; the two give different numbers). A recursive map's
+    internal trees and leaves come from a second generator,
+    :func:`side_generator` of the first, so the first draws what it
+    draws under the flat map."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    rec = init_oram(ecfg.rec, gen, dev)
-    mb = init_oram(ecfg.mb, gen, dev)
+    side = side_generator(gen) if ecfg.posmap_impl == "recursive" else None
+    rec = init_oram(ecfg.rec, gen, dev, side)
+    mb = init_oram(ecfg.mb, gen, dev, side)
     return EngineState(
         rec=rec,
         mb=mb,
@@ -186,7 +219,21 @@ def init_engine(ecfg: EngineConfig, seed: int = 0, device=None) -> EngineState:
         hash_key=random_u32(gen, (2,), dev),
         id_key=random_u32(gen, (4,), dev),
         rng=gen,
+        pm_rng=side,
     )
+
+
+#: the reference's fold_in constant for its posmap side stream ("PM")
+_PM_FOLD = 0x504D
+
+
+def side_generator(gen: torch.Generator) -> torch.Generator:
+    """The recursive map's side stream: a generator on ``gen``'s device
+    seeded from ``gen``'s seed folded with 0x504D, drawing nothing from
+    ``gen`` itself."""
+    side = torch.Generator(device=gen.device)
+    side.manual_seed((gen.initial_seed() * 0x9E3779B97F4A7C15 + _PM_FOLD) % (1 << 63))
+    return side
 
 
 def mb_bucket_hash(hash_key, recipient, n_buckets: int, salt: int = 0):

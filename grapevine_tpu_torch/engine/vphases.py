@@ -190,7 +190,10 @@ def _admission_fast(ecfg, *, is_create_cand, is_pop_cand, found0, first_create,
     add = torch.where(create_elem, 1, torch.where(pop_elem, -1, 0)).to(I32)
     lo = torch.zeros(b, dtype=I32, device=dev)
     hi = torch.full((b,), cap, dtype=I32, device=dev)
-    perm, inv, seg = group_sort(rslot)
+    # rslot is a slot index (< B), bounded, so the walk's grouping sort
+    # follows the sort_impl knob
+    perm, inv, seg = group_sort(rslot, sort_impl=ecfg.sort_impl,
+                                key_bits=max(1, (b - 1).bit_length()))
     pre = segmented_exclusive_sat_scan((add[perm], lo[perm], hi[perm]), seg)
     count_before = sat_apply(pre, init_count[perm])[inv]
 

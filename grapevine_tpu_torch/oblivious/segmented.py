@@ -68,9 +68,17 @@ def segmented_exclusive_sat_scan(elems, seg_start):
     )
 
 
-def group_sort(group):
+def group_sort(group, sort_impl: str = "xla", key_bits: int | None = None):
     """Stable permutation ordering ops by (group, slot) → (perm, inv,
-    seg_start); ``perm``/``inv`` int64, ``group`` u32 lanes."""
+    seg_start); ``perm``/``inv`` int64, ``group`` u32 lanes.
+
+    ``sort_impl="radix"`` with a declared ``key_bits`` bound computes the
+    same permutation with counting passes (``oblivious/radix.py``);
+    without a declared bound the comparison sort is kept."""
+    if sort_impl == "radix" and key_bits is not None:
+        from .radix import radix_group_sort
+
+        return radix_group_sort([group], key_bits)
     perm = torch.sort(widen(group), stable=True).indices
     inv = torch.argsort(perm)
     sorted_g = group[perm]

@@ -481,15 +481,16 @@ class EngineLeakMonitor:
         """Build a monitor sized to an engine's ORAM geometry, publishing
         into the engine's own telemetry registry (one merged /metrics)."""
         ecfg = engine.ecfg
+        recursive = ecfg.rec.posmap is not None
         delayed = getattr(engine, "_flush_step", None) is not None
-        # the port's engine runs a flat position map (the recursive one
-        # is refused by engine/state.py), so no internal posmap streams
         return cls(
             mb_leaves=ecfg.mb.leaves,
             rec_leaves=ecfg.rec.leaves,
             mb_choices=ecfg.mb_choices,
             cfg=cfg,
             registry=engine.metrics.registry,
+            mb_pm_leaves=ecfg.mb.posmap.inner_leaves if recursive else None,
+            rec_pm_leaves=ecfg.rec.posmap.inner_leaves if recursive else None,
             flush_every=engine.evict_every if delayed else None,
         )
 

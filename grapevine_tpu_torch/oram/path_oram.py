@@ -7,6 +7,12 @@ ChaCha-encrypted at rest under per-bucket 64-bit write epochs
 (``nonces``). The position map, stash and tree-top cache are private
 working state. Threat model and algorithm as in the reference module.
 
+The position map is either the flat private table or, with
+``OramConfig.posmap`` set, a recursive position ORAM
+(``oram/posmap.py``); the recursive layout adds a per-slot leaf plane
+(``tree_leaf``, with its cache, stash and buffer mirrors) so eviction
+never consults the map, encrypted by :func:`leaf_plane_cipher`.
+
 Port conventions: u32 planes are int32 tensors with the same bits
 (``u32.py``); the state is a NamedTuple with exactly the reference's
 leaf names (unused planes zero-length), so states compare leaf by leaf;
@@ -33,9 +39,7 @@ MAX_U32_BLOCKS = 1 << 30
 
 @dataclasses.dataclass(frozen=True)
 class OramConfig:
-    """Static geometry of one bucket tree (the reference's fields; the
-    port runs a flat position map, so the reference's ``posmap`` field is
-    not carried)."""
+    """Static geometry of one bucket tree (the reference's fields)."""
 
     height: int  # leaves = 2**height
     value_words: int  # u32 words per block value
@@ -50,6 +54,10 @@ class OramConfig:
     cipher_impl: str = "jnp"
     #: logical block index space [0, n_blocks); None = leaves
     n_blocks: int | None = None
+    #: position-map geometry: None = the flat private table; a
+    #: ``posmap.PosMapSpec`` = the recursive position ORAM (``state.posmap``
+    #: is then a ``RecursivePosMapState`` and the leaf planes are real)
+    posmap: "object | None" = None
     #: tree-top cache depth k: heap buckets [0, 2^k − 1) live decrypted in
     #: the private cache planes; only the bottom levels touch the trees
     top_cache_levels: int = 0
@@ -146,11 +154,13 @@ class OramState(NamedTuple):
     tree_val: torch.Tensor  # int32[n_padded, Z*V]
     cache_idx: torch.Tensor  # int32[cache_buckets * Z]
     cache_val: torch.Tensor  # int32[cache_buckets, Z*V]
-    cache_leaf: torch.Tensor  # int32[0] (recursive posmap only)
-    tree_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    #: per-slot leaf planes, recursive posmap only (int32[0] flat): the
+    #: tree's is encrypted by leaf_plane_cipher, its mirrors are private
+    cache_leaf: torch.Tensor  # int32[cache_buckets * Z]
+    tree_leaf: torch.Tensor  # int32[n_padded * Z]
     stash_idx: torch.Tensor  # int32[S]
     stash_val: torch.Tensor  # int32[S, V]
-    stash_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    stash_leaf: torch.Tensor  # int32[S]
     #: delayed-eviction planes (zero-length at evict_window 1): the
     #: private buffer the fetch rounds recompact into, the public window
     #: ledger of fetched leaves, the rounds buffered so far, the flush
@@ -158,12 +168,13 @@ class OramState(NamedTuple):
     #: (== ebuf_gen: its tree copy is stale until the flush)
     ebuf_idx: torch.Tensor  # int32[C]; SENTINEL = empty row
     ebuf_val: torch.Tensor  # int32[C, V]
-    ebuf_leaf: torch.Tensor  # int32[0] (recursive posmap only)
+    ebuf_leaf: torch.Tensor  # int32[C] (recursive; int32[0] flat)
     ebuf_paths: torch.Tensor  # int32[window * fetch_count]
     ebuf_rounds: torch.Tensor  # int32 scalar
     ebuf_gen: torch.Tensor  # int32 scalar (starts at 1)
     fetch_tag: torch.Tensor  # int32[n_padded] (int32[0] at window 1)
-    posmap: torch.Tensor  # int32[blocks + 1] flat private table
+    #: int32[blocks + 1] flat private table, or a RecursivePosMapState
+    posmap: torch.Tensor
     overflow: torch.Tensor  # int32 scalar, sticky count of dropped blocks
     nonces: torch.Tensor  # int32[n_padded, 2] (lo, hi) write epochs
     cipher_key: torch.Tensor  # int32[8]
@@ -172,21 +183,64 @@ class OramState(NamedTuple):
 
 def oram_leaf_shapes(cfg: OramConfig) -> dict:
     """Each ``OramState`` leaf's shape for this geometry (what
-    :func:`init_oram` builds), by field name."""
+    :func:`init_oram` builds), by dotted name in the reference's pytree
+    order: a recursive map's leaves are ``posmap.inner.<field>`` (the
+    internal tree, recursively) and ``posmap.dummy_entry``."""
     z, v, n = cfg.bucket_slots, cfg.value_words, cfg.n_buckets_padded
     cb, s = cfg.cache_buckets, cfg.stash_size
     delayed = cfg.delayed_eviction
     c = cfg.evict_buffer_slots if delayed else 0
-    return dict(
+    rec = cfg.posmap is not None
+    out = dict(
         tree_idx=(n * z,), tree_val=(n, z * v), cache_idx=(cb * z,),
-        cache_val=(cb, z * v), cache_leaf=(0,), tree_leaf=(0,), stash_idx=(s,),
-        stash_val=(s, v), stash_leaf=(0,), ebuf_idx=(c,), ebuf_val=(c, v),
-        ebuf_leaf=(0,),
+        cache_val=(cb, z * v), cache_leaf=(cb * z if rec else 0,),
+        tree_leaf=(n * z if rec else 0,), stash_idx=(s,),
+        stash_val=(s, v), stash_leaf=(s if rec else 0,), ebuf_idx=(c,),
+        ebuf_val=(c, v), ebuf_leaf=(c if rec else 0,),
         ebuf_paths=(cfg.evict_window * cfg.evict_fetch_count if delayed else 0,),
         ebuf_rounds=(), ebuf_gen=(), fetch_tag=(n if delayed else 0,),
-        posmap=(cfg.blocks + 1,), overflow=(), nonces=(n, 2), cipher_key=(8,),
-        epoch=(2,),
     )
+    if rec:
+        from .posmap import inner_oram_config
+
+        for f, shape in oram_leaf_shapes(inner_oram_config(cfg.posmap)).items():
+            out[f"posmap.inner.{f}"] = shape
+        out["posmap.dummy_entry"] = ()
+    else:
+        out["posmap"] = (cfg.blocks + 1,)
+    out.update(overflow=(), nonces=(n, 2), cipher_key=(8,), epoch=(2,))
+    return out
+
+
+def oram_leaves(o: OramState) -> dict:
+    """``o``'s tensors by the dotted names of :func:`oram_leaf_shapes`,
+    in the same order."""
+    out = {}
+    for f in OramState._fields:
+        x = getattr(o, f)
+        if f == "posmap" and not isinstance(x, torch.Tensor):
+            for g, t in oram_leaves(x.inner).items():
+                out[f"posmap.inner.{g}"] = t
+            out["posmap.dummy_entry"] = x.dummy_entry
+        else:
+            out[f] = x
+    return out
+
+
+def oram_from_leaves(cfg: OramConfig, get) -> OramState:
+    """Rebuild an ``OramState`` of geometry ``cfg`` from ``get(dotted
+    name) -> tensor`` (the inverse of :func:`oram_leaves`)."""
+    fields = {}
+    for f in OramState._fields:  # in leaf order: ``get`` may be a stream
+        if f == "posmap" and cfg.posmap is not None:
+            from .posmap import RecursivePosMapState, inner_oram_config
+
+            inner = oram_from_leaves(inner_oram_config(cfg.posmap),
+                                     lambda g: get(f"posmap.inner.{g}"))
+            fields[f] = RecursivePosMapState(inner, get("posmap.dummy_entry"))
+        else:
+            fields[f] = get(f)
+    return OramState(**fields)
 
 
 def random_u32(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -201,33 +255,47 @@ def random_below(gen: torch.Generator, high: int, shape, device) -> torch.Tensor
                          device=device).to(I32)
 
 
-def init_oram(cfg: OramConfig, gen: torch.Generator, device) -> OramState:
+def init_oram(cfg: OramConfig, gen: torch.Generator, device,
+              side: torch.Generator | None = None) -> OramState:
     """Empty tree; position map drawn uniformly over the leaves from
-    ``gen``; the all-zero tree is its own ciphertext (epoch 0)."""
+    ``gen``; the all-zero tree is its own ciphertext (epoch 0).
+
+    A recursive map (``cfg.posmap`` set) draws the same table from
+    ``gen`` and packs it into an internal tree built from ``side``
+    (``posmap.init_posmap``), so ``gen`` advances exactly as under the
+    flat map; the leaf planes are allocated."""
     z, v = cfg.bucket_slots, cfg.value_words
     cb = cfg.cache_buckets
     delayed = cfg.delayed_eviction
     c = cfg.evict_buffer_slots if delayed else 0
+    rec = cfg.posmap is not None
 
     def full(shape, val):
         return torch.full(shape, val, dtype=I32, device=device)
 
-    empty = full((0,), 0)
-    posmap = random_below(gen, cfg.leaves, (cfg.blocks + 1,), device)
+    table = random_below(gen, cfg.leaves, (cfg.blocks + 1,), device)
     cipher_key = random_u32(gen, (8,), device)
+    if rec:
+        from .posmap import init_posmap
+
+        if side is None:
+            raise ValueError("a recursive position map needs the side generator")
+        posmap = init_posmap(cfg, table, side, device)
+    else:
+        posmap = table
     return OramState(
         tree_idx=full((cfg.n_buckets_padded * z,), SENTINEL),
         tree_val=full((cfg.n_buckets_padded, z * v), 0),
         cache_idx=full((cb * z,), SENTINEL),
         cache_val=full((cb, z * v), 0),
-        cache_leaf=empty,
-        tree_leaf=empty.clone(),
+        cache_leaf=full((cb * z if rec else 0,), 0),
+        tree_leaf=full((cfg.n_buckets_padded * z if rec else 0,), 0),
         stash_idx=full((cfg.stash_size,), SENTINEL),
         stash_val=full((cfg.stash_size, v), 0),
-        stash_leaf=empty.clone(),
+        stash_leaf=full((cfg.stash_size if rec else 0,), 0),
         ebuf_idx=full((c,), SENTINEL),
         ebuf_val=full((c, v), 0),
-        ebuf_leaf=empty.clone(),
+        ebuf_leaf=full((c if rec else 0,), 0),
         ebuf_paths=full((cfg.evict_window * cfg.evict_fetch_count if delayed else 0,), 0),
         ebuf_rounds=full((), 0),
         # generation 1 over an all-zero tag plane: nothing is stale
@@ -270,6 +338,22 @@ def cipher_rows(cfg: OramConfig, key, buckets, epochs, pidx, pval, out=None):
     return out
 
 
+def leaf_plane_cipher(cfg: OramConfig, key, buckets, epochs, pleaf):
+    """XOR leaf-plane rows int32[R, Z] with their keystream (encrypt ≡
+    decrypt; recursive posmap only). A slot's leaf is the block's future
+    fetch path, so the plane rides the bucket cipher; its nonce's bucket
+    word is offset by ``n_buckets_padded`` (heap ids never reach that
+    range), which separates this stream from the row keystream under the
+    same (bucket, epoch). The plain PyTorch keystream under every
+    ``cipher_impl``, as the reference keeps it on jnp: the fused kernels
+    cover only the idx/val planes."""
+    if not cfg.encrypted:
+        return pleaf
+    ks = row_keystream(key, buckets + cfg.n_buckets_padded, epochs,
+                       cfg.bucket_slots, cfg.cipher_rounds)
+    return pleaf ^ ks
+
+
 def path_bucket_indices(cfg: OramConfig, leaf) -> torch.Tensor:
     """Heap indices of the root→leaf path buckets: int32[..., path_len]."""
     depths = torch.arange(cfg.path_len, dtype=I32, device=leaf.device)
@@ -290,9 +374,13 @@ def _path_gather(tree, path_b):
 def _path_scatter_(tree, path_b, new_vals, owner):
     """Write the owned path rows back in place; rows with ``owner``
     False are not written at all (the reference drops them out of
-    bounds). The owner mask selects a data-dependent row count: one
-    device sync on CUDA (this is the plain ``"jnp"`` path)."""
-    tree[path_b[owner].long()] = new_vals[owner]
+    bounds). Non-owner rows are sent to the junk bucket (the last row,
+    which no heap id addresses) and the junk row is restored after, so
+    the shape is fixed and no value is read back to the host."""
+    junk = tree.shape[0] - 1
+    saved = tree[junk].clone()
+    tree[torch.where(owner, path_b, junk).long()] = new_vals
+    tree[junk] = saved
     return tree
 
 

@@ -1,5 +1,5 @@
 """Batched Path-ORAM access round: one fetch, N ops, one eviction (port of
-``grapevine_tpu/oram/round.py``, single device, flat position map).
+``grapevine_tpu/oram/round.py``, single device).
 
 1. **Dedup + fetch**: duplicate indices after the first occurrence fetch a
    fresh dummy path; all B paths are fetched at once, and buckets shared
@@ -16,6 +16,14 @@
    leftovers recompact into the stash; owned buckets are written back
    (a fused encrypt+scatter kernel on the fused paths) — write
    transcript ≡ read transcript.
+
+With a recursive position map (``cfg.posmap``, ``oram/posmap.py``) step
+1 resolves positions through one internal ORAM round and also gathers
+and decrypts the per-slot leaf plane (the plain keystream,
+``leaf_plane_cipher``) beside the fused fetch; eviction reads leaves
+from that plane, never from the map, and the plane is re-encrypted and
+owner-masked on write-back. The transcript is then ``[B, 2]``: column 0
+the payload tree, column 1 the internal ORAM.
 
 Delayed eviction (``evict_window`` > 1): :func:`oram_round` runs
 :func:`_oram_fetch_round` instead — steps 1-2, then every live row
@@ -40,6 +48,7 @@ from ..oblivious.gather_kernels import (
     scatter_encrypt_rows_tiled,
 )
 from ..oblivious.primitives import rank_of, scatter_drop, scatter_fresh
+from ..oblivious.radix import radix_rank
 from ..u32 import SENTINEL, ult, widen
 from .path_oram import (
     OramConfig,
@@ -47,6 +56,7 @@ from .path_oram import (
     _path_gather,
     _path_scatter_,
     cipher_rows,
+    leaf_plane_cipher,
     path_bucket_indices,
     path_slot_indices,
     working_leaves,
@@ -83,18 +93,27 @@ def _bucket_owner_map(cfg: OramConfig, flat_b):
 
 
 def _assign_evictions(cfg: OramConfig, valid, wleaf, bucket_map, n_targets: int,
-                      nslots: int, slot_of):
+                      nslots: int, slot_of, sort_impl: str = "xla"):
     """Joint level-synchronous greedy eviction assignment: one stable sort
     of the working set by leaf (invalid rows last), then per level a
     segmented rank caps each bucket at Z. Returns ``(slot_tgt int32[W],
     placed bool[W])`` in working-set order; ``slot_tgt == nslots`` means
-    unplaced."""
+    unplaced. ``sort_impl="radix"`` ranks by counting passes instead of
+    the comparison sort: the same permutation."""
     h, z = cfg.height, cfg.bucket_slots
     w = valid.shape[0]
     dev = valid.device
     skey = torch.where(valid, wleaf, SENTINEL)
-    # widened to int64 so the SENTINEL (0xFFFFFFFF) sorts LAST, as u32
-    eperm = torch.sort(widen(skey), stable=True).indices
+    if sort_impl == "radix":
+        # leaves are h bits; invalid rows sort last under the 2^h
+        # sentinel exactly as under 0xFFFFFFFF (both sorts are stable),
+        # so the permutation is the argsort's at h + 1 declared bits
+        with record_function("oram_evict_sort"):
+            eperm = radix_rank(torch.where(valid, wleaf, 1 << h), h + 1)
+    else:
+        with record_function("oram_evict_sort"):
+            # widened to int64 so the SENTINEL (0xFFFFFFFF) sorts LAST, as u32
+            eperm = torch.sort(widen(skey), stable=True).indices
     sleaf = skey[eperm]
     svalid = valid[eperm]
     iota_w = torch.arange(w, dtype=I32, device=dev)
@@ -134,16 +153,20 @@ def _fused_kernels(cfg: OramConfig):
     return None
 
 
-def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves):
+def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
+           pm_new_leaves=None, pm_dummy_leaves=None, sort_impl: str = "xla"):
     """Step 1 of both round programs: dedup, posmap read/remap, the
     owner map, and the decrypted path rows (top ``k`` levels from the
-    cache). Returns a dict of the round's public and private pieces."""
+    cache); under a recursive map also the decrypted leaf plane rows
+    (``pleaf``) and the internal transcript. Returns a dict of the
+    round's public and private pieces."""
     b = idxs.shape[0]
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
     dev = idxs.device
     first_occ, last_occ, _ = occurrence_masks(idxs, cfg.dummy_index)
-    posmap, leaves = lookup_remap_round(
-        cfg, state.posmap, idxs, new_leaves, dummy_leaves, first_occ, last_occ
+    posmap, leaves, inner_leaves = lookup_remap_round(
+        cfg, state.posmap, idxs, new_leaves, dummy_leaves, first_occ, last_occ,
+        pm_new_leaves, pm_dummy_leaves, sort_impl=sort_impl,
     )
     path_b = path_bucket_indices(cfg, leaves)  # [B, plen]
     flat_b = path_b.reshape(b * plen)
@@ -160,6 +183,7 @@ def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves):
     top_slots = path_slot_indices(cfg, top_b).reshape(-1)
 
     fused = _fused_kernels(cfg)
+    pleaf = None
     with record_function("oram_fetch"):
         if fused is not None:
             pidx, pval = fused[0](
@@ -182,18 +206,35 @@ def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves):
                 [state.cache_val[top_b.long()].reshape(b, kc, z * v),
                  pval.reshape(b, nbot, z * v)], dim=1,
             ).reshape(b * plen, z * v)
+        if cfg.posmap is not None:
+            # the leaf plane rides its own plain keystream beside the
+            # fused fetch (the kernels cover only the idx/val planes)
+            with record_function("leaf_plane"):
+                pleaf = leaf_plane_cipher(
+                    cfg, state.cipher_key, bot_b,
+                    _path_gather(state.nonces, bot_b),
+                    _path_gather(state.tree_leaf.view(-1, z), bot_b),
+                )
+            if kc:
+                pleaf = torch.cat(
+                    [state.cache_leaf[top_slots.long()].reshape(b, kc, z),
+                     pleaf.reshape(b, nbot, z)], dim=1,
+                )
+            pleaf = pleaf.reshape(-1)
     return dict(first_occ=first_occ, last_occ=last_occ, posmap=posmap,
-                leaves=leaves, path_b=path_b, flat_b=flat_b, bmap=bmap,
-                fowner=fowner, bot_b=bot_b, top_b=top_b, top_slots=top_slots,
-                pidx=pidx, pval=pval)
+                leaves=leaves, inner_leaves=inner_leaves, path_b=path_b,
+                flat_b=flat_b, bmap=bmap, fowner=fowner, bot_b=bot_b,
+                top_b=top_b, top_slots=top_slots, pidx=pidx, pval=pval,
+                pleaf=pleaf)
 
 
 def _apply(cfg: OramConfig, idxs, last_occ, keep, head_idx, head_val, pidx,
            pval, apply_batch):
     """Step 2 of both round programs over the working set ``head`` ++
     fetched rows (``keep`` False invalidates a row) ++ B insert rows.
-    Returns ``(widx, wval, outs)`` after the round's last op on each key
-    has committed the callback's final state."""
+    Returns ``(widx, wval, outs, row_tgt)`` after the round's last op on
+    each key has committed the callback's final state; ``row_tgt``
+    int64[B] is the working-set row each op committed (``W`` = none)."""
     b = idxs.shape[0]
     v = cfg.value_words
     dev = idxs.device
@@ -233,33 +274,53 @@ def _apply(cfg: OramConfig, idxs, last_occ, keep, head_idx, head_val, pidx,
     ).long()
     widx_x[row_tgt] = torch.where(final_alive, idxs, SENTINEL)
     wval_x[row_tgt] = final_val
-    return widx_x[:w], wval_x[:w], outs
+    return widx_x[:w], wval_x[:w], outs, row_tgt
 
 
-def _recompact(n: int, widx, wval, keep):
+def _working_leaf_plane(head_leaf, pleaf, row_tgt, new_leaves):
+    """Recursive map: the working set's leaves from the leaf planes
+    (``head`` ++ fetched rows ++ B insert rows); rows committed this
+    round take their key's winning fresh leaf, the value the map's remap
+    just recorded."""
+    b = new_leaves.shape[0]
+    wl = torch.cat([head_leaf, pleaf,
+                    torch.zeros(b + 1, dtype=I32, device=pleaf.device)])
+    wl[row_tgt] = new_leaves  # the spill row absorbs uncommitted ops
+    return wl[:-1]
+
+
+def _recompact(n: int, widx, wval, keep, wleaf=None):
     """Rows with ``keep`` packed in order into fresh ``n``-row planes
-    (the rest dropped); returns ``(idx, val, dropped int32)``."""
+    (the rest dropped); returns ``(idx, val, leaf, dropped int32)``
+    (``leaf`` None without a leaf plane)."""
     target = torch.where(keep, rank_of(keep), n).long()
     idx = scatter_fresh(n, SENTINEL, target, widx)
     val = scatter_fresh(n, 0, target, wval)
+    leaf = None if wleaf is None else scatter_fresh(n, 0, target, wleaf)
     dropped = torch.clamp(keep.to(I32).sum() - n, min=0).to(I32)
-    return idx, val, dropped
+    return idx, val, leaf, dropped
 
 
-def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval):
+def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval,
+                pleaf=None):
     """Encrypt rows under ``state.epoch`` and write the owned ones into
-    the trees in place with their nonce. The rest are not written: the
-    fused kernels and the unfused path both skip them (on the CPU the
-    fused kernels' plain versions send them to the junk bucket, as the
+    the trees in place with their nonce (and, with ``pleaf``, the leaf
+    plane under its own keystream). The rest are not written: the fused
+    kernels and the unfused path both skip them (on the CPU the fused
+    kernels' plain versions send them to the junk bucket, as the
     reference does; heap ids never address it)."""
     z = cfg.bucket_slots
     fused = _fused_kernels(cfg)
     tree_idx, tree_val, nonces = state.tree_idx, state.tree_val, state.nonces
+    epochs_w = state.epoch[None, :].expand(tgt_b.shape[0], 2)
+    if pleaf is not None:
+        with record_function("leaf_plane"):
+            enc = leaf_plane_cipher(cfg, state.cipher_key, tgt_b, epochs_w, pleaf)
+        _path_scatter_(state.tree_leaf.view(-1, z), tgt_b, enc, owner)
     if fused is not None:
         fused[1](state.cipher_key, tree_idx, tree_val, nonces, tgt_b, owner,
                  state.epoch, pidx, pval, z=z, rounds=cfg.cipher_rounds)
         return
-    epochs_w = state.epoch[None, :].expand(tgt_b.shape[0], 2)
     enc_pidx, enc_pval = cipher_rows(
         cfg, state.cipher_key, tgt_b, epochs_w, pidx, pval
     )
@@ -269,85 +330,114 @@ def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval):
         _path_scatter_(nonces, tgt_b, epochs_w, owner)
 
 
+def _transcript(f: dict):
+    """The round's public transcript: int32[B], or ``[B, 2]`` (payload
+    tree, internal ORAM) under a recursive map."""
+    if f["inner_leaves"] is None:
+        return f["leaves"]
+    return torch.stack([f["leaves"], f["inner_leaves"]], dim=1)
+
+
 def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
-               dummy_leaves, apply_batch):
+               dummy_leaves, apply_batch, sort_impl: str = "xla",
+               pm_new_leaves=None, pm_dummy_leaves=None):
     """One batched oblivious access round over this ORAM.
 
     ``apply_batch(vals0 int32[B,V], present0 bool[B]) -> (outs,
     final_val int32[B,V], final_alive bool[B])`` as in the reference.
-    Returns ``(state', outs, leaves int32[B])``; ``leaves`` is the public
-    transcript. Under delayed eviction this is the fetch-only
-    :func:`_oram_fetch_round`."""
+    Returns ``(state', outs, leaves)``; ``leaves`` int32[B] is the public
+    transcript, ``[B, 2]`` under a recursive map (``pm_new_leaves`` /
+    ``pm_dummy_leaves`` then supply fresh uniform internal leaves).
+    ``sort_impl`` picks the eviction sort (``"xla"`` comparison,
+    ``"radix"`` counting passes; the same permutation). Under delayed
+    eviction this is the fetch-only :func:`_oram_fetch_round`."""
     if cfg.delayed_eviction:
         return _oram_fetch_round(cfg, state, idxs, new_leaves, dummy_leaves,
-                                 apply_batch)
+                                 apply_batch, sort_impl, pm_new_leaves,
+                                 pm_dummy_leaves)
     b = idxs.shape[0]
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
     s = cfg.stash_size
     nslots = b * plen * z
+    recursive = cfg.posmap is not None
 
-    f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves)
+    f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves, pm_new_leaves,
+               pm_dummy_leaves, sort_impl)
     # non-owner copies of shared buckets are invalidated
-    widx, wval, outs = _apply(cfg, idxs, f["last_occ"], f["fowner"],
-                              state.stash_idx, state.stash_val, f["pidx"],
-                              f["pval"], apply_batch)
+    widx, wval, outs, row_tgt = _apply(
+        cfg, idxs, f["last_occ"], f["fowner"], state.stash_idx, state.stash_val,
+        f["pidx"], f["pval"], apply_batch)
     posmap, fowner = f["posmap"], f["fowner"]
-    wleaf = working_leaves(posmap, cfg, widx)
+    if recursive:
+        wleaf = _working_leaf_plane(state.stash_leaf, f["pleaf"], row_tgt, new_leaves)
+    else:
+        wleaf = working_leaves(posmap, cfg, widx)
 
     # --- 3. joint level-synchronous greedy eviction --------------------
     with record_function("oram_evict"):
         valid = widx != SENTINEL
         slot_tgt, placed = _assign_evictions(
             cfg, valid, wleaf, f["bmap"], b, nslots,
-            lambda oc, level, rank: (oc * plen + level) * z + rank,
+            lambda oc, level, rank: (oc * plen + level) * z + rank, sort_impl,
         )
         new_pidx = scatter_fresh(nslots, SENTINEL, slot_tgt.long(), widx)
         new_pval = scatter_fresh(nslots, 0, slot_tgt.long(), wval)
+        new_pleaf = (scatter_fresh(nslots, 0, slot_tgt.long(), wleaf)
+                     if recursive else None)
         # --- 4. stash recompaction ---------------------------------------
-        stash_idx, stash_val, stash_dropped = _recompact(
-            s, widx, wval, valid & ~placed
+        stash_idx, stash_val, stash_leaf, stash_dropped = _recompact(
+            s, widx, wval, valid & ~placed, wleaf if recursive else None
         )
 
     kc = cfg.top_cache_levels
     nbot = plen - kc
+
+    def bottom(x, width):
+        return x.reshape(b, plen, width)[:, kc:].reshape(b * nbot, width).contiguous()
+
+    def top(x, width):
+        return x.reshape(b, plen, width)[:, :kc].reshape(b * kc, width)
+
     fowner_bot = fowner.reshape(b, plen)[:, kc:].reshape(b * nbot).contiguous()
-    bot_pidx = new_pidx.reshape(b, plen, z)[:, kc:].reshape(b * nbot, z).contiguous()
-    bot_pval = new_pval.reshape(b, plen, z * v)[:, kc:].reshape(
-        b * nbot, z * v
-    ).contiguous()
     with record_function("oram_writeback"):
-        _write_back(cfg, state, f["bot_b"], fowner_bot, bot_pidx, bot_pval)
+        _write_back(cfg, state, f["bot_b"], fowner_bot, bottom(new_pidx, z),
+                    bottom(new_pval, z * v),
+                    bottom(new_pleaf, z) if recursive else None)
+        cache_idx, cache_val, cache_leaf = (state.cache_idx, state.cache_val,
+                                            state.cache_leaf)
         if kc:
             # cached levels write back plaintext, owner-masked
             top_slots, top_b = f["top_slots"], f["top_b"]
             fowner_top = fowner.reshape(b, plen)[:, :kc].reshape(b * kc)
-            cache_idx = scatter_drop(
-                state.cache_idx,
-                torch.where(fowner_top.repeat_interleave(z), top_slots, -1).long(),
-                new_pidx.reshape(b, plen, z)[:, :kc].reshape(-1),
-            )
+            slot_tgt_top = torch.where(fowner_top.repeat_interleave(z),
+                                       top_slots, -1).long()
+            cache_idx = scatter_drop(state.cache_idx, slot_tgt_top,
+                                     top(new_pidx, z).reshape(-1))
             cache_val = scatter_drop(
-                state.cache_val,
-                torch.where(fowner_top, top_b, -1).long(),
-                new_pval.reshape(b, plen, z * v)[:, :kc].reshape(b * kc, z * v),
+                state.cache_val, torch.where(fowner_top, top_b, -1).long(),
+                top(new_pval, z * v),
             )
-        else:
-            cache_idx, cache_val = state.cache_idx, state.cache_val
+            if recursive:
+                cache_leaf = scatter_drop(state.cache_leaf, slot_tgt_top,
+                                          top(new_pleaf, z).reshape(-1))
 
     new_state = state._replace(
         cache_idx=cache_idx,
         cache_val=cache_val,
+        cache_leaf=cache_leaf,
         stash_idx=stash_idx,
         stash_val=stash_val,
+        stash_leaf=stash_leaf if recursive else state.stash_leaf,
         posmap=posmap,
         overflow=state.overflow + stash_dropped,
         epoch=epoch_next(state.epoch),
     )
-    return new_state, outs, f["leaves"]
+    return new_state, outs, _transcript(f)
 
 
 def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
-                      dummy_leaves, apply_batch):
+                      dummy_leaves, apply_batch, sort_impl: str = "xla",
+                      pm_new_leaves=None, pm_dummy_leaves=None):
     """The delayed-eviction fetch round (``evict_window`` > 1).
 
     Steps 1-2 as :func:`oram_round`, except that buckets tagged earlier in
@@ -360,21 +450,27 @@ def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     epoch are untouched: zero tree writes, zero encryption."""
     b = idxs.shape[0]
     s, c = cfg.stash_size, cfg.evict_buffer_slots
+    recursive = cfg.posmap is not None
 
-    f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves)
+    f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves, pm_new_leaves,
+               pm_dummy_leaves, sort_impl)
     flat_b = f["flat_b"]
     fresh = state.fetch_tag[flat_b.long()] != state.ebuf_gen
-    widx, wval, outs = _apply(
+    widx, wval, outs, row_tgt = _apply(
         cfg, idxs, f["last_occ"], f["fowner"] & fresh,
         torch.cat([state.stash_idx, state.ebuf_idx]),
         torch.cat([state.stash_val, state.ebuf_val]),
         f["pidx"], f["pval"], apply_batch,
     )
+    wleaf = None
+    if recursive:
+        wleaf = _working_leaf_plane(torch.cat([state.stash_leaf, state.ebuf_leaf]),
+                                    f["pleaf"], row_tgt, new_leaves)
 
     # --- 3. recompact EVERYTHING into buffer ∪ stash (no eviction) -----
     with record_function("oram_evict"):
-        comb_idx, comb_val, dropped = _recompact(c + s, widx, wval,
-                                                 widx != SENTINEL)
+        comb_idx, comb_val, comb_leaf, dropped = _recompact(
+            c + s, widx, wval, widx != SENTINEL, wleaf)
 
     # --- 4. window bookkeeping; the tree/cache/nonces are UNTOUCHED ----
     # the ledger row: rounds < window whenever a fetch round runs (the
@@ -390,15 +486,17 @@ def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     new_state = state._replace(
         stash_idx=comb_idx[c:],
         stash_val=comb_val[c:],
+        stash_leaf=comb_leaf[c:] if recursive else state.stash_leaf,
         ebuf_idx=comb_idx[:c],
         ebuf_val=comb_val[:c],
+        ebuf_leaf=comb_leaf[:c] if recursive else state.ebuf_leaf,
         ebuf_paths=ebuf_paths,
         ebuf_rounds=state.ebuf_rounds + 1,
         fetch_tag=fetch_tag,
         posmap=f["posmap"],
         overflow=state.overflow + dropped,
     )
-    return new_state, outs, f["leaves"]
+    return new_state, outs, _transcript(f)
 
 
 def flush_target_slots(cfg: OramConfig) -> int:
@@ -409,9 +507,10 @@ def flush_target_slots(cfg: OramConfig) -> int:
                cfg.n_buckets_padded)
 
 
-def oram_flush(cfg: OramConfig, state: OramState) -> OramState:
+def oram_flush(cfg: OramConfig, state: OramState, sort_impl: str = "xla") -> OramState:
     """Batched eviction + write-back of one delayed-eviction window (the
-    reference's ``oram_flush``, single device, flat position map).
+    reference's ``oram_flush``, single device). A recursive map's
+    internal tree flushes first, inside the same call.
 
     1. The window's fetched paths (the public ``ebuf_paths`` ledger;
        rounds past ``ebuf_rounds`` masked) expand to bucket ids and
@@ -433,6 +532,14 @@ def oram_flush(cfg: OramConfig, state: OramState) -> OramState:
     pad = cfg.n_buckets_padded
     t = flush_target_slots(cfg)
     dev = state.ebuf_paths.device
+    recursive = cfg.posmap is not None
+
+    posmap = state.posmap
+    if recursive:
+        from .posmap import inner_oram_config
+
+        posmap = posmap._replace(
+            inner=oram_flush(inner_oram_config(cfg.posmap), posmap.inner, sort_impl))
 
     with record_function("oram_flush"):
         leaves = state.ebuf_paths
@@ -452,16 +559,21 @@ def oram_flush(cfg: OramConfig, state: OramState) -> OramState:
         # working set = buffer ∪ stash (the fetch round's order)
         widx = torch.cat([state.ebuf_idx, state.stash_idx])
         wval = torch.cat([state.ebuf_val, state.stash_val])
-        wleaf = working_leaves(state.posmap, cfg, widx)
+        if recursive:
+            wleaf = torch.cat([state.ebuf_leaf, state.stash_leaf])
+        else:
+            wleaf = working_leaves(posmap, cfg, widx)
         valid = widx != SENTINEL
         slot_tgt, placed = _assign_evictions(
             cfg, valid, wleaf, dmap, t, t * z,
-            lambda ts, level, rank: ts * z + rank,
+            lambda ts, level, rank: ts * z + rank, sort_impl,
         )
         new_pidx = scatter_fresh(t * z, SENTINEL, slot_tgt.long(), widx)
         new_pval = scatter_fresh(t * z, 0, slot_tgt.long(), wval)
-        stash_idx, stash_val, stash_dropped = _recompact(
-            s, widx, wval, valid & ~placed
+        new_pleaf = (scatter_fresh(t * z, 0, slot_tgt.long(), wleaf)
+                     if recursive else None)
+        stash_idx, stash_val, stash_leaf, stash_dropped = _recompact(
+            s, widx, wval, valid & ~placed, wleaf if recursive else None
         )
 
         # -- 3. write-back: every target once; cached top buckets (a heap
@@ -470,30 +582,35 @@ def oram_flush(cfg: OramConfig, state: OramState) -> OramState:
         is_cached = tgt_b < cb  # k = 0 → cb = 0 → all False
         tree_tgt = (tgt_b < pad) & ~is_cached
         _write_back(cfg, state, tgt_b, tree_tgt, new_pidx.view(t, z),
-                    new_pval.view(t, z * v))
+                    new_pval.view(t, z * v),
+                    new_pleaf.view(t, z) if recursive else None)
+        cache_idx, cache_val, cache_leaf = (state.cache_idx, state.cache_val,
+                                            state.cache_leaf)
         if cfg.top_cache_levels:
             cache_slots = path_slot_indices(
                 cfg, tgt_b.clamp(max=max(cb, 1) - 1)
             ).reshape(-1)
-            cache_idx = scatter_drop(
-                state.cache_idx,
-                torch.where(is_cached.repeat_interleave(z), cache_slots, -1).long(),
-                new_pidx,
-            )
+            slot_tgt_c = torch.where(is_cached.repeat_interleave(z), cache_slots,
+                                     -1).long()
+            cache_idx = scatter_drop(state.cache_idx, slot_tgt_c, new_pidx)
             cache_val = scatter_drop(
                 state.cache_val, torch.where(is_cached, tgt_b, -1).long(),
                 new_pval.view(t, z * v),
             )
-        else:
-            cache_idx, cache_val = state.cache_idx, state.cache_val
+            if recursive:
+                cache_leaf = scatter_drop(state.cache_leaf, slot_tgt_c, new_pleaf)
 
     return state._replace(
         cache_idx=cache_idx,
         cache_val=cache_val,
+        cache_leaf=cache_leaf,
         stash_idx=stash_idx,
         stash_val=stash_val,
+        stash_leaf=stash_leaf if recursive else state.stash_leaf,
         ebuf_idx=torch.full((c,), SENTINEL, dtype=I32, device=dev),
         ebuf_val=torch.zeros((c, v), dtype=I32, device=dev),
+        ebuf_leaf=torch.zeros_like(state.ebuf_leaf),
+        posmap=posmap,
         ebuf_rounds=torch.zeros_like(state.ebuf_rounds),
         ebuf_gen=state.ebuf_gen + 1,
         overflow=state.overflow + stash_dropped,

@@ -77,6 +77,15 @@ def build_parser() -> argparse.ArgumentParser:
         "position map",
     )
     p.add_argument(
+        "--sort-impl",
+        choices=["xla", "radix"],
+        default=None,
+        help="bounded-key sort engine (oblivious/radix.py): 'xla' = the "
+        "comparison sorts (default via auto), 'radix' = counting passes "
+        "for the eviction and grouping sorts — the same permutations. "
+        "Device-owning roles only",
+    )
+    p.add_argument(
         "--bucket-cipher-impl",
         choices=["jnp", "pallas", "pallas_fused", "pallas_fused_tiled"],
         default="jnp",
@@ -462,7 +471,8 @@ _TRACE_SLO_FLAGS = {"trace_ring_size", "slo_commit_p99_ms",
 #: engine take them — a frontend supplying --posmap-impl,
 #: --tree-top-cache-levels, --pipeline-depth, or --evict-every would
 #: silently configure nothing (its engine lives in another process)
-_ENGINE_GEOM_FLAGS = {"posmap_impl", "bucket_cipher_impl", "tree_top_cache_levels",
+_ENGINE_GEOM_FLAGS = {"posmap_impl", "sort_impl", "bucket_cipher_impl",
+                      "tree_top_cache_levels",
                       "pipeline_depth", "evict_every",
                       "evict_buffer_slots", "shards"}
 
@@ -641,6 +651,7 @@ def main(argv=None) -> int:
         expiry_period=args.expiry_period,
         batch_size=args.batch_size,
         posmap_impl=args.posmap_impl,
+        sort_impl=args.sort_impl,
         bucket_cipher_impl=args.bucket_cipher_impl,
         tree_top_cache_levels=args.tree_top_cache_levels,
         pipeline_depth=args.pipeline_depth,

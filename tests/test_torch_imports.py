@@ -48,8 +48,9 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     registry/exporter/httpd, the leak monitor and its statistics, the
     flight recorder, round tracer, SLO, workload, cost and profiler
     observers, the fleet aggregator, the adaptive window and the analytic
-    cost model, and engine metrics), so the boundary scan reads each of
-    them."""
+    cost model, and engine metrics) and the recursive position map and
+    radix sort are too (own ports of ``oram/posmap.py`` and
+    ``oblivious/radix.py``), so the boundary scan reads each of them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
                 "engine/replication.py",
@@ -59,7 +60,8 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
                 "obs/flightrec.py", "obs/tracer.py", "obs/slo.py", "obs/workload.py",
                 "obs/costmon.py", "obs/profiler.py", "obs/leakmon.py", "obs/fleet.py",
                 "analysis/__init__.py", "analysis/costmodel.py", "testing/leakcheck.py",
-                "server/adaptive.py"):
+                "server/adaptive.py", "oram/posmap.py", "oram/round.py",
+                "oblivious/segmented.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
@@ -167,10 +169,11 @@ def test_pipelined_engine_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(vphases_impl="scan"), dict(sort_impl="radix"),
-    dict(posmap_impl="recursive"),
-    # delayed eviction runs; with a recursive map it stays refused
-    dict(evict_every=2, posmap_impl="recursive"), dict(shards=2),
+    dict(vphases_impl="scan"), dict(commit="op"),
+    # the recursive map and the radix sort run; with the scan vphases or
+    # a mesh they stay refused
+    dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix"),
+    dict(evict_every=2, posmap_impl="recursive", shards=2), dict(shards=2),
     # the kernel impls run single-device; sharded they stay refused
     dict(bucket_cipher_impl="pallas", shards=2),
     dict(bucket_cipher_impl="pallas_fused", evict_every=2, shards=2),
@@ -187,7 +190,9 @@ def test_unported_knobs_name_their_roadmap_item(knob):
     dict(evict_every=2), dict(evict_every=4, evict_buffer_slots=50),
     dict(bucket_cipher_impl="pallas"), dict(bucket_cipher_impl="pallas_fused"),
     dict(bucket_cipher_impl="pallas_fused_tiled", evict_every=3),
-    dict(pipeline_depth=2),
+    dict(pipeline_depth=2), dict(sort_impl="radix"), dict(posmap_impl="recursive"),
+    dict(evict_every=2, posmap_impl="recursive", sort_impl="radix",
+         bucket_cipher_impl="pallas_fused"),
 ])
 def test_ported_knobs_are_accepted(knob):
     from grapevine_tpu_torch.config import GrapevineConfig
@@ -196,3 +201,6 @@ def test_ported_knobs_are_accepted(knob):
     ecfg = EngineConfig.from_config(GrapevineConfig(max_messages=64, **knob))
     assert ecfg.evict_every == knob.get("evict_every", 1)
     assert ecfg.rec.cipher_impl == knob.get("bucket_cipher_impl", "jnp")
+    assert ecfg.sort_impl == knob.get("sort_impl", "xla")
+    assert ecfg.posmap_impl == knob.get("posmap_impl", "flat")
+    assert (ecfg.rec.posmap is not None) == (ecfg.posmap_impl == "recursive")

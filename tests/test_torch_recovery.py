@@ -27,7 +27,7 @@ from grapevine_tpu_torch.engine import checkpoint as cp
 from grapevine_tpu_torch.engine.batcher import GrapevineEngine
 from grapevine_tpu_torch.engine.expiry import expiry_sweep
 from grapevine_tpu_torch.engine.journal import KIND_FLUSH, KIND_SWEEP, BatchJournal, JournalError
-from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+from grapevine_tpu_torch.engine.state import EngineConfig
 from grapevine_tpu_torch.testing import faults
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
@@ -301,13 +301,35 @@ def test_cross_cadence_journal_refused(tmp_path):
 
 
 def test_sweep_refuses_a_leaf_plane():
-    """A tree with a leaf plane (recursive position map) is not swept:
-    the sweep names the ROADMAP item that ports it."""
-    ecfg = EngineConfig.from_config(_cfg(1))
-    st = init_engine(ecfg, 0, device="cpu")
-    st = st._replace(rec=st.rec._replace(tree_leaf=torch.zeros(8, dtype=torch.int32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 11"):
-        expiry_sweep(ecfg, st, NOW, 10)
+    """A tree with a leaf plane (recursive position map) was refused by
+    the sweep until the recursive map was ported; the sweep now re-keys
+    the plane under the new nonces in the same pass: every slot decrypts
+    to the leaf it held before, the nonces moved, and the internal
+    position tree is left as it was."""
+    from grapevine_tpu_torch.oram.path_oram import leaf_plane_cipher
+
+    eng = GrapevineEngine(_cfg(1, posmap_impl="recursive", sort_impl="radix"), seed=3,
+                          device="cpu")
+    for i in range(3):
+        eng.handle_queries([_req(C.REQUEST_TYPE_CREATE, _key(i + 1), _key(i + 4), i)], NOW + i)
+    ecfg, st = eng.ecfg, eng.state
+
+    def plain_leaves(o, cfg):
+        n, z = cfg.n_buckets_padded, cfg.bucket_slots
+        return leaf_plane_cipher(cfg, o.cipher_key, torch.arange(n, dtype=torch.int32),
+                                 o.nonces, o.tree_leaf.view(n, z).clone())
+
+    before = {t: (plain_leaves(getattr(st, t), getattr(ecfg, t)),
+                  getattr(st, t).nonces.clone(),
+                  getattr(st, t).posmap.inner.tree_val.clone()) for t in ("rec", "mb")}
+    assert before["rec"][0].any()
+    st = expiry_sweep(ecfg, st, NOW + 10, 3600)
+    for t in ("rec", "mb"):
+        o, cfg = getattr(st, t), getattr(ecfg, t)
+        leaves, nonces, inner_val = before[t]
+        assert torch.equal(plain_leaves(o, cfg), leaves)
+        assert not torch.equal(o.nonces, nonces)
+        assert torch.equal(o.posmap.inner.tree_val, inner_val)
 
 
 def test_durability_config_validation():

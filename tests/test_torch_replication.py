@@ -25,6 +25,8 @@ import builtins
 import dataclasses
 import errno
 import os
+import socket
+import threading
 import time
 
 import numpy as np
@@ -36,6 +38,7 @@ from grapevine_tpu_torch.engine import journal as jr
 from grapevine_tpu_torch.engine.batcher import GrapevineEngine, pack_batch
 from grapevine_tpu_torch.engine.checkpoint import engine_fingerprint, state_to_bytes
 from grapevine_tpu_torch.engine.convert import to_numpy
+from grapevine_tpu_torch.engine import replication as repl
 from grapevine_tpu_torch.engine.replication import (
     JournalShipper,
     ReplicationError,
@@ -111,6 +114,17 @@ def _wait(pred, timeout=60.0, what=""):
             return
         time.sleep(0.02)
     pytest.fail(f"timed out waiting for {what}")
+
+
+def _wait_applied(replica, seq, what=""):
+    """Wait until the standby has applied ``seq`` and finished the apply:
+    ``_apply_locked`` publishes ``applied_seq`` before its own checkpoint
+    cadence runs, all under the engine lock, so the predicate takes that
+    lock and a read after it sees the whole apply."""
+    def done():
+        with replica.engine._lock:
+            return replica.dm.applied_seq == seq
+    _wait(done, what=what)
 
 
 def _engine(cfg, d, **kw):
@@ -323,6 +337,51 @@ def test_replication_fingerprint_normalizes_placement_knobs_only():
         EngineConfig.from_config(dataclasses.replace(base, tree_top_cache_levels=4)))
 
 
+def _wire(payload: bytes) -> bytes:
+    return repl._LEN.pack(1 + len(payload)) + bytes([repl.MSG_FRAME]) + payload
+
+
+def test_recv_keeps_a_message_across_a_mid_message_timeout():
+    """The standby polls its feed with a short socket timeout. A timeout
+    that falls inside a message keeps the bytes read so far and waits on:
+    dropping them would parse the rest of the frame as the next header,
+    and the standby would stall connected and behind."""
+    a, b = socket.socketpair()
+    try:
+        b.settimeout(0.1)
+        payload = bytes(range(256)) * 40
+        wire = _wire(payload)
+        a.sendall(wire[:1000])
+        rest = threading.Timer(0.35, a.sendall, args=(wire[1000:],))
+        rest.start()
+        assert repl._recv_msg(b) == (repl.MSG_FRAME, payload)
+        rest.join()
+        a.sendall(_wire(b"next"))
+        assert repl._recv_msg(b) == (repl.MSG_FRAME, b"next")
+        # idle at a message boundary, the timeout is the caller's poll
+        with pytest.raises(socket.timeout):
+            repl._recv_msg(b)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_recv_drops_a_link_that_stalls_mid_message(monkeypatch):
+    """A message begun and never finished drops the link (the primary
+    reconnects and resends from the applied seq) instead of waiting for
+    ever; the partial bytes are never returned."""
+    monkeypatch.setattr(repl, "MID_MESSAGE_STALL_S", 0.3)
+    a, b = socket.socketpair()
+    try:
+        b.settimeout(0.1)
+        a.sendall(_wire(bytes(4096))[:100])
+        with pytest.raises(ReplicationError, match="stalled mid-message"):
+            repl._recv_msg(b)
+    finally:
+        a.close()
+        b.close()
+
+
 def test_shipper_requires_a_journal_to_tail():
     eng = GrapevineEngine(SMALL, seed=0, device="cpu")
     try:
@@ -358,11 +417,12 @@ def test_ship_promote_fence_cycle_bit_identical(tmp_path):
         for i in range(4):
             primary.handle_queries([_req(i + 1)], NOW + i)
         primary.expire(NOW + 10, period=3600)
-        _wait(lambda: replica.dm.applied_seq == primary.durability.seq, what="live catch-up")
+        _wait_applied(replica, primary.durability.seq, what="live catch-up")
         assert replica.connected and not replica.promoted
         healthy, detail = replica.healthz()
         assert healthy and detail["role"] == "standby"
-        assert _same_state(replica.engine, primary)
+        with replica.engine._lock:
+            assert _same_state(replica.engine, primary)
 
         # the cadence books: 4 rounds + 2 flush frames (E=2) + 1 sweep, each
         # one of the geometry's legal sizes
@@ -463,8 +523,7 @@ def test_cross_knob_standby_promotes_under_k4_depth2_primary(tmp_path):
     try:
         for i in range(4):
             primary.handle_queries([_req(i + 1)], NOW + i)
-        _wait(lambda: replica.dm.applied_seq == primary.durability.seq,
-              what="cross-knob catch-up")
+        _wait_applied(replica, primary.durability.seq, what="cross-knob catch-up")
         shipper.close()
         primary.handle_queries([_req(9)], NOW + 9)
         dead_seq = primary.durability.seq
@@ -524,20 +583,23 @@ def test_standby_restart_resumes_with_no_gap(tmp_path):
     try:
         for i in range(5):
             primary.handle_queries([_req(i + 1)], NOW + i)
-        _wait(lambda: replica.dm.applied_seq == primary.durability.seq, what="catch-up")
-        assert replica.dm.ckpt_seq > 0  # its own checkpoint cadence ran
+        _wait_applied(replica, primary.durability.seq, what="catch-up")
+        with replica.engine._lock:
+            assert replica.dm.ckpt_seq > 0  # its own checkpoint cadence ran
         replica.close()
         for i in range(3):  # shipped into the void while it is down
             primary.handle_queries([_req(20 + i)], NOW + 20 + i)
         replica = _replica(SMALL_E2, standby_dir, checkpoint_every_rounds=4)
         assert replica.dm.recovered_from_checkpoint and replica.dm.replayed > 0
         shipper.target = ("127.0.0.1", replica.listen())
-        _wait(lambda: replica.dm.applied_seq == primary.durability.seq, what="resume")
+        _wait_applied(replica, primary.durability.seq, what="resume")
         shipper.close()
-        assert _same_state(replica.engine, primary)
+        with replica.engine._lock:
+            assert _same_state(replica.engine, primary)
+            ckpt_seq = replica.dm.ckpt_seq
         seqs = [r.seq for r in jr.BatchJournal(standby_dir, ROOT, replica.engine.ecfg)
-                .replay(after_seq=replica.dm.ckpt_seq)]
-        assert seqs == list(range(replica.dm.ckpt_seq + 1, primary.durability.seq + 1))
+                .replay(after_seq=ckpt_seq)]
+        assert seqs == list(range(ckpt_seq + 1, primary.durability.seq + 1))
         primary.close()
         res = replica.promote(primary_state_dir=primary_dir)
         assert res["drained_frames"] == 0 and res["applied_seq"] == primary.durability.seq
@@ -572,10 +634,10 @@ def test_checkpoint_bootstrap_installs_and_reanchors(tmp_path, monkeypatch):
     shipper = JournalShipper(primary, ("127.0.0.1", replica.listen()))
     shipper.start()
     try:
-        _wait(lambda: replica.dm.applied_seq == ck, what="checkpoint install")
-        assert installs == [ck] and replica.dm.ckpt_seq == ck
-        assert eng._replay_since is None
+        _wait_applied(replica, ck, what="checkpoint install")
         with eng._lock:
+            assert installs == [ck] and replica.dm.ckpt_seq == ck
+            assert eng._replay_since is None
             assert eng.state.free_top is not old_ref
             reads = []
             read = eng._read_bound_locked
@@ -584,11 +646,12 @@ def test_checkpoint_bootstrap_installs_and_reanchors(tmp_path, monkeypatch):
             monkeypatch.undo()
         for i in range(3):
             primary.handle_queries([_req(30 + i)], NOW + 30 + i)
-        _wait(lambda: replica.dm.applied_seq == primary.durability.seq, what="follow")
-        assert eng._replay_since == int(eng.state.rec.ebuf_rounds)
-        assert _same_state(eng, primary)
-        np.testing.assert_array_equal(to_numpy(eng.state)["rec.ebuf_idx"],
-                                      to_numpy(primary.state)["rec.ebuf_idx"])
+        _wait_applied(replica, primary.durability.seq, what="follow")
+        with eng._lock:
+            assert eng._replay_since == int(eng.state.rec.ebuf_rounds)
+            assert _same_state(eng, primary)
+            np.testing.assert_array_equal(to_numpy(eng.state)["rec.ebuf_idx"],
+                                          to_numpy(primary.state)["rec.ebuf_idx"])
         names = sorted(os.listdir(standby_dir))
         assert f"ckpt-{ck:016d}.sealed" in names
         assert [n for n in names if n.endswith(".wal")] == [f"journal-{ck + 1:016d}.wal"]
