@@ -171,6 +171,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``posmap``, ``leaf_plane`` and ``oram_evict_sort`` spans beside the
    twin's, and the memory the map adds over the twin.
 
+15. the scan vphases (``vphases_impl="scan"``: one multi-word sort a
+   group question, segmented scans, no [B,B] tensor), each part run
+   after a dense twin from the same seed and requests: (a) the production
+   point, E=1 ``"pallas_fused_tiled"``, 7 rounds of phase 6's CRUD (3 B4
+   and 3 B6 a round), the 3rd to 6th scan dispatches at depth 2 under
+   ``set_sync_debug_mode("error")``; (b) E=4 ``"pallas_fused"``, 2
+   windows (3 B3 a round, 2 B5 a flush); (c) B=4096 at 2^20 messages
+   and 2^13 recipients (room for B new recipients, so the vectorized
+   admission holds), E=1 tiled, 5 rounds. Every response is checked
+   against the model and equals the twin's; the state (junk masked) and
+   the generator equal the twin's. Round median and max, fetch round and
+   flush at E=4, the profiled round's device ms and that of the
+   ``group_sort`` and ``segmented_scan`` spans beside the twin's, and the
+   peak device bytes a run allocates above what is resident, beside the
+   twin's;
+16. the load harness (``grapevine_tpu_torch/load``) on 15a's dense twin
+   behind a ``BatchScheduler``: ``calibrate_unloaded_round``, then
+   ``ramp_to_saturation`` from 0.25x the calibrated ops/s, factor 2, 4
+   steps of 2 s, replayed open-loop through ``ScenarioRunner`` and graded
+   by ``analyze_ramp``: each step's offered and settled ops/s, p50/p99
+   latency and dispatch skew, and the knee; every settled status in
+   ``OK_STATUSES``, no op of a step at or below the knee unsettled, 3 B4
+   and 3 B6 a round.
+
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -182,6 +206,11 @@ runs phase 12b alone N times instead (a flake rate for the process
 runbook): one line per run with its catch-up wait and the replication
 link events its processes logged, a count of failures, and a non-zero
 exit if any run failed.
+
+    python3 chip_smoke.py --scan-phases
+
+runs phases 15-16 alone after the kernel build (their lines, then the
+seconds they took).
 """
 
 from __future__ import annotations
@@ -757,9 +786,12 @@ def host_counters() -> tuple[int, float, int]:
 #: the recursive position map's spans: the internal ORAM round, the leaf
 #: plane's keystream, and the eviction sort (radix or the comparison sort)
 POSMAP_SPANS = ("posmap", "leaf_plane", "oram_evict_sort")
+#: the grouping sorts and the segmented scans (``oblivious/segmented.py``)
+#: — every one a scan round runs, and the admission walk's under dense
+SCAN_SPANS = ("group_sort", "segmented_scan")
 SPANS = ("round_a_mailbox", "round_b_records", "round_c_mailbox", "oram_fetch",
          "oram_apply", "oram_evict", "oram_writeback", "respond", "engine_flush",
-         "oram_flush", "sweep_records", "sweep_mailbox") + POSMAP_SPANS
+         "oram_flush", "sweep_records", "sweep_mailbox") + POSMAP_SPANS + SCAN_SPANS
 
 
 def profile_round(fn, all_threads: bool = False) -> dict:
@@ -852,8 +884,8 @@ def require_launches(launches: dict, want: dict, path: str) -> None:
                                  f"expected {want.get(name, 0)}")
 
 
-def run_evict_slice(GrapevineEngine, cfg, gk, ck, card):
-    """Phase 5: 4 windows of mixed CRUD at ``evict_every=EVICT_EVERY``;
+def run_evict_slice(GrapevineEngine, cfg, gk, ck, card, windows: int = 4):
+    """Phase 5: ``windows`` windows of mixed CRUD at ``evict_every=EVICT_EVERY``;
     fetch rounds and flushes timed apart (each flush between two
     synchronizations, taken out of its round's wall time). Returns the
     slice line, the profile, the launches, and the engine with its model
@@ -875,7 +907,7 @@ def run_evict_slice(GrapevineEngine, cfg, gk, ck, card):
         return out
 
     eng._flush_step = timed_flush
-    n_rounds = 4 * EVICT_EVERY
+    n_rounds = windows * EVICT_EVERY
     _reset_launches(gk, ck)
     rounds, health, prof, model, gone = run_slice(eng, n_rounds, writes=True,
                                                   profile_last=True)
@@ -3629,6 +3661,258 @@ def run_posmap_phase(GrapevineConfig, GrapevineEngine, convert, geo: dict, gk, c
     return out
 
 
+def scan_twin_check(convert, eng, twin, where: str) -> None:
+    """A scan engine against its dense twin: every state leaf (junk
+    bucket masked; the position tables included) and the generator."""
+    diff = convert.first_difference(convert.to_numpy(eng.state), convert.to_numpy(twin.state),
+                                    mask_junk=True)
+    if diff is not None:
+        raise AssertionError(f"{where}: the state differs from the twin's at {diff}")
+    if not torch.equal(eng.state.rng.get_state(), twin.state.rng.get_state()):
+        raise AssertionError(f"{where}: the generator differs from the twin's")
+
+
+def _scan_spans(prof: dict) -> dict:
+    return {k: prof["span_device_ms"].get(k) for k in SCAN_SPANS}
+
+
+def _peak_run(fn):
+    """``fn()`` with the device bytes it allocated above what was resident
+    when it started, at its peak: ``(result, peak_bytes)``."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _scan_pair_e1(GrapevineConfig, GrapevineEngine, convert, geo: dict, n_rounds: int,
+                  gk, ck, card, where: str, guard: bool):
+    """A dense twin, then a scan engine, each ``n_rounds`` rounds of phase
+    6's CRUD at E=1 ``"pallas_fused_tiled"`` (3 B4 and 3 B6 a round), the
+    last one profiled; with ``guard`` the scan engine's 3rd to 6th
+    dispatches run under ``set_sync_debug_mode("error")``. Responses,
+    state and generator equal the twin's. Returns the line and the twin."""
+    logs: list = []
+    cfg_d = GrapevineConfig(**dict(geo, vphases_impl="dense"),
+                            bucket_cipher_impl="pallas_fused_tiled")
+    cfg_s = GrapevineConfig(**dict(geo, vphases_impl="scan"),
+                            bucket_cipher_impl="pallas_fused_tiled")
+    want = {"gather_decrypt_rows_tiled": 3 * n_rounds, "scatter_encrypt_rows_tiled": 3 * n_rounds}
+    twin, _, twin_mem = _new_engine(GrapevineEngine, cfg_d, logs)
+    _reset_launches(gk, ck)
+    (t_rounds, _, t_prof, *_), t_peak = _peak_run(
+        lambda: run_slice(twin, n_rounds, writes=True, profile_last=True))
+    require_launches(_launches(gk, ck), want, f"{where} twin")
+    eng, init_s, scan_mem = _new_engine(GrapevineEngine, cfg_s, logs)
+    if eng.ecfg.vphases_impl != "scan" or twin.ecfg.vphases_impl != "dense":
+        raise AssertionError(f"{where}: the engines run {eng.ecfg.vphases_impl} and "
+                             f"{twin.ecfg.vphases_impl}")
+    g = SyncGuard(eng, 2, 6)
+    if guard:
+        g.install()
+    _reset_launches(gk, ck)
+    (rounds, health, prof, *_), s_peak = _peak_run(
+        lambda: run_slice(eng, n_rounds, writes=True, profile_last=True))
+    launches = _launches(gk, ck)
+    if guard:
+        g.remove()
+    require_launches(launches, want, where)
+    guarded_reads = [i for i in g.fallback_reads if g.first <= i < g.last]
+    if guard and (g.guarded != 4 or guarded_reads):
+        raise AssertionError(f"{where}: {g.guarded} guarded dispatches, exact reads in "
+                             f"dispatches {g.fallback_reads}")
+    if logs[0] != logs[1]:
+        raise AssertionError(f"{where}: the responses differ from the twin's")
+    scan_twin_check(convert, eng, twin, where)
+    line = slice_stats(cfg_s, rounds, health, init_s, launches, card)
+    twin_ms = sorted(r["s"] * 1e3 for r in t_rounds[1:] if not r.get("profiled"))
+    line.update(
+        vphases_impl="scan", max_round_ms=max(line["round_ms"][1:]),
+        round_device_ms=prof["device_ms"], span_device_ms=_scan_spans(prof),
+        round_device_busy_share=prof["device_busy_share"],
+        peak_bytes_over_resident=s_peak, engine_bytes=scan_mem,
+        twin=dict(median_round_ms=statistics.median(twin_ms), max_round_ms=max(twin_ms),
+                  round_device_ms=t_prof["device_ms"], span_device_ms=_scan_spans(t_prof),
+                  round_device_busy_share=t_prof["device_busy_share"],
+                  peak_bytes_over_resident=t_peak, engine_bytes=twin_mem),
+        peak_bytes_scan_minus_twin=s_peak - t_peak,
+        profile_top_kernels=prof["top_kernels"][:6],
+        twin_top_kernels=t_prof["top_kernels"][:6], responses_equal_twin=True)
+    if guard:
+        line.update(guarded_dispatches=g.guarded, host_syncs=0, exact_reads=g.fallback_reads)
+    del eng
+    return line, twin, launches
+
+
+def run_scan_phase(GrapevineConfig, GrapevineEngine, convert, geo: dict, gk, ck,
+                   card, load_phase) -> dict:
+    """Phase 15: ``vphases_impl="scan"``, each part run after a dense twin
+    from the same seed and requests: (a) the production point, E=1
+    ``"pallas_fused_tiled"``, 7 rounds of phase 6's CRUD, the 3rd to 6th
+    scan dispatches at depth 2 under ``set_sync_debug_mode("error")``;
+    then ``load_phase`` (phase 16) on (a)'s dense twin; (b) E=4
+    ``"pallas_fused"``, 2 windows; (c) B=4096 at 2^20 messages, E=1
+    tiled, 5 rounds. Every response is checked against the model and
+    equals the twin's; state and generator equal the twin's."""
+    t_phase = time.perf_counter()
+    out: dict = {}
+    line_a, twin, launches_a = _scan_pair_e1(GrapevineConfig, GrapevineEngine, convert, geo,
+                                             7, gk, ck, card, "phase 15a", guard=True)
+    out["a"] = line_a
+    out["load"] = load_phase(twin)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) E=4, the ring kernels, 2 windows
+    logs: list = []
+    mems: list = []
+
+    def factory(cfg, seed):
+        e, _, mem = _new_engine(GrapevineEngine, cfg, logs)
+        mems.append(mem)
+        return e
+
+    cfg_d = GrapevineConfig(**dict(geo, vphases_impl="dense"), bucket_cipher_impl="pallas_fused",
+                            evict_every=EVICT_EVERY)
+    cfg_s = GrapevineConfig(**dict(geo, vphases_impl="scan"), bucket_cipher_impl="pallas_fused",
+                            evict_every=EVICT_EVERY)
+    (t_line, t_prof, *_rest), t_peak = _peak_run(
+        lambda: run_evict_slice(factory, cfg_d, gk, ck, card, windows=2))
+    twin = _rest[1]
+    (line_b, prof_b, launches_b, eng, *_), s_peak = _peak_run(
+        lambda: run_evict_slice(factory, cfg_s, gk, ck, card, windows=2))
+    if logs[0] != logs[1]:
+        raise AssertionError("phase 15b: the responses differ from the twin's")
+    scan_twin_check(convert, eng, twin, "phase 15b")
+    line_b.update(
+        vphases_impl="scan", span_device_ms=_scan_spans(prof_b),
+        profiled_round_and_flush_device_ms=prof_b["device_ms"],
+        peak_bytes_with_engine=s_peak, twin_peak_bytes_with_engine=t_peak,
+        twin=dict(median_fetch_round_ms=t_line["median_fetch_round_ms"],
+                  median_flush_ms=t_line["median_flush_ms"],
+                  profiled_round_and_flush_device_ms=t_prof["device_ms"],
+                  span_device_ms=_scan_spans(t_prof)),
+        responses_equal_twin=True)
+    out["b"] = line_b
+    del eng, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) B=4096: twice the production batch. The vectorized admission
+    # needs room for B new recipients (recipients + B <= max_recipients),
+    # so the table doubles too (2^13); at 2^12 every round after the
+    # first would take the sequential admission walk
+    geo_c = dict(geo, batch_size=2 * geo["batch_size"],
+                 max_recipients=2 * geo["max_recipients"])
+    line_c, twin, launches_c = _scan_pair_e1(GrapevineConfig, GrapevineEngine, convert, geo_c,
+                                             5, gk, ck, card, "phase 15c", guard=False)
+    out["c"] = line_c
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = {k: launches_a.get(k, 0) + launches_b.get(k, 0) + launches_c.get(k, 0)
+                       for k in KERNELS}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_load_phase(eng, gk, ck, card) -> dict:
+    """Phase 16: the load harness on a production engine (phase 15a's
+    dense twin, the default path) behind a ``BatchScheduler``:
+    ``calibrate_unloaded_round``, then ``ramp_to_saturation`` from 0.25x
+    the calibrated ops/s, factor 2, 4 steps of 2 s, replayed open-loop
+    through ``ScenarioRunner``, graded by ``analyze_ramp``. Every settled
+    status is in ``OK_STATUSES`` and no op of a step at or below the knee
+    is left unsettled; 3 B4 and 3 B6 a round."""
+    import numpy as np
+
+    from grapevine_tpu_torch.load import (
+        ScenarioRunner,
+        analyze_ramp,
+        calibrate_unloaded_round,
+        ramp_to_saturation,
+    )
+    from grapevine_tpu_torch.load.harness import OK_STATUSES
+    from grapevine_tpu_torch.server.scheduler import BatchScheduler
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    t_round, est, target_ms = calibrate_unloaded_round(eng, NOW + 50, reps=3)
+    schedule = ramp_to_saturation(0.25 * est, 2.0, 4, 2.0, SEED, n_idents=64)
+    d0 = eng._dispatched
+    sched = BatchScheduler(eng, clock=lambda: NOW + 60)
+    _reset_launches(gk, ck)
+    try:
+        res = ScenarioRunner(sched, n_idents=64, settle_timeout_s=120.0).run(schedule)
+    finally:
+        sched.close()
+    launches = _launches(gk, ck)
+    rounds = eng._dispatched - d0
+    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * rounds,
+                                "scatter_encrypt_rows_tiled": 3 * rounds}, "phase 16")
+    ramp = analyze_ramp(schedule, res, target_ms=target_ms)
+    settled = ~np.isnan(res.latency_s)
+    bad = sorted(set(res.status[settled].tolist()) - set(OK_STATUSES))
+    if bad:
+        raise AssertionError(f"phase 16: statuses outside OK_STATUSES: {bad}")
+    steps = []
+    for sm, st in zip(schedule.meta["steps"], ramp["steps"]):
+        in_step = (schedule.t_s >= sm["t0"]) & (schedule.t_s < sm["t1"])
+        if st["offered_rate"] <= ramp["knee_ops_per_sec"] and not settled[in_step].all():
+            raise AssertionError(f"phase 16: {int((~settled[in_step]).sum())} ops of the "
+                                 f"{st['offered_rate']} ops/s step (at or below the knee) "
+                                 "never settled")
+        skew = res.skew_s[in_step]
+        steps.append(dict(st, settled_ops_per_sec=st["achieved_ops_per_sec"],
+                          dispatch_skew_p50_ms=float(np.percentile(skew, 50)) * 1e3,
+                          dispatch_skew_p99_ms=float(np.percentile(skew, 99)) * 1e3,
+                          unsettled=int((~settled[in_step]).sum())))
+    return dict(
+        calibrated=dict(t_round_ms=t_round * 1e3, est_ops_per_s=est, knee_target_ms=target_ms),
+        ramp=dict(rate0=schedule.meta["rate0"], factor=schedule.meta["factor"],
+                  step_s=schedule.meta["step_s"], n_ops=schedule.n_ops),
+        steps=steps, knee_ops_per_s=ramp["knee_ops_per_sec"],
+        knee_p99_commit_ms=ramp["knee_p99_commit_ms"], saturated=ramp["saturated"],
+        first_failing_rate=ramp["first_failing_rate"], summary=res.summary(),
+        rounds=rounds, launches=launches, card=card,
+        phase_s=time.perf_counter() - t_phase)
+
+
+def emit_scan_lines(scan: dict) -> None:
+    emit({"scan_e1": scan["a"]})
+    emit({"scan_e4": scan["b"]})
+    emit({"scan_b4096": scan["c"], "phase_s": scan["phase_s"]})
+    emit({"load_ramp": scan["load"]})
+
+
+def scan_phases_alone() -> int:
+    """Phases 15-16 alone: the card line, the kernel build, then the scan
+    twins and the load ramp, each line printed; 0 if every check held."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine import convert
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    gc.callbacks.append(GEN2)
+    geo = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048)
+    scan = run_scan_phase(GrapevineConfig, GrapevineEngine, convert, geo, gk, ck, card,
+                          lambda twin: run_load_phase(twin, gk, ck, card))
+    emit_scan_lines(scan)
+    emit({"scan_phases_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def repeat_standby_runbook(n: int) -> int:
     """Phase 12b alone, ``n`` times: each run's outcome on a line of its
     own, then the count; 1 if any run failed."""
@@ -3654,6 +3938,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA card and check it.")
     ap.add_argument("--standby-runbook", type=int, default=0, metavar="N",
                     help="run phase 12b alone N times instead of every phase")
+    ap.add_argument("--scan-phases", action="store_true",
+                    help="run phases 15-16 alone (after the kernel build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -3661,6 +3947,8 @@ def main() -> int:
         return 2
     if args.standby_runbook:
         return repeat_standby_runbook(args.standby_runbook)
+    if args.scan_phases:
+        return scan_phases_alone()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -3807,8 +4095,17 @@ def main() -> int:
     pm = run_posmap_phase(GrapevineConfig, GrapevineEngine, convert, geo, gk, ck, card)
     split("posmap")
 
+    # phases 15-16: the scan vphases beside dense twins — E=1 (B4, B6),
+    # E=4 (B3, B5), B=4096 (B4, B6) — and the load harness's ramp through
+    # a scheduler on 15a's dense twin (B4, B6)
+    scan = run_scan_phase(GrapevineConfig, GrapevineEngine, convert, geo, gk, ck, card,
+                          lambda twin: run_load_phase(twin, gk, ck, card))
+    split("scan_and_load")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (pm["launches"]["cipher_rows_pallas"]
+                               + scan["launches"]["cipher_rows_pallas"]
+                               + scan["load"]["launches"].get("cipher_rows_pallas", 0)
                                + pallas_launches["cipher_rows_pallas"]
                                + exp1["launches"]["cipher_rows_pallas"]
                                + exp4["launches"]["cipher_rows_pallas"]
@@ -3816,23 +4113,31 @@ def main() -> int:
                                + standby_launches["cipher_rows_pallas"]
                                + obs_launches["cipher_rows_pallas"]),
         "gather_decrypt_rows": (pm["launches"]["gather_decrypt_rows"]
+                                + scan["launches"]["gather_decrypt_rows"]
+                                + scan["load"]["launches"].get("gather_decrypt_rows", 0)
                                 + evict_launches["gather_decrypt_rows"]
                                 + pipe_launches["gather_decrypt_rows"]
                                 + serve_launches["gather_decrypt_rows"]
                                 + standby_launches["gather_decrypt_rows"]
                                 + obs_launches["gather_decrypt_rows"]),
         "gather_decrypt_rows_tiled": (pm["launches"]["gather_decrypt_rows_tiled"]
+                                      + scan["launches"]["gather_decrypt_rows_tiled"]
+                                      + scan["load"]["launches"].get("gather_decrypt_rows_tiled", 0)
                                       + launches["gather_decrypt_rows_tiled"]
                                       + pipe_launches["gather_decrypt_rows_tiled"]
                                       + serve_launches["gather_decrypt_rows_tiled"]
                                       + obs_launches["gather_decrypt_rows_tiled"]),
         "scatter_encrypt_rows": (pm["launches"]["scatter_encrypt_rows"]
+                                 + scan["launches"]["scatter_encrypt_rows"]
+                                 + scan["load"]["launches"].get("scatter_encrypt_rows", 0)
                                  + evict_launches["scatter_encrypt_rows"]
                                  + pipe_launches["scatter_encrypt_rows"]
                                  + serve_launches["scatter_encrypt_rows"]
                                  + standby_launches["scatter_encrypt_rows"]
                                  + obs_launches["scatter_encrypt_rows"]),
         "scatter_encrypt_rows_tiled": (pm["launches"]["scatter_encrypt_rows_tiled"]
+                                       + scan["launches"]["scatter_encrypt_rows_tiled"]
+                                       + scan["load"]["launches"].get("scatter_encrypt_rows_tiled", 0)
                                        + launches["scatter_encrypt_rows_tiled"]
                                        + pipe_launches["scatter_encrypt_rows_tiled"]
                                        + serve_launches["scatter_encrypt_rows_tiled"]
@@ -3859,6 +4164,7 @@ def main() -> int:
     emit({"posmap_e1": pm["a"]})
     emit({"posmap_e4": pm["b"]})
     emit({"posmap_sweep": pm["c"], "phase_s": pm["phase_s"]})
+    emit_scan_lines(scan)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",

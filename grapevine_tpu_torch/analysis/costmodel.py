@@ -394,11 +394,12 @@ def engine_cost_ledger(ecfg, occ_impl: str | None = None,
                        shards: int = 1) -> CostLedger:
     """The full modeled ledger for one engine geometry × knob setting —
     the object obs/costmon.py exports. ``occ_impl`` defaults to the
-    engine's occurrence machinery (``"dense"``, the only one the port
-    runs); ``shards`` is the bucket-tree mesh width."""
+    engine's occurrence machinery (``ecfg.vphases_impl``); ``shards`` is
+    the bucket-tree mesh width."""
     if shards < 1 or shards & (shards - 1):
         raise ValueError(f"shards={shards}: want a power of two >= 1")
-    occ = occ_impl if occ_impl is not None else "dense"
+    occ = occ_impl if occ_impl is not None else (
+        "scan" if ecfg.vphases_impl == "scan" else "dense")
     b, d = ecfg.batch_size, ecfg.mb_choices
     round_rows = engine_round_rows(ecfg)
     fetch = PhaseCost().add_rows({

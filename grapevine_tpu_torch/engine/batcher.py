@@ -746,34 +746,59 @@ class GrapevineEngine:
         nb·path_len·Z + nb per ORAM round: mailbox A, records B, mailbox C;
         ``oram/round.py:_assign_evictions``) and the admission walk's slot
         grouping (``segmented.group_sort``), each under the engine's
-        ``sort_impl``. Returns the min-of-``reps`` seconds."""
-        from ..oblivious.radix import radix_rank
-        from ..oblivious.segmented import group_sort
-        from ..oram.path_oram import random_below
+        ``sort_impl``; under ``vphases_impl="scan"`` also each round's
+        dedup group sort, its bucket / record-block group sort and the
+        10-word recipient grouping (always the comparison sort). Returns
+        the min-of-``reps`` seconds."""
+        from ..oblivious.radix import radix_group_sort, radix_rank
+        from ..oblivious.segmented import group_sort, multiword_group_sort
+        from ..oram.path_oram import random_below, random_u32
         from ..u32 import widen
 
         ecfg, dev = self.ecfg, self.device
         b, d = ecfg.batch_size, ecfg.mb_choices
         slot_bits = max(1, (b - 1).bit_length())
+        trees = ((ecfg.mb, b * d), (ecfg.rec, b), (ecfg.mb, b * d))
+        # per-round index group bounds (vphases._index_groups): bucket
+        # groups in rounds A/C, record-block groups in round B
+        g_bits = [max(1, (n + 1 + b - 1).bit_length()) for n in
+                  (ecfg.mb_table_buckets, ecfg.rec.blocks, ecfg.mb_table_buckets)]
+        radix = ecfg.sort_impl == "radix"
+        scan = ecfg.vphases_impl == "scan"
 
         def setup():
             gen = torch.Generator(device=dev).manual_seed(0)
             leaves = [random_below(gen, 1 << cfg.height,
                                    (cfg.stash_size + nb * cfg.path_len * cfg.bucket_slots
                                     + nb,), dev)
-                      for cfg, nb in ((ecfg.mb, b * d), (ecfg.rec, b), (ecfg.mb, b * d))]
-            return leaves, random_below(gen, 1 << slot_bits, (b,), dev)
-
-        radix = ecfg.sort_impl == "radix"
+                      for cfg, nb in trees]
+            groups = []
+            if scan:
+                for (cfg, nb), gb in zip(trees, g_bits):
+                    kb = max(1, cfg.dummy_index.bit_length())
+                    groups.append((kb, random_below(gen, 1 << kb, (nb,), dev),
+                                   gb, random_below(gen, 1 << gb, (b,), dev)))
+                kcols = list(random_u32(gen, (10, b), dev))
+            else:
+                kcols = None
+            return leaves, groups, kcols, random_below(gen, 1 << slot_bits, (b,), dev)
 
         def run(inputs):
-            leaves, rslot = inputs
+            leaves, groups, kcols, rslot = inputs
             for cfg, leaf in zip((ecfg.mb, ecfg.rec, ecfg.mb), leaves):
                 if radix:
                     radix_rank(leaf, cfg.height + 1)
                 else:
                     torch.sort(widen(leaf), stable=True)
+            for kb, idxs, gb, gi in groups:
+                if radix:
+                    radix_group_sort([idxs], kb)
+                else:
+                    multiword_group_sort([idxs])
+                group_sort(gi, sort_impl=ecfg.sort_impl, key_bits=gb)
             group_sort(rslot, sort_impl=ecfg.sort_impl, key_bits=slot_bits)
+            if kcols is not None:
+                multiword_group_sort(kcols)
 
         return self._calibrate("sort", setup, run, reps)
 
@@ -782,18 +807,20 @@ class GrapevineEngine:
         record it under the ``posmap`` phase (the reference's
         ``calibrate_posmap_phase``): for each ORAM round (mailbox A,
         records B, mailbox C) the duplicate masks and the flat map's
-        lookup and remap (``oram/round.py:occurrence_masks``,
+        lookup and remap (``oram/round.py:occurrence_masks``, or
+        ``occurrence_masks_sorted`` under ``vphases_impl="scan"``;
         ``oram/posmap.py:lookup_remap_round``) at the round's batch, on a
         fresh map of the engine's geometry: under ``"recursive"`` that is
         the internal ORAM's full round. Returns the min-of-``reps``
         seconds."""
         from ..oram.path_oram import random_below
         from ..oram.posmap import init_posmap, lookup_remap_round
-        from ..oram.round import occurrence_masks
+        from ..oram.round import occurrence
 
         ecfg, dev = self.ecfg, self.device
         b, d = ecfg.batch_size, ecfg.mb_choices
         jobs = ((ecfg.mb, b * d), (ecfg.rec, b), (ecfg.mb, b * d))
+        occ, simpl = ecfg.vphases_impl, ecfg.sort_impl
 
         def setup():
             gen = torch.Generator(device=dev).manual_seed(17)
@@ -815,10 +842,10 @@ class GrapevineEngine:
         def run(inputs):
             for job in inputs:
                 cfg, pm, idxs, nl, dl, *pml = job
-                fo, lo, _ = occurrence_masks(idxs, cfg.dummy_index)
+                fo, lo, _ = occurrence(cfg, idxs, occ, simpl)
                 # the internal round consumes its state: carry it on
                 job[1] = lookup_remap_round(cfg, pm, idxs, nl, dl, fo, lo, *pml,
-                                            sort_impl=ecfg.sort_impl)[0]
+                                            sort_impl=simpl, occ_impl=occ)[0]
 
         return self._calibrate("posmap", setup, run, reps)
 

@@ -234,6 +234,7 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
             ecfg.mb, state.mb, idxs_mb_flat, draws.nl_a, draws.dl_a,
             phase_a_batch(ecfg, ctx), simpl,
             *((pm.new_a, pm.dummy_a) if recursive else ()),
+            occ_impl=ecfg.vphases_impl,
         )
     free_top = torch.clamp(state.free_top - out_a["n_allocs"], max=ecfg.max_messages)
     recipients = state.recipients + out_a["n_claims"]
@@ -260,6 +261,7 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
             ecfg.rec, state.rec, idx_b, draws.nl_b, draws.dl_b,
             phase_b_batch(ecfg, ctx_b), simpl,
             *((pm.new_b, pm.dummy_b) if recursive else ()),
+            occ_impl=ecfg.vphases_impl,
         )
 
     # freed blocks return to the freelist in slot order (next batch)
@@ -276,6 +278,7 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
             ecfg.mb, mb1, idxs_mb_flat, draws.nl_c, draws.dl_c,
             phase_c_batch(ecfg, ctx_c), simpl,
             *((pm.new_c, pm.dummy_c) if recursive else ()),
+            occ_impl=ecfg.vphases_impl,
         )
 
     responses = assemble_responses(

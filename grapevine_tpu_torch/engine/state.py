@@ -63,6 +63,9 @@ class EngineConfig:
     mb_choices: int = 1
     #: delayed batched eviction: a flush every E engine rounds (1 = none)
     evict_every: int = 1
+    #: slot-order machinery (``engine/vphases.py``): "dense" [B,B] masks
+    #: or "scan" sort + segmented scans — bit-identical semantics
+    vphases_impl: str = "dense"
     #: bounded-key sort engine (``oblivious/radix.py``): "xla" comparison
     #: sorts or "radix" counting passes, the same permutations
     sort_impl: str = "xla"
@@ -80,9 +83,11 @@ class EngineConfig:
         """Resolve ``cfg`` for the port, refusing what it cannot run yet.
 
         Auto values resolve as the reference's do off the TPU, except
-        that the port's vphases are dense: the comparison sorts, a flat
-        position map, a k=4 tree-top cache (clamped per tree) and
-        per-round eviction. Under ``evict_every`` E > 1 the records
+        the vphases: ``None`` resolves to ``"dense"`` on the card and on
+        the CPU alike (the reference picks "scan" off the TPU; the
+        port's default waits on a benchmark that resolves the two on the
+        card). The rest: the comparison sorts, a flat position map, a k=4
+        tree-top cache (clamped per tree) and per-round eviction. Under ``evict_every`` E > 1 the records
         tree's window is E rounds of B fetched paths, the mailbox tree's
         2E rounds (rounds A and C) of B·D; buffer sizes are
         ``evict_buffer_slots`` or derived per tree. A recursive map
@@ -107,6 +112,7 @@ class EngineConfig:
                 rec_c = derive_evict_buffer_slots(cfg.max_messages, rec_w, rec_f,
                                                   cfg.bucket_slots)
                 mb_c = derive_evict_buffer_slots(m, mb_w, mb_f, cfg.bucket_slots)
+        vimpl = cfg.vphases_impl if cfg.vphases_impl is not None else "dense"
         simpl = cfg.sort_impl if cfg.sort_impl is not None else "xla"
         pimpl = cfg.posmap_impl if cfg.posmap_impl is not None else "flat"
         rec_pm = mb_pm = None
@@ -158,6 +164,7 @@ class EngineConfig:
             mb_slots=k,
             mb_choices=cfg.resolved_mailbox_choices,
             evict_every=ee,
+            vphases_impl=vimpl,
             sort_impl=simpl,
             posmap_impl=pimpl,
         )
@@ -171,8 +178,6 @@ def _refuse_unported(cfg: GrapevineConfig) -> None:
         todo.append("commit='op' (ROADMAP.md queue A item 14, op-major engine)")
     if cfg.shards != 1:
         todo.append("shards > 1 (ROADMAP.md queue A item 15, multi-GPU sharding)")
-    if cfg.vphases_impl not in (None, "dense"):
-        todo.append("vphases_impl='scan' (ROADMAP.md queue A item 7, _SortedGroups)")
     if todo:
         raise NotImplementedError(
             "not ported to the PyTorch engine yet: " + "; ".join(todo)

@@ -1,14 +1,23 @@
-"""Vectorized phase semantics, ``vphases_impl="dense"`` (port of
-``grapevine_tpu/engine/vphases.py``: ``_DenseGroups``, the shared
-admission machinery and the three phase callbacks).
+"""Vectorized phase semantics (port of ``grapevine_tpu/engine/vphases.py``:
+the group aggregations in both forms, the shared admission machinery and
+the three phase callbacks).
 
 Same-key chains inside one round (ops on one recipient / bucket /
-record) are resolved in parallel with [B,B] masks; OR/sum aggregates over
-row vectors are matrix products. The reference's are float32, exact
-while sums stay below 2^24; here they are float64, exact below 2^53 on
-every device with no process-wide setting (TF32 and the float32 matmul
-precision touch only float32 products), so the port never changes a
-global flag. Every sum here is at most B, so both give the same integers.
+record) are resolved in parallel by one of two implementations of the
+same group questions (``ecfg.vphases_impl``; bit-identical results):
+
+- ``"dense"`` (:class:`_DenseGroups`): [B,B] masks; OR/sum aggregates
+  over row vectors are matrix products. The reference's are float32,
+  exact while sums stay below 2^24; here they are float64, exact below
+  2^53 on every device with no process-wide setting (TF32 and the
+  float32 matmul precision touch only float32 products), so the port
+  never changes a global flag. Every sum here is at most B, so both give
+  the same integers.
+- ``"scan"`` (:class:`_SortedGroups`): one multi-word sort orders ops by
+  (group key, slot); every question is a cumsum or a segmented scan over
+  the sorted order plus the inverse permutation — O(B log B), no [B,B]
+  intermediate. Phase C aggregates through a bucket table instead of the
+  [B·D, B] matmul.
 
 Admission couples ops across groups. When bus and recipient headroom
 cover the whole batch the vectorized fast path is exact; otherwise the
@@ -21,20 +30,27 @@ full) — and the sequential walk is a Python loop over B run on the host.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..oblivious.primitives import (
     is_zero_words,
     lex_argsort,
     rank_of,
     scatter_drop,
+    scatter_fresh,
     u64_add_u32,
     words_equal,
 )
 from ..oblivious.prp import prp2_encrypt
 from ..oblivious.segmented import (
     group_sort,
+    grouping_sort,
     sat_apply,
+    segment_bounds,
     segmented_exclusive_sat_scan,
+    segmented_scan,
+    segmented_sum_before,
+    segmented_sum_total,
 )
 from ..u32 import narrow
 from ..wire import constants as C
@@ -138,18 +154,124 @@ class _DenseGroups:
         return _narrow_sum(oh[:, :, None].to(I32) * vals[None, :, :], dim=1)
 
 
-def _recipient_groups(ka, is_real):
-    requal = (
-        words_equal(ka[:, None, :], ka[None, :, :])
-        & is_real[:, None]
-        & is_real[None, :]
+class _SortedGroups:
+    """Sort + segmented-scan group aggregations (the reference's
+    ``_SortedGroups``, ``vphases_impl="scan"``).
+
+    One multi-word sort orders ops by (group key, slot); every question
+    is then a cumsum or segmented scan over the sorted order and a
+    gather back through the inverse permutation. ``sort_impl="radix"``
+    with a declared per-column ``key_bits`` bound ranks by counting
+    passes instead (``oblivious/radix.py``, the same permutation); a key
+    with no declared bound (the 256-bit recipient key) keeps the
+    comparison sort."""
+
+    def __init__(self, cols, key_bits=None, sort_impl: str = "xla"):
+        self.perm, self.inv, self.seg = grouping_sort(cols, key_bits, sort_impl)
+        self.b = self.perm.shape[0]
+        self.start, self.end = segment_bounds(self.seg)
+        self._bounds = (self.start, self.end)
+        self._pi = self.perm.to(I32)
+
+    def _to(self, x):
+        return x[self.perm]
+
+    def _back(self, x):
+        return x[self.inv]
+
+    def _counts_before_sorted(self, f):
+        return segmented_sum_before(f, self.seg, self._bounds)
+
+    def _total_sorted(self, x):
+        return segmented_sum_total(x, self.seg, self._bounds)
+
+    def counts_before(self, flags):
+        return self._back(self._counts_before_sorted(self._to(flags)))
+
+    def any_before(self, flags):
+        return self.counts_before(flags) > 0
+
+    def total_sum(self, flags):
+        return self._back(self._total_sorted(self._to(flags)))
+
+    def total_or(self, flags):
+        return self.total_sum(flags) > 0
+
+    def total_sum_rows(self, u):
+        return self._back(self._total_sorted(self._to(u)))
+
+    def total_or_rows(self, u):
+        return self.total_sum_rows(u) > 0
+
+    def group_first(self):
+        return self._back(self._pi[self.start.long()])
+
+    def group_last(self):
+        return self._back(self._pi[self.end.long()])
+
+    def first_flag_index(self, flags):
+        v = torch.where(self._to(flags), self._pi, self.b)
+        m = segmented_scan(v, self.seg, torch.minimum)[self.end.long()]
+        return self._back(m.clamp(0, self.b - 1)), self._back(m < self.b)
+
+    def last_flag_index_upto(self, flags):
+        # within a segment ops sit in slot order, so the inclusive
+        # segmented max IS "last flagged at or before me"
+        v = torch.where(self._to(flags), self._pi, -1)
+        return self._back(segmented_scan(v, self.seg, torch.maximum))
+
+    def last_flag_index(self, flags):
+        v = torch.where(self._to(flags), self._pi, -1)
+        return self._back(
+            segmented_scan(v, self.seg, torch.maximum)[self.end.long()])
+
+    def select_by_rank(self, flags, vals, q):
+        f = self._to(flags)
+        rank = self._counts_before_sorted(f)
+        # each flagged op owns sorted slot (segment start + its rank):
+        # in-segment and collision-free — scatter the values, gather at q
+        tgt = torch.where(f, self.start + rank, self.b).long()
+        table = scatter_fresh(self.b, 0, tgt, self._to(vals))
+        q_s = self._to(q)
+        pos = (self.start + q_s).clamp(0, self.b - 1).long()
+        ok = (q_s >= 0) & (q_s < self._total_sorted(f))
+        return self._back(torch.where(ok[:, None], table[pos], 0))
+
+
+def _recipient_groups(ecfg: EngineConfig, ka, is_real):
+    """Groups over the recipient key ``ka`` (dummies singleton)."""
+    if ecfg.vphases_impl == "dense":
+        requal = (
+            words_equal(ka[:, None, :], ka[None, :, :])
+            & is_real[:, None]
+            & is_real[None, :]
+        )
+        return _DenseGroups(requal)
+    iota = torch.arange(ka.shape[0], dtype=I32, device=ka.device)
+    # key = (real?, ka words, dummy uniquifier): real ops group by ka,
+    # each dummy is its own group. 1 + 8·32 + 32 bits is past
+    # MAX_RADIX_BITS, so this sort stays on the comparison sort under
+    # every sort_impl (grouping must never depend on a hashed-down key)
+    cols = ([(~is_real).to(I32)] + [ka[:, w] for w in range(KEY_WORDS)]
+            + [torch.where(is_real, 0, iota)])
+    return _SortedGroups(cols)
+
+
+def _index_groups(ecfg: EngineConfig, idx, is_real, dummy_base: int):
+    """Groups over one u32 index column (bucket / record block).
+    ``dummy_base``: the scan form's uniquifier base for dummy ops, any
+    value with ``dummy_base + iota`` disjoint from the real indices."""
+    if ecfg.vphases_impl == "dense":
+        eq = (idx[:, None] == idx[None, :]) & is_real[:, None] & is_real[None, :]
+        return _DenseGroups(eq)
+    b = idx.shape[0]
+    iota = torch.arange(b, dtype=I32, device=idx.device)
+    # bounded key: real < dummy_base, dummies dummy_base..dummy_base+B-1
+    return _SortedGroups(
+        [torch.where(is_real, idx, dummy_base + iota)],
+        key_bits=max(1, (dummy_base + b - 1).bit_length()),
+        sort_impl=ecfg.sort_impl,
     )
-    return _DenseGroups(requal)
-
-
-def _index_groups(idx, is_real):
-    eq = (idx[:, None] == idx[None, :]) & is_real[:, None] & is_real[None, :]
-    return _DenseGroups(eq)
 
 
 def _mb_parse_batch(ecfg: EngineConfig, vals):
@@ -194,7 +316,8 @@ def _admission_fast(ecfg, *, is_create_cand, is_pop_cand, found0, first_create,
     # follows the sort_impl knob
     perm, inv, seg = group_sort(rslot, sort_impl=ecfg.sort_impl,
                                 key_bits=max(1, (b - 1).bit_length()))
-    pre = segmented_exclusive_sat_scan((add[perm], lo[perm], hi[perm]), seg)
+    with record_function("segmented_scan"):
+        pre = segmented_exclusive_sat_scan((add[perm], lo[perm], hi[perm]), seg)
     count_before = sat_apply(pre, init_count[perm])[inv]
 
     return dict(
@@ -278,7 +401,7 @@ def phase_a_batch(ecfg: EngineConfig, ctx: dict):
     m_sentinel = ecfg.mb_table_buckets
     iota = torch.arange(b, dtype=I32, device=dev)
 
-    groups_r = _recipient_groups(ka, is_real)
+    groups_r = _recipient_groups(ecfg, ka, is_real)
     rslot = groups_r.group_first()
 
     def apply_batch(vals0, present0):
@@ -305,7 +428,7 @@ def phase_a_batch(ecfg: EngineConfig, ctx: dict):
         eff_idx = idxs_mb2[bi, chosen]
         eff_idx = torch.where(is_real, eff_idx, m_sentinel + 1 + iota)
 
-        groups_g = _index_groups(eff_idx, is_real)
+        groups_g = _index_groups(ecfg, eff_idx, is_real, m_sentinel + 1)
         gslot = groups_g.group_first()
         glast = groups_g.group_last()
 
@@ -498,7 +621,9 @@ def phase_b_batch(ecfg: EngineConfig, ctx: dict):
     """Round-B callback (the reference's ``phase_b_batch``)."""
     b = ctx["idx_b"].shape[0]
     realb = ctx["real_b"]
-    groups_k = _index_groups(ctx["idx_b"], realb)
+    # record-block groups; dummies (idx_b = the shared dummy index) stay
+    # singletons, as under the realb-masked dense equality
+    groups_k = _index_groups(ecfg, ctx["idx_b"], realb, ecfg.rec.blocks + 1)
     now = ctx["now"]
     create_ev = ctx["is_create"] & ctx["create_ok"] & realb
 
@@ -577,8 +702,11 @@ def phase_b_batch(ecfg: EngineConfig, ctx: dict):
 
 
 def phase_c_batch(ecfg: EngineConfig, ctx: dict):
-    """Round-C callback (the reference's ``phase_c_batch``, dense
-    aggregation: a [B·D, B] one-hot matmul)."""
+    """Round-C callback (the reference's ``phase_c_batch``). Each op's
+    mutations land on every fetched row of its bucket: dense aggregates
+    with a [B·D, B] one-hot matmul, scan scatter-adds per-bucket
+    mutation vectors into a [table_buckets + 1, 2, K·cap] table and
+    gathers one row per fetched row."""
     b = ctx["ka"].shape[0]
     d = ecfg.mb_choices
     k, cap = ecfg.mb_slots, ecfg.mailbox_cap
@@ -620,9 +748,20 @@ def phase_c_batch(ecfg: EngineConfig, ctx: dict):
         u_refresh = (em & refresh[:, None, None]).reshape(b, k * cap)
 
         rows_idx = idxs_mb2.reshape(b * d)
-        row_op = (rows_idx[:, None] == eff_idx[None, :]) & mutating[None, :]
-        clear = _bool_matmul(row_op, u_clear).reshape(b * d, k, cap)
-        refr = _bool_matmul(row_op, u_refresh).reshape(b * d, k, cap)
+        if ecfg.vphases_impl == "dense":
+            row_op = (rows_idx[:, None] == eff_idx[None, :]) & mutating[None, :]
+            clear = _bool_matmul(row_op, u_clear).reshape(b * d, k, cap)
+            refr = _bool_matmul(row_op, u_refresh).reshape(b * d, k, cap)
+        else:
+            # bucket table: non-mutating ops add all-false vectors into
+            # the sentinel row, which dummy and unmutated rows read back
+            # as zeros — the masked matmul's result
+            u2 = torch.stack([u_clear, u_refresh], dim=1).to(I32)
+            tbl = torch.zeros((m_sentinel + 1, 2, k * cap), dtype=I32, device=dev)
+            tbl.index_add_(0, eff_idx.clamp(max=m_sentinel).long(), u2)
+            agg = tbl[rows_idx.clamp(max=m_sentinel).long()] > 0
+            clear = agg[:, 0].reshape(b * d, k, cap)
+            refr = agg[:, 1].reshape(b * d, k, cap)
 
         rows_entries = entries_c.reshape(b * d, k, cap, ENTRY_WORDS)
         rows_keys = keys_c.reshape(b * d, k, KEY_WORDS)

@@ -8,8 +8,10 @@ batch size), never of which ops or whose ops are inside.
 Host-side phases (histograms + ``torch.profiler`` ranges), as in the
 reference:
 
-- ``assembly``  — scheduler collection window (not ported yet)
-- ``verify``    — batched signature verification (not ported yet)
+- ``assembly``  — scheduler collection window
+                  (``server/scheduler.py``, the collector's window close)
+- ``verify``    — batched sr25519 signature verification
+                  (``server/scheduler.py``, one batch verify a round)
 - ``dispatch``  — journal barrier + round enqueue (``engine/batcher.py``)
 - ``evict``     — the wait for the round's device work, measured from the
                   host at resolve (per-stage device splits are in a
@@ -19,9 +21,15 @@ reference:
 - ``journal``   — sealed batch-journal append + fsync (``engine/journal.py``)
 - ``checkpoint``— sealed whole-state checkpoint write
 - ``replay``    — startup recovery (checkpoint load + journal replay)
-- ``sort``, ``posmap`` — calibrated by the reference's facade; declared
-                  here so the series set is the reference's (ROADMAP.md
-                  queue A item 16 ports the calibration)
+- ``sort``      — the round's sort workload, measured by calibration
+                  (``engine/batcher.py:GrapevineEngine.calibrate_sort_phase``):
+                  every sort the round runs is shape-static and
+                  data-independent, so the same sorts at the round's
+                  shapes, run standalone, are the per-round sort cost
+- ``posmap``    — the round's position resolution, calibrated the same
+                  way (``GrapevineEngine.calibrate_posmap_phase``: the
+                  three ORAM rounds' lookups and remaps, the internal
+                  ORAM rounds under a recursive map)
 - ``flush``     — delayed-eviction flush enqueue
 
 Device-side ranges (:func:`device_phase`): ``record_function`` ranges

@@ -398,3 +398,32 @@ def working_leaves(posmap, cfg: OramConfig, idxs) -> torch.Tensor:
     entry ``posmap[blocks]`` (their value is never used)."""
     safe = torch.where(ult(idxs, cfg.blocks), idxs, cfg.blocks)
     return posmap[safe.long()]
+
+
+def tree_cache_private_bytes(cfg: OramConfig) -> int:
+    """Decrypted-resident bytes the tree-top cache pins for this tree:
+    2^k−1 bucket rows of idx + val (+ the leaf plane under a recursive
+    map), plaintext private state with the stash's standing."""
+    z, v = cfg.bucket_slots, cfg.value_words
+    leaf = z if cfg.posmap is not None else 0
+    return cfg.cache_buckets * 4 * (z + z * v + leaf)
+
+
+def evict_buffer_private_bytes(cfg: OramConfig) -> int:
+    """Resident plaintext bytes the eviction buffer pins for this tree:
+    C rows of idx + val (+ leaf under a recursive map), plus the public
+    window bookkeeping (paths plane + per-bucket fetch tags)."""
+    if not cfg.delayed_eviction:
+        return 0
+    c, v = cfg.evict_buffer_slots, cfg.value_words
+    leaf = 1 if cfg.posmap is not None else 0
+    rows = c * 4 * (1 + v + leaf)
+    public = 4 * (cfg.evict_window * cfg.evict_fetch_count
+                  + cfg.n_buckets_padded + 2)
+    return rows + public
+
+
+def tree_occupancy(state: OramState) -> torch.Tensor:
+    """Number of live blocks in the tree's idx plane (a test/metrics
+    helper; meaningful on an unencrypted tree)."""
+    return torch.sum(state.tree_idx != SENTINEL)

@@ -36,6 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from ..oblivious.primitives import scatter_drop
+from ..oblivious.segmented import grouping_sort, segment_bounds
 from ..u32 import SENTINEL, shr
 from ..u32 import to_numpy as _t2n
 
@@ -215,12 +216,20 @@ def pack_posmap(cfg, table, inner, perm) -> RecursivePosMapState:
     return RecursivePosMapState(inner=inner, dummy_entry=table[cfg.blocks].clone())
 
 
-def _group_last_slot(idxs, dummy_index: int):
+def _group_last_slot(idxs, dummy_index: int, occ_impl: str = "dense",
+                     sort_impl: str = "xla", key_bits: int | None = None):
     """int32[B]: the slot of the round's LAST op on the same real index;
-    dummies get their own slot (the dense [B,B] form)."""
+    dummies get their own slot. The dense [B,B] form, or under
+    ``occ_impl="scan"`` the sorted O(B log B) form (radix with
+    ``sort_impl="radix"``), so a scan round holds no [B,B] tensor
+    through the map's glue either."""
     b = idxs.shape[0]
     slot_iota = torch.arange(b, dtype=I32, device=idxs.device)
     is_real = idxs != dummy_index
+    if occ_impl == "scan":
+        perm, inv, seg_start = grouping_sort([idxs], key_bits, sort_impl)
+        _, end = segment_bounds(seg_start)
+        return torch.where(is_real, perm[end.long()][inv].to(I32), slot_iota)
     eq = (idxs[:, None] == idxs[None, :]) & is_real[:, None] & is_real[None, :]
     last = (b - 1) - torch.argmax(eq.flip(1).to(I32), dim=1).to(I32)
     return torch.where(is_real, last, slot_iota)
@@ -228,7 +237,7 @@ def _group_last_slot(idxs, dummy_index: int):
 
 def lookup_remap_round(cfg, pm_state, idxs, new_leaves, dummy_leaves, first_occ,
                        last_occ, pm_new_leaves=None, pm_dummy_leaves=None,
-                       sort_impl: str = "xla"):
+                       sort_impl: str = "xla", occ_impl: str = "dense"):
     """Resolve B positions with a fixed access schedule.
 
     Returns ``(pm_state', leaves int32[B], inner_leaves int32[B] | None)``:
@@ -259,7 +268,9 @@ def lookup_remap_round(cfg, pm_state, idxs, new_leaves, dummy_leaves, first_occ,
     # the internal round commits each internal block at its LAST
     # occurrence: every winning remap lands on that row (distinct outer
     # indices in one block have distinct offsets, so targets are unique)
-    last_slot = _group_last_slot(inner_idxs, icfg.dummy_index)
+    last_slot = _group_last_slot(
+        inner_idxs, icfg.dummy_index, occ_impl, sort_impl,
+        key_bits=max(1, icfg.dummy_index.bit_length()))
 
     def apply_pm(vals0, present0):
         looked = vals0.gather(1, offs[:, None].long())[:, 0]
@@ -271,7 +282,7 @@ def lookup_remap_round(cfg, pm_state, idxs, new_leaves, dummy_leaves, first_occ,
     with record_function("posmap"):
         inner2, looked, inner_leaves = oram_round(
             icfg, pm_state.inner, inner_idxs, pm_new_leaves, pm_dummy_leaves,
-            apply_pm, sort_impl=sort_impl,
+            apply_pm, sort_impl=sort_impl, occ_impl=occ_impl,
         )
     # decrypted entries are re-masked to the leaf range they were stored
     # under (identity for honest state: leaves is a power of two)

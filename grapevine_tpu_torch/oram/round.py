@@ -49,6 +49,7 @@ from ..oblivious.gather_kernels import (
 )
 from ..oblivious.primitives import rank_of, scatter_drop, scatter_fresh
 from ..oblivious.radix import radix_rank
+from ..oblivious.segmented import grouping_sort, segment_bounds
 from ..u32 import SENTINEL, ult, widen
 from .path_oram import (
     OramConfig,
@@ -80,6 +81,35 @@ def occurrence_masks(idxs, dummy_index: int):
         is_real, torch.argmax(eq.to(I32), dim=1).to(I32), iota
     )
     return first_occ, last_occ, chain_slot
+
+
+def occurrence_masks_sorted(idxs, dummy_index: int, sort_impl: str = "xla",
+                            key_bits: int | None = None):
+    """:func:`occurrence_masks` in O(B log B): one sort by (index, slot),
+    then segment boundaries in sorted order mark first and last
+    occurrences — no [B,B] intermediate, the same masks.
+    ``sort_impl="radix"`` with a declared ``key_bits`` bound ranks by
+    counting passes instead of the comparison sort."""
+    b = idxs.shape[0]
+    is_real = idxs != dummy_index
+    iota = torch.arange(b, dtype=I32, device=idxs.device)
+    perm, inv, seg_start = grouping_sort([idxs], key_bits, sort_impl)
+    start, end = segment_bounds(seg_start)
+    first_occ = is_real & (iota == start)[inv]
+    last_occ = is_real & (iota == end)[inv]
+    chain_slot = torch.where(is_real, perm[start.long()][inv].to(I32), iota)
+    return first_occ, last_occ, chain_slot
+
+
+def occurrence(cfg: OramConfig, idxs, occ_impl: str, sort_impl: str):
+    """The round's dedup masks under the engine's ``vphases_impl``:
+    ``"scan"`` sorts (block indices are bounded: real < blocks, dummy =
+    blocks), ``"dense"`` takes the [B,B] masks."""
+    if occ_impl == "scan":
+        return occurrence_masks_sorted(
+            idxs, cfg.dummy_index, sort_impl=sort_impl,
+            key_bits=max(1, cfg.dummy_index.bit_length()))
+    return occurrence_masks(idxs, cfg.dummy_index)
 
 
 def _bucket_owner_map(cfg: OramConfig, flat_b):
@@ -154,7 +184,8 @@ def _fused_kernels(cfg: OramConfig):
 
 
 def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
-           pm_new_leaves=None, pm_dummy_leaves=None, sort_impl: str = "xla"):
+           pm_new_leaves=None, pm_dummy_leaves=None, sort_impl: str = "xla",
+           occ_impl: str = "dense"):
     """Step 1 of both round programs: dedup, posmap read/remap, the
     owner map, and the decrypted path rows (top ``k`` levels from the
     cache); under a recursive map also the decrypted leaf plane rows
@@ -163,10 +194,10 @@ def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
     b = idxs.shape[0]
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
     dev = idxs.device
-    first_occ, last_occ, _ = occurrence_masks(idxs, cfg.dummy_index)
+    first_occ, last_occ, _ = occurrence(cfg, idxs, occ_impl, sort_impl)
     posmap, leaves, inner_leaves = lookup_remap_round(
         cfg, state.posmap, idxs, new_leaves, dummy_leaves, first_occ, last_occ,
-        pm_new_leaves, pm_dummy_leaves, sort_impl=sort_impl,
+        pm_new_leaves, pm_dummy_leaves, sort_impl=sort_impl, occ_impl=occ_impl,
     )
     path_b = path_bucket_indices(cfg, leaves)  # [B, plen]
     flat_b = path_b.reshape(b * plen)
@@ -340,7 +371,7 @@ def _transcript(f: dict):
 
 def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
                dummy_leaves, apply_batch, sort_impl: str = "xla",
-               pm_new_leaves=None, pm_dummy_leaves=None):
+               pm_new_leaves=None, pm_dummy_leaves=None, occ_impl: str = "dense"):
     """One batched oblivious access round over this ORAM.
 
     ``apply_batch(vals0 int32[B,V], present0 bool[B]) -> (outs,
@@ -349,12 +380,14 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     transcript, ``[B, 2]`` under a recursive map (``pm_new_leaves`` /
     ``pm_dummy_leaves`` then supply fresh uniform internal leaves).
     ``sort_impl`` picks the eviction sort (``"xla"`` comparison,
-    ``"radix"`` counting passes; the same permutation). Under delayed
-    eviction this is the fetch-only :func:`_oram_fetch_round`."""
+    ``"radix"`` counting passes; the same permutation). ``occ_impl``
+    picks the dedup (``"dense"`` [B,B] masks, ``"scan"`` sorted, the
+    same masks; the engine's ``vphases_impl``). Under delayed eviction
+    this is the fetch-only :func:`_oram_fetch_round`."""
     if cfg.delayed_eviction:
         return _oram_fetch_round(cfg, state, idxs, new_leaves, dummy_leaves,
                                  apply_batch, sort_impl, pm_new_leaves,
-                                 pm_dummy_leaves)
+                                 pm_dummy_leaves, occ_impl)
     b = idxs.shape[0]
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
     s = cfg.stash_size
@@ -362,7 +395,7 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     recursive = cfg.posmap is not None
 
     f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves, pm_new_leaves,
-               pm_dummy_leaves, sort_impl)
+               pm_dummy_leaves, sort_impl, occ_impl)
     # non-owner copies of shared buckets are invalidated
     widx, wval, outs, row_tgt = _apply(
         cfg, idxs, f["last_occ"], f["fowner"], state.stash_idx, state.stash_val,
@@ -437,7 +470,8 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
 
 def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
                       dummy_leaves, apply_batch, sort_impl: str = "xla",
-                      pm_new_leaves=None, pm_dummy_leaves=None):
+                      pm_new_leaves=None, pm_dummy_leaves=None,
+                      occ_impl: str = "dense"):
     """The delayed-eviction fetch round (``evict_window`` > 1).
 
     Steps 1-2 as :func:`oram_round`, except that buckets tagged earlier in
@@ -453,7 +487,7 @@ def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     recursive = cfg.posmap is not None
 
     f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves, pm_new_leaves,
-               pm_dummy_leaves, sort_impl)
+               pm_dummy_leaves, sort_impl, occ_impl)
     flat_b = f["flat_b"]
     fresh = state.fetch_tag[flat_b.long()] != state.ebuf_gen
     widx, wval, outs, row_tgt = _apply(

@@ -50,7 +50,9 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     observers, the fleet aggregator, the adaptive window and the analytic
     cost model, and engine metrics) and the recursive position map and
     radix sort are too (own ports of ``oram/posmap.py`` and
-    ``oblivious/radix.py``), so the boundary scan reads each of them."""
+    ``oblivious/radix.py``), and so are the scan vphases, the load
+    harness and the checkpoint seal scan (own copies of ``load/`` and of
+    the seal scan), so the boundary scan reads each of them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
                 "engine/replication.py",
@@ -61,7 +63,9 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
                 "obs/costmon.py", "obs/profiler.py", "obs/leakmon.py", "obs/fleet.py",
                 "analysis/__init__.py", "analysis/costmodel.py", "testing/leakcheck.py",
                 "server/adaptive.py", "oram/posmap.py", "oram/round.py",
-                "oblivious/segmented.py"):
+                "oblivious/segmented.py", "load/__init__.py", "load/generators.py",
+                "load/capacity.py", "load/harness.py", "testing/checkpoint_seal.py",
+                "engine/vphases.py", "oblivious/prp.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
@@ -169,10 +173,10 @@ def test_pipelined_engine_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(vphases_impl="scan"), dict(commit="op"),
-    # the recursive map and the radix sort run; with the scan vphases or
-    # a mesh they stay refused
-    dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix"),
+    dict(vphases_impl="scan", shards=2), dict(commit="op"),
+    # the scan vphases, the recursive map and the radix sort run; on a
+    # mesh they stay refused
+    dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix", shards=2),
     dict(evict_every=2, posmap_impl="recursive", shards=2), dict(shards=2),
     # the kernel impls run single-device; sharded they stay refused
     dict(bucket_cipher_impl="pallas", shards=2),
@@ -193,6 +197,8 @@ def test_unported_knobs_name_their_roadmap_item(knob):
     dict(pipeline_depth=2), dict(sort_impl="radix"), dict(posmap_impl="recursive"),
     dict(evict_every=2, posmap_impl="recursive", sort_impl="radix",
          bucket_cipher_impl="pallas_fused"),
+    dict(vphases_impl="scan"),
+    dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix"),
 ])
 def test_ported_knobs_are_accepted(knob):
     from grapevine_tpu_torch.config import GrapevineConfig
@@ -203,4 +209,5 @@ def test_ported_knobs_are_accepted(knob):
     assert ecfg.rec.cipher_impl == knob.get("bucket_cipher_impl", "jnp")
     assert ecfg.sort_impl == knob.get("sort_impl", "xla")
     assert ecfg.posmap_impl == knob.get("posmap_impl", "flat")
+    assert ecfg.vphases_impl == knob.get("vphases_impl", "dense")
     assert (ecfg.rec.posmap is not None) == (ecfg.posmap_impl == "recursive")
