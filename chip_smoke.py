@@ -194,6 +194,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    latency and dispatch skew, and the knee; every settled status in
    ``OK_STATUSES``, no op of a step at or below the knee unsettled, 3 B4
    and 3 B6 a round.
+17. the op-major engine (``commit="op"``: each op's three ORAM accesses
+   committed before the next op; no tree-top cache, one mailbox choice,
+   8192 mailbox buckets at the production point): (a) at the production
+   point, ``"pallas"``, 12 rounds of mixed CRUD at B=8, then 3 at B=64
+   (an engine each), every response equal byte for byte to the port's
+   plain-dict ``ReferenceEngine`` replayed op by op with the engine's ids
+   forced, message and recipient counts too, no stash overflow; B2
+   launches 6·B a round and nothing else launches; the B=8 engine's
+   dispatches 3 to 10 run under ``set_sync_debug_mode("error")``; round
+   median and max, the last B=8 round profiled (device ms, kernels), the
+   device memory the engine adds; (b) at 2^14, B=64, two rounds:
+   op-major ``"pallas"``, ``"pallas_fused"`` and ``"pallas_fused_tiled"``
+   against op-major ``"jnp"`` after every round (responses, ``[B, 3]``
+   transcripts, state with the junk bucket masked). Phase 3 also holds B2
+   at one access's path rows (20 x 1028 records, 13 x 6084 mailbox words),
+   decrypt and encrypt, and the kernels line gives B2's op-major per-op
+   time beside its bound.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -211,6 +228,11 @@ exit if any run failed.
 
 runs phases 15-16 alone after the kernel build (their lines, then the
 seconds they took).
+
+    python3 chip_smoke.py --op-phase
+
+runs phase 17 alone after the kernel build, with B2 at the op-major
+shapes first.
 """
 
 from __future__ import annotations
@@ -515,11 +537,11 @@ PER = {
 }
 
 
-def kernel_entries(shapes, launches, sweep_chunks: dict):
+def kernel_entries(shapes, launches, sweep_chunks: dict, op_launches: int):
     """One entry per kernel: its headline time, plain time and bound sum
     the calls ``PER`` names; ``shapes`` keeps every per-call measurement.
     B2's entry adds the expiry sweep's path (``sweep_chunks``: chunks
-    per tree)."""
+    per tree) and the op-major engine's (``op_launches`` in phase 17)."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         per, calls = PER[name]
@@ -550,6 +572,18 @@ def kernel_entries(shapes, launches, sweep_chunks: dict):
                 ms=sum(c * pick[(t, "sweep")]["ms"] for t, c in calls),
                 plain_ms=sum(c * pick[(t, "sweep")]["plain_ms"] for t, c in calls),
                 bound_ms=max(sb, so), bound_by="bytes" if sb >= so else "operations")
+            # the op-major engine: per op, the records access decrypts and
+            # re-encrypts its path once, the two mailbox accesses twice
+            calls = [(t, sh, 1 if t == "records" else 2) for t in ("records", "mailbox")
+                     for sh in ("op_decrypt", "op_encrypt")]
+            ob = sum(c * pick[(t, sh)]["bytes_ms"] for t, sh, c in calls)
+            oo = sum(c * pick[(t, sh)]["ops_ms"] for t, sh, c in calls)
+            entry["op_major"] = dict(
+                per="op-major engine, one op (3 accesses, decrypt + re-encrypt each)",
+                launches=op_launches, launches_per_op=sum(c for *_, c in calls),
+                ms=sum(c * pick[(t, sh)]["ms"] for t, sh, c in calls),
+                plain_ms=sum(c * pick[(t, sh)]["plain_ms"] for t, sh, c in calls),
+                bound_ms=max(ob, oo), bound_by="bytes" if ob >= oo else "operations")
         out.append(entry)
     return out
 
@@ -789,7 +823,7 @@ POSMAP_SPANS = ("posmap", "leaf_plane", "oram_evict_sort")
 #: the grouping sorts and the segmented scans (``oblivious/segmented.py``)
 #: — every one a scan round runs, and the admission walk's under dense
 SCAN_SPANS = ("group_sort", "segmented_scan")
-SPANS = ("round_a_mailbox", "round_b_records", "round_c_mailbox", "oram_fetch",
+SPANS = ("engine_step", "round_a_mailbox", "round_b_records", "round_c_mailbox", "oram_fetch",
          "oram_apply", "oram_evict", "oram_writeback", "respond", "engine_flush",
          "oram_flush", "sweep_records", "sweep_mailbox") + POSMAP_SPANS + SCAN_SPANS
 
@@ -945,14 +979,14 @@ def run_evict_slice(GrapevineEngine, cfg, gk, ck, card, windows: int = 4):
     return line, prof, launches, eng, model, gone
 
 
-def mixed_requests(rng, users, created, rnd: int) -> list:
-    """One small-geometry round (64 or 50 ops) over ``users``: creates,
+def mixed_requests(rng, users, created, rnd: int, n: int | None = None) -> list:
+    """One round of ``n`` ops (default 64 or 50) over ``users``: creates,
     reads, updates and deletes of ``created`` ids, zero-id reads and
     deletes of the caller's own mailbox."""
     from grapevine_tpu_torch.wire import constants as C
 
     reqs = []
-    for i in range(64 if rnd % 2 == 0 else 50):
+    for i in range(n if n is not None else 64 if rnd % 2 == 0 else 50):
         a, r = users[rng.integers(len(users))], users[rng.integers(len(users))]
         x = rng.random()
         if rnd == 0 or x < 0.35 or not created:
@@ -977,15 +1011,17 @@ def note_created(reqs, resp, created: list) -> None:
 
 
 def cross_check(GrapevineConfig, GrapevineEngine, convert, impls, evict_every: int,
-                n_rounds: int, device="cuda"):
-    """Phase 7: each kernel engine ≡ the plain ("jnp") engine on the card,
-    after every round: responses, transcripts, state (junk masked)."""
+                n_rounds: int, device="cuda", commit: str = "phase"):
+    """Phase 7 (and 17b with ``commit="op"``): each kernel engine ≡ the
+    plain ("jnp") engine on the card, after every round: responses,
+    transcripts, state (junk masked)."""
     import numpy as np
 
     engines = {
         impl: GrapevineEngine(GrapevineConfig(
             max_messages=2**14, max_recipients=2**10, batch_size=64,
-            bucket_cipher_impl=impl, vphases_impl="dense", evict_every=evict_every),
+            bucket_cipher_impl=impl, vphases_impl="dense", evict_every=evict_every,
+            commit=commit),
             seed=SEED, device=device)
         for impl in ("jnp", *impls)
     }
@@ -1015,9 +1051,9 @@ def cross_check(GrapevineConfig, GrapevineEngine, convert, impls, evict_every: i
     flushes = {impl: getattr(e, "flushes", 0) for impl, e in engines.items()}
     if evict_every > 1 and set(flushes.values()) != {n_rounds // evict_every}:
         raise AssertionError(f"cross-check flush counts {flushes}")
-    return dict(impls=list(impls), evict_every=evict_every, rounds=n_rounds,
-                flushes=flushes["jnp"], messages=engines["jnp"].message_count(),
-                equal=True)
+    return dict(impls=list(impls), evict_every=evict_every, commit=commit,
+                rounds=n_rounds, flushes=flushes["jnp"],
+                messages=engines["jnp"].message_count(), equal=True)
 
 
 #: phase 8's sweep clock: records last written before NOW + 6 expire,
@@ -3882,6 +3918,234 @@ def run_load_phase(eng, gk, ck, card) -> dict:
         phase_s=time.perf_counter() - t_phase)
 
 
+#: phase 17a's rounds: (batch size, rounds) — each an engine of its own
+OP_ROUNDS = ((8, 12), (64, 3))
+#: phase 17b's rounds (each runs four B=64 engines, the plain one slowest)
+OP_XC_ROUNDS = 2
+
+
+def op_kernel_checks(op_ecfg, gk, ck) -> list:
+    """B2 at the op-major engine's shapes: one access's path rows, records
+    (path_len x 1028 words) and mailbox (path_len x 6084), decrypted under
+    their nonces (about one bucket in eight never written, the identity
+    branch) and encrypted under the write epoch, each against its plain
+    version (tolerance 0), with its time, the plain version's and the
+    card's bound; the launch plan at these row counts."""
+    from grapevine_tpu_torch.oram.path_oram import path_bucket_indices
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    rounds = op_ecfg.rec.cipher_rounds
+    shapes = []
+    for tree, cfg in (("records", op_ecfg.rec), ("mailbox", op_ecfg.mb)):
+        z, zv = cfg.bucket_slots, cfg.bucket_slots * cfg.value_words
+        w, r = z + zv, cfg.path_len
+
+        def rnd(*shape):
+            return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                                 device=dev, dtype=torch.int32)
+
+        key, pidx, pval = rnd(8), rnd(r, z), rnd(r, zv)
+        leaf = torch.randint(0, cfg.leaves, (), generator=gen, device=dev).to(torch.int32)
+        bucket = path_bucket_indices(cfg, leaf).contiguous()
+        nonces = rnd(r, 2)
+        nonces[torch.randint(0, 8, (r,), generator=gen, device=dev) == 0] = 0
+        nonces[-1] = 0  # at least one never-written bucket on the path
+        epoch = torch.tensor([5, 1], dtype=torch.int32, device=dev)[None, :].expand(r, 2)
+        for shape, ep in (("op_decrypt", nonces), ("op_encrypt", epoch.contiguous())):
+            written = int((ep != 0).any(dim=1).sum())
+            c_args = (key, bucket, ep, pidx, pval)
+            ki, kv = ck.cipher_rows_pallas(*c_args, rounds=rounds)
+            qi, qv = ck.cipher_rows_pallas_plain(*c_args, rounds=rounds)
+            torch.cuda.synchronize()
+            s = dict(tree=tree, row_words=w, kernel="cipher_rows_pallas", shape=shape,
+                     rows=r, never_written_rows=r - written,
+                     max_abs_err=max(max_err(ki, qi), max_err(kv, qv)),
+                     launch=gk.ring_launch_config("cipher_rows_pallas", r, z, zv),
+                     ms=cuda_ms(lambda: ck.cipher_rows_pallas(*c_args, rounds=rounds), 50),
+                     plain_ms=cuda_ms(lambda: ck.cipher_rows_pallas_plain(
+                         *c_args, rounds=rounds), 5),
+                     bytes=4 * (2 * r * w + 3 * r + 8),
+                     ops=keystream_ops(written, w, rounds) + written * w)
+            s["bytes_ms"] = s["bytes"] / HBM_BYTES_PER_S * 1e3
+            s["ops_ms"] = s["ops"] / INT32_OPS_PER_S * 1e3
+            s["bound_ms"] = max(s["bytes_ms"], s["ops_ms"])
+            # one CTA a row: the persistent grid is capped by the rows
+            if s["launch"]["grid"] != r or s["max_abs_err"] != 0:
+                raise AssertionError(f"B2 at the op-major {tree} {shape} shape: {s}")
+            shapes.append(s)
+    return shapes
+
+
+def _oracle_check(oracle, reqs, resp, now: int, where: str) -> None:
+    """Replay one round through the port's plain-dict oracle, op by op in
+    slot order (the op-major commit), with the engine's created ids
+    forced; every response must equal the oracle's byte for byte."""
+    from grapevine_tpu_torch.wire import constants as C
+
+    for i, (q, r) in enumerate(zip(reqs, resp)):
+        forced = (r.record.msg_id if q.request_type == C.REQUEST_TYPE_CREATE
+                  and r.status_code == C.STATUS_CODE_SUCCESS else None)
+        want = oracle.handle_query(q, now, forced_msg_id=forced)
+        if r.pack() != want.pack():
+            raise AssertionError(f"{where} op {i}: status {r.status_code}, the oracle's "
+                                 f"{want.status_code}, or the records differ")
+
+
+def run_op_phase(GrapevineConfig, GrapevineEngine, convert, gk, ck, card) -> dict:
+    """Phase 17: the op-major engine (``commit="op"``: each op's three
+    accesses committed before the next op). (a) At the production point,
+    ``bucket_cipher_impl="pallas"``: for each of ``OP_ROUNDS`` an engine
+    of that batch size serves that many rounds of mixed CRUD through
+    ``handle_queries``, every response equal to the port's plain-dict
+    ``ReferenceEngine`` (``forced_msg_id``), message and recipient counts
+    too; B2 launches 6·B a round and nothing else; dispatches 3 to 10 of
+    the B=8 engine run under ``set_sync_debug_mode("error")``; the last
+    B=8 round is profiled; no stash overflow. (b) At 2^14, B=64, three
+    rounds: op-major ``"pallas"``, ``"pallas_fused"`` and
+    ``"pallas_fused_tiled"`` against op-major ``"jnp"`` after every round
+    (responses, ``[B, 3]`` transcripts, state with the junk bucket
+    masked), 6·B B2 a round for each kernel engine."""
+    import numpy as np
+
+    from grapevine_tpu_torch.testing.reference import ReferenceEngine
+
+    t_phase = time.perf_counter()
+    geo = dict(max_messages=2**20, max_recipients=2**12)
+    users = [_key("opu", i) for i in range(48)]
+    lines, launches_a = [], {}
+    for b, n_rounds in OP_ROUNDS:
+        cfg = GrapevineConfig(**geo, batch_size=b, commit="op", bucket_cipher_impl="pallas")
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = GrapevineEngine(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        added = torch.cuda.memory_allocated() - m0
+        e = eng.ecfg
+        if (e.rec.top_cache_levels, e.mb.top_cache_levels, e.mb_choices,
+                e.mb_table_buckets) != (0, 0, 1, 8192):
+            raise AssertionError(f"phase 17a: commit='op' resolved to {e}")
+        oracle = ReferenceEngine(config=cfg)
+        rng = np.random.default_rng(SEED + b)
+        created: list = []
+        guard = SyncGuard(eng, 2, 10)
+        if b == 8:
+            guard.install()
+        rounds, prof = [], None
+        parts = dict(init_s=init_s, rounds_s=0.0, profile_s=0.0, oracle_s=0.0)
+        _reset_launches(gk, ck)
+        for k in range(n_rounds):
+            reqs = mixed_requests(rng, users, created, k, n=b)
+            now = NOW + k
+            t0 = time.perf_counter()
+            if b == 8 and k == n_rounds - 1:
+                prof = profile_round(lambda: eng.handle_queries(reqs, now))
+                resp = prof.pop("result")
+                parts["profile_s"] += time.perf_counter() - t0
+            else:
+                resp = eng.handle_queries(reqs, now)
+                rounds.append(time.perf_counter() - t0)
+                parts["rounds_s"] += rounds[-1]
+            t0 = time.perf_counter()
+            _oracle_check(oracle, reqs, resp, now, f"phase 17a B={b} round {k}")
+            note_created(reqs, resp, created)
+            parts["oracle_s"] += time.perf_counter() - t0
+        launches = _launches(gk, ck)
+        if b == 8:
+            guard.remove()
+        require_launches(launches, {"cipher_rows_pallas": 6 * b * n_rounds},
+                         f"phase 17a B={b}")
+        for name, n in launches.items():
+            launches_a[name] = launches_a.get(name, 0) + n
+        if b == 8 and (guard.guarded != 8 or guard.fallback_reads):
+            raise AssertionError(f"phase 17a: {guard.guarded} guarded dispatches, exact "
+                                 f"reads in {guard.fallback_reads}")
+        h = eng.health()
+        if (eng.message_count(), eng.recipient_count()) != (oracle.message_count(),
+                                                           oracle.recipient_count()):
+            raise AssertionError(f"phase 17a B={b}: counts differ from the oracle's")
+        if h["stash_overflow"] != 0:
+            raise AssertionError(f"phase 17a B={b}: stash overflow {h['stash_overflow']}")
+        steady = [x * 1e3 for x in rounds[1:]]
+        line = dict(batch_size=b, commit="op", bucket_cipher_impl="pallas",
+                    max_messages=geo["max_messages"], max_recipients=geo["max_recipients"],
+                    rounds=n_rounds, init_s=init_s, first_round_ms=rounds[0] * 1e3,
+                    round_ms=steady, median_round_ms=statistics.median(steady),
+                    max_round_ms=max(steady),
+                    ms_per_op=statistics.median(steady) / b,
+                    engine_bytes_added=added,
+                    mailbox_tree_bytes=e.mb.n_buckets_padded * e.mb.row_words * 4,
+                    records_tree_bytes=e.rec.n_buckets_padded * e.rec.row_words * 4,
+                    launches=launches, b2_per_round=launches["cipher_rows_pallas"] / n_rounds,
+                    messages=h["messages"], recipients=h["recipients"],
+                    stash_occupancy=h["stash_occupancy"], stash_overflow=0,
+                    responses_equal_oracle=True, parts_s=parts, card=card)
+        if b == 8:
+            line.update(guarded_dispatches=guard.guarded, host_syncs=0,
+                        profiled_round=dict(
+                            wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                            device_kernels=prof["device_kernels"],
+                            device_busy_share=prof["device_busy_share"],
+                            span_device_ms=prof["span_device_ms"],
+                            top_kernels=prof["top_kernels"][:6]))
+        lines.append(line)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    _reset_launches(gk, ck)
+    xc = cross_check(GrapevineConfig, GrapevineEngine, convert,
+                     ("pallas", "pallas_fused", "pallas_fused_tiled"), 1, OP_XC_ROUNDS,
+                     commit="op")
+    launches_b = _launches(gk, ck)
+    # each kernel engine runs 64 slots a round (50-op rounds are padded)
+    require_launches(launches_b, {"cipher_rows_pallas": 3 * 6 * 64 * OP_XC_ROUNDS},
+                     "phase 17b")
+    xc.update(launches=launches_b, s=time.perf_counter() - t_b, card=card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(a=lines, b=xc, launches={k: launches_a.get(k, 0) + launches_b.get(k, 0)
+                                         for k in KERNELS},
+                phase_s=time.perf_counter() - t_phase)
+
+
+def emit_op_lines(op: dict) -> None:
+    for line in op["a"]:
+        emit({"op_major_prod": line})
+    emit({"op_major_cross_check": op["b"], "phase_s": op["phase_s"]})
+
+
+def op_phase_alone() -> int:
+    """Phase 17 alone: the card line, the kernel build, B2 at the op-major
+    shapes, then the op-major engine; 0 if every check held."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine import convert
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.engine.state import EngineConfig
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    op_ecfg = EngineConfig.from_config(GrapevineConfig(
+        max_messages=2**20, max_recipients=2**12, batch_size=8, commit="op",
+        bucket_cipher_impl="pallas"))
+    emit({"op_kernel_shapes": op_kernel_checks(op_ecfg, gk, ck), "card": card})
+    gc.callbacks.append(GEN2)
+    op = run_op_phase(GrapevineConfig, GrapevineEngine, convert, gk, ck, card)
+    emit_op_lines(op)
+    emit({"op_phase_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def emit_scan_lines(scan: dict) -> None:
     emit({"scan_e1": scan["a"]})
     emit({"scan_e4": scan["b"]})
@@ -3940,6 +4204,8 @@ def main() -> int:
                     help="run phase 12b alone N times instead of every phase")
     ap.add_argument("--scan-phases", action="store_true",
                     help="run phases 15-16 alone (after the kernel build)")
+    ap.add_argument("--op-phase", action="store_true",
+                    help="run phase 17 alone (after the kernel build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -3949,6 +4215,8 @@ def main() -> int:
         return repeat_standby_runbook(args.standby_runbook)
     if args.scan_phases:
         return scan_phases_alone()
+    if args.op_phase:
+        return op_phase_alone()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -3979,6 +4247,10 @@ def main() -> int:
     prod = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
     prod_ecfg = EngineConfig.from_config(prod)
     shapes = kernel_checks(prod_ecfg, gk, ck, path_oram, round_mod, expiry)
+    op_ecfg = EngineConfig.from_config(GrapevineConfig(
+        max_messages=2**20, max_recipients=2**12, batch_size=8, commit="op",
+        bucket_cipher_impl="pallas"))
+    shapes += op_kernel_checks(op_ecfg, gk, ck)
     sweep_chunks = {t: c.n_buckets_padded // expiry._chunk_rows(c)
                     for t, c in (("records", prod_ecfg.rec), ("mailbox", prod_ecfg.mb))}
     emit({"ring_launch": [
@@ -4102,8 +4374,14 @@ def main() -> int:
                           lambda twin: run_load_phase(twin, gk, ck, card))
     split("scan_and_load")
 
+    # phase 17: the op-major engine at the production point against the
+    # port's oracle, and its kernel engines against "jnp" at 2^14 (B2)
+    op = run_op_phase(GrapevineConfig, GrapevineEngine, convert, gk, ck, card)
+    split("op_major")
+
     launches_by_kernel = {
-        "cipher_rows_pallas": (pm["launches"]["cipher_rows_pallas"]
+        "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
+                               + pm["launches"]["cipher_rows_pallas"]
                                + scan["launches"]["cipher_rows_pallas"]
                                + scan["load"]["launches"].get("cipher_rows_pallas", 0)
                                + pallas_launches["cipher_rows_pallas"]
@@ -4165,8 +4443,10 @@ def main() -> int:
     emit({"posmap_e4": pm["b"]})
     emit({"posmap_sweep": pm["c"], "phase_s": pm["phase_s"]})
     emit_scan_lines(scan)
+    emit_op_lines(op)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
-    emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks), "card": card})
+    emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
+                                    op["launches"]["cipher_rows_pallas"]), "card": card})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -29,6 +29,10 @@ Dispatch makes no host synchronization on the card:
   ``recipients``) is decided on the host from a bound (``_admission``)
   instead of a read of the state, whenever the bound decides it.
 
+Under ``commit="op"`` the round program is the op-major
+``engine/step.py:engine_step`` (the reference's choice, for dispatch and
+journal replay alike); it has no admission branch to decide.
+
 The facade also runs the delayed-eviction flush every ``evict_every``
 rounds (in the window-closing round's lock hold), the expiry sweep
 (``expire``), and with a ``DurabilityConfig`` checkpoints on a cadence
@@ -63,6 +67,7 @@ from ..wire.validate import validate_request
 from .expiry import expiry_sweep
 from .metrics import EngineMetrics
 from .round_step import admission_fast_ok, engine_flush_step, engine_round_step
+from .step import engine_step
 from .state import (
     ID_WORDS,
     KEY_WORDS,
@@ -312,6 +317,10 @@ class GrapevineEngine:
         self.device = resolve_device(device)
         self.ecfg = EngineConfig.from_config(self.config)
         self.state: EngineState = init_engine(self.ecfg, seed, self.device)
+        #: the round program (``_round_program``): the op-major step under
+        #: ``commit="op"``, the phase-major round otherwise (the
+        #: reference's choice); dispatch and journal replay both run it
+        self._op_major = self.config.commit == "op"
         self._lock = threading.Lock()
         #: delayed eviction: the flush runs strictly every E rounds — a
         #: pure function of the round count, never of buffer contents
@@ -407,7 +416,7 @@ class GrapevineEngine:
                         "under a different evict_every; replay requires the "
                         "identical cadence"
                     )
-            state, _resp, _transcript = engine_round_step(
+            state, _resp, _transcript = self._round_program()(
                 self.ecfg, state, batch_to_device(rec.batch, self.device))
             return state
         if rec.kind == KIND_FLUSH:
@@ -420,6 +429,10 @@ class GrapevineEngine:
             self._replay_since = 0
             return self._flush_step(self.ecfg, state)
         return expiry_sweep(self.ecfg, state, rec.now, rec.period, rec.now_hi)
+
+    def _round_program(self):
+        """The step this engine's rounds run, looked up when called."""
+        return engine_step if self._op_major else engine_round_step
 
     # -- the admission bound ---------------------------------------------
 
@@ -553,9 +566,11 @@ class GrapevineEngine:
         t0 = time.perf_counter()
         dev_batch, staging = upload_batch(batch, self.device)
         creates = int(np.count_nonzero(batch["req_type"] == C.REQUEST_TYPE_CREATE))
-        fast_ok = self._admission(creates)
-        self.state, resp, tr = engine_round_step(self.ecfg, self.state, dev_batch,
-                                                 fast_ok=fast_ok)
+        # the op-major step has no admission branch (each op checks its
+        # own quota inside the program)
+        kw = {} if self._op_major else {"fast_ok": self._admission(creates)}
+        self.state, resp, tr = self._round_program()(self.ecfg, self.state, dev_batch,
+                                                     **kw)
         with self._bound_lock:
             self._dispatched += 1
             self._inflight.append((self._dispatched, creates))
@@ -607,7 +622,8 @@ class GrapevineEngine:
         return pending
 
     def handle_queries_with_transcript(self, reqs: list[QueryRequest], now: int):
-        """One batch; returns (responses, transcript u32[B, 2D+1]).
+        """One batch; returns (responses, transcript u32[B, 2D+1]; [B, 3]
+        under ``commit="op"``).
 
         As the reference's test/bench variant: the requests are validated
         but not the clock, the round is journaled and dispatched and the

@@ -86,8 +86,10 @@ class EngineConfig:
         the vphases: ``None`` resolves to ``"dense"`` on the card and on
         the CPU alike (the reference picks "scan" off the TPU; the
         port's default waits on a benchmark that resolves the two on the
-        card). The rest: the comparison sorts, a flat position map, a k=4
-        tree-top cache (clamped per tree) and per-round eviction. Under ``evict_every`` E > 1 the records
+        card). The rest: the comparison sorts, a flat position map, a
+        tree-top cache of k=4 under ``commit="phase"`` and k=0 under
+        ``commit="op"`` (the differential oracle stays cache-free;
+        clamped per tree) and per-round eviction. Under ``evict_every`` E > 1 the records
         tree's window is E rounds of B fetched paths, the mailbox tree's
         2E rounds (rounds A and C) of B·D; buffer sizes are
         ``evict_buffer_slots`` or derived per tree. A recursive map
@@ -99,7 +101,7 @@ class EngineConfig:
         mb_value_words = k * (KEY_WORDS + ENTRY_WORDS * cfg.mailbox_cap)
         tc = cfg.tree_top_cache_levels
         if tc is None:
-            tc = 4
+            tc = 4 if cfg.commit == "phase" else 0
         ee = cfg.evict_every if cfg.evict_every is not None else 1
         rec_w, mb_w = (ee, 2 * ee) if ee > 1 else (1, 1)
         rec_f = cfg.batch_size if ee > 1 else 0
@@ -173,14 +175,10 @@ class EngineConfig:
 def _refuse_unported(cfg: GrapevineConfig) -> None:
     """Raise ``NotImplementedError`` for knob values a later slice ports,
     naming the ROADMAP.md item that will."""
-    todo = []
-    if cfg.commit != "phase":
-        todo.append("commit='op' (ROADMAP.md queue A item 14, op-major engine)")
     if cfg.shards != 1:
-        todo.append("shards > 1 (ROADMAP.md queue A item 15, multi-GPU sharding)")
-    if todo:
         raise NotImplementedError(
-            "not ported to the PyTorch engine yet: " + "; ".join(todo)
+            "not ported to the PyTorch engine yet: shards > 1 (ROADMAP.md "
+            "queue A item 15, multi-GPU sharding)"
         )
 
 
@@ -239,6 +237,22 @@ def side_generator(gen: torch.Generator) -> torch.Generator:
     side = torch.Generator(device=gen.device)
     side.manual_seed((gen.initial_seed() * 0x9E3779B97F4A7C15 + _PM_FOLD) % (1 << 63))
     return side
+
+
+def mb_parse(ecfg: EngineConfig, value):
+    """Split a mailbox block value into (keys [K,8], entries [K,cap,6])."""
+    k, cap = ecfg.mb_slots, ecfg.mailbox_cap
+    v = value.reshape(k, KEY_WORDS + ENTRY_WORDS * cap)
+    keys = v[:, :KEY_WORDS]
+    entries = v[:, KEY_WORDS:].reshape(k, cap, ENTRY_WORDS)
+    return keys, entries
+
+
+def mb_pack(ecfg: EngineConfig, keys, entries):
+    """The inverse of :func:`mb_parse`: one flat mailbox block value."""
+    k, cap = ecfg.mb_slots, ecfg.mailbox_cap
+    flat = torch.cat([keys, entries.reshape(k, cap * ENTRY_WORDS)], dim=1)
+    return flat.reshape(k * (KEY_WORDS + ENTRY_WORDS * cap))
 
 
 def mb_bucket_hash(hash_key, recipient, n_buckets: int, salt: int = 0):

@@ -11,7 +11,12 @@ from __future__ import annotations
 
 import torch
 
-from ..u32 import ule, ult, widen
+from ..u32 import narrow, ule, ult, widen
+
+
+def cmov(cond, a, b):
+    """Constant-shape conditional move: cond ? a : b (broadcasting where)."""
+    return torch.where(cond, a, b)
 
 
 def words_equal(a, b):
@@ -22,6 +27,43 @@ def words_equal(a, b):
 def is_zero_words(a):
     """True where a multi-word value is all-zero (invalid key / empty id)."""
     return torch.all(a == 0, dim=-1)
+
+
+def onehot_select(mask, values):
+    """Select the single row of ``values`` where ``mask`` is True.
+
+    mask: bool[N]; values: int32[N, ...] → int32[...]. With no (or
+    several) set lanes the result is the masked sum mod 2^32, as the
+    reference's u32 sum: callers guarantee at most one match and handle
+    the none-set case through a separate ``found`` flag. The sum runs in
+    int64 (``torch.sum`` of int32 widens) and is narrowed back with
+    wraparound."""
+    m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
+    return narrow(torch.where(m, values, 0).sum(dim=0))
+
+
+def first_true_onehot(mask):
+    """One-hot of the first True lane (all-False → all-False). bool[N]→bool[N].
+
+    ``argmax`` over the int32 mask returns the first maximal lane, so a
+    tie breaks toward the lowest index, as the reference's does."""
+    idx = torch.argmax(mask.to(torch.int32))  # 0 if none set; guarded below
+    onehot = torch.arange(mask.shape[0], device=mask.device) == idx
+    return onehot & torch.any(mask)
+
+
+def argmin_u64_onehot(valid, hi, lo):
+    """One-hot of the valid lane with the smallest (hi, lo) u64 pair.
+
+    valid: bool[N]; hi, lo: u32 lanes int32[N]. Invalid lanes rank as
+    +inf (0xFFFFFFFF, compared unsigned: the words widen to int64);
+    ties break toward the lowest lane index. Returns (onehot bool[N],
+    any_valid bool)."""
+    inf = 0xFFFFFFFF
+    hi_m = torch.where(valid, widen(hi), inf)
+    cand = valid & (hi_m == hi_m.min())
+    lo_m = torch.where(cand, widen(lo), inf)
+    return first_true_onehot(cand & (lo_m == lo_m.min())), torch.any(valid)
 
 
 def rank_of(mask):
@@ -76,3 +118,14 @@ def scatter_drop(dst, idx, src):
     buf = torch.cat([dst, dst.new_empty((1,) + tuple(dst.shape[1:]))])
     buf[torch.where((idx >= 0) & (idx < n), idx, n)] = src
     return buf[:n]
+
+
+def index1(t):
+    """A 0-d index tensor as a 1-element int64 index: indexing with a 0-d
+    tensor may read it back to the host, a 1-element index never does."""
+    return t.reshape(1).long()
+
+
+def flag(value: bool, like) -> torch.Tensor:
+    """A constant bool scalar on ``like``'s device (a fill, no copy)."""
+    return torch.full((), value, dtype=torch.bool, device=like.device)

@@ -25,10 +25,12 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
-from ..oblivious.bucket_cipher import row_keystream
+from ..oblivious.bucket_cipher import epoch_next, row_keystream
 from ..oblivious.cipher_kernels import cipher_rows_pallas
-from ..u32 import SENTINEL, narrow, ult
+from ..oblivious.primitives import first_true_onehot, onehot_select, rank_of, scatter_fresh
+from ..u32 import SENTINEL, narrow, ult, widen
 
 I32 = torch.int32
 
@@ -366,6 +368,18 @@ def path_slot_indices(cfg: OramConfig, path_b) -> torch.Tensor:
     return path_b[..., None] * z + torch.arange(z, dtype=I32, device=path_b.device)
 
 
+def _common_prefix_depth(cfg: OramConfig, leaves_a, leaf_b):
+    """Deepest path level where a block with leaf ``leaves_a[i]`` may live
+    on the path to ``leaf_b``: the length of the common prefix of the two
+    height-bit leaf numbers, int32 in [0, height]. ``a >> s == b >> s``
+    (logical shifts) iff ``(a ^ b) >> s == 0``; the XOR widens to int64,
+    where every shift is logical, so working-set entries of invalid slots
+    (arbitrary leaf words) count exactly as the reference's u32 lanes do."""
+    x = widen(leaves_a ^ leaf_b)
+    shifts = torch.arange(cfg.height - 1, -1, -1, device=x.device)  # h - j, j = 1..h
+    return ((x[..., None] >> shifts) == 0).sum(dim=-1).to(I32)
+
+
 def _path_gather(tree, path_b):
     """Fetch the path bucket rows (single device)."""
     return tree[path_b.long()]
@@ -398,6 +412,203 @@ def working_leaves(posmap, cfg: OramConfig, idxs) -> torch.Tensor:
     entry ``posmap[blocks]`` (their value is never used)."""
     safe = torch.where(ult(idxs, cfg.blocks), idxs, cfg.blocks)
     return posmap[safe.long()]
+
+
+def oram_access(cfg: OramConfig, state: OramState, idx, new_leaf, operand, fn,
+                pm_leaf=None):
+    """One oblivious read-modify-write access (the reference's
+    ``oram_access``, single device): the op-major engine's primitive.
+
+    ``idx`` int32 scalar block index (or ``cfg.dummy_index``), ``new_leaf``
+    int32 scalar fresh uniform in [0, leaves). ``fn(value int32[V],
+    present bool, operand) -> (new_value int32[V], keep bool, insert bool,
+    out)``, every one a tensor: if the block is present its value becomes
+    ``new_value`` (``keep`` False removes it); if absent and ``insert``,
+    ``(idx, new_value)`` is added. ``fn`` must be branchless and gets the
+    masked value (zeros when absent). Returns ``(state', out, leaf)``;
+    ``leaf`` is the public transcript entry: an int32 scalar under a flat
+    map, int32[2] (payload leaf, internal leaf) under a recursive one,
+    where ``pm_leaf`` supplies the fresh internal leaf.
+
+    The path's tree rows, nonces (and leaf plane) are written back in
+    place, as ``oram_round`` writes them; every other plane is new. The
+    rows go through :func:`cipher_rows` both ways, so every ``pallas*``
+    impl runs the row-cipher kernel twice an access. No value is read
+    back to the host."""
+    from .posmap import lookup_remap_one
+
+    z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
+    recursive = cfg.posmap is not None
+    posmap, leaf, inner_leaf = lookup_remap_one(cfg, state.posmap, idx, new_leaf,
+                                                pm_leaf)
+    path_b = path_bucket_indices(cfg, leaf)  # int32[plen]
+
+    # tree-top cache split: levels [0, kc) live decrypted in the cache
+    # planes; only the bottom plen−kc levels touch the encrypted tree
+    kc = cfg.top_cache_levels
+    bot_b = path_b[kc:]
+    bot = bot_b.long()
+    top_b = torch.clamp(path_b[:kc], max=max(cfg.cache_buckets, 1) - 1)
+    top_slots = path_slot_indices(cfg, top_b).reshape(-1)
+
+    # --- fetch path ∪ stash into the working set -----------------------
+    with record_function("oram_fetch"):
+        pnonce = state.nonces[bot]
+        pidx, pval = cipher_rows(cfg, state.cipher_key, bot_b, pnonce,
+                                 state.tree_idx.view(-1, z)[bot], state.tree_val[bot])
+        if kc:
+            pidx = torch.cat([state.cache_idx[top_slots.long()].reshape(kc, z), pidx])
+            pval = torch.cat([state.cache_val[top_b.long()], pval])
+        if recursive:
+            pleaf = leaf_plane_cipher(cfg, state.cipher_key, bot_b, pnonce,
+                                      state.tree_leaf.view(-1, z)[bot])
+            if kc:
+                pleaf = torch.cat([state.cache_leaf[top_slots.long()].reshape(kc, z),
+                                   pleaf])
+    widx = torch.cat([state.stash_idx, pidx.reshape(-1)])
+    wval = torch.cat([state.stash_val, pval.reshape(-1, v)])
+    if recursive:
+        # leaves ride the per-slot leaf plane (the map cannot be gathered)
+        wleaf = torch.cat([state.stash_leaf, pleaf.reshape(-1)])
+    else:
+        # from the remapped private map: new_leaf for the accessed block
+        wleaf = working_leaves(posmap, cfg, widx)
+
+    valid = widx != SENTINEL
+    match = valid & (widx == idx)
+    if recursive:
+        # the map's entry for idx is already new_leaf: the plane follows
+        wleaf = torch.where(match, new_leaf, wleaf)
+    present = torch.any(match)
+    value = onehot_select(match, wval)
+
+    new_value, keep, insert, out = fn(value, present, operand)
+
+    # --- apply the modification obliviously ----------------------------
+    wval = torch.where(match[:, None], new_value[None, :], wval)
+    widx = torch.where(match & ~keep, SENTINEL, widx)
+    do_insert = insert & ~present & (idx != cfg.dummy_index)
+    ins_slot = first_true_onehot(widx == SENTINEL) & do_insert
+    widx = torch.where(ins_slot, idx, widx)
+    wleaf = torch.where(ins_slot, new_leaf, wleaf)
+    wval = torch.where(ins_slot[:, None], new_value[None, :], wval)
+    # a full working set on insert is an overflow (the path fetch alone
+    # frees plen*z slots, so it cannot happen at a sane geometry)
+    insert_dropped = do_insert & ~torch.any(ins_slot)
+
+    # --- greedy deepest-first eviction ---------------------------------
+    with record_function("oram_evict"):
+        valid = widx != SENTINEL
+        depth = _common_prefix_depth(cfg, wleaf, leaf)
+        # deep[level]: the entry may live at that level of this path
+        deep = depth[None, :] >= torch.arange(plen, dtype=I32, device=depth.device)[:, None]
+        tgt = torch.full(valid.shape, plen * z, dtype=torch.int64, device=valid.device)
+        unplaced = valid
+        for level in range(cfg.height, -1, -1):
+            eligible = unplaced & deep[level]
+            # inclusive count: an eligible entry's slot is count - 1, and
+            # the first z of them (in working-set order) are placed
+            count = torch.cumsum(eligible, 0)
+            chosen = eligible & (count <= z)
+            tgt = torch.where(chosen, count + (level * z - 1), tgt)
+            unplaced = unplaced ^ chosen
+        # conflict-free: each (level, pos) pair is chosen at most once;
+        # unplaced entries target plen*z and are dropped
+        new_pidx = scatter_fresh(plen * z, SENTINEL, tgt, widx)
+        new_pval = scatter_fresh(plen * z, 0, tgt, wval)
+        new_pleaf = scatter_fresh(plen * z, 0, tgt, wleaf) if recursive else None
+
+    # --- compact the leftovers back into the stash ---------------------
+    s = cfg.stash_size
+    leftover = unplaced
+    starget = torch.where(leftover, rank_of(leftover), s).long()
+    stash_idx = scatter_fresh(s, SENTINEL, starget, widx)
+    stash_val = scatter_fresh(s, 0, starget, wval)
+    stash_leaf = scatter_fresh(s, 0, starget, wleaf) if recursive else state.stash_leaf
+    stash_dropped = torch.clamp(leftover.to(I32).sum() - s, min=0)
+    overflow = (state.overflow + stash_dropped + insert_dropped.to(I32)).to(I32)
+
+    # --- write the path back (write transcript ≡ read transcript) ------
+    with record_function("oram_writeback"):
+        epochs_w = state.epoch[None, :].expand(plen - kc, 2)
+        enc_pidx, enc_pval = cipher_rows(
+            cfg, state.cipher_key, bot_b, epochs_w,
+            new_pidx.view(plen, z)[kc:], new_pval.view(plen, z * v)[kc:])
+        # a path's buckets are distinct: unique targets
+        state.tree_idx.view(-1, z)[bot] = enc_pidx
+        state.tree_val[bot] = enc_pval
+        if cfg.encrypted:
+            state.nonces[bot] = epochs_w
+        cache_idx, cache_val, cache_leaf = state.cache_idx, state.cache_val, state.cache_leaf
+        if kc:
+            # cached levels write back plaintext into the cache planes
+            cache_idx = cache_idx.index_put((top_slots.long(),), new_pidx[:kc * z])
+            cache_val = cache_val.index_put((top_b.long(),),
+                                            new_pval.view(plen, z * v)[:kc])
+        if recursive:
+            enc_pleaf = leaf_plane_cipher(cfg, state.cipher_key, bot_b, epochs_w,
+                                          new_pleaf.view(plen, z)[kc:])
+            state.tree_leaf.view(-1, z)[bot] = enc_pleaf
+            if kc:
+                cache_leaf = cache_leaf.index_put((top_slots.long(),), new_pleaf[:kc * z])
+    new_state = state._replace(
+        cache_idx=cache_idx,
+        cache_val=cache_val,
+        cache_leaf=cache_leaf,
+        stash_idx=stash_idx,
+        stash_val=stash_val,
+        stash_leaf=stash_leaf,
+        posmap=posmap,
+        overflow=overflow,
+        epoch=epoch_next(state.epoch),
+    )
+    if recursive:
+        leaf = torch.stack([leaf, inner_leaf])
+    return new_state, out, leaf
+
+
+def _take(tree, i: int):
+    """Element ``i`` of every tensor of an operand pytree (dicts, tuples,
+    lists, tensors)."""
+    if isinstance(tree, dict):
+        return {k: _take(x, i) for k, x in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_take(x, i) for x in tree)
+    return tree[i]
+
+
+def _stack(items: list):
+    """Stack a list of like pytrees along a new leading axis."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack([x[k] for x in items]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack(list(col)) for col in zip(*items))
+    return torch.stack(items)
+
+
+def oram_access_batch(cfg: OramConfig, state: OramState, idxs, new_leaves,
+                      operands, fn, pm_leaves=None):
+    """Sequentially committed batch of :func:`oram_access` calls, in slot
+    order (the reference's ``lax.scan`` as a Python loop; every access is
+    branchless, so the loop reads nothing back). ``operands`` is a pytree
+    with a leading batch axis. Returns ``(state', outs, leaves)`` with
+    outs and leaves stacked; under a recursive map ``pm_leaves`` int32[B]
+    supplies the fresh internal leaves and ``leaves`` is int32[B, 2]."""
+    recursive = cfg.posmap is not None
+    if recursive and pm_leaves is None:
+        raise ValueError(
+            "recursive posmap batch needs pm_leaves (fresh uniform "
+            "internal leaves, one per access)"
+        )
+    outs, leaves = [], []
+    for i in range(idxs.shape[0]):
+        state, out, leaf = oram_access(cfg, state, idxs[i], new_leaves[i],
+                                       _take(operands, i), fn,
+                                       pm_leaves[i] if recursive else None)
+        outs.append(out)
+        leaves.append(leaf)
+    return state, _stack(outs), torch.stack(leaves)
 
 
 def tree_cache_private_bytes(cfg: OramConfig) -> int:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..oblivious.primitives import scatter_drop
+from ..oblivious.primitives import flag, index1, scatter_drop
 from ..oblivious.segmented import grouping_sort, segment_bounds
 from ..u32 import SENTINEL, shr
 from ..u32 import to_numpy as _t2n
@@ -289,6 +289,49 @@ def lookup_remap_round(cfg, pm_state, idxs, new_leaves, dummy_leaves, first_occ,
     looked = looked & (cfg.leaves - 1)
     leaves = torch.where(first_occ, looked, dummy_leaves)
     return pm_state._replace(inner=inner2), leaves, inner_leaves
+
+
+def lookup_remap_one(cfg, pm_state, idx, new_leaf, pm_leaf=None):
+    """Single-access lookup and remap (the op-major engine's path).
+
+    Returns ``(pm_state', leaf, inner_leaf | None)``. Flat: one private
+    gather and one scatter into a new table. Recursive: ONE internal ORAM
+    access per outer access, dummy for dummy (a fixed schedule); the
+    throwaway ``dummy_entry`` reproduces the flat table's ``table[blocks]``
+    read and remap. ``pm_leaf`` is the fresh internal leaf."""
+    if cfg.posmap is None:
+        i = index1(idx)
+        return pm_state.index_put((i,), new_leaf.reshape(1)), pm_state[i][0], None
+    if pm_leaf is None:
+        raise ValueError(
+            "recursive posmap lookup needs pm_leaf (a fresh uniform "
+            "internal leaf)"
+        )
+    from .path_oram import oram_access
+
+    spec = cfg.posmap
+    icfg = inner_oram_config(spec)
+    k = spec.entries_per_block
+    lgk = k.bit_length() - 1
+    is_dummy = idx == cfg.dummy_index
+    # block ids are below 2^30, so the int32 lanes shift as u32 do
+    inner_idx = torch.where(is_dummy, icfg.dummy_index, shr(idx, lgk))
+    off = index1(idx & (k - 1))
+
+    def fn(value, present, operand):
+        # remap the entry; keep the block, never insert (always present
+        # for real indices: the internal tree is initialized full)
+        return (value.index_put((off,), new_leaf.reshape(1)), flag(True, value),
+                flag(False, value), value[off][0])
+
+    with record_function("posmap"):
+        inner2, looked, inner_leaf = oram_access(icfg, pm_state.inner, inner_idx,
+                                                 pm_leaf, None, fn)
+    # decrypted entries are re-masked to the leaf range they were stored under
+    looked = looked & (cfg.leaves - 1)
+    leaf = torch.where(is_dummy, pm_state.dummy_entry, looked)
+    dummy2 = torch.where(is_dummy, new_leaf, pm_state.dummy_entry)
+    return pm_state._replace(inner=inner2, dummy_entry=dummy2), leaf, inner_leaf
 
 
 # -- sizing + test/debug views ------------------------------------------

@@ -52,7 +52,10 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     radix sort are too (own ports of ``oram/posmap.py`` and
     ``oblivious/radix.py``), and so are the scan vphases, the load
     harness and the checkpoint seal scan (own copies of ``load/`` and of
-    the seal scan), so the boundary scan reads each of them."""
+    the seal scan), and the op-major engine and its oracle (own copies of
+    the reference's jax-free ``testing/reference.py``, ``ref_oram.py``,
+    ``fixtures.py``, a torch port of ``compare.py``), so the boundary
+    scan reads each of them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
                 "engine/replication.py",
@@ -65,7 +68,9 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
                 "server/adaptive.py", "oram/posmap.py", "oram/round.py",
                 "oblivious/segmented.py", "load/__init__.py", "load/generators.py",
                 "load/capacity.py", "load/harness.py", "testing/checkpoint_seal.py",
-                "engine/vphases.py", "oblivious/prp.py"):
+                "engine/vphases.py", "oblivious/prp.py", "engine/step.py",
+                "testing/reference.py", "testing/ref_oram.py", "testing/fixtures.py",
+                "testing/compare.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
@@ -173,7 +178,7 @@ def test_pipelined_engine_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(vphases_impl="scan", shards=2), dict(commit="op"),
+    dict(vphases_impl="scan", shards=2), dict(commit="phase", shards=4),
     # the scan vphases, the recursive map and the radix sort run; on a
     # mesh they stay refused
     dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix", shards=2),
@@ -199,6 +204,7 @@ def test_unported_knobs_name_their_roadmap_item(knob):
          bucket_cipher_impl="pallas_fused"),
     dict(vphases_impl="scan"),
     dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix"),
+    dict(commit="op"), dict(commit="op", bucket_cipher_impl="pallas"),
 ])
 def test_ported_knobs_are_accepted(knob):
     from grapevine_tpu_torch.config import GrapevineConfig
@@ -211,3 +217,22 @@ def test_ported_knobs_are_accepted(knob):
     assert ecfg.posmap_impl == knob.get("posmap_impl", "flat")
     assert ecfg.vphases_impl == knob.get("vphases_impl", "dense")
     assert (ecfg.rec.posmap is not None) == (ecfg.posmap_impl == "recursive")
+
+
+def test_op_commit_resolves_as_the_reference():
+    """``commit="op"`` builds (the op-major engine): no tree-top cache, one
+    mailbox choice, and at the production point 8192 mailbox buckets
+    (load 0.125), the reference's geometry; the phase-major engine keeps
+    k=4 and two choices over 2048."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.state import EngineConfig
+
+    prod = dict(max_messages=2**20, max_recipients=2**12)
+    op = EngineConfig.from_config(GrapevineConfig(**prod, commit="op"))
+    assert op.rec.top_cache_levels == op.mb.top_cache_levels == 0
+    assert op.mb_choices == 1 and op.mb_table_buckets == 8192
+    assert op.mb.height == 12 and op.rec.path_len == 20 and op.mb.path_len == 13
+    assert (op.rec.row_words, op.mb.row_words) == (1028, 6084)
+    phase = EngineConfig.from_config(GrapevineConfig(**prod))
+    assert phase.rec.top_cache_levels == 4 and phase.mb_choices == 2
+    assert phase.mb_table_buckets == 2048

@@ -122,10 +122,15 @@ def test_vphases_knob_validation_and_default():
     scan = EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan"))
     dense = EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="dense"))
     assert repr(scan) != repr(dense)  # the checkpoint fingerprint tells them apart
-    for bad in (dict(commit="op"), dict(shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan",
-                                                     **bad))
+    # the op-major engine builds (and ignores the vphases: it runs none);
+    # on a mesh the scan vphases stay refused
+    op = EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan",
+                                                  commit="op"))
+    assert op.vphases_impl == "scan" and op.mb_choices == 1
+    assert op.rec.top_cache_levels == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan",
+                                                 shards=2))
 
 
 @pytest.mark.parametrize("extra", [
