@@ -211,6 +211,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at one access's path rows (20 x 1028 records, 13 x 6084 mailbox words),
    decrypt and encrypt, and the kernels line gives B2's op-major per-op
    time beside its bound.
+18. the bucket-tree mesh (``shards``, ``parallel/mesh.py``) at the
+   production point: (a) E=1 ``"pallas"``, a one-device twin runs 7
+   rounds of phase 6's CRUD, then an engine sharded over a virtual mesh
+   of 2 shards on ``cuda:0`` (the device repeated, ``mesh_devices``), then
+   one of 4, the same seed, requests and so draws: every response equal to
+   the model and to the twin's, every transcript equal, and the full
+   state (shard by shard against the twin's rows, the junk bucket and the
+   scratch rows masked) and generator equal after the run; B2 launches 6
+   a round and nothing else (the fused kernels give way to gather →
+   reduce → B2 on a mesh); the 3rd to 6th sharded dispatches under
+   ``set_sync_debug_mode("error")``; round median and max, the profiled
+   round's device ms and kernels, the device memory each engine adds and
+   the peak a run allocates above it, beside the twin's, each shard's
+   resident bytes and round traffic beside the cost model's per-shard
+   bytes; (b) E=4 ``"pallas_fused"`` on 2 shards through the facade,
+   durable (an fsync per record), beside a one-device twin in lockstep: 2
+   windows of phase 10's stream, every status checked and every response
+   equal to the twin's, the state equal after each flush and after a
+   sweep, and a depth-1 one-device engine recovered from a copy of the
+   state dir equal to the sharded one; (c) with two or more cards, (a) on a
+   mesh across them; with one, a line saying it did not run and why.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -233,6 +254,10 @@ seconds they took).
 
 runs phase 17 alone after the kernel build, with B2 at the op-major
 shapes first.
+
+    python3 chip_smoke.py --mesh-phase
+
+runs phase 18 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -4146,6 +4171,373 @@ def op_phase_alone() -> int:
     return 0
 
 
+#: phase 18: the bucket-tree mesh (``parallel/mesh.py``) on virtual meshes
+#: of one card (the device repeated), each beside a one-device twin
+MESH_SHARDS = (2, 4)
+MESH_ROUNDS = 7
+
+
+def _record_transcripts(eng) -> list:
+    """Keep every round's transcript tensor (on the device; compared after
+    the run, so the dispatch reads nothing back)."""
+    log: list = []
+    program = eng._round_program
+
+    def wrapped():
+        fn = program()
+
+        def run(*a, **k):
+            out = fn(*a, **k)
+            log.append(out[2])
+            return out
+
+        return run
+
+    eng._round_program = wrapped
+    return log
+
+
+def mesh_twin_check(eng, twin, where: str, mask_junk: bool = True) -> None:
+    """A sharded engine against a one-device engine, on the card: every
+    leaf equal — each shard's heap rows against the twin's same rows, the
+    scratch rows and (with ``mask_junk``) the padded junk bucket left out
+    — and the generator. One device compare per leaf, no full copy."""
+    from grapevine_tpu_torch.oram.path_oram import ShardedPlane, oram_leaves
+
+    def same(x, y) -> bool:
+        return torch.equal(x, y.to(x.device))
+
+    for name in ("rec", "mb"):
+        cfg = getattr(eng.ecfg, name)
+        mine, theirs = oram_leaves(getattr(eng.state, name)), oram_leaves(getattr(twin.state, name))
+        for f, x in mine.items():
+            y = theirs[f]
+            if isinstance(y, ShardedPlane):
+                y = y.join(y.shards[0].device)
+            if isinstance(x, ShardedPlane):
+                k = y.shape[0] // cfg.n_buckets_padded
+                end = y.shape[0] - (k if mask_junk else 0)
+                for i, part in enumerate(x.local()):
+                    lo = i * x.n_local * k
+                    hi = min(lo + part.shape[0], end)
+                    if not same(part[:hi - lo], y[lo:hi]):
+                        raise AssertionError(f"{where}: {name}.{f} shard {i} differs")
+            elif mask_junk and f in ("tree_idx", "tree_val", "nonces", "tree_leaf") and x.numel():
+                k = x.shape[0] // cfg.n_buckets_padded
+                if not same(x[:-k], y[:-k]):
+                    raise AssertionError(f"{where}: {name}.{f} differs")
+            elif not same(x, y):
+                raise AssertionError(f"{where}: {name}.{f} differs")
+    for k in ("freelist", "free_top", "recipients", "seq", "hash_key", "id_key"):
+        if not same(getattr(eng.state, k), getattr(twin.state, k)):
+            raise AssertionError(f"{where}: {k} differs")
+    if not torch.equal(eng.state.rng.get_state(), twin.state.rng.get_state()):
+        raise AssertionError(f"{where}: the generator differs from the twin's")
+
+
+def _shard_bytes(eng) -> list:
+    """Device bytes each shard of ``eng``'s mesh holds (its tree, leaf and
+    nonce planes, scratch rows included)."""
+    from grapevine_tpu_torch.oram.path_oram import ShardedPlane, oram_leaves
+
+    out = [0] * eng._mesh.size
+    for tree in (eng.state.rec, eng.state.mb):
+        for x in oram_leaves(tree).values():
+            if isinstance(x, ShardedPlane):
+                for i, s in enumerate(x.shards):
+                    out[i] += s.numel() * s.element_size()
+    return out
+
+
+class ShardTraffic:
+    """Device bytes each shard's gathers and scatters move, tallied from
+    the shapes of this run's calls, host arithmetic only (no device
+    read): a gather of R rows of ``row`` bytes reads its R ids and R rows,
+    writes them, masks them in place (a read and a write) and the reduce
+    reads them once more, 5·R·row + 4·R; a scatter reads R ids, owner
+    flags and values and writes R rows (the non-owned ones into the
+    scratch row), 2·R·row + 5·R."""
+
+    def __init__(self, round_mod, n: int):
+        self.round_mod, self.n = round_mod, n
+        self.bytes = [0] * n
+        self.real = (round_mod._path_gather, round_mod._path_scatter_)
+
+    def install(self) -> None:
+        gather, scatter = self.real
+
+        def counted_gather(tree, path_b, mesh=None):
+            if mesh is not None:
+                row = tree.shards[0][0].numel() * 4
+                for i in range(self.n):
+                    self.bytes[i] += path_b.shape[0] * (5 * row + 4)
+            return gather(tree, path_b, mesh)
+
+        def counted_scatter(tree, path_b, new_vals, owner, mesh=None):
+            if mesh is not None:
+                row = tree.shards[0][0].numel() * 4
+                for i in range(self.n):
+                    self.bytes[i] += path_b.shape[0] * (2 * row + 5)
+            return scatter(tree, path_b, new_vals, owner, mesh)
+
+        self.round_mod._path_gather = counted_gather
+        self.round_mod._path_scatter_ = counted_scatter
+
+    def remove(self) -> None:
+        self.round_mod._path_gather, self.round_mod._path_scatter_ = self.real
+
+
+def _mesh_pair(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card, twin_line,
+               twin, t_logs, t_trs, n: int, devices, where: str) -> dict:
+    """One sharded engine of ``n`` shards on ``devices`` beside the twin
+    that already ran: the same rounds, its 3rd to 6th dispatches under
+    ``set_sync_debug_mode("error")``, responses, transcripts and state
+    equal to the twin's; B2 6 a round and nothing else."""
+    import functools
+
+    from grapevine_tpu_torch.analysis.costmodel import engine_cost_ledger
+    from grapevine_tpu_torch.oram import round as round_mod
+
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas", shards=n)
+    logs: list = []
+    eng, init_s, mem = _new_engine(functools.partial(GrapevineEngine, mesh_devices=devices),
+                                   cfg, logs)
+    trs = _record_transcripts(eng)
+    guard = SyncGuard(eng, 2, 6)
+    guard.install()
+    traffic = ShardTraffic(round_mod, n)
+    traffic.install()
+    _reset_launches(gk, ck)
+    try:
+        (rounds, health, prof, *_), peak = _peak_run(
+            lambda: run_slice(eng, MESH_ROUNDS, writes=True, profile_last=True))
+    finally:
+        traffic.remove()
+        guard.remove()
+    launches = _launches(gk, ck)
+    require_launches(launches, {"cipher_rows_pallas": 6 * MESH_ROUNDS}, where)
+    reads = [i for i in guard.fallback_reads if guard.first <= i < guard.last]
+    if guard.guarded != 4 or reads:
+        raise AssertionError(f"{where}: {guard.guarded} guarded dispatches, exact reads in "
+                             f"dispatches {guard.fallback_reads}")
+    if logs[0] != t_logs:
+        raise AssertionError(f"{where}: the responses differ from the twin's")
+    if len(trs) != len(t_trs) or not all(torch.equal(a.to(b.device), b)
+                                         for a, b in zip(trs, t_trs)):
+        raise AssertionError(f"{where}: the transcripts differ from the twin's")
+    mesh_twin_check(eng, twin, where)
+    ledger = engine_cost_ledger(eng.ecfg, shards=n)
+    line = slice_stats(cfg, rounds, health, init_s, launches, card)
+    line.update(
+        shards=n, mesh=[str(d) for d in eng._mesh.devices],
+        max_round_ms=max(line["round_ms"][1:]),
+        round_device_ms=prof["device_ms"], round_device_kernels=prof["device_kernels"],
+        round_device_busy_share=prof["device_busy_share"],
+        span_device_ms={k: prof["span_device_ms"].get(k) for k in
+                        ("oram_fetch", "oram_writeback", "oram_evict")},
+        profile_top_kernels=prof["top_kernels"][:6],
+        guarded_dispatches=guard.guarded, host_syncs=0, exact_reads=guard.fallback_reads,
+        engine_bytes=mem, engine_bytes_over_twin=mem - twin_line["engine_bytes"],
+        peak_bytes_over_resident=peak,
+        peak_bytes_over_twin=peak - twin_line["peak_bytes_over_resident"],
+        shard_resident_bytes=_shard_bytes(eng),
+        shard_traffic_bytes_per_round=[x / MESH_ROUNDS for x in traffic.bytes],
+        cost_model_per_shard_round_bytes=ledger.per_shard_steady_round_bytes,
+        cost_model_one_device_round_bytes=engine_cost_ledger(eng.ecfg).steady_round_bytes,
+        b2_per_round=launches["cipher_rows_pallas"] / MESH_ROUNDS,
+        responses_equal_twin=True, transcripts_equal_twin=True, state_equal_twin=True,
+        twin=twin_line)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def run_mesh_e1(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card, meshes) -> dict:
+    """Phase 18a (18c with real cards): the production point, E=1
+    ``"pallas"``: a one-device twin runs ``MESH_ROUNDS`` rounds of phase
+    6's CRUD (B2 6 a round, the last round profiled), then for each
+    ``(shards, devices)`` of ``meshes`` a sharded engine from the same
+    seed and requests (``_mesh_pair``)."""
+    t_phase = time.perf_counter()
+    cfg1 = GrapevineConfig(**geo, bucket_cipher_impl="pallas")
+    logs: list = []
+    twin, _, twin_mem = _new_engine(GrapevineEngine, cfg1, logs)
+    t_trs = _record_transcripts(twin)
+    _reset_launches(gk, ck)
+    (t_rounds, _, t_prof, *_), t_peak = _peak_run(
+        lambda: run_slice(twin, MESH_ROUNDS, writes=True, profile_last=True))
+    twin_launches = _launches(gk, ck)
+    require_launches(twin_launches, {"cipher_rows_pallas": 6 * MESH_ROUNDS}, "phase 18 twin")
+    t_ms = sorted(r["s"] * 1e3 for r in t_rounds[1:] if not r.get("profiled"))
+    twin_line = dict(median_round_ms=statistics.median(t_ms), max_round_ms=max(t_ms),
+                     round_device_ms=t_prof["device_ms"],
+                     round_device_kernels=t_prof["device_kernels"],
+                     round_device_busy_share=t_prof["device_busy_share"],
+                     engine_bytes=twin_mem, peak_bytes_over_resident=t_peak,
+                     launches=twin_launches)
+    lines = [_mesh_pair(GrapevineConfig, GrapevineEngine, geo, gk, ck, card, twin_line, twin,
+                        logs[0], t_trs, n, devs, f"phase 18 {n} shards on {devs[-1]}")
+             for n, devs in meshes]
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: twin_launches.get(k, 0) + sum(x["launches"].get(k, 0) for x in lines)
+                for k in KERNELS}
+    return dict(lines=lines, launches=launches, phase_s=time.perf_counter() - t_phase)
+
+
+def run_mesh_e4(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card,
+                devices) -> dict:
+    """Phase 18b: E=4 ``"pallas_fused"`` at the production point on 2
+    shards of a virtual mesh (``mesh_devices``), durable (an fsync per
+    record), beside a one-device twin, in lockstep: 2 calls of phase 10's
+    stream (2 windows, each call closing with its flush), every status
+    checked and every response equal to the twin's, the state equal to
+    the twin's after each flush and after a sweep (junk masked: the twin's
+    fused scatter writes it); a depth-1, one-device engine recovered from
+    a copy of the state dir equals the sharded engine. The sharded engine
+    launches B2 only: 3 a round, 2 a flush, 2 a sweep chunk."""
+    import shutil
+    import tempfile
+
+    from grapevine_tpu_torch.config import DurabilityConfig
+    from grapevine_tpu_torch.engine import expiry
+
+    t_phase = time.perf_counter()
+    n = len(devices)
+    kw = dict(geo, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY)
+    dkw = dict(checkpoint_every_rounds=1 << 20, journal_fsync_every=1)
+    acc: dict = {"twin": {}, "mesh": {}, "recovery": {}}
+
+    def counted(who, fn):
+        _reset_launches(gk, ck)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in _launches(gk, ck).items():
+            acc[who][k] = acc[who].get(k, 0) + v
+        return out, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        twin = GrapevineEngine(GrapevineConfig(**kw), seed=SEED)
+        eng = GrapevineEngine(GrapevineConfig(**kw, shards=n), seed=SEED,
+                              mesh_devices=devices,
+                              durability=DurabilityConfig(state_dir=f"{tmp}/live", **dkw))
+        stream = PipeStream(twin.ecfg.batch_size)
+        calls = []
+        for k in range(2):
+            reqs, want = stream.call(k)
+            tr, t_s = counted("twin", lambda: twin.handle_queries(reqs, NOW + k))
+            er, e_s = counted("mesh", lambda: eng.handle_queries(reqs, NOW + k))
+            _check_statuses(er, want, f"phase 18b call {k}")
+            if [x.pack() for x in er] != [x.pack() for x in tr]:
+                raise AssertionError(f"phase 18b call {k}: responses differ from the twin's")
+            stream.note(reqs, er)
+            mesh_twin_check(eng, twin, f"phase 18b after flush {k + 1}")
+            calls.append(dict(twin_s=t_s, mesh_s=e_s))
+        if (eng.flushes, twin.flushes) != (2, 2):
+            raise AssertionError(f"phase 18b: {eng.flushes} / {twin.flushes} flushes")
+        t_ev, t_sweep = counted("twin", lambda: twin.expire(SWEEP_NOW, SWEEP_PERIOD))
+        e_ev, e_sweep = counted("mesh", lambda: eng.expire(SWEEP_NOW, SWEEP_PERIOD))
+        if e_ev != t_ev or not e_ev:
+            raise AssertionError(f"phase 18b sweep: {e_ev} evicted, the twin {t_ev}")
+        mesh_twin_check(eng, twin, "phase 18b after the sweep")
+        eng.close()
+        shutil.copytree(f"{tmp}/live", f"{tmp}/copy")
+        t0 = time.perf_counter()
+        rec, _ = counted("recovery", lambda: GrapevineEngine(
+            GrapevineConfig(**kw, pipeline_depth=1), seed=SEED,
+            durability=DurabilityConfig(state_dir=f"{tmp}/copy", **dkw)))
+        recovery_s = time.perf_counter() - t0
+        mesh_twin_check(eng, rec, "phase 18b recovery at 1 shard")
+        rec.close()
+        # B2 a sweep: a decrypt and an encrypt a chunk; a chunk never
+        # straddles a shard
+        trees = (eng.ecfg.rec, eng.ecfg.mb)
+        chunks = sum(2 * c.n_buckets_padded // min(expiry._chunk_rows(c),
+                                                   c.n_buckets_padded // n) for c in trees)
+        twin_chunks = sum(2 * c.n_buckets_padded // expiry._chunk_rows(c) for c in trees)
+    rounds = 2 * PIPE_CHUNKS
+    require_launches(acc["mesh"], {"cipher_rows_pallas": 3 * rounds + 2 * 2 + chunks},
+                     "phase 18b sharded")
+    require_launches(acc["twin"], {"gather_decrypt_rows": 3 * rounds,
+                                   "scatter_encrypt_rows": 2 * 2,
+                                   "cipher_rows_pallas": twin_chunks}, "phase 18b twin")
+    line = dict(shards=n, evict_every=EVICT_EVERY, bucket_cipher_impl="pallas_fused",
+                rounds=rounds, flushes=2, calls=calls, sweep_evicted=e_ev,
+                sweep_s=e_sweep, twin_sweep_s=t_sweep, recovery_s=recovery_s,
+                launches=acc["mesh"], twin_launches=acc["twin"],
+                recovery_launches=acc["recovery"], responses_equal_twin=True,
+                flushes_equal_twin=True, sweep_equal_twin=True,
+                recovery_at_1_shard_equal=True, card=card)
+    del eng, twin, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(acc[w].get(k, 0) for w in acc) for k in KERNELS}
+    return dict(line=line, launches=launches, phase_s=time.perf_counter() - t_phase)
+
+
+def run_mesh_phase(GrapevineConfig, GrapevineEngine, gk, ck, card) -> dict:
+    """Phase 18: (a) virtual meshes of 2 then 4 shards on ``cuda:0``
+    beside one twin; (b) the sharded E=4 facade, durable, its flushes,
+    sweep and a recovery at one shard; (c) with two or more cards, (a)
+    on a real mesh across them, else a line saying why it did not run."""
+    t_phase = time.perf_counter()
+    geo = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048,
+               vphases_impl="dense")
+    cuda0 = torch.device("cuda", 0)
+    a = run_mesh_e1(GrapevineConfig, GrapevineEngine, geo, gk, ck, card,
+                    [(n, [cuda0] * n) for n in MESH_SHARDS])
+    b = run_mesh_e4(GrapevineConfig, GrapevineEngine, geo, gk, ck, card, [cuda0] * 2)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        real = [(n, [torch.device("cuda", i) for i in range(n)])
+                for n in MESH_SHARDS if n <= cards]
+        c = run_mesh_e1(GrapevineConfig, GrapevineEngine, geo, gk, ck, card, real)
+    else:
+        c = dict(ran=False, launches={}, reason=f"{cards} CUDA card visible: a mesh "
+                 "across cards needs two or more; phase 18a ran the same path on a "
+                 "virtual mesh of one card")
+    launches = {k: a["launches"].get(k, 0) + b["launches"].get(k, 0)
+                + c["launches"].get(k, 0) for k in KERNELS}
+    return dict(a=a, b=b, c=c, launches=launches, phase_s=time.perf_counter() - t_phase)
+
+
+def emit_mesh_lines(mesh: dict) -> None:
+    for line in mesh["a"]["lines"]:
+        emit({"mesh_e1": line})
+    emit({"mesh_e4": mesh["b"]["line"]})
+    c = mesh["c"]
+    if c.get("ran", True):
+        for line in c["lines"]:
+            emit({"mesh_cards": line})
+    else:
+        emit({"mesh_cards": {"ran": False, "reason": c["reason"]}})
+    emit({"mesh_phase_s": mesh["phase_s"], "mesh_launches": mesh["launches"]})
+
+
+def mesh_phase_alone() -> int:
+    """Phase 18 alone: the card line, the kernel build, then the mesh
+    phase; 0 if every check held."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    gc.callbacks.append(GEN2)
+    mesh = run_mesh_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    emit_mesh_lines(mesh)
+    emit({"mesh_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def emit_scan_lines(scan: dict) -> None:
     emit({"scan_e1": scan["a"]})
     emit({"scan_e4": scan["b"]})
@@ -4206,6 +4598,8 @@ def main() -> int:
                     help="run phases 15-16 alone (after the kernel build)")
     ap.add_argument("--op-phase", action="store_true",
                     help="run phase 17 alone (after the kernel build)")
+    ap.add_argument("--mesh-phase", action="store_true",
+                    help="run phase 18 alone (after the kernel build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -4217,6 +4611,8 @@ def main() -> int:
         return scan_phases_alone()
     if args.op_phase:
         return op_phase_alone()
+    if args.mesh_phase:
+        return mesh_phase_alone()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -4379,6 +4775,13 @@ def main() -> int:
     op = run_op_phase(GrapevineConfig, GrapevineEngine, convert, gk, ck, card)
     split("op_major")
 
+    # phase 18: the bucket-tree mesh — virtual meshes of 2 and 4 shards on
+    # one card beside a twin (B2 only), the sharded E=4 facade, durable,
+    # beside its twin (B2; the twin B3, B5, B2), and a mesh across cards
+    # where two or more are visible
+    mesh = run_mesh_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    split("mesh")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -4421,6 +4824,8 @@ def main() -> int:
                                        + serve_launches["scatter_encrypt_rows_tiled"]
                                        + obs_launches["scatter_encrypt_rows_tiled"]),
     }
+    for k in KERNELS:
+        launches_by_kernel[k] += mesh["launches"].get(k, 0)
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -4444,6 +4849,7 @@ def main() -> int:
     emit({"posmap_sweep": pm["c"], "phase_s": pm["phase_s"]})
     emit_scan_lines(scan)
     emit_op_lines(op)
+    emit_mesh_lines(mesh)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
                                     op["launches"]["cipher_rows_pallas"]), "card": card})

@@ -2,12 +2,11 @@
 
 A copy of ``grapevine_tpu/config.py``'s ``GrapevineConfig``: every field
 name, default, derived geometry property and validation is kept, so one
-config object's values drive both packages. Which knob values the port
-runs today is decided where the config is resolved
-(``engine/state.py:EngineConfig.from_config``), which raises
-``NotImplementedError`` naming the ROADMAP.md item for the rest. The
-field comments below describe what each knob selects; the reference's
-copy carries its measurement history.
+config object's values drive both packages, and the port runs every
+knob value the reference does (resolved in
+``engine/state.py:EngineConfig.from_config``). The field comments below
+describe what each knob selects; the reference's copy carries its
+measurement history.
 
 Capacity story: the records store is a Path-ORAM bucket tree with
 ``2**records_height`` leaves and a dense block space of the same size; the
@@ -190,7 +189,7 @@ class GrapevineConfig:
             )
     # The knobs below select between implementations or schedules with
     # identical responses; the port runs the values its EngineConfig
-    # resolves and refuses the rest (engine/state.py:_refuse_unported).
+    # resolves (engine/state.py:EngineConfig.from_config).
 
     #: slot-order machinery of the phase-major engine's vectorized phases
     #: (engine/vphases.py): "dense" = [B,B] masked matrices and one-hot
@@ -232,7 +231,9 @@ class GrapevineConfig:
     evict_buffer_slots: int | None = None
 
     #: bucket-tree shard count across devices: 1 = single device; N > 1
-    #: shards both payload trees as contiguous heap ranges over N devices.
+    #: shards both payload trees as contiguous heap ranges over N devices
+    #: (parallel/mesh.py). Not part of EngineConfig, so journals and
+    #: checkpoints replay across shard counts.
     shards: int = 1
 
     #: hash choices per recipient in the mailbox table: 2 =

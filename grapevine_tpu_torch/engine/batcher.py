@@ -31,7 +31,11 @@ Dispatch makes no host synchronization on the card:
 
 Under ``commit="op"`` the round program is the op-major
 ``engine/step.py:engine_step`` (the reference's choice, for dispatch and
-journal replay alike); it has no admission branch to decide.
+journal replay alike); it has no admission branch to decide. At
+``shards`` N > 1 the bucket trees shard over a mesh of N devices
+(``parallel/mesh.py``) and the round, flush and replay go through the
+sharded step and flush; nothing downstream (journal, checkpoint, leak
+monitor, comparisons) can tell the difference.
 
 The facade also runs the delayed-eviction flush every ``evict_every``
 rounds (in the window-closing round's lock hold), the expiry sweep
@@ -59,6 +63,13 @@ import torch
 
 from ..config import DurabilityConfig, GrapevineConfig
 from ..device import resolve_device
+from ..parallel import (
+    init_sharded_engine,
+    make_mesh,
+    make_sharded_flush,
+    make_sharded_step,
+    shard_engine_state,
+)
 from ..testing import faults
 from ..u32 import SENTINEL, from_numpy, to_numpy
 from ..wire import constants as C
@@ -303,7 +314,8 @@ class PendingRound:
 
 class GrapevineEngine:
     """The in-process oblivious engine on one device (``device=None`` →
-    the CUDA card; raises without one). Thread-safe: dispatches are
+    the CUDA card; raises without one), or at ``shards`` > 1 on a mesh
+    of devices (``mesh_devices``). Thread-safe: dispatches are
     serialized by a lock; ``PendingRound.resolve`` runs outside it.
 
     With ``durability``, construction recovers whatever the state dir
@@ -312,11 +324,27 @@ class GrapevineEngine:
     freshly built engine already holds the pre-crash state."""
 
     def __init__(self, config: GrapevineConfig | None = None, seed: int = 0,
-                 device=None, durability: DurabilityConfig | None = None):
+                 device=None, durability: DurabilityConfig | None = None,
+                 mesh_devices=None):
         self.config = config or GrapevineConfig()
         self.device = resolve_device(device)
         self.ecfg = EngineConfig.from_config(self.config)
-        self.state: EngineState = init_engine(self.ecfg, seed, self.device)
+        #: bucket-axis sharding (config ``shards``; parallel/mesh.py): at
+        #: shards > 1 the round, flush and replay run the sharded step and
+        #: flush on a mesh, the first N CUDA cards (``device="cpu"``: a
+        #: virtual mesh of N CPU shards, as the reference's tests force 8
+        #: CPU devices); ``mesh_devices`` names the mesh's devices instead
+        #: (a device may repeat: chip_smoke.py runs a virtual mesh on one
+        #: card). The replicated state lives on the mesh's first device.
+        self._mesh = None
+        if mesh_devices is not None and self.config.shards == 1:
+            raise ValueError("mesh_devices needs shards > 1")
+        if self.config.shards > 1:
+            self._mesh = make_mesh(self._mesh_devices(mesh_devices))
+            self.device = self._mesh.controller
+            self.state: EngineState = init_sharded_engine(self.ecfg, self._mesh, seed)
+        else:
+            self.state = init_engine(self.ecfg, seed, self.device)
         #: the round program (``_round_program``): the op-major step under
         #: ``commit="op"``, the phase-major round otherwise (the
         #: reference's choice); dispatch and journal replay both run it
@@ -326,6 +354,13 @@ class GrapevineEngine:
         #: pure function of the round count, never of buffer contents
         self.evict_every = self.ecfg.evict_every
         self._flush_step = engine_flush_step if self.evict_every > 1 else None
+        self._sharded_step = None
+        if self._mesh is not None:
+            sstep = make_sharded_step(self.ecfg, self._mesh)
+            self._sharded_step = lambda _ecfg, state, batch, **kw: sstep(state, batch, **kw)
+            if self.evict_every > 1:
+                sflush = make_sharded_flush(self.ecfg, self._mesh)
+                self._flush_step = lambda _ecfg, state: sflush(state)
         self._rounds_since_flush = 0
         self.flushes = 0
         #: replay-time cadence audit (``_replay_record``): rounds seen
@@ -375,7 +410,11 @@ class GrapevineEngine:
             self.durability = DurabilityManager(durability, self.ecfg, self.device,
                                                 registry=self.metrics.registry)
             with self.metrics.time_phase("replay"):
-                self.state = self.durability.recover(self.state, self._replay_record)
+                # a loaded checkpoint is a one-device state: the sharded
+                # step places it on the mesh, and so does this (a no-op
+                # once replayed rounds have)
+                self.state = self._shard_state(
+                    self.durability.recover(self.state, self._replay_record))
                 self._read_bound_locked()  # waits for the replayed rounds
         if self.evict_every > 1:
             # the cadence counter comes FROM STATE, never from a host
@@ -432,7 +471,36 @@ class GrapevineEngine:
 
     def _round_program(self):
         """The step this engine's rounds run, looked up when called."""
+        if self._sharded_step is not None:
+            return self._sharded_step
         return engine_step if self._op_major else engine_round_step
+
+    def _mesh_devices(self, mesh_devices) -> list:
+        """The mesh's devices: ``mesh_devices`` if given (one per shard),
+        else the first ``shards`` CUDA cards, or on the CPU ``shards``
+        CPU shards; refuses when fewer cards are visible."""
+        n = self.config.shards
+        if mesh_devices is not None:
+            devs = list(mesh_devices)
+            if len(devs) != n:
+                raise ValueError(f"shards={n} but {len(devs)} mesh devices were given")
+            return devs
+        if self.device.type == "cpu":
+            return [self.device] * n
+        visible = torch.cuda.device_count()
+        if visible < n:
+            raise ValueError(
+                f"shards={n} but only {visible} CUDA device(s) are visible — "
+                "the bucket trees shard one contiguous heap range per device"
+            )
+        return [torch.device("cuda", i) for i in range(n)]
+
+    def _shard_state(self, state: EngineState) -> EngineState:
+        """``state`` placed on this engine's mesh (as it is without one): a
+        state set from outside, a loaded or installed checkpoint."""
+        if self._mesh is None:
+            return state
+        return shard_engine_state(state, self._mesh)
 
     # -- the admission bound ---------------------------------------------
 

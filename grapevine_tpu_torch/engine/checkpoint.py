@@ -256,7 +256,11 @@ def _u32_leaves(state: EngineState) -> list[torch.Tensor]:
 
 def state_to_bytes(ecfg: EngineConfig, state: EngineState) -> bytes:
     """Serialize an EngineState: JSON manifest + raw leaf buffers in the
-    reference's pytree order (waits for the device)."""
+    reference's pytree order (waits for the device). A tree plane sharded
+    over a mesh is written as its logical plane, shards joined in heap
+    order without their scratch rows, so the bytes do not depend on the
+    shard count and load at any count (``bytes_to_state`` gives a
+    one-device state; the facade reshards it)."""
     # tobytes() writes C order; ascontiguousarray would turn 0-d leaves 1-d
     arrays = [to_numpy(t).astype("<u4", copy=False) for t in _u32_leaves(state)]
     arrays += [g.get_state().numpy() for g in (state.rng, state.pm_rng)[:_generators(ecfg)]]

@@ -54,7 +54,8 @@ def from_jax_state(ecfg: EngineConfig, leaves: dict, seed: int = 0,
 
 
 def to_numpy(state: EngineState) -> dict:
-    """Flat numpy u32 leaves of ``state`` (no ``rng``)."""
+    """Flat numpy u32 leaves of ``state`` (no ``rng``); a tree plane
+    sharded over a mesh gives its logical plane (``u32.to_numpy``)."""
     out = {}
     for name in ("rec", "mb"):
         for f, t in oram_leaves(getattr(state, name)).items():

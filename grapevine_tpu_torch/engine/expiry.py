@@ -43,7 +43,13 @@ from torch.profiler import record_function
 from ..oblivious.bucket_cipher import epoch_next
 from ..oblivious.primitives import is_zero_words, u64_le, u64_sub
 from ..oblivious.radix import partition_rank
-from ..oram.path_oram import OramConfig, OramState, cipher_rows, leaf_plane_cipher
+from ..oram.path_oram import (
+    OramConfig,
+    OramState,
+    ShardedPlane,
+    cipher_rows,
+    leaf_plane_cipher,
+)
 from ..u32 import SENTINEL, c32, ult
 from .state import (
     ENT_SEQ,
@@ -86,54 +92,89 @@ def _chunk_rows(cfg: OramConfig) -> int:
     return rpc
 
 
+def _tree_pieces(cfg: OramConfig, oram: OramState) -> list:
+    """``(first bucket id, idx rows [r, Z], val rows, nonce rows, leaf rows
+    or None)`` of each device-resident piece of the tree: the whole tree,
+    or under a mesh each shard's heap rows (its scratch row left out)."""
+    z = cfg.bucket_slots
+    planes = [oram.tree_idx.view(-1, z), oram.tree_val, oram.nonces]
+    planes.append(oram.tree_leaf.view(-1, z) if cfg.posmap is not None else None)
+    if not isinstance(oram.tree_val, ShardedPlane):
+        return [(0, *planes)]
+    n_local = oram.tree_val.n_local
+    cols = [p.local() if p is not None else [None] * len(oram.tree_val.shards)
+            for p in planes]
+    return [(i * n_local, *piece) for i, piece in enumerate(zip(*cols))]
+
+
+def _swept_nonces(oram: OramState):
+    """The nonce plane after a sweep: every row the old epoch."""
+    if isinstance(oram.nonces, ShardedPlane):
+        return ShardedPlane([oram.epoch.to(s.device)[None, :].expand(s.shape[0], 2).contiguous()
+                             for s in oram.nonces.shards], oram.nonces.n_local)
+    return oram.epoch[None, :].expand(oram.nonces.shape[0], 2).contiguous()
+
+
 def _chunked_tree_sweep(cfg: OramConfig, oram: OramState, carry, body):
     """Run ``body(carry, idx [rpc, Z], val [rpc, Z*V]) -> carry`` over the
     whole tree in chunks; ``body`` edits the plaintext chunk in place.
     Returns (carry, OramState with the swept tree, leaf plane, nonces and
-    epoch)."""
+    epoch).
+
+    A sharded tree (``parallel/mesh.py``) is walked shard by shard, each
+    shard's rows under their global bucket ids, with chunks that never
+    straddle a shard; the plaintext chunk lives on the controller device
+    (the epoch's), so a shard on another device ships only ciphertext."""
     z, zv = cfg.bucket_slots, cfg.bucket_slots * cfg.value_words
     n = cfg.n_buckets_padded
-    rpc = _chunk_rows(cfg)
-    dev = oram.tree_val.device
-    tree_idx = oram.tree_idx.view(n, z)
-    tree_val = oram.tree_val
+    dev = oram.epoch.device
+    pieces = _tree_pieces(cfg, oram)
+    rpc = min(_chunk_rows(cfg), pieces[0][2].shape[0])
     bids = torch.arange(n, dtype=I32, device=dev)
     new_ep = oram.epoch[None, :].expand(rpc, 2).contiguous()
     if cfg.posmap is not None and cfg.encrypted:
         # before the nonces move: the old nonce's keystream comes off
-        tree_leaf = oram.tree_leaf.view(n, z)
         with record_function("leaf_plane"):
-            for lo in range(0, n, _LEAF_ROWS):
-                rows = slice(lo, lo + _LEAF_ROWS)
-                ep = oram.epoch[None, :].expand(tree_leaf[rows].shape[0], 2)
-                tree_leaf[rows] = leaf_plane_cipher(
-                    cfg, oram.cipher_key, bids[rows], oram.nonces[rows],
-                    leaf_plane_cipher(cfg, oram.cipher_key, bids[rows], ep,
-                                      tree_leaf[rows]))
+            for base, _, _, nonces, tree_leaf in pieces:
+                gb = bids[base:base + tree_leaf.shape[0]]
+                for lo in range(0, tree_leaf.shape[0], _LEAF_ROWS):
+                    rows = slice(lo, lo + _LEAF_ROWS)
+                    ep = oram.epoch[None, :].expand(gb[rows].shape[0], 2)
+                    tree_leaf[rows] = leaf_plane_cipher(
+                        cfg, oram.cipher_key, gb[rows], nonces[rows].to(dev),
+                        leaf_plane_cipher(cfg, oram.cipher_key, gb[rows], ep,
+                                          tree_leaf[rows].to(dev))).to(tree_leaf.device)
     # the one chunk of plaintext every chunk reuses
     pidx = torch.empty((rpc, z), dtype=I32, device=dev)
     pval = torch.empty((rpc, zv), dtype=I32, device=dev)
-    for lo in range(0, n, rpc):
-        rows = slice(lo, lo + rpc)
-        cipher_rows(cfg, oram.cipher_key, bids[rows], oram.nonces[rows],
-                    tree_idx[rows], tree_val[rows], out=(pidx, pval))
-        if cfg.delayed_eviction:
-            # buckets fetched since the last flush hold stale copies (their
-            # live rows are in the eviction buffer, swept like the stash):
-            # masking them keeps liveness and recipient counts exact, and
-            # the re-encrypt below writes the cleaned rows back
-            pidx.masked_fill_((oram.fetch_tag[rows] == oram.ebuf_gen)[:, None], SENTINEL)
-        carry = body(carry, pidx, pval)
-        cipher_rows(cfg, oram.cipher_key, bids[rows], new_ep, pidx, pval,
-                    out=(tree_idx[rows], tree_val[rows]))
+    for base, tree_idx, tree_val, nonces, _ in pieces:
+        gb = bids[base:base + tree_val.shape[0]]
+        here = tree_val.device == dev
+        for lo in range(0, tree_val.shape[0], rpc):
+            rows = slice(lo, lo + rpc)
+            cipher_rows(cfg, oram.cipher_key, gb[rows], nonces[rows].to(dev),
+                        tree_idx[rows].to(dev), tree_val[rows].to(dev), out=(pidx, pval))
+            if cfg.delayed_eviction:
+                # buckets fetched since the last flush hold stale copies (their
+                # live rows are in the eviction buffer, swept like the stash):
+                # masking them keeps liveness and recipient counts exact, and
+                # the re-encrypt below writes the cleaned rows back
+                tag = oram.fetch_tag[base + lo:base + lo + rpc]
+                pidx.masked_fill_((tag == oram.ebuf_gen)[:, None], SENTINEL)
+            carry = body(carry, pidx, pval)
+            if here:
+                cipher_rows(cfg, oram.cipher_key, gb[rows], new_ep, pidx, pval,
+                            out=(tree_idx[rows], tree_val[rows]))
+            else:
+                enc_idx, enc_val = cipher_rows(cfg, oram.cipher_key, gb[rows], new_ep,
+                                               pidx, pval)
+                tree_idx[rows].copy_(enc_idx)
+                tree_val[rows].copy_(enc_val)
     pidx.zero_()
     pval.zero_()
     new = oram
     if cfg.encrypted:
-        new = oram._replace(
-            nonces=oram.epoch[None, :].expand(n, 2).contiguous(),
-            epoch=epoch_next(oram.epoch),
-        )
+        new = oram._replace(nonces=_swept_nonces(oram), epoch=epoch_next(oram.epoch))
     return carry, new
 
 

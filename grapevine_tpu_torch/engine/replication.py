@@ -43,7 +43,9 @@ shipping one needs the full geometry fingerprint to match, so a
 cross-knob standby must start from an unpruned journal. Both state dirs
 must share the root seal key (``seal_key_file``).
 
-There is no mesh: a sharded engine (``shards > 1``) is not ported.
+A sharded engine (``shards > 1``) reshards every installed checkpoint
+(a shipped one on the standby, the newest one at promotion) onto its
+mesh, as the reference's ``replication.py`` does.
 """
 
 from __future__ import annotations
@@ -441,7 +443,7 @@ class StandbyReplica:
         the admission bound, which belongs to the old ``free_top`` tensor,
         reads the new state exactly before the next round decides."""
         eng = self.engine
-        eng.state = self.dm.install_checkpoint(seq, blob)
+        eng.state = eng._shard_state(self.dm.install_checkpoint(seq, blob))
         eng._replay_since = None
 
     def _install_checkpoint(self, seq: int, blob: bytes) -> None:

@@ -157,7 +157,8 @@ def transcript_key_groups(batch: dict, mb_choices: int):
 
 
 def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
-                      draws: RoundDraws | None = None, fast_ok: bool | None = None):
+                      draws: RoundDraws | None = None, fast_ok: bool | None = None,
+                      mesh=None):
     """Process one batch as three phase-major ORAM rounds.
 
     ``batch``: int32 tensors ``req_type[B]``, ``auth[B,8]``,
@@ -173,7 +174,11 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     input state. ``None`` reads it from the state (a host read, which
     waits for every round still running); the facade passes the value
     when its host-side bound already decides it (``engine/batcher.py``),
-    and a caller that passes it must pass exactly that predicate."""
+    and a caller that passes it must pass exactly that predicate.
+
+    ``mesh`` (the reference's ``axis_name``; ``parallel/mesh.py``) runs
+    the three ORAM rounds over a state whose tree planes are sharded;
+    ``parallel.make_sharded_step`` is the entry point that passes it."""
     rt = batch["req_type"]
     b = rt.shape[0]
     dev = rt.device
@@ -234,7 +239,7 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
             ecfg.mb, state.mb, idxs_mb_flat, draws.nl_a, draws.dl_a,
             phase_a_batch(ecfg, ctx), simpl,
             *((pm.new_a, pm.dummy_a) if recursive else ()),
-            occ_impl=ecfg.vphases_impl,
+            occ_impl=ecfg.vphases_impl, mesh=mesh,
         )
     free_top = torch.clamp(state.free_top - out_a["n_allocs"], max=ecfg.max_messages)
     recipients = state.recipients + out_a["n_claims"]
@@ -261,7 +266,7 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
             ecfg.rec, state.rec, idx_b, draws.nl_b, draws.dl_b,
             phase_b_batch(ecfg, ctx_b), simpl,
             *((pm.new_b, pm.dummy_b) if recursive else ()),
-            occ_impl=ecfg.vphases_impl,
+            occ_impl=ecfg.vphases_impl, mesh=mesh,
         )
 
     # freed blocks return to the freelist in slot order (next batch)
@@ -278,7 +283,7 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
             ecfg.mb, mb1, idxs_mb_flat, draws.nl_c, draws.dl_c,
             phase_c_batch(ecfg, ctx_c), simpl,
             *((pm.new_c, pm.dummy_c) if recursive else ()),
-            occ_impl=ecfg.vphases_impl,
+            occ_impl=ecfg.vphases_impl, mesh=mesh,
         )
 
     responses = assemble_responses(
@@ -306,14 +311,15 @@ def engine_round_step(ecfg: EngineConfig, state: EngineState, batch: dict,
     return new_state, responses, transcripts
 
 
-def engine_flush_step(ecfg: EngineConfig, state: EngineState) -> EngineState:
+def engine_flush_step(ecfg: EngineConfig, state: EngineState, mesh=None) -> EngineState:
     """One delayed-eviction flush over both trees (``evict_every`` > 1).
 
     The engine calls it every ``evict_every`` rounds on the round-count
     cadence — never on buffer contents. Deterministic given the state
     (no random draws); the trees are updated in place. A recursive map's
-    internal trees flush inside the same call."""
+    internal trees flush inside the same call. ``mesh`` as in
+    :func:`engine_round_step` (``parallel.make_sharded_flush``)."""
     with record_function("engine_flush"):
-        rec = oram_flush(ecfg.rec, state.rec, ecfg.sort_impl)
-        mb = oram_flush(ecfg.mb, state.mb, ecfg.sort_impl)
+        rec = oram_flush(ecfg.rec, state.rec, ecfg.sort_impl, mesh)
+        mb = oram_flush(ecfg.mb, state.mb, ecfg.sort_impl, mesh)
     return state._replace(rec=rec, mb=mb)

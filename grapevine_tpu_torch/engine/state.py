@@ -80,7 +80,9 @@ class EngineConfig:
 
     @classmethod
     def from_config(cls, cfg: GrapevineConfig) -> "EngineConfig":
-        """Resolve ``cfg`` for the port, refusing what it cannot run yet.
+        """Resolve ``cfg`` for the port. ``cfg.shards`` stays out of the
+        result, as in the reference, so journals and checkpoints replay
+        across shard counts (the facade builds the mesh).
 
         Auto values resolve as the reference's do off the TPU, except
         the vphases: ``None`` resolves to ``"dense"`` on the card and on
@@ -95,7 +97,6 @@ class EngineConfig:
         ``evict_buffer_slots`` or derived per tree. A recursive map
         derives each tree's ``PosMapSpec`` (internal tree geometry,
         cache depth and eviction window) as the reference does."""
-        _refuse_unported(cfg)
         m = cfg.mailbox_table_buckets
         k = max(1, cfg.mailbox_slots)
         mb_value_words = k * (KEY_WORDS + ENTRY_WORDS * cfg.mailbox_cap)
@@ -172,16 +173,6 @@ class EngineConfig:
         )
 
 
-def _refuse_unported(cfg: GrapevineConfig) -> None:
-    """Raise ``NotImplementedError`` for knob values a later slice ports,
-    naming the ROADMAP.md item that will."""
-    if cfg.shards != 1:
-        raise NotImplementedError(
-            "not ported to the PyTorch engine yet: shards > 1 (ROADMAP.md "
-            "queue A item 15, multi-GPU sharding)"
-        )
-
-
 class EngineState(NamedTuple):
     rec: OramState
     mb: OramState
@@ -198,20 +189,23 @@ class EngineState(NamedTuple):
     pm_rng: torch.Generator | None = None
 
 
-def init_engine(ecfg: EngineConfig, seed: int = 0, device=None) -> EngineState:
+def init_engine(ecfg: EngineConfig, seed: int = 0, device=None,
+                tree_full=None) -> EngineState:
     """Fresh engine state on ``device`` (``None`` → the CUDA card; raises
     without one); every random draw comes from one generator on that
     device seeded with ``seed`` (the reference's jax.random key has the
     same standing; the two give different numbers). A recursive map's
     internal trees and leaves come from a second generator,
     :func:`side_generator` of the first, so the first draws what it
-    draws under the flat map."""
+    draws under the flat map. ``tree_full`` allocates both ORAMs' tree
+    planes (``path_oram.init_oram``; ``parallel.init_sharded_engine``
+    shards them)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     side = side_generator(gen) if ecfg.posmap_impl == "recursive" else None
-    rec = init_oram(ecfg.rec, gen, dev, side)
-    mb = init_oram(ecfg.mb, gen, dev, side)
+    rec = init_oram(ecfg.rec, gen, dev, side, tree_full)
+    mb = init_oram(ecfg.mb, gen, dev, side, tree_full)
     return EngineState(
         rec=rec,
         mb=mb,

@@ -258,14 +258,17 @@ def random_below(gen: torch.Generator, high: int, shape, device) -> torch.Tensor
 
 
 def init_oram(cfg: OramConfig, gen: torch.Generator, device,
-              side: torch.Generator | None = None) -> OramState:
+              side: torch.Generator | None = None, tree_full=None) -> OramState:
     """Empty tree; position map drawn uniformly over the leaves from
     ``gen``; the all-zero tree is its own ciphertext (epoch 0).
 
     A recursive map (``cfg.posmap`` set) draws the same table from
     ``gen`` and packs it into an internal tree built from ``side``
     (``posmap.init_posmap``), so ``gen`` advances exactly as under the
-    flat map; the leaf planes are allocated."""
+    flat map; the leaf planes are allocated. ``tree_full(n_buckets,
+    shape, value)``, when given, allocates the tree, leaf and nonce
+    planes instead (``parallel.init_sharded_engine`` places each shard
+    on its own device); every other plane stays on ``device``."""
     z, v = cfg.bucket_slots, cfg.value_words
     cb = cfg.cache_buckets
     delayed = cfg.delayed_eviction
@@ -274,6 +277,11 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device,
 
     def full(shape, val):
         return torch.full(shape, val, dtype=I32, device=device)
+
+    def tree(shape, val):
+        if tree_full is None:
+            return full(shape, val)
+        return tree_full(cfg.n_buckets_padded, shape, val)
 
     table = random_below(gen, cfg.leaves, (cfg.blocks + 1,), device)
     cipher_key = random_u32(gen, (8,), device)
@@ -286,12 +294,12 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device,
     else:
         posmap = table
     return OramState(
-        tree_idx=full((cfg.n_buckets_padded * z,), SENTINEL),
-        tree_val=full((cfg.n_buckets_padded, z * v), 0),
+        tree_idx=tree((cfg.n_buckets_padded * z,), SENTINEL),
+        tree_val=tree((cfg.n_buckets_padded, z * v), 0),
         cache_idx=full((cb * z,), SENTINEL),
         cache_val=full((cb, z * v), 0),
         cache_leaf=full((cb * z if rec else 0,), 0),
-        tree_leaf=full((cfg.n_buckets_padded * z if rec else 0,), 0),
+        tree_leaf=tree((cfg.n_buckets_padded * z if rec else 0,), 0),
         stash_idx=full((cfg.stash_size,), SENTINEL),
         stash_val=full((cfg.stash_size, v), 0),
         stash_leaf=full((cfg.stash_size if rec else 0,), 0),
@@ -305,7 +313,7 @@ def init_oram(cfg: OramConfig, gen: torch.Generator, device,
         fetch_tag=full((cfg.n_buckets_padded if delayed else 0,), 0),
         posmap=posmap,
         overflow=full((), 0),
-        nonces=full((cfg.n_buckets_padded, 2), 0),
+        nonces=tree((cfg.n_buckets_padded, 2), 0),
         cipher_key=cipher_key,
         epoch=torch.tensor([1, 0], dtype=I32, device=device),
     )
@@ -380,21 +388,85 @@ def _common_prefix_depth(cfg: OramConfig, leaves_a, leaf_b):
     return ((x[..., None] >> shifts) == 0).sum(dim=-1).to(I32)
 
 
-def _path_gather(tree, path_b):
-    """Fetch the path bucket rows (single device)."""
-    return tree[path_b.long()]
+class ShardedPlane:
+    """A tree plane split along its bucket axis over a device mesh (the
+    reference's ``P(TREE_AXIS)`` leaf; ``parallel/mesh.py``).
+
+    Shard ``i`` holds the contiguous heap range ``[i·n_local,
+    (i+1)·n_local)`` of buckets on its own device, followed by one
+    scratch bucket row that absorbs the writes the shard does not own
+    (:func:`_path_scatter_`): a fixed-shape drop with no host read. Heap
+    ids never address the scratch row, and it is never checkpointed or
+    compared. ``view`` reshapes every shard alike, so
+    ``plane.view(-1, z)`` gives the bucket rows of a flat slot plane as
+    it does for a tensor."""
+
+    __slots__ = ("shards", "n_local")
+
+    def __init__(self, shards, n_local: int):
+        self.shards = tuple(shards)
+        self.n_local = n_local
+
+    def view(self, *shape) -> "ShardedPlane":
+        return ShardedPlane([s.view(*shape) for s in self.shards], self.n_local)
+
+    def local(self) -> list:
+        """Each shard's heap rows (its scratch row left out), in mesh order."""
+        return [s[: s.shape[0] - s.shape[0] // (self.n_local + 1)] for s in self.shards]
+
+    def join(self, device) -> torch.Tensor:
+        """The logical plane as one tensor on ``device``."""
+        return torch.cat([r.to(device) for r in self.local()])
 
 
-def _path_scatter_(tree, path_b, new_vals, owner):
+def _path_gather(tree, path_b, mesh=None):
+    """Fetch the path bucket rows.
+
+    Under a ``mesh`` (``parallel/mesh.py``) ``tree`` is a
+    :class:`ShardedPlane`: each shard gathers the rows it owns (rebased
+    to its ``base = shard · n_local``), masks the rest to zero, and the
+    shards' rows are summed in place into one int32 buffer on the
+    controller device (``path_b``'s) — the reference's ``psum`` as a
+    reduce. Every bucket has one owner, so the sum is the owner's words;
+    they are still ciphertext (decrypt runs after). The addresses
+    touched are the public path, as on one device."""
+    if mesh is None:
+        return tree[path_b.long()]
+    out = None
+    for i, shard in enumerate(tree.shards):
+        loc = path_b.to(shard.device, non_blocking=True) - i * tree.n_local
+        mine = (loc >= 0) & (loc < tree.n_local)
+        rows = shard[torch.where(mine, loc, 0).long()]
+        rows.masked_fill_(~mine.view(-1, *(1,) * (rows.dim() - 1)), 0)
+        rows = rows.to(path_b.device, non_blocking=True)
+        out = rows if out is None else out.add_(rows)
+    return out
+
+
+def _path_scatter_(tree, path_b, new_vals, owner, mesh=None):
     """Write the owned path rows back in place; rows with ``owner``
     False are not written at all (the reference drops them out of
     bounds). Non-owner rows are sent to the junk bucket (the last row,
     which no heap id addresses) and the junk row is restored after, so
-    the shape is fixed and no value is read back to the host."""
-    junk = tree.shape[0] - 1
-    saved = tree[junk].clone()
-    tree[torch.where(owner, path_b, junk).long()] = new_vals
-    tree[junk] = saved
+    the shape is fixed and no value is read back to the host.
+
+    Under a ``mesh`` ``tree`` is a :class:`ShardedPlane`: each shard
+    writes the rows it owns where ``owner`` holds too, and sends every
+    other row to its own scratch row (the junk bucket is a real row of
+    the last shard only). Owned targets are unique (one owner column a
+    bucket), so only the scratch row sees duplicate writes."""
+    if mesh is None:
+        junk = tree.shape[0] - 1
+        saved = tree[junk].clone()
+        tree[torch.where(owner, path_b, junk).long()] = new_vals
+        tree[junk] = saved
+        return tree
+    for i, shard in enumerate(tree.shards):
+        dev = shard.device
+        loc = path_b.to(dev, non_blocking=True) - i * tree.n_local
+        mine = (loc >= 0) & (loc < tree.n_local) & owner.to(dev, non_blocking=True)
+        shard[torch.where(mine, loc, tree.n_local).long()] = new_vals.to(
+            dev, non_blocking=True)
     return tree
 
 

@@ -25,6 +25,16 @@ from that plane, never from the map, and the plane is re-encrypted and
 owner-masked on write-back. The transcript is then ``[B, 2]``: column 0
 the payload tree, column 1 the internal ORAM.
 
+Sharded (``mesh`` set, ``parallel/mesh.py``): the tree and nonce planes
+are :class:`path_oram.ShardedPlane` s; the fused kernels are bypassed
+(the reference's ``axis_name is None and fused`` guards), so the rows are
+gathered per shard, reduced onto the controller device and decrypted
+there by ``cipher_rows`` (B2 under every ``pallas*`` impl), and the
+encrypted rows are written back owner-masked per shard. Every other
+plane (stash, position map, cache, eviction buffer, a recursive map's
+internal ORAM) is replicated state on the controller device, and the
+internal ORAM's rounds and flushes never see the mesh.
+
 Delayed eviction (``evict_window`` > 1): :func:`oram_round` runs
 :func:`_oram_fetch_round` instead — steps 1-2, then every live row
 recompacts into the private eviction buffer and the tree is not written —
@@ -171,10 +181,13 @@ def _assign_evictions(cfg: OramConfig, valid, wleaf, bucket_map, n_targets: int,
     return slot_tgt, placed_w
 
 
-def _fused_kernels(cfg: OramConfig):
+def _fused_kernels(cfg: OramConfig, mesh=None):
     """The (gather+decrypt, encrypt+scatter) kernel pair that
-    ``cfg.cipher_impl`` selects, or None for the unfused path."""
-    if not cfg.encrypted:
+    ``cfg.cipher_impl`` selects, or None for the unfused path. None under
+    a mesh: the sharded path keeps gather → reduce → decrypt, so no tree
+    plaintext crosses between devices (the reference's
+    ``pallas_gather.py:17-20``)."""
+    if not cfg.encrypted or mesh is not None:
         return None
     if cfg.cipher_impl == "pallas_fused":
         return gather_decrypt_rows, scatter_encrypt_rows
@@ -185,7 +198,7 @@ def _fused_kernels(cfg: OramConfig):
 
 def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
            pm_new_leaves=None, pm_dummy_leaves=None, sort_impl: str = "xla",
-           occ_impl: str = "dense"):
+           occ_impl: str = "dense", mesh=None):
     """Step 1 of both round programs: dedup, posmap read/remap, the
     owner map, and the decrypted path rows (top ``k`` levels from the
     cache); under a recursive map also the decrypted leaf plane rows
@@ -213,7 +226,7 @@ def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
     top_b = path_b[:, :kc].reshape(b * kc).clamp(max=max(cfg.cache_buckets, 1) - 1)
     top_slots = path_slot_indices(cfg, top_b).reshape(-1)
 
-    fused = _fused_kernels(cfg)
+    fused = _fused_kernels(cfg, mesh)
     pleaf = None
     with record_function("oram_fetch"):
         if fused is not None:
@@ -222,9 +235,9 @@ def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
                 state.nonces, bot_b, z=z, rounds=cfg.cipher_rounds,
             )
         else:
-            pidx = _path_gather(state.tree_idx.view(-1, z), bot_b)
-            pval = _path_gather(state.tree_val, bot_b)
-            pnonce = _path_gather(state.nonces, bot_b)
+            pidx = _path_gather(state.tree_idx.view(-1, z), bot_b, mesh)
+            pval = _path_gather(state.tree_val, bot_b, mesh)
+            pnonce = _path_gather(state.nonces, bot_b, mesh)
             pidx, pval = cipher_rows(
                 cfg, state.cipher_key, bot_b, pnonce, pidx, pval
             )
@@ -243,8 +256,8 @@ def _fetch(cfg: OramConfig, state: OramState, idxs, new_leaves, dummy_leaves,
             with record_function("leaf_plane"):
                 pleaf = leaf_plane_cipher(
                     cfg, state.cipher_key, bot_b,
-                    _path_gather(state.nonces, bot_b),
-                    _path_gather(state.tree_leaf.view(-1, z), bot_b),
+                    _path_gather(state.nonces, bot_b, mesh),
+                    _path_gather(state.tree_leaf.view(-1, z), bot_b, mesh),
                 )
             if kc:
                 pleaf = torch.cat(
@@ -333,21 +346,22 @@ def _recompact(n: int, widx, wval, keep, wleaf=None):
 
 
 def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval,
-                pleaf=None):
+                pleaf=None, mesh=None):
     """Encrypt rows under ``state.epoch`` and write the owned ones into
     the trees in place with their nonce (and, with ``pleaf``, the leaf
     plane under its own keystream). The rest are not written: the fused
     kernels and the unfused path both skip them (on the CPU the fused
     kernels' plain versions send them to the junk bucket, as the
-    reference does; heap ids never address it)."""
+    reference does; heap ids never address it). Under a ``mesh`` each
+    shard writes only its own rows."""
     z = cfg.bucket_slots
-    fused = _fused_kernels(cfg)
+    fused = _fused_kernels(cfg, mesh)
     tree_idx, tree_val, nonces = state.tree_idx, state.tree_val, state.nonces
     epochs_w = state.epoch[None, :].expand(tgt_b.shape[0], 2)
     if pleaf is not None:
         with record_function("leaf_plane"):
             enc = leaf_plane_cipher(cfg, state.cipher_key, tgt_b, epochs_w, pleaf)
-        _path_scatter_(state.tree_leaf.view(-1, z), tgt_b, enc, owner)
+        _path_scatter_(state.tree_leaf.view(-1, z), tgt_b, enc, owner, mesh)
     if fused is not None:
         fused[1](state.cipher_key, tree_idx, tree_val, nonces, tgt_b, owner,
                  state.epoch, pidx, pval, z=z, rounds=cfg.cipher_rounds)
@@ -355,10 +369,10 @@ def _write_back(cfg: OramConfig, state: OramState, tgt_b, owner, pidx, pval,
     enc_pidx, enc_pval = cipher_rows(
         cfg, state.cipher_key, tgt_b, epochs_w, pidx, pval
     )
-    _path_scatter_(tree_idx.view(-1, z), tgt_b, enc_pidx, owner)
-    _path_scatter_(tree_val, tgt_b, enc_pval, owner)
+    _path_scatter_(tree_idx.view(-1, z), tgt_b, enc_pidx, owner, mesh)
+    _path_scatter_(tree_val, tgt_b, enc_pval, owner, mesh)
     if cfg.encrypted:
-        _path_scatter_(nonces, tgt_b, epochs_w, owner)
+        _path_scatter_(nonces, tgt_b, epochs_w, owner, mesh)
 
 
 def _transcript(f: dict):
@@ -371,7 +385,8 @@ def _transcript(f: dict):
 
 def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
                dummy_leaves, apply_batch, sort_impl: str = "xla",
-               pm_new_leaves=None, pm_dummy_leaves=None, occ_impl: str = "dense"):
+               pm_new_leaves=None, pm_dummy_leaves=None, occ_impl: str = "dense",
+               mesh=None):
     """One batched oblivious access round over this ORAM.
 
     ``apply_batch(vals0 int32[B,V], present0 bool[B]) -> (outs,
@@ -382,12 +397,14 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     ``sort_impl`` picks the eviction sort (``"xla"`` comparison,
     ``"radix"`` counting passes; the same permutation). ``occ_impl``
     picks the dedup (``"dense"`` [B,B] masks, ``"scan"`` sorted, the
-    same masks; the engine's ``vphases_impl``). Under delayed eviction
-    this is the fetch-only :func:`_oram_fetch_round`."""
+    same masks; the engine's ``vphases_impl``). ``mesh`` (the reference's
+    ``axis_name``) runs the sharded round over a state whose tree planes
+    are sharded. Under delayed eviction this is the fetch-only
+    :func:`_oram_fetch_round`."""
     if cfg.delayed_eviction:
         return _oram_fetch_round(cfg, state, idxs, new_leaves, dummy_leaves,
                                  apply_batch, sort_impl, pm_new_leaves,
-                                 pm_dummy_leaves, occ_impl)
+                                 pm_dummy_leaves, occ_impl, mesh)
     b = idxs.shape[0]
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
     s = cfg.stash_size
@@ -395,7 +412,7 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     recursive = cfg.posmap is not None
 
     f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves, pm_new_leaves,
-               pm_dummy_leaves, sort_impl, occ_impl)
+               pm_dummy_leaves, sort_impl, occ_impl, mesh)
     # non-owner copies of shared buckets are invalidated
     widx, wval, outs, row_tgt = _apply(
         cfg, idxs, f["last_occ"], f["fowner"], state.stash_idx, state.stash_val,
@@ -435,7 +452,7 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     with record_function("oram_writeback"):
         _write_back(cfg, state, f["bot_b"], fowner_bot, bottom(new_pidx, z),
                     bottom(new_pval, z * v),
-                    bottom(new_pleaf, z) if recursive else None)
+                    bottom(new_pleaf, z) if recursive else None, mesh)
         cache_idx, cache_val, cache_leaf = (state.cache_idx, state.cache_val,
                                             state.cache_leaf)
         if kc:
@@ -471,7 +488,7 @@ def oram_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
 def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
                       dummy_leaves, apply_batch, sort_impl: str = "xla",
                       pm_new_leaves=None, pm_dummy_leaves=None,
-                      occ_impl: str = "dense"):
+                      occ_impl: str = "dense", mesh=None):
     """The delayed-eviction fetch round (``evict_window`` > 1).
 
     Steps 1-2 as :func:`oram_round`, except that buckets tagged earlier in
@@ -487,7 +504,7 @@ def _oram_fetch_round(cfg: OramConfig, state: OramState, idxs, new_leaves,
     recursive = cfg.posmap is not None
 
     f = _fetch(cfg, state, idxs, new_leaves, dummy_leaves, pm_new_leaves,
-               pm_dummy_leaves, sort_impl, occ_impl)
+               pm_dummy_leaves, sort_impl, occ_impl, mesh)
     flat_b = f["flat_b"]
     fresh = state.fetch_tag[flat_b.long()] != state.ebuf_gen
     widx, wval, outs, row_tgt = _apply(
@@ -541,7 +558,8 @@ def flush_target_slots(cfg: OramConfig) -> int:
                cfg.n_buckets_padded)
 
 
-def oram_flush(cfg: OramConfig, state: OramState, sort_impl: str = "xla") -> OramState:
+def oram_flush(cfg: OramConfig, state: OramState, sort_impl: str = "xla",
+               mesh=None) -> OramState:
     """Batched eviction + write-back of one delayed-eviction window (the
     reference's ``oram_flush``, single device). A recursive map's
     internal tree flushes first, inside the same call.
@@ -558,7 +576,14 @@ def oram_flush(cfg: OramConfig, state: OramState, sort_impl: str = "xla") -> Ora
     4. Leftovers recompact into the stash, the buffer empties and the
        generation bumps (re-validating every tagged bucket).
 
-    Deterministic given the state; the trees are updated in place."""
+    Deterministic given the state; the trees are updated in place.
+
+    Under a ``mesh`` steps 1, 2 and 4 run on the replicated working set
+    and only step 3's tree and nonce writes change: each shard writes the
+    target rows it owns, so the union over the mesh is the one-device
+    flush bit for bit. The internal tree of a recursive map is
+    replicated: its flush never sees the mesh (passing it on would
+    owner-mask a replicated plane against its full size)."""
     z, v, plen = cfg.bucket_slots, cfg.value_words, cfg.path_len
     s, c = cfg.stash_size, cfg.evict_buffer_slots
     f = cfg.evict_fetch_count
@@ -617,7 +642,7 @@ def oram_flush(cfg: OramConfig, state: OramState, sort_impl: str = "xla") -> Ora
         tree_tgt = (tgt_b < pad) & ~is_cached
         _write_back(cfg, state, tgt_b, tree_tgt, new_pidx.view(t, z),
                     new_pval.view(t, z * v),
-                    new_pleaf.view(t, z) if recursive else None)
+                    new_pleaf.view(t, z) if recursive else None, mesh)
         cache_idx, cache_val, cache_leaf = (state.cache_idx, state.cache_val,
                                             state.cache_leaf)
         if cfg.top_cache_levels:

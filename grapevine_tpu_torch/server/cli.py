@@ -159,11 +159,11 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=1,
         help="bucket-tree shard count across the local device mesh "
-        "(parallel/mesh.py, OPERATIONS.md §22; not ported: ROADMAP.md "
-        "queue A item 15): each of the first N devices owns a "
-        "contiguous heap range of both bucket trees; the round gathers "
-        "over ICI and the delayed-eviction flush "
-        "owner-masks its scatters per chip. Responses, transcripts, and "
+        "(parallel/mesh.py, OPERATIONS.md §22): each of the first N "
+        "CUDA cards owns a contiguous heap range of both bucket trees "
+        "(with --device cpu, N CPU shards); the round gathers each "
+        "shard's rows onto the first card and the delayed-eviction "
+        "flush owner-masks its writes per shard. Responses, transcripts, and "
         "logical state are bit-identical at every shard count, and "
         "journals/checkpoints replay across shard counts (the knob is "
         "outside the durability fingerprint, like --pipeline-depth). "

@@ -1,8 +1,8 @@
 """State-comparison helpers (port of ``grapevine_tpu/testing/compare.py``).
 
-They take the port's ``EngineState`` / ``OramState`` (on any device) and
-compare them host-side through numpy u32 views (``engine/convert.py``),
-so the tests and ``chip_smoke.py`` on the card use the same checks. The
+They take the port's ``EngineState`` / ``OramState`` (on any device,
+sharded over a mesh or not) and compare them host-side through numpy
+u32 views (``engine/convert.py``), so the tests and ``chip_smoke.py`` on the card use the same checks. The
 random streams are compared by their generator state (a ``jax.random``
 key in the reference).
 """
@@ -89,9 +89,12 @@ def logical_tree_planes(cfg, oram):
     buckets' tree rows are stale and the authoritative plaintext lives in
     the cache planes, so rows [0, 2^k−1) come from the cache. Under
     delayed eviction the buckets fetched since the last flush are masked
-    empty (their live rows are in the eviction buffer)."""
+    empty (their live rows are in the eviction buffer). A sharded tree
+    (``parallel/mesh.py``) is joined first."""
     from ..oblivious.bucket_cipher import row_keystream
+    from ..parallel.mesh import unshard_oram
 
+    oram = unshard_oram(oram)
     z = cfg.bucket_slots
     n = cfg.n_buckets_padded
     idx = _t2n(oram.tree_idx).reshape(n, z).copy()

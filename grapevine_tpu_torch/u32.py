@@ -81,7 +81,11 @@ def from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C").view(np.int32)).to(device)
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 lanes → numpy uint32 with the same bits (bool stays bool)."""
+def to_numpy(t) -> np.ndarray:
+    """int32 lanes → numpy uint32 with the same bits (bool stays bool). A
+    sharded tree plane (``oram/path_oram.py:ShardedPlane``) gives its
+    logical plane: the shards' heap rows joined in heap order."""
+    if not isinstance(t, torch.Tensor):
+        return np.concatenate([to_numpy(r) for r in t.local()])
     a = t.detach().cpu().numpy()
     return a if a.dtype == np.bool_ else a.view(np.uint32)

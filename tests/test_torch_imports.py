@@ -54,8 +54,9 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     harness and the checkpoint seal scan (own copies of ``load/`` and of
     the seal scan), and the op-major engine and its oracle (own copies of
     the reference's jax-free ``testing/reference.py``, ``ref_oram.py``,
-    ``fixtures.py``, a torch port of ``compare.py``), so the boundary
-    scan reads each of them."""
+    ``fixtures.py``, a torch port of ``compare.py``), and so is the device
+    mesh (a port of ``parallel/``), so the boundary scan reads each of
+    them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
                 "engine/replication.py",
@@ -70,7 +71,7 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
                 "load/capacity.py", "load/harness.py", "testing/checkpoint_seal.py",
                 "engine/vphases.py", "oblivious/prp.py", "engine/step.py",
                 "testing/reference.py", "testing/ref_oram.py", "testing/fixtures.py",
-                "testing/compare.py"):
+                "testing/compare.py", "parallel/__init__.py", "parallel/mesh.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
@@ -179,20 +180,34 @@ def test_pipelined_engine_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(vphases_impl="scan", shards=2), dict(commit="phase", shards=4),
-    # the scan vphases, the recursive map and the radix sort run; on a
-    # mesh they stay refused
+    # the scan vphases, the recursive map and the radix sort run on a
+    # mesh as on one device
     dict(vphases_impl="scan", posmap_impl="recursive", sort_impl="radix", shards=2),
     dict(evict_every=2, posmap_impl="recursive", shards=2), dict(shards=2),
-    # the kernel impls run single-device; sharded they stay refused
+    # the kernel impls too (the fused kernels give way to B2 on a mesh)
     dict(bucket_cipher_impl="pallas", shards=2),
     dict(bucket_cipher_impl="pallas_fused", evict_every=2, shards=2),
 ])
 def test_unported_knobs_name_their_roadmap_item(knob):
+    """Every knob value once refused for a later slice (the last were
+    ``shards > 1``, ROADMAP.md queue A item 15) now resolves, and a CPU
+    facade with it builds: at ``shards`` N on a virtual mesh of N CPU
+    shards, with ``shards`` kept out of the engine config."""
     from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
     from grapevine_tpu_torch.engine.state import EngineConfig
+    from grapevine_tpu_torch.oram.path_oram import ShardedPlane
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EngineConfig.from_config(GrapevineConfig(max_messages=64, **knob))
+    cfg = GrapevineConfig(max_messages=64, **knob)
+    ecfg = EngineConfig.from_config(cfg)
+    assert ecfg == EngineConfig.from_config(GrapevineConfig(max_messages=64, **dict(
+        knob, shards=1)))
+    eng = GrapevineEngine(cfg, device="cpu")
+    assert eng.ecfg == ecfg and eng._mesh.size == knob["shards"]
+    assert eng._mesh.devices == (torch.device("cpu"),) * knob["shards"]
+    for tree in (eng.state.rec, eng.state.mb):
+        assert isinstance(tree.tree_val, ShardedPlane)
+        assert len(tree.nonces.shards) == knob["shards"]
 
 
 @pytest.mark.parametrize("knob", [

@@ -123,14 +123,14 @@ def test_vphases_knob_validation_and_default():
     dense = EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="dense"))
     assert repr(scan) != repr(dense)  # the checkpoint fingerprint tells them apart
     # the op-major engine builds (and ignores the vphases: it runs none);
-    # on a mesh the scan vphases stay refused
+    # on a mesh the scan vphases resolve as on one device (shards stays
+    # out of the engine config)
     op = EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan",
                                                   commit="op"))
     assert op.vphases_impl == "scan" and op.mb_choices == 1
     assert op.rec.top_cache_levels == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan",
-                                                 shards=2))
+    assert EngineConfig.from_config(GrapevineConfig(max_messages=64, vphases_impl="scan",
+                                                    shards=2)) == scan
 
 
 @pytest.mark.parametrize("extra", [
