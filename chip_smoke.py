@@ -231,7 +231,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    equal to the twin's, the state equal after each flush and after a
    sweep, and a depth-1 one-device engine recovered from a copy of the
    state dir equal to the sharded one; (c) with two or more cards, (a) on a
-   mesh across them; with one, a line saying it did not run and why.
+   mesh across them; with one, a line saying it did not run and why;
+19. the obliviousness analyzer (``grapevine_tpu_torch/analysis``) on the
+   card: (a) fake captures on CUDA tensors at the production point — the
+   ``"pallas_fused_tiled"`` E=1 round, the ``"pallas_fused"`` E=4 round
+   and flush, the ``"pallas"`` E=1 round — and at 2^14, B=64 the slow
+   admission branch, the sweep and the gate's ORAM sub-rounds, each
+   taint-audited (no violation outside the allowlist) with its nodes,
+   capture and audit seconds and allowlist hits, and its kernel nodes by
+   name equal to the launches one eager call of that impl makes; (b) two
+   real-mode captures of the ``"pallas_fused_tiled"`` round at the
+   production point from adversarial secrets (every op on one recipient,
+   against all distinct, under different keys) give one op census,
+   output shapes included, and the replayed graph equals the eager round
+   from the same state and draws on every word (junk masked) — the
+   captures and the replay launch B4 and B6 through their custom ops;
+   (c) the slow admission walk (``fast_ok=False``) at the production
+   point under ``torch.cuda.set_sync_debug_mode("error")`` equals the
+   fast branch where both are exact, with both walls and device times;
+   (d) ``python -m grapevine_tpu_torch.analysis.check_oblivious --smoke``
+   (both admission branches, every mutant, locklint and importlint) in a
+   process where ``import jax`` fails, exit 0; and B2 at the op-major
+   shape through its wrapper and through its custom op, timed.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -258,6 +279,10 @@ shapes first.
     python3 chip_smoke.py --mesh-phase
 
 runs phase 18 alone after the kernel build.
+
+    python3 chip_smoke.py --analysis-phase
+
+runs phase 19 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -4569,6 +4594,352 @@ def scan_phases_alone() -> int:
     return 0
 
 
+#: phase 19: the obliviousness analyzer on the card
+ANALYSIS_GEO = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048,
+                    vphases_impl="dense")
+ANALYSIS_SMALL = dict(max_messages=2**14, max_recipients=2**10, batch_size=64,
+                      vphases_impl="dense")
+#: the production captures: (label, impl, evict_every, program, the
+#: kernel nodes = the launches one eager call makes, as phases 4-6 require)
+ANALYSIS_CAPTURES = (
+    ("tiled_e1_round", "pallas_fused_tiled", 1, "round",
+     {"gather_decrypt_rows_tiled": 3, "scatter_encrypt_rows_tiled": 3}),
+    ("fused_e4_round", "pallas_fused", EVICT_EVERY, "round", {"gather_decrypt_rows": 3}),
+    ("fused_e4_flush", "pallas_fused", EVICT_EVERY, "flush", {"scatter_encrypt_rows": 2}),
+    ("pallas_e1_round", "pallas", 1, "round", {"cipher_rows_pallas": 6}),
+)
+
+
+def _check_oblivious_smoke() -> subprocess.Popen:
+    """Start the analyzer's ``--smoke`` gate (mutants, locklint and
+    importlint included) in a process where ``import jax`` fails."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None  # import jax raises ImportError here\n"
+            "sys.argv = ['check_oblivious', '--smoke']\n"
+            "runpy.run_module('grapevine_tpu_torch.analysis.check_oblivious', "
+            "run_name='__main__')\n")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _audit_line(rep, want=None) -> dict:
+    """One capture's line; raises on a violation or, with ``want``, on
+    kernel nodes other than the eager launches."""
+    from grapevine_tpu_torch.analysis.fx_walk import kernel_nodes
+
+    kn = dict(kernel_nodes(rep.capture.gm)) if rep.capture.gm is not None else {}
+    line = dict(name=rep.name, nodes=rep.n_eqns, capture_s=rep.capture.seconds,
+                audit_s=rep.audit_s, violations=[str(v) for v in rep.violations],
+                allowlist_hits=sum(rep.allowed.values()), allowlist_sites=len(rep.allowed),
+                kernel_nodes=kn)
+    if rep.violations:
+        raise AssertionError(f"phase 19a: {rep.summary()}")
+    if want is not None and kn != want:
+        raise AssertionError(f"phase 19a {rep.name}: kernel nodes {kn}, eager launches {want}")
+    return line
+
+
+def analysis_captures(GrapevineConfig) -> list:
+    """Phase 19a: fake captures on CUDA tensors, each audited."""
+    from grapevine_tpu_torch.analysis import check_oblivious as co
+    from grapevine_tpu_torch.analysis.allowlist import ENGINE_ALLOWLIST as allow
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    lines = []
+    for label, impl, ee, prog, want in ANALYSIS_CAPTURES:
+        ecfg = EngineConfig.from_config(GrapevineConfig(
+            **ANALYSIS_GEO, bucket_cipher_impl=impl, evict_every=ee))
+        state = init_engine(ecfg, SEED, device="cuda")
+        rep = (co.audit_engine_round(ecfg, allow, label, device="cuda", state=state)
+               if prog == "round" else
+               co.audit_engine_flush(ecfg, allow, label, device="cuda", state=state))
+        lines.append(_audit_line(rep, want))
+        del state, rep
+        torch.cuda.empty_cache()
+    small = EngineConfig.from_config(GrapevineConfig(
+        **ANALYSIS_SMALL, bucket_cipher_impl="pallas_fused_tiled"))
+    lines.append(_audit_line(
+        co.audit_engine_round(small, allow, "small_tiled_e1", fast_ok=False, device="cuda"),
+        ANALYSIS_CAPTURES[0][4]))
+    lines.append(_audit_line(co.audit_expiry_sweep(small, allow, "small_tiled_e1",
+                                                   device="cuda")))
+    vp, srt, pmi, k, ee = co.DEFAULT_COMBOS[1]
+    rec = pmi == "recursive"
+    lines.append(_audit_line(co.audit_oram_round(allow, vp, srt, rec, k, ee, device="cuda")))
+    lines.append(_audit_line(co.audit_lookup_remap(allow, vp, srt, rec, device="cuda")))
+    lines.append(_audit_line(co.audit_oram_flush(allow, srt, rec, k, ee, device="cuda")))
+    lines.append(_audit_line(co.audit_oram_flush(allow, srt, rec, k, ee, shards=2,
+                                                 device="cuda", cipher_impl="pallas")))
+    return lines
+
+
+def _clone_tree(value):
+    from grapevine_tpu_torch.analysis.fx_walk import flatten
+
+    _, ts, rebuild = flatten(value, "")
+    return rebuild([t.clone() for t in ts])
+
+
+def _leaves_equal(ecfg, a, b, where: str) -> int:
+    """Every output leaf of two round results equal (the trees' junk
+    bucket, their last row, masked); returns the words compared."""
+    from grapevine_tpu_torch.analysis.fx_walk import flatten
+
+    labels, ta, _ = flatten(a, "out")
+    _, tb, _ = flatten(b, "out")
+    if len(ta) != len(tb):
+        raise AssertionError(f"{where}: {len(ta)} leaves against {len(tb)}")
+    words = 0
+    for lb, x, y in zip(labels, ta, tb):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{where}: {lb} {tuple(x.shape)} against {tuple(y.shape)}")
+        plane = lb.rsplit(".", 1)[-1]
+        if plane in ("tree_idx", "tree_leaf"):
+            z = ecfg.rec.bucket_slots
+            x, y = x[:-z], y[:-z]
+        elif plane in ("tree_val", "nonces"):
+            x, y = x[:-1], y[:-1]
+        if not torch.equal(x, y):
+            raise AssertionError(f"{where}: {lb} differs")
+        words += x.numel()
+    return words
+
+
+def _adversarial_batches(ecfg) -> list:
+    """Two batches of B CREATEs: every op to one recipient, and every op
+    to its own recipient."""
+    from grapevine_tpu_torch.engine.state import KEY_WORDS, PAYLOAD_WORDS
+
+    b, dev = ecfg.batch_size, torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+
+    def rnd(*shape):
+        return torch.randint(1, 1 << 31, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    out = []
+    for distinct in (False, True):
+        rcp = rnd(b, KEY_WORDS) if distinct else rnd(1, KEY_WORDS).expand(b, KEY_WORDS)
+        out.append({"req_type": torch.full((b,), 1, dtype=torch.int32, device=dev),
+                    "auth": rnd(b, KEY_WORDS), "msg_id": torch.zeros(b, 4, dtype=torch.int32,
+                                                                    device=dev),
+                    "recipient": rcp.contiguous(), "payload": rnd(b, PAYLOAD_WORDS),
+                    "now": torch.tensor(NOW, dtype=torch.int32, device=dev),
+                    "now_hi": torch.zeros((), dtype=torch.int32, device=dev)})
+    return out
+
+
+def analysis_census_replay(GrapevineConfig, gk, ck) -> dict:
+    """Phase 19b: real-mode captures of the tiled round from two secret
+    sets give one census; the replayed graph equals the eager round."""
+    from grapevine_tpu_torch.analysis import check_oblivious as co
+    from grapevine_tpu_torch.analysis.fx_walk import capture, census, kernel_nodes
+    from grapevine_tpu_torch.engine import round_step
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    ecfg = EngineConfig.from_config(GrapevineConfig(
+        **ANALYSIS_GEO, bucket_cipher_impl="pallas_fused_tiled"))
+
+    def fn(st, ba, dr):
+        return round_step.engine_round_step(ecfg, st, ba, draws=dr, fast_ok=True)
+
+    states = [init_engine(ecfg, SEED + i, device="cuda") for i in (0, 1)]  # other keys
+    batches = _adversarial_batches(ecfg)
+    draws = [co.engine_draws(ecfg, st, "cuda") for st in states]
+    _reset_launches(gk, ck)
+    caps = [capture(fn, st, ba, dr, names=("state", "batch", "draws"),
+                    tracing_mode="real", name=f"tiled_round/{v}")
+            for st, ba, dr, v in zip(states, batches, draws, ("one_recipient", "distinct"))]
+    torch.cuda.synchronize()
+    capture_launches = _launches(gk, ck)
+    censuses = [census(c.gm, shapes=True) for c in caps]
+    if censuses[0] != censuses[1]:
+        diff = (censuses[0] - censuses[1]) + (censuses[1] - censuses[0])
+        raise AssertionError(f"phase 19b: the censuses differ: {dict(list(diff.items())[:8])}")
+    want = ANALYSIS_CAPTURES[0][4]
+    for c in caps:
+        if dict(kernel_nodes(c.gm)) != want:
+            raise AssertionError(f"phase 19b: kernel nodes {dict(kernel_nodes(c.gm))}")
+    # the replay, then the eager round (it writes the trees in place)
+    from grapevine_tpu_torch.analysis.fx_walk import flatten
+
+    flat = [t for v, n in zip((states[0], batches[0], draws[0]), ("state", "batch", "draws"))
+            for t in flatten(v, n)[1]]
+    _reset_launches(gk, ck)
+    t0 = time.perf_counter()
+    replayed = caps[0].gm(*flat)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    replay_launches = _launches(gk, ck)
+    _reset_launches(gk, ck)
+    eager = fn(states[0], batches[0], draws[0])
+    torch.cuda.synchronize()
+    eager_launches = _launches(gk, ck)
+    _, eager_leaves, rebuild = flatten(eager, "out")
+    words = _leaves_equal(ecfg, rebuild(list(replayed)), eager, "phase 19b replay")
+    op_route = {k: capture_launches[k] + replay_launches[k] for k in KERNELS}
+    require_launches(op_route, {"gather_decrypt_rows_tiled": 9,
+                                "scatter_encrypt_rows_tiled": 9}, "phase 19b op route")
+    require_launches(eager_launches, want, "phase 19b eager round")
+    return dict(census_ops=sum(censuses[0].values()), census_keys=len(censuses[0]),
+                nodes=[sum(1 for n in c.gm.graph.nodes if n.op == "call_function")
+                       for c in caps],
+                capture_s=[c.seconds for c in caps], replay_s=replay_s,
+                words_equal=words, leaves=len(eager_leaves), op_route_launches=op_route,
+                eager_launches=eager_launches)
+
+
+def analysis_slow_walk(GrapevineConfig, gk, ck) -> dict:
+    """Phase 19c: the on-device slow admission walk at the production
+    point, under sync-debug "error", equals the fast branch."""
+    from grapevine_tpu_torch.analysis import check_oblivious as co
+    from grapevine_tpu_torch.engine import round_step
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    ecfg = EngineConfig.from_config(GrapevineConfig(
+        **ANALYSIS_GEO, bucket_cipher_impl="pallas_fused_tiled"))
+    state = init_engine(ecfg, SEED, device="cuda")
+    batch = co.census_variants(ecfg, "cuda")["mixed"]
+    draws = co.engine_draws(ecfg, state, "cuda")
+    fast_ok = round_step.admission_fast_ok(ecfg, *torch.stack(
+        [state.free_top, state.recipients]).tolist(), ecfg.batch_size)
+    if not fast_ok:
+        raise AssertionError("phase 19c: the fresh state must admit the fast branch")
+
+    def run(fast: bool) -> tuple:
+        st = _clone_tree(state)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        if not fast:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = round_step.engine_round_step(ecfg, st, batch, draws=draws, fast_ok=fast)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        e1.record()
+        dispatch_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return out, dict(dispatch_ms=dispatch_s * 1e3,
+                         wall_ms=(time.perf_counter() - t0) * 1e3,
+                         device_ms=e0.elapsed_time(e1))
+
+    run(True)  # warm-up
+    _reset_launches(gk, ck)
+    fast_out, fast_t = run(True)
+    slow_out, slow_t = run(False)
+    launches = _launches(gk, ck)
+    words = _leaves_equal(ecfg, slow_out, fast_out, "phase 19c slow walk")
+    require_launches(launches, {"gather_decrypt_rows_tiled": 6,
+                                "scatter_encrypt_rows_tiled": 6}, "phase 19c")
+    return dict(fast=fast_t, slow=slow_t, words_equal=words, sync_debug="error",
+                launches=launches)
+
+
+def b2_routes(GrapevineConfig, gk, ck) -> dict:
+    """B2 at the op-major records shape through its wrapper (direct) and
+    through its custom op (the capture route): equal outputs; device ms
+    (``cuda_ms``) and host µs a call."""
+    from grapevine_tpu_torch.engine.state import EngineConfig
+    from grapevine_tpu_torch.oram.path_oram import path_bucket_indices
+
+    cfg = EngineConfig.from_config(GrapevineConfig(
+        max_messages=2**20, max_recipients=2**12, batch_size=8, commit="op",
+        bucket_cipher_impl="pallas")).rec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    z, zv, r, rounds = cfg.bucket_slots, cfg.bucket_slots * cfg.value_words, cfg.path_len, \
+        cfg.cipher_rounds
+
+    def rnd(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    leaf = torch.randint(0, cfg.leaves, (), generator=gen, device=dev).to(torch.int32)
+    args = (rnd(8), path_bucket_indices(cfg, leaf).contiguous(), rnd(r, 2), rnd(r, z),
+            rnd(r, zv))
+    routes = {"direct": lambda: ck.cipher_rows_pallas(*args, rounds=rounds),
+              "op": lambda: torch.ops.gv.cipher_rows_pallas(*args, rounds)}
+    outs = {k: f() for k, f in routes.items()}
+    err = max(max_err(a, b) for a, b in zip(outs["direct"], outs["op"]))
+    line = dict(rows=r, row_words=z + zv, max_abs_err=err)
+    for k, f in routes.items():
+        line[f"{k}_ms"] = cuda_ms(f, 200)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            f()
+        line[f"{k}_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"phase 19: B2's two routes differ: {line}")
+    return line
+
+
+def run_analysis_phase(GrapevineConfig, gk, ck, card) -> dict:
+    """Phase 19: (a) audited fake captures on the card, (b) census and
+    replay of real-mode captures, (c) the slow admission walk, (d) the
+    analyzer's smoke gate without JAX; B2's two routes."""
+    t_phase = time.perf_counter()
+    smoke = _check_oblivious_smoke()
+    t0 = time.perf_counter()
+    a = analysis_captures(GrapevineConfig)
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = analysis_census_replay(GrapevineConfig, gk, ck)
+    b_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = analysis_slow_walk(GrapevineConfig, gk, ck)
+    c_s = time.perf_counter() - t0
+    launches = {k: b["op_route_launches"][k] + b["eager_launches"][k] + c["launches"][k]
+                for k in KERNELS}
+    routes = b2_routes(GrapevineConfig, gk, ck)
+    out, _ = smoke.communicate(timeout=600)
+    tail = out.strip().splitlines()[-12:]
+    d = dict(rc=smoke.returncode, mutants_caught=out.count("FAIL (expected)"),
+             passed=any(ln.startswith("[check_oblivious] PASS") for ln in tail),
+             wall_s=time.perf_counter() - t_phase)
+    if smoke.returncode != 0 or not d["passed"] or d["mutants_caught"] != 9:
+        raise AssertionError("phase 19d: check_oblivious --smoke without JAX failed:\n"
+                             + "\n".join(tail))
+    return dict(a=a, b=b, c=c, d=d, routes=routes, launches=launches, card=card,
+                split_s=dict(a=a_s, b=b_s, c=c_s), phase_s=time.perf_counter() - t_phase)
+
+
+def emit_analysis_lines(an: dict) -> None:
+    for line in an["a"]:
+        emit({"analysis_capture": line})
+    emit({"analysis_census_replay": an["b"]})
+    emit({"analysis_slow_walk": an["c"], "card": an["card"]})
+    emit({"analysis_smoke_no_jax": an["d"]})
+    emit({"analysis_b2_routes": an["routes"], "card": an["card"]})
+    emit({"analysis_phase_s": an["phase_s"], "split_s": an["split_s"],
+          "analysis_launches": an["launches"]})
+
+
+def analysis_phase_alone() -> int:
+    """Phase 19 alone: the card line, the kernel build, then the analyzer
+    phase; 0 if every check held."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    an = run_analysis_phase(GrapevineConfig, gk, ck, card)
+    emit_analysis_lines(an)
+    emit({"analysis_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def repeat_standby_runbook(n: int) -> int:
     """Phase 12b alone, ``n`` times: each run's outcome on a line of its
     own, then the count; 1 if any run failed."""
@@ -4600,6 +4971,8 @@ def main() -> int:
                     help="run phase 17 alone (after the kernel build)")
     ap.add_argument("--mesh-phase", action="store_true",
                     help="run phase 18 alone (after the kernel build)")
+    ap.add_argument("--analysis-phase", action="store_true",
+                    help="run phase 19 alone (after the kernel build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -4613,6 +4986,8 @@ def main() -> int:
         return op_phase_alone()
     if args.mesh_phase:
         return mesh_phase_alone()
+    if args.analysis_phase:
+        return analysis_phase_alone()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -4782,6 +5157,13 @@ def main() -> int:
     mesh = run_mesh_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
     split("mesh")
 
+    # phase 19: the obliviousness analyzer — audited captures on the card
+    # (kernel nodes = launches), census and replay of real captures (B4,
+    # B6 through their custom ops), the on-device slow admission walk
+    # (B4, B6), the smoke gate without JAX
+    an = run_analysis_phase(GrapevineConfig, gk, ck, card)
+    split("analysis")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -4825,7 +5207,7 @@ def main() -> int:
                                        + obs_launches["scatter_encrypt_rows_tiled"]),
     }
     for k in KERNELS:
-        launches_by_kernel[k] += mesh["launches"].get(k, 0)
+        launches_by_kernel[k] += mesh["launches"].get(k, 0) + an["launches"][k]
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -4850,6 +5232,7 @@ def main() -> int:
     emit_scan_lines(scan)
     emit_op_lines(op)
     emit_mesh_lines(mesh)
+    emit_analysis_lines(an)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
                                     op["launches"]["cipher_rows_pallas"]), "card": card})

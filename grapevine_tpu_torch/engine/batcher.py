@@ -397,11 +397,15 @@ class GrapevineEngine:
         #: recipients) after dispatch number ``_known[0]``, the CREATE
         #: count of every round dispatched since, and the state's
         #: free_top tensor the bound belongs to (a state set from outside
-        #: is a different tensor, and the next round reads instead)
-        self._bound_lock = threading.Lock()
+        #: is a different tensor, and the next round reads instead). All
+        #: of it runs under the engine lock; a round resolved on another
+        #: thread hands its exact values over through ``_resolved`` (a
+        #: deque: append and popleft are atomic), folded in at the next
+        #: dispatch, so the dispatch stage takes no lock of its own.
         self._dispatched = 0
         self._known: tuple[int, int, int] | None = None
         self._inflight: deque[tuple[int, int]] = deque()
+        self._resolved: deque[tuple[int, int, int]] = deque()
         self._bound_ref = None
         self.durability = None
         if durability is not None:
@@ -510,10 +514,9 @@ class GrapevineEngine:
         from them."""
         st = self.state
         ft, rc = torch.stack([st.free_top, st.recipients]).tolist()
-        with self._bound_lock:
-            self._known = (self._dispatched, ft, rc)
-            self._inflight.clear()
-            self._bound_ref = st.free_top
+        self._known = (self._dispatched, ft, rc)
+        self._inflight.clear()
+        self._bound_ref = st.free_top
         return ft, rc
 
     def _admission(self, creates: int) -> bool:
@@ -540,26 +543,31 @@ class GrapevineEngine:
         round's timing. The transcript and every device address are
         unchanged."""
         b = self.ecfg.batch_size
-        with self._bound_lock:
-            kn = self._known
-            if kn is not None and self.state.free_top is self._bound_ref:
-                pending = [c for tag, c in self._inflight if tag > kn[0]]
-                s = sum(pending)
-                if not pending or admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b):
-                    # nothing dispatched since the exact values: they ARE
-                    # the state's, and decide either branch
-                    return admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b)
+        kn = self._known
+        if kn is not None and self.state.free_top is self._bound_ref:
+            pending = [c for tag, c in self._inflight if tag > kn[0]]
+            s = sum(pending)
+            if not pending or admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b):
+                # nothing dispatched since the exact values: they ARE
+                # the state's, and decide either branch
+                return admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b)
         return admission_fast_ok(self.ecfg, *self._read_bound_locked(), b)
+
+    def _fold_resolved(self) -> None:
+        """Fold in the exact values resolved rounds handed over (every
+        dispatch, under the engine lock: the deque's only consumer)."""
+        while self._resolved:
+            tag, free_top, recipients = self._resolved.popleft()
+            if self._known is None or tag > self._known[0]:
+                self._known = (tag, free_top, recipients)
+                while self._inflight and self._inflight[0][0] <= tag:
+                    self._inflight.popleft()
 
     def _note_bound(self, tag: int, free_top: int, recipients: int) -> None:
         """A resolved round's own free_top and recipients outputs: exact
-        values after dispatch number ``tag``."""
-        with self._bound_lock:
-            if self._known is not None and tag <= self._known[0]:
-                return
-            self._known = (tag, free_top, recipients)
-            while self._inflight and self._inflight[0][0] <= tag:
-                self._inflight.popleft()
+        values after dispatch number ``tag``, handed to the next dispatch
+        (any thread; takes no lock)."""
+        self._resolved.append((tag, free_top, recipients))
 
     # -- the staged round pipeline -------------------------------------
 
@@ -634,15 +642,15 @@ class GrapevineEngine:
         t0 = time.perf_counter()
         dev_batch, staging = upload_batch(batch, self.device)
         creates = int(np.count_nonzero(batch["req_type"] == C.REQUEST_TYPE_CREATE))
+        self._fold_resolved()
         # the op-major step has no admission branch (each op checks its
         # own quota inside the program)
         kw = {} if self._op_major else {"fast_ok": self._admission(creates)}
         self.state, resp, tr = self._round_program()(self.ecfg, self.state, dev_batch,
                                                      **kw)
-        with self._bound_lock:
-            self._dispatched += 1
-            self._inflight.append((self._dispatched, creates))
-            self._bound_ref = self.state.free_top
+        self._dispatched += 1
+        self._inflight.append((self._dispatched, creates))
+        self._bound_ref = self.state.free_top
         outs = dict(resp, free_top=self.state.free_top, recipients=self.state.recipients)
         key_cols = None
         if transcript:

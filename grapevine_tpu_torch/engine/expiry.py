@@ -63,8 +63,17 @@ from .state import (
     EngineConfig,
     EngineState,
 )
+from .round_step import _tree_secrets
 
 I32 = torch.int32
+
+#: oblint taint anchors (``analysis/oblint.py``) of ``expiry_sweep``: the
+#: engine round's state anchors (the sweep takes no batch and draws
+#: nothing). The reference's ``engine/expiry.py:55``.
+OBLINT_SECRETS = (
+    _tree_secrets("state.rec") + _tree_secrets("state.mb")
+    + ("state.freelist", "state.hash_key", "state.id_key")
+)
 
 
 def _expired(ts_lo, ts_hi, now_lo, now_hi, period) -> torch.Tensor:
@@ -196,7 +205,9 @@ def expiry_sweep(ecfg: EngineConfig, state: EngineState, now, period,
     dev = state.free_top.device
 
     def lane(x):
-        if not isinstance(x, torch.Tensor) and not 0 <= int(x) < 1 << 32:
+        if isinstance(x, torch.Tensor):  # already a lane: no host read
+            return x.to(device=dev, dtype=I32).reshape(())
+        if not 0 <= int(x) < 1 << 32:
             # the reference's U32(x) raises here too; wrapping would sweep
             # with another clock or period
             raise OverflowError(f"{int(x)} does not fit in a u32 lane")

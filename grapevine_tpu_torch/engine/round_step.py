@@ -36,6 +36,48 @@ from .vphases import phase_a_batch, phase_b_batch, phase_c_batch
 I32 = torch.int32
 
 
+def _tree_secrets(prefix: str) -> tuple:
+    """The private planes of one OramState under ``prefix``: positions
+    (posmap — recursively, the whole pytree under a recursive map),
+    stash, cache and eviction-buffer contents, and the at-rest cipher
+    key (key taint is what marks decrypted tree rows secret; ciphertext
+    stays public). NOT tainted: ebuf_paths / ebuf_rounds / ebuf_gen /
+    fetch_tag, a pure function of the public transcript."""
+    return tuple(
+        f"{prefix}.{p}"
+        for p in ("posmap", "stash_idx", "stash_val", "stash_leaf", "cache_idx",
+                  "cache_val", "cache_leaf", "ebuf_idx", "ebuf_val", "ebuf_leaf",
+                  "cipher_key")
+    )
+
+
+#: oblint taint anchors (``analysis/oblint.py``): the secret inputs of one
+#: round ``engine_round_step(ecfg, state, batch, draws=draws)`` — every
+#: per-op column of the batch, both trees' private planes, the engine's
+#: key material and the freelist's contents (freed block ids in deletion
+#: order), and the round's random draws (future positions and id nonces;
+#: they stand where the reference taints ``state.rng``, since a
+#: ``torch.Generator`` is not a tensor, and ``draws.pm`` is the internal
+#: map's). Deliberately NOT secret: free_top/recipients/seq (the public
+#: aggregates the admission branch reads), nonces/epoch (public write-epoch
+#: counters) and the tree ciphertext planes. The reference's
+#: ``engine/round_step.py:90``.
+OBLINT_SECRETS = (
+    ("batch.req_type", "batch.auth", "batch.msg_id", "batch.recipient",
+     "batch.payload", "state.freelist", "state.hash_key", "state.id_key", "draws")
+    + _tree_secrets("state.rec")
+    + _tree_secrets("state.mb")
+)
+
+#: the anchors of ``engine_flush_step(ecfg, state)``: the state's own
+#: (it takes no batch and draws nothing). The reference's ``:443``.
+FLUSH_OBLINT_SECRETS = (
+    ("state.freelist", "state.hash_key", "state.id_key")
+    + _tree_secrets("state.rec")
+    + _tree_secrets("state.mb")
+)
+
+
 class PosmapDraws(NamedTuple):
     """One round's internal-ORAM leaves under a recursive position map
     (the reference's ``round_step.py:224-240``): remap and dummy leaves

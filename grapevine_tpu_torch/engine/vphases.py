@@ -24,7 +24,9 @@ cover the whole batch the vectorized fast path is exact; otherwise the
 exact sequential walk runs. The reference picks between them with
 ``lax.cond``; here the predicate is read on the host — one device sync
 per round, on a public aggregate (bus or recipient table within B of
-full) — and the sequential walk is a Python loop over B run on the host.
+full) — and the sequential walk is the reference's scan unrolled: a
+Python loop over B of fixed-shape ops on the device, with no host read
+of the per-op vectors it walks.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from torch.profiler import record_function
 
 from ..oblivious.primitives import (
+    index1,
     is_zero_words,
     lex_argsort,
     rank_of,
@@ -334,48 +337,42 @@ def _admission_slow(ecfg, *, is_create_cand, is_pop_cand, found0, first_create,
                     free_slots0, init_count, rslot, gslot, free_top0,
                     recipients0):
     """Exact sequential admission for the near-saturation regime: the
-    reference's ``lax.scan`` over counters, as a Python loop over B on the
-    host (one copy of a few [B] vectors each way)."""
+    reference's ``lax.scan`` over counters, unrolled into a loop over B
+    of fixed-shape ops on ``rslot``'s device. The carry (allocations,
+    live recipients, per-group counts, free key slots and claims) stays
+    in tensors and every per-op read indexes with a 1-element tensor, so
+    no secret-derived value reaches the host and the launch sequence is
+    a constant of B."""
     b = rslot.shape[0]
     cap = ecfg.mailbox_cap
     dev = rslot.device
-    crt, pop, fnd, fc, r_, g_, ic, fs0 = (
-        t.cpu().tolist() for t in (
-            is_create_cand, is_pop_cand, found0, first_create, rslot, gslot,
-            init_count, free_slots0,
-        )
-    )
-    counts = [ic[i] if r_[i] == i else 0 for i in range(b)]
-    frees = [fs0[i] if g_[i] == i else 0 for i in range(b)]
-    claimed = [False] * b
-    n_alloc = 0
-    recips = int(recipients0)
-    free_top = int(free_top0)
-    out = {k: [] for k in ("create_ok", "pop_ok", "claim_ok", "count_before",
-                           "can_alloc", "active")}
+    iota = torch.arange(b, dtype=rslot.dtype, device=dev)
+    counts = torch.where(rslot == iota, init_count, 0).to(I32)
+    frees = torch.where(gslot == iota, free_slots0, 0).to(I32)
+    claimed = torch.zeros(b, dtype=torch.bool, device=dev)
+    n_alloc = torch.zeros(1, dtype=I32, device=dev)
+    recips = recipients0.reshape(1).to(I32)
+    free_top = free_top0.reshape(1).to(I32)
+    claim_cand = first_create & ~found0
+    outs = []
     for j in range(b):
-        r, g = r_[j], g_[j]
-        cnt, fs = counts[r], frees[g]
+        r, g = index1(rslot[j]), index1(gslot[j])
+        cnt, fs, was = counts[r], frees[g], claimed[r]
         can_alloc = n_alloc < free_top
         room = recips < ecfg.max_recipients
-        claim_ok = fc[j] and not fnd[j] and fs > 0 and room and can_alloc
-        active = fnd[j] or claimed[r] or claim_ok
-        create_ok = crt[j] and can_alloc and active and cnt < cap
-        pop_ok = pop[j] and active and cnt > 0
-        counts[r] = cnt + int(create_ok) - int(pop_ok)
-        frees[g] = fs - int(claim_ok)
-        claimed[r] = claimed[r] or claim_ok
-        n_alloc += int(create_ok)
-        recips += int(claim_ok)
-        for k, val in (("create_ok", create_ok), ("pop_ok", pop_ok),
-                       ("claim_ok", claim_ok), ("count_before", cnt),
-                       ("can_alloc", can_alloc), ("active", active)):
-            out[k].append(val)
-    return {
-        k: torch.tensor(vals, dtype=I32 if k == "count_before" else torch.bool,
-                        device=dev)
-        for k, vals in out.items()
-    }
+        claim_ok = claim_cand[j:j + 1] & (fs > 0) & room & can_alloc
+        active = found0[j:j + 1] | was | claim_ok
+        create_ok = is_create_cand[j:j + 1] & can_alloc & active & (cnt < cap)
+        pop_ok = is_pop_cand[j:j + 1] & active & (cnt > 0)
+        counts[r] = cnt + create_ok.to(I32) - pop_ok.to(I32)
+        frees[g] = fs - claim_ok.to(I32)
+        claimed[r] = was | claim_ok
+        n_alloc = n_alloc + create_ok.to(I32)
+        recips = recips + claim_ok.to(I32)
+        outs.append((create_ok, pop_ok, claim_ok, cnt, can_alloc, active))
+    names = ("create_ok", "pop_ok", "claim_ok", "count_before", "can_alloc",
+             "active")
+    return {k: torch.cat(col) for k, col in zip(names, zip(*outs))}
 
 
 # ----------------------------------------------------------------------

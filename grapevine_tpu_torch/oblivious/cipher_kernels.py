@@ -12,7 +12,9 @@ the one library ``gather_kernels.build_library`` builds;
 :func:`cipher_rows_pallas_plain` is its plain PyTorch version. The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each launch adds one to
-:data:`LAUNCHES`.
+:data:`LAUNCHES`. Under a graph capture the wrapper enters the kernel's
+custom op ``torch.ops.gv.cipher_rows_pallas`` instead (one node per
+launch; ``gather_kernels.capturing``).
 
 This is ``bucket_cipher_impl="pallas"``'s cipher, and the cipher of
 every ``pallas*`` impl wherever the round ciphers rows outside the
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .bucket_cipher import row_keystream
-from .gather_kernels import check_tensor, device_kind, load_library
+from .gather_kernels import capturing, check_tensor, device_kind, load_library
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"cipher_rows_pallas": 0}
@@ -52,6 +54,17 @@ def cipher_rows_pallas(key, bucket, epoch, pidx, pval, rounds: int = 8, out=None
     overlap neither input, receives the rows instead of fresh outputs
     (the expiry sweep decrypts into one scratch chunk and re-encrypts
     straight back into the tree rows)."""
+    if capturing():
+        ci, cv = torch.ops.gv.cipher_rows_pallas(key, bucket, epoch, pidx, pval, rounds)
+        if out is None:
+            return ci, cv
+        out[0].copy_(ci)
+        out[1].copy_(cv)
+        return out
+    return _cipher_impl(key, bucket, epoch, pidx, pval, rounds, out)
+
+
+def _cipher_impl(key, bucket, epoch, pidx, pval, rounds: int = 8, out=None):
     r, z = pidx.shape
     zv = pval.shape[1]
     for name, t, shape in (("key", key, (8,)), ("bucket", bucket, (r,)),
@@ -81,3 +94,18 @@ def cipher_rows_pallas(key, bucket, epoch, pidx, pval, rounds: int = 8, out=None
         raise RuntimeError(f"cipher_rows_pallas launch failed: cudaError {err}")
     LAUNCHES["cipher_rows_pallas"] += 1
     return out_idx, out_val
+
+
+def _cipher_op_body(key, bucket, epoch, pidx, pval, rounds):
+    return _cipher_impl(key, bucket, epoch, pidx, pval, rounds)
+
+
+_cipher_op = torch.library.custom_op(
+    "gv::cipher_rows_pallas", _cipher_op_body, mutates_args=(),
+    schema=("(Tensor key, Tensor bucket, Tensor epoch, Tensor pidx, Tensor pval, "
+            "int rounds) -> (Tensor, Tensor)"))
+
+
+@_cipher_op.register_fake
+def _(key, bucket, epoch, pidx, pval, rounds):
+    return torch.empty_like(pidx), torch.empty_like(pval)

@@ -36,6 +36,16 @@ takes its plain version only for tensors on the CPU (the analog of
 Pallas interpret mode); for CUDA tensors it launches the kernel or
 raises. Each launch adds one to :data:`LAUNCHES`.
 
+Each kernel is also a ``torch.library`` custom op (``torch.ops.gv``),
+so a graph capture (``analysis/fx_walk.py``) records one node per
+launch instead of failing at ``data_ptr()`` on a fake tensor. The
+wrappers enter the op only while a capture is on (:func:`capturing`);
+outside one they launch directly, with no dispatcher in the way. The
+op's body is the wrapper's own: the plain version on the CPU, the
+launch (counted, raising on error) on the card. The scatters write the
+trees in place and declare it (``mutates_args``), so a functionalized
+capture wraps them in ``auto_functionalized``.
+
 Build: every source in ``csrc/`` is compiled with ``nvcc`` (one process
 per ``.cu``, all started together) and linked into one library in
 ``build/`` at the repository root on first use (a plain C interface
@@ -74,6 +84,15 @@ _lib = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def capturing() -> bool:
+    """Is a graph capture on: a proxy, fake or functional mode on the
+    dispatch stack (``analysis/fx_walk.py:capture`` runs under all
+    three)?"""
+    key = torch._C._TorchDispatchModeKey
+    return any(torch._C._get_dispatch_mode(k) is not None
+               for k in (key.PROXY, key.FAKE, key.FUNCTIONAL))
 
 
 def _nvcc() -> str:
@@ -212,6 +231,13 @@ def scatter_encrypt_rows_plain(key, tree_idx, tree_val, nonces, flat_b, owner,
 
 
 def _gather(kernel: str, key, tree_idx, tree_val, nonces, flat_b, z, rounds):
+    if capturing():
+        return getattr(torch.ops.gv, kernel)(key, tree_idx, tree_val, nonces, flat_b, z,
+                                             rounds)
+    return _gather_impl(kernel, key, tree_idx, tree_val, nonces, flat_b, z, rounds)
+
+
+def _gather_impl(kernel: str, key, tree_idx, tree_val, nonces, flat_b, z, rounds):
     n, zv = tree_val.shape
     r = flat_b.shape[0]
     for name, t, shape in (("key", key, (8,)), ("tree_idx", tree_idx, (n * z,)),
@@ -258,6 +284,15 @@ def gather_decrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, z: int,
 
 def _scatter(kernel: str, key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
              new_pidx, new_pval, z, rounds):
+    args = (key, tree_idx, tree_val, nonces, flat_b, owner, epoch, new_pidx, new_pval)
+    if capturing():
+        getattr(torch.ops.gv, kernel)(*args, z, rounds)
+        return tree_idx, tree_val, nonces
+    return _scatter_impl(kernel, *args, z, rounds)
+
+
+def _scatter_impl(kernel: str, key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
+                  new_pidx, new_pval, z, rounds):
     n, zv = tree_val.shape
     r = flat_b.shape[0]
     for name, t, shape in (("key", key, (8,)), ("tree_idx", tree_idx, (n * z,)),
@@ -306,6 +341,54 @@ def scatter_encrypt_rows_tiled(key, tree_idx, tree_val, nonces, flat_b, owner,
     """:func:`scatter_encrypt_rows`'s contract, up to 8 rows a step."""
     return _scatter("scatter_encrypt_rows_tiled", key, tree_idx, tree_val,
                     nonces, flat_b, owner, epoch, new_pidx, new_pval, z, rounds)
+
+
+# ----------------------------------------------------------------------
+# the kernels as custom ops (entered only under a graph capture)
+# ----------------------------------------------------------------------
+
+
+def _register_ops():
+    gather_schema = ("(Tensor key, Tensor tree_idx, Tensor tree_val, Tensor nonces, "
+                     "Tensor flat_b, int z, int rounds) -> (Tensor, Tensor)")
+    scatter_schema = ("(Tensor key, Tensor(a!) tree_idx, Tensor(b!) tree_val, "
+                      "Tensor(c!) nonces, Tensor flat_b, Tensor owner, Tensor epoch, "
+                      "Tensor new_pidx, Tensor new_pval, int z, int rounds) -> ()")
+
+    def gather_op(kernel):
+        def body(key, tree_idx, tree_val, nonces, flat_b, z, rounds):
+            return _gather_impl(kernel, key, tree_idx, tree_val, nonces, flat_b, z, rounds)
+
+        op = torch.library.custom_op(f"gv::{kernel}", body, mutates_args=(),
+                                     schema=gather_schema)
+
+        @op.register_fake
+        def _(key, tree_idx, tree_val, nonces, flat_b, z, rounds):
+            r = flat_b.shape[0]
+            return flat_b.new_empty((r, z)), tree_val.new_empty((r, tree_val.shape[1]))
+
+    def scatter_op(kernel):
+        def body(key, tree_idx, tree_val, nonces, flat_b, owner, epoch, new_pidx,
+                 new_pval, z, rounds):
+            _scatter_impl(kernel, key, tree_idx, tree_val, nonces, flat_b, owner, epoch,
+                          new_pidx, new_pval, z, rounds)
+
+        op = torch.library.custom_op(f"gv::{kernel}", body,
+                                     mutates_args=("tree_idx", "tree_val", "nonces"),
+                                     schema=scatter_schema)
+
+        @op.register_fake
+        def _(key, tree_idx, tree_val, nonces, flat_b, owner, epoch, new_pidx, new_pval,
+              z, rounds):
+            return None
+
+    for k in ("gather_decrypt_rows", "gather_decrypt_rows_tiled"):
+        gather_op(k)
+    for k in ("scatter_encrypt_rows", "scatter_encrypt_rows_tiled"):
+        scatter_op(k)
+
+
+_register_ops()
 
 
 #: the C entry point that plans each row-ring launch, and its leading

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..u32 import shr, widen
+from .gather_kernels import capturing
 
 I32 = torch.int32
 I64 = torch.int64
@@ -51,8 +52,10 @@ def _check_declared_bound(keys, key_bits: int) -> None:
     out-of-range key would silently mis-rank (its high bits never enter
     a pass), so it raises instead. On the card the check would read a
     value back (a host sync inside the round), so there the caller's
-    declared bound is the contract, as inside the reference's jit."""
-    if key_bits >= 32 or keys.device.type != "cpu" or not keys.numel():
+    declared bound is the contract, as inside the reference's jit, and so
+    it is under a graph capture (the program captured is the card's)."""
+    if key_bits >= 32 or keys.device.type != "cpu" or not keys.numel() \
+            or capturing():
         return
     top = int(widen(keys).max())
     if top >> key_bits:

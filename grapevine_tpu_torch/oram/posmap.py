@@ -49,6 +49,15 @@ MIN_RECURSIVE_BLOCKS = 8
 #: k cap: 2^10 entries a block (4 KiB internal block values)
 MAX_ENTRIES_PER_BLOCK_LOG2 = 10
 
+#: oblint taint anchors (``analysis/oblint.py``) of ``lookup_remap_round``
+#: standalone: the queried indices, the map state, every fresh leaf and
+#: the occurrence masks (secret here; the engine round derives them from
+#: its own anchors). The reference's ``oram/posmap.py:311``.
+OBLINT_SECRETS = (
+    "idxs", "pm_state", "new_leaves", "dummy_leaves",
+    "first_occ", "last_occ", "pm_new_leaves", "pm_dummy_leaves",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class PosMapSpec:

@@ -76,6 +76,25 @@ from .posmap import lookup_remap_round
 
 I32 = torch.int32
 
+#: oblint taint anchors (``analysis/oblint.py``): the secret inputs of one
+#: ``oram_round``/``oram_flush`` — the queried indices, every fresh leaf
+#: draw, the position map (the whole pytree under a recursive map), the
+#: stash, cache and eviction-buffer contents and the at-rest cipher key
+#: (key taint is what marks decrypted tree rows secret; ciphertext stays
+#: public). Deliberately NOT secret: ebuf_paths / ebuf_rounds / ebuf_gen /
+#: fetch_tag — the flush-window bookkeeping is a pure function of the
+#: public transcript (the fetched leaves and the round counter), and the
+#: flush cadence must remain derivable from it alone (the reference's
+#: ``oram/round.py:81``).
+OBLINT_SECRETS = (
+    "idxs", "new_leaves", "dummy_leaves",
+    "pm_new_leaves", "pm_dummy_leaves",
+    "state.posmap", "state.stash_idx", "state.stash_val",
+    "state.stash_leaf", "state.cache_idx", "state.cache_val",
+    "state.cache_leaf", "state.ebuf_idx", "state.ebuf_val",
+    "state.ebuf_leaf", "state.cipher_key",
+)
+
 
 def occurrence_masks(idxs, dummy_index: int):
     """(first_occ, last_occ, chain_slot) over real (non-dummy) indices —

@@ -77,6 +77,33 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
 
 
+def test_import_scan_covers_the_analyzer():
+    """The obliviousness analyzer is a port of its own (the capture layer
+    in place of the jaxpr walk, own copies of the allowlist, mutants,
+    lints and gate), so the boundary scan reads each module of
+    ``analysis/``; importing the package or its cost model imports no
+    torch, and the gate runs where ``import jax`` fails."""
+    import subprocess
+    import sys
+
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    mods = ("__init__", "fx_walk", "oblint", "allowlist", "mutants", "check_oblivious",
+            "locklint", "importlint", "costmodel")
+    for mod in mods:
+        path = f"grapevine_tpu_torch/analysis/{mod}.py"
+        assert path in scanned, path
+        assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import grapevine_tpu_torch.analysis, grapevine_tpu_torch.analysis.costmodel\n"
+            "assert 'torch' not in sys.modules\n"
+            "from grapevine_tpu_torch.analysis import check_oblivious, mutants, analyze\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'grapevine_tpu')"
+            " and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
 def test_import_scan_covers_the_serving_tier():
     """The wire codec, the session layer, the native loader and the
     serving tier are port modules of their own (own copies of the
