@@ -252,7 +252,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (d) ``python -m grapevine_tpu_torch.analysis.check_oblivious --smoke``
    (both admission branches, every mutant, locklint and importlint) in a
    process where ``import jax`` fails, exit 0; and B2 at the op-major
-   shape through its wrapper and through its custom op, timed.
+   shape through its wrapper and through its custom op, timed;
+20. the range analyzer and the cost model's traced half
+   (``grapevine_tpu_torch/analysis``): (a) phase 19a's fake captures on
+   CUDA tensors interval-audited — 0 findings outside the range
+   allowlist, with nodes, capture and audit seconds, allowlist hits by
+   entry, the kernel nodes whose address operands were certified and the
+   ops the domain does not model; (b) ``check_ranges``' default sweep at
+   geometry 30 (records 2^30 a tree, states faked on the card, 4
+   processes): 0 findings, every entry reached, the six range mutants
+   caught for their kinds, 2^36 refused by the guard, and the device
+   memory the audits allocated (at most 1 MiB a process); (c) real captures of the
+   ``"pallas_fused_tiled"`` and ``"pallas"`` E=1 rounds at the production
+   point, replayed by an interpreter that reads every integer node's
+   minimum and maximum: each inside its certified interval, the replay
+   equal to the eager round on every word (junk masked), 3 B4 + 3 B6 and
+   6 B2 launched through ``torch.ops.gv``; (d) the analytic ledger
+   against the traced rows at the production point (round at E=1 and
+   E=4, flush, sweep, the records flush on a 2-shard virtual mesh), and
+   the ledger's bytes per kernel path beside phase 3's kernel ms; (e)
+   ``check_ranges --smoke`` and ``check_cost_model --smoke`` where
+   ``import jax`` fails, exit 0 (the nine cost mutants are (e)'s).
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -283,6 +303,10 @@ runs phase 18 alone after the kernel build.
     python3 chip_smoke.py --analysis-phase
 
 runs phase 19 alone after the kernel build.
+
+    python3 chip_smoke.py --range-phase
+
+runs phase 20 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -4610,17 +4634,32 @@ ANALYSIS_CAPTURES = (
 )
 
 
-def _check_oblivious_smoke() -> subprocess.Popen:
-    """Start the analyzer's ``--smoke`` gate (mutants, locklint and
-    importlint included) in a process where ``import jax`` fails."""
-    code = ("import runpy, sys\n"
-            "sys.modules['jax'] = None  # import jax raises ImportError here\n"
-            "sys.argv = ['check_oblivious', '--smoke']\n"
-            "runpy.run_module('grapevine_tpu_torch.analysis.check_oblivious', "
-            "run_name='__main__')\n")
+def _no_jax(code: str) -> subprocess.Popen:
+    """Start ``code`` in a process where ``import jax`` fails."""
+    code = "import sys\nsys.modules['jax'] = None  # import jax raises ImportError\n" + code
     return subprocess.Popen([sys.executable, "-c", code],
                             cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _gate(module: str, *argv: str) -> subprocess.Popen:
+    """Start ``python -m grapevine_tpu_torch.analysis.<module> <argv>``
+    (on the card: no ``--device``) where ``import jax`` fails."""
+    return _no_jax(f"import runpy\nsys.argv = [{module!r}, *{list(argv)!r}]\n"
+                   f"runpy.run_module('grapevine_tpu_torch.analysis.{module}', "
+                   "run_name='__main__')\n")
+
+
+def _gate_result(proc: subprocess.Popen, module: str, want_caught: int, where: str) -> dict:
+    """Wait for a gate started by :func:`_gate`: exit 0, its PASS line and
+    ``want_caught`` mutants caught, or raise with its tail."""
+    out, _ = proc.communicate(timeout=900)
+    tail = out.strip().splitlines()[-14:]
+    d = dict(rc=proc.returncode, mutants_caught=out.count("FAIL (expected)"),
+             passed=any(ln.startswith(f"[{module}] PASS") for ln in tail))
+    if proc.returncode != 0 or not d["passed"] or d["mutants_caught"] != want_caught:
+        raise AssertionError(f"{where}: {module} without JAX failed:\n" + "\n".join(tail))
+    return d
 
 
 def _audit_line(rep, want=None) -> dict:
@@ -4885,7 +4924,16 @@ def run_analysis_phase(GrapevineConfig, gk, ck, card) -> dict:
     replay of real-mode captures, (c) the slow admission walk, (d) the
     analyzer's smoke gate without JAX; B2's two routes."""
     t_phase = time.perf_counter()
-    smoke = _check_oblivious_smoke()
+    smoke = _gate("check_oblivious", "--smoke")
+    try:
+        return _analysis_parts(GrapevineConfig, gk, ck, card, smoke, t_phase)
+    except BaseException:
+        smoke.kill()
+        smoke.wait()
+        raise
+
+
+def _analysis_parts(GrapevineConfig, gk, ck, card, smoke, t_phase) -> dict:
     t0 = time.perf_counter()
     a = analysis_captures(GrapevineConfig)
     a_s = time.perf_counter() - t0
@@ -4898,14 +4946,8 @@ def run_analysis_phase(GrapevineConfig, gk, ck, card) -> dict:
     launches = {k: b["op_route_launches"][k] + b["eager_launches"][k] + c["launches"][k]
                 for k in KERNELS}
     routes = b2_routes(GrapevineConfig, gk, ck)
-    out, _ = smoke.communicate(timeout=600)
-    tail = out.strip().splitlines()[-12:]
-    d = dict(rc=smoke.returncode, mutants_caught=out.count("FAIL (expected)"),
-             passed=any(ln.startswith("[check_oblivious] PASS") for ln in tail),
-             wall_s=time.perf_counter() - t_phase)
-    if smoke.returncode != 0 or not d["passed"] or d["mutants_caught"] != 9:
-        raise AssertionError("phase 19d: check_oblivious --smoke without JAX failed:\n"
-                             + "\n".join(tail))
+    d = _gate_result(smoke, "check_oblivious", 9, "phase 19d")
+    d["wall_s"] = time.perf_counter() - t_phase
     return dict(a=a, b=b, c=c, d=d, routes=routes, launches=launches, card=card,
                 split_s=dict(a=a_s, b=b_s, c=c_s), phase_s=time.perf_counter() - t_phase)
 
@@ -4937,6 +4979,266 @@ def analysis_phase_alone() -> int:
     an = run_analysis_phase(GrapevineConfig, gk, ck, card)
     emit_analysis_lines(an)
     emit({"analysis_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
+#: phase 20: the range analyzer and the traced cost model on the card —
+#: 20c's real captures, and the kernels they launch through their ops
+WITNESS_ROUNDS = (("tiled_e1_round", "pallas_fused_tiled",
+                   {"gather_decrypt_rows_tiled": 3, "scatter_encrypt_rows_tiled": 3}),
+                  ("pallas_e1_round", "pallas", {"cipher_rows_pallas": 6}))
+
+#: 20b: the default sweep at geometry 30 in 4 processes, states faked on
+#: the card (nothing allocated), with its reachability, mutants and the
+#: design point
+_RANGE_GEOMETRY = """
+import json, time
+t0 = time.perf_counter()
+from grapevine_tpu_torch.analysis import check_ranges as cr
+from grapevine_tpu_torch.analysis.allowlist import RANGE_ALLOWLIST
+from grapevine_tpu_torch.analysis.mutants import run_range_mutants
+problems, hits, lines = cr.run_audit(cr.DEFAULT_COMBOS, cr.DEFAULT_GEOMETRY, device="cuda",
+                                     cipher_impls=cr.DEFAULT_CIPHER_IMPLS, jobs=4)
+mutants = {n: [k, h, sorted({f.kind for f in r.findings})]
+           for n, (r, k, h) in run_range_mutants(RANGE_ALLOWLIST).items()}
+dp, refusal = cr.certify_design_point(cr.DESIGN_POINT)
+print(json.dumps(dict(problems=problems + dp, dead=cr.check_allowlist_reachability(hits),
+                      entries=len(RANGE_ALLOWLIST), reached=len(hits), programs=len(lines),
+                      nodes=sum(ln["nodes"] for ln in lines),
+                      card_bytes=max(ln["card_bytes"] for ln in lines),
+                      kernels=sorted({k for ln in lines for k in ln["kernels"]}),
+                      mutants=mutants, refusal=refusal, s=time.perf_counter() - t0)))
+"""
+
+
+def _range_line(rep) -> dict:
+    """One audited capture's line; raises on a finding."""
+    if rep.findings:
+        raise AssertionError(f"phase 20a: {rep.summary()}")
+    un = sum(rep.unmodeled.values())
+    return dict(name=rep.name, nodes=rep.n_eqns, capture_s=rep.capture.seconds,
+                audit_s=rep.audit_s, findings=0, allowlist_hits=rep.allowed,
+                kernels_certified=rep.kernels, unmodeled=rep.unmodeled,
+                unmodeled_share=un / max(1, rep.n_eqns))
+
+
+def range_captures(GrapevineConfig) -> list:
+    """Phase 20a: phase 19a's fake captures on CUDA tensors, interval-audited."""
+    from grapevine_tpu_torch.analysis import check_oblivious as co
+    from grapevine_tpu_torch.analysis import check_ranges as cr
+    from grapevine_tpu_torch.analysis.allowlist import RANGE_ALLOWLIST as allow
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    lines = []
+    for label, impl, ee, prog, _ in ANALYSIS_CAPTURES:
+        ecfg = EngineConfig.from_config(GrapevineConfig(
+            **ANALYSIS_GEO, bucket_cipher_impl=impl, evict_every=ee))
+        state = init_engine(ecfg, SEED, device="cuda")
+        rep = (cr.audit_engine_round(ecfg, allow, label, device="cuda", inputs=(
+                   state, co.batch_spec(ecfg, "cuda"), co.engine_draws(ecfg, state, "cuda")))
+               if prog == "round" else
+               cr.audit_engine_flush(ecfg, allow, label, device="cuda", state=state))
+        lines.append(_range_line(rep))
+        del state, rep
+        torch.cuda.empty_cache()
+    small = EngineConfig.from_config(GrapevineConfig(
+        **ANALYSIS_SMALL, bucket_cipher_impl="pallas_fused_tiled"))
+    state = init_engine(small, SEED, device="cuda")
+    lines.append(_range_line(cr.audit_engine_round(
+        small, allow, "small_tiled_e1", fast_ok=False, device="cuda",
+        inputs=(state, co.batch_spec(small, "cuda"), co.engine_draws(small, state, "cuda")))))
+    lines.append(_range_line(cr.audit_expiry_sweep(small, allow, "small_tiled_e1",
+                                                   device="cuda", state=state,
+                                                   one_chunk=False)))
+    return lines
+
+
+def range_witness(GrapevineConfig, gk, ck) -> list:
+    """Phase 20c: real captures of the tiled and the ``"pallas"`` round at
+    the production point; every integer node's observed values inside its
+    certified interval, the replay equal to the eager round on every word
+    (junk masked), the replay's launches through ``torch.ops.gv``."""
+    from grapevine_tpu_torch.analysis import check_oblivious as co
+    from grapevine_tpu_torch.analysis import rangelint
+    from grapevine_tpu_torch.analysis.allowlist import RANGE_ALLOWLIST
+    from grapevine_tpu_torch.analysis.fx_walk import capture, flatten
+    from grapevine_tpu_torch.engine import round_step
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    lines = []
+    for label, impl, want in WITNESS_ROUNDS:
+        ecfg = EngineConfig.from_config(GrapevineConfig(**ANALYSIS_GEO,
+                                                        bucket_cipher_impl=impl))
+
+        def fn(st, ba, dr):
+            return round_step.engine_round_step(ecfg, st, ba, draws=dr, fast_ok=True)
+
+        state = init_engine(ecfg, SEED, device="cuda")
+        batch = co.census_variants(ecfg, "cuda")["mixed"]
+        draws = co.engine_draws(ecfg, state, "cuda")
+        _reset_launches(gk, ck)
+        cap = capture(fn, state, batch, draws, names=("state", "batch", "draws"),
+                      tracing_mode="real", name=f"witness/{label}")
+        torch.cuda.synchronize()
+        capture_launches = _launches(gk, ck)
+        t0 = time.perf_counter()
+        rep = rangelint.audit_ranges(cap, round_step.RANGELINT_BOUNDS(ecfg), RANGE_ALLOWLIST)
+        audit_s = time.perf_counter() - t0
+        if rep.findings:
+            raise AssertionError(f"phase 20c: {rep.summary()}")
+        flat = [t for v, n in zip((state, batch, draws), ("state", "batch", "draws"))
+                for t in flatten(v, n)[1]]
+        _reset_launches(gk, ck)
+        t0 = time.perf_counter()
+        w = rangelint.witness(rep, *flat)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        replay_launches = _launches(gk, ck)
+        require_launches(replay_launches, want, f"phase 20c {label} replay")
+        if w["violations"]:
+            raise AssertionError(f"phase 20c {label}: observed values outside their "
+                                 f"certified intervals: {w['violations'][:8]}")
+        _reset_launches(gk, ck)
+        eager = fn(state, batch, draws)
+        torch.cuda.synchronize()
+        eager_launches = _launches(gk, ck)
+        require_launches(eager_launches, want, f"phase 20c {label} eager round")
+        _, _, rebuild = flatten(eager, "out")
+        words = _leaves_equal(ecfg, rebuild(list(w["out"])), eager, f"phase 20c {label}")
+        lines.append(dict(
+            name=label, nodes=rep.n_eqns, capture_s=cap.seconds, audit_s=audit_s,
+            replay_s=replay_s, checked=w["checked"], full_lane=w["full_lane"],
+            violations=0, tightest_margin=w["margin"], words_equal=words,
+            launches={k: capture_launches[k] + replay_launches[k] + eager_launches[k]
+                      for k in KERNELS},
+            replay_launches={k: n for k, n in replay_launches.items() if n}))
+        del cap, rep, w, eager, state, flat
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _headline_ms(shapes, name: str):
+    """Phase 3's measured ms for ``name`` on the path ``PER`` names (None
+    when phase 3 did not run)."""
+    if shapes is None:
+        return None
+    pick = {(s["tree"], s["shape"]): s for s in shapes if s["kernel"] == name}
+    return sum(c * pick[(t, sh)]["ms"] for t, sh, c in PER[name][1])
+
+
+def cost_traced(GrapevineConfig, shapes) -> dict:
+    """Phase 20d: the analytic ledger against the traced rows at the
+    production point (fake captures on the card), and the ledger's bytes
+    per kernel path beside phase 3's measured ms of this run."""
+    from grapevine_tpu_torch.analysis import costmodel as cm
+    from grapevine_tpu_torch.engine.state import EngineConfig
+
+    e1 = EngineConfig.from_config(GrapevineConfig(**ANALYSIS_GEO,
+                                                  bucket_cipher_impl="pallas_fused_tiled"))
+    e4 = EngineConfig.from_config(GrapevineConfig(**ANALYSIS_GEO, bucket_cipher_impl="pallas_fused",
+                                                  evict_every=EVICT_EVERY))
+    checks = (("round_e1", cm.cross_validate_engine_round, (e1,)),
+              ("round_e4", cm.cross_validate_engine_round, (e4,)),
+              ("flush_e4", cm.cross_validate_engine_flush, (e4,)),
+              ("sweep_e1", cm.cross_validate_sweep, (e1,)),
+              ("sharded_flush_records_e4", cm.cross_validate_sharded_flush, (e4.rec, 2)))
+    agreed = {}
+    for name, fn, args in checks:
+        t0 = time.perf_counter()
+        rows = fn(*args, device="cuda")  # raises CostModelMismatch
+        agreed[name] = dict(classes=len(rows), rows=sum(g + s for g, s in rows.values()),
+                            s=time.perf_counter() - t0)
+    l1, l4 = cm.engine_cost_ledger(e1), cm.engine_cost_ledger(e4)
+    paths = {
+        "gather_decrypt_rows_tiled": ("E=1 fetch", l1.phases["fetch"].hbm_bytes),
+        "scatter_encrypt_rows_tiled": ("E=1 write-back", l1.phases["writeback"].hbm_bytes),
+        "gather_decrypt_rows": ("E=4 fetch", l4.phases["fetch"].hbm_bytes),
+        "scatter_encrypt_rows": ("E=4 flush", l4.phases["flush"].hbm_bytes),
+        "cipher_rows_pallas": ("E=1 fetch + write-back",
+                               l1.phases["fetch"].hbm_bytes + l1.phases["writeback"].hbm_bytes),
+    }
+    per_kernel = {k: dict(path=p, ledger_bytes=b, measured_ms=_headline_ms(shapes, k))
+                  for k, (p, b) in paths.items()}
+    return dict(mismatches=0, agreed=agreed, per_kernel=per_kernel,
+                sweep_ledger_bytes=l1.phases["sweep"].hbm_bytes)
+
+
+def run_range_phase(GrapevineConfig, gk, ck, card, shapes=None) -> dict:
+    """Phase 20: (a) interval audits of phase 19a's captures, (b) the
+    geometry-30 sweep (a process of its own, beside), (c) the witness of
+    real rounds, (d) the traced cost model, (e) both drivers' ``--smoke``
+    without JAX (beside; (d)'s nine cost mutants are (e)'s)."""
+    t_phase = time.perf_counter()
+    geo30 = _no_jax(_RANGE_GEOMETRY)
+    gates = {m: _gate(m, "--smoke") for m in ("check_ranges", "check_cost_model")}
+    try:
+        return _range_parts(GrapevineConfig, gk, ck, card, shapes, geo30, gates, t_phase)
+    except BaseException:
+        for proc in (geo30, *gates.values()):
+            proc.kill()
+            proc.wait()
+        raise
+
+
+def _range_parts(GrapevineConfig, gk, ck, card, shapes, geo30, gates, t_phase) -> dict:
+    split = {}
+    t0 = time.perf_counter()
+    a = range_captures(GrapevineConfig)
+    split["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = range_witness(GrapevineConfig, gk, ck)
+    split["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = cost_traced(GrapevineConfig, shapes)
+    split["d"] = time.perf_counter() - t0
+    e = {"check_ranges": _gate_result(gates["check_ranges"], "check_ranges", 6, "phase 20e"),
+         "check_cost_model": _gate_result(gates["check_cost_model"], "check_cost_model", 9,
+                                          "phase 20e")}
+    d["cost_mutants_caught"] = e["check_cost_model"]["mutants_caught"]
+    out, _ = geo30.communicate(timeout=900)
+    if geo30.returncode != 0:
+        raise AssertionError("phase 20b failed:\n" + out[-4000:])
+    b = json.loads(out.strip().splitlines()[-1])
+    wrong = [n for n, (k, hit, kinds) in b["mutants"].items() if not hit or k not in kinds]
+    # nothing of a 2^30 tree may be allocated: at most a few KB of small
+    # real tensors in a process
+    if b["problems"] or b["dead"] or wrong or "certified bound" not in b["refusal"] \
+            or b["card_bytes"] > 1 << 20:
+        raise AssertionError(f"phase 20b: {b}")
+    split["b_done_at"] = time.perf_counter() - t_phase
+    launches = {k: sum(ln["launches"][k] for ln in c) for k in KERNELS}
+    return dict(a=a, b=b, c=c, d=d, e=e, launches=launches, card=card, split_s=split,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def emit_range_lines(rp: dict) -> None:
+    for line in rp["a"]:
+        emit({"range_capture": line})
+    emit({"range_geometry": rp["b"]})
+    for line in rp["c"]:
+        emit({"range_witness": line, "card": rp["card"]})
+    emit({"cost_traced": rp["d"], "card": rp["card"]})
+    emit({"range_smoke_no_jax": rp["e"]})
+    emit({"range_phase_s": rp["phase_s"], "split_s": rp["split_s"],
+          "range_launches": rp["launches"]})
+
+
+def range_phase_alone() -> int:
+    """Phase 20 alone: the card line, the kernel build, then the range
+    phase (20d's kernel ms are phase 3's, which does not run: null)."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    rp = run_range_phase(GrapevineConfig, gk, ck, card)
+    emit_range_lines(rp)
+    emit({"range_phase_alone_s": time.perf_counter() - t0, "card": card})
     return 0
 
 
@@ -4973,6 +5275,8 @@ def main() -> int:
                     help="run phase 18 alone (after the kernel build)")
     ap.add_argument("--analysis-phase", action="store_true",
                     help="run phase 19 alone (after the kernel build)")
+    ap.add_argument("--range-phase", action="store_true",
+                    help="run phase 20 alone (after the kernel build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -4988,6 +5292,8 @@ def main() -> int:
         return mesh_phase_alone()
     if args.analysis_phase:
         return analysis_phase_alone()
+    if args.range_phase:
+        return range_phase_alone()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -5164,6 +5470,12 @@ def main() -> int:
     an = run_analysis_phase(GrapevineConfig, gk, ck, card)
     split("analysis")
 
+    # phase 20: the range analyzer and the traced cost model — interval
+    # audits on the card, geometry 30 faked, the witness of real rounds (B4,
+    # B6 / B2 through their custom ops), the ledger against the traced rows
+    rp = run_range_phase(GrapevineConfig, gk, ck, card, shapes)
+    split("range")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -5207,7 +5519,8 @@ def main() -> int:
                                        + obs_launches["scatter_encrypt_rows_tiled"]),
     }
     for k in KERNELS:
-        launches_by_kernel[k] += mesh["launches"].get(k, 0) + an["launches"][k]
+        launches_by_kernel[k] += (mesh["launches"].get(k, 0) + an["launches"][k]
+                                  + rp["launches"][k])
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -5233,6 +5546,7 @@ def main() -> int:
     emit_op_lines(op)
     emit_mesh_lines(mesh)
     emit_analysis_lines(an)
+    emit_range_lines(rp)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
                                     op["launches"]["cipher_rows_pallas"]), "card": card})

@@ -1,5 +1,4 @@
-"""Static analysis of the engine's round (port of ``grapevine_tpu/analysis``,
-the part ported so far).
+"""Static analysis of the engine's round (port of ``grapevine_tpu/analysis``).
 
 - :mod:`oblint` — taint-propagation analyzer over a captured FX graph
   (:mod:`fx_walk`) proving that no gather/scatter index, cond/while
@@ -8,12 +7,22 @@ the part ported so far).
   (:mod:`allowlist`) of oblivious-by-construction sites; :mod:`mutants`
   are its seeded positive controls, :mod:`check_oblivious` the gate
   over the knob matrix.
+- :mod:`rangelint` — interval-domain overflow certification of the same
+  graph (u32 lanes on int32 storage): overflow, truncating conversions,
+  out-of-range indices including the kernels' address operands, from the
+  ``RANGELINT_BOUNDS`` anchors, modulo ``allowlist.RANGE_ALLOWLIST``; its
+  range mutants and :mod:`check_ranges`, the gate at 2^30 records a tree;
+  ``rangelint.witness`` holds a real capture's values against the
+  certified intervals.
+- :mod:`costmodel` — the round-cost ledger, analytic and traced, held
+  equal per shape class (``cross_validate_*``), with its undercount
+  mutants and :mod:`check_cost_model`, the gate.
 - :mod:`locklint` — AST lock-discipline lint for the pipelined host path;
   :mod:`importlint` — the stdlib import lint.
-- :mod:`costmodel` — the analytic round-cost ledger.
 
-The range analyzer, the cost model's traced half and the census gates
-built on them are ROADMAP.md queue A item 17's second half.
+The census gates (``check_posmap_oblivious``,
+``check_tree_cache_oblivious``), the telemetry policy check and
+``check_cost_model --grade`` are ROADMAP.md queue A item 17's rest.
 """
 
 import importlib
@@ -25,6 +34,12 @@ _EXPORTS = {
     "site_of": "fx_walk", "walk_nodes": "fx_walk",
     "AllowEntry": "oblint", "OblintReport": "oblint", "Violation": "oblint",
     "analyze": "oblint", "census_equal": "oblint",
+    "RangeFinding": "rangelint", "RangeReport": "rangelint",
+    "analyze_ranges": "rangelint", "audit_ranges": "rangelint", "witness": "rangelint",
+    "CostModelMismatch": "costmodel", "cross_validate_round": "costmodel",
+    "cross_validate_flush": "costmodel", "cross_validate_sharded_flush": "costmodel",
+    "cross_validate_engine_round": "costmodel", "cross_validate_engine_flush": "costmodel",
+    "cross_validate_sweep": "costmodel",
 }
 __all__ = sorted(_EXPORTS)
 

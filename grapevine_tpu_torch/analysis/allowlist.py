@@ -30,6 +30,8 @@ constant of the geometry (the census gates pin it).
 
 from __future__ import annotations
 
+import dataclasses
+
 from .oblint import AllowEntry
 
 _A = AllowEntry
@@ -236,3 +238,109 @@ _ENGINE = (
 #: the one reviewed list the gate sweeps (check_oblivious.py)
 ENGINE_ALLOWLIST: tuple = _ORAM_CORE + _POSMAP + _SORTS + _VPHASES + _ENGINE
 
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeEntry(AllowEntry):
+    """One reviewed range site (:mod:`.rangelint`): ``wraps`` True for
+    arithmetic that is mod 2^32 by definition (the result is any value of
+    the lane); False for an invariant-backed site whose wrap cannot
+    happen (the value then stays inside its interval and its lane)."""
+
+    wraps: bool = True
+
+
+_R = RangeEntry
+
+#: Rangelint's reviewed allowlist (swept by :mod:`.check_ranges` with the
+#: same dead-entry rule as the taint list): every intentionally mod-2^32
+#: operation of the round, and each invariant-backed site, with its
+#: one-line range argument and the reference entry it stands for
+#: (``grapevine_tpu/analysis/allowlist.py:227-302``). Reference entries
+#: with no port counterpart:
+#:
+#: - ``shift_left@oblivious/bucket_cipher.py:_rotl``,
+#:   ``shift_left@engine/state.py:mb_bucket_hash`` and
+#:   ``shift_left@oblivious/prp.py:_f``: every rotate of the port is
+#:   ``u32.rotl``, which the domain reads as a rotation (its left shift
+#:   loses no bit), so no rotate flags;
+#: - ``reduce_sum@engine/vphases.py:apply_batch`` and ``:select_by_rank``:
+#:   the port sums one-hot selects in int64 (no overflow) and narrows the
+#:   sum, so its entries are the narrows (``aten._to_copy``) at the same
+#:   sites;
+#: - ``convert_element_type@oram/path_oram.py:_path_scatter``: the port's
+#:   owner-masked scatter indexes with int64 (``widen``), which has no
+#:   narrowing cast.
+RANGE_ALLOWLIST: tuple = (
+    # ChaCha (oblivious/bucket_cipher.py): ARX is arithmetic mod 2^32 by
+    # RFC 7539 — the keystream is defined over the wrapped lanes
+    _R("aten.add", "oblivious/bucket_cipher.py:_qr",
+       "ref add@oblivious/bucket_cipher.py:_qr — ChaCha quarter-round addition is "
+       "mod-2^32 by cipher definition"),
+    _R("aten.add", "oblivious/bucket_cipher.py:chacha_blocks",
+       "ref add@oblivious/bucket_cipher.py:chacha_blocks — the state+init "
+       "feedforward of the ChaCha block function, mod-2^32 by RFC 7539"),
+    _R("aten.add", "oblivious/bucket_cipher.py:epoch_next",
+       "ref add@oblivious/bucket_cipher.py:epoch_next — u64 write epoch as (lo, hi) "
+       "u32 lanes: lo wraps by design and the explicit carry feeds hi; the pair is "
+       "the counter"),
+    # u64 two-lane helpers (oblivious/primitives.py)
+    _R("aten.add", "oblivious/primitives.py:u64_add_u32",
+       "ref add@oblivious/primitives.py:u64_add_u32 — u64 carry arithmetic in u32 "
+       "lanes: lo wraps mod 2^32, the comparison-derived carry moves the overflow "
+       "into hi"),
+    _R("aten.sub", "oblivious/primitives.py:u64_sub",
+       "ref sub@oblivious/primitives.py:u64_sub — u64 borrow arithmetic in u32 "
+       "lanes: lo wraps mod 2^32, the comparison-derived borrow moves the underflow "
+       "into hi"),
+    # keyed mixers: mb_bucket_hash and the Feistel PRP round function —
+    # murmur-style ARX whose output is masked to the table/domain width
+    _R("aten.mul", "engine/state.py:mb_bucket_hash",
+       "ref mul@engine/state.py:mb_bucket_hash — keyed bucket-hash multiplies are "
+       "mod-2^32 by design; the result is masked to the power-of-two table width"),
+    _R("aten.add", "engine/state.py:mb_bucket_hash",
+       "ref add@engine/state.py:mb_bucket_hash — keyed bucket-hash adds are mod-2^32 "
+       "by design; the result is masked to the power-of-two table width"),
+    _R("aten.mul", "oblivious/prp.py:_f",
+       "ref mul@oblivious/prp.py:_f — Feistel round-function multiplies are mod-2^32 "
+       "by design; the half is masked to its domain width after each round"),
+    # invariant-backed sites: the wrap is impossible by a reviewed program
+    # invariant an oracle-equality suite pins, which a non-relational
+    # interval domain cannot express
+    _R("aten.sub", "engine/round_step.py:engine_round_step",
+       "ref sub@engine/round_step.py:engine_round_step — free_top - n_allocs: phase-A "
+       "admission never allocates more blocks than the freelist holds (quota "
+       "invariant, oracle-pinned)", wraps=False),
+    _R("aten._to_copy", "engine/vphases.py:apply_batch",
+       "ref reduce_sum@engine/vphases.py:apply_batch — narrow of masked one-hot row "
+       "selects (at most one key matches per bucket, mailbox uniqueness invariant): "
+       "the int64 sum IS the selected u32 row, never an accumulation", wraps=False),
+    _R("aten._to_copy", "engine/vphases.py:select_by_rank",
+       "ref reduce_sum@engine/vphases.py:select_by_rank — narrow of a rank-equality "
+       "one-hot select: at most one lane of a group has rank q, so the int64 sum is a "
+       "private row select", wraps=False),
+    _R("aten.index_put", "engine/expiry.py:expiry_sweep",
+       "ref add@oblivious/radix.py:_rank_pass — the freelist rebuild scatters by "
+       "partition_rank: zeros-rank + ones-rank of one stable partition is a "
+       "permutation of [0, n) (below n pointwise, 2n only in interval arithmetic)",
+       wraps=False),
+    _R("aten._to_copy", "engine/expiry.py:expiry_sweep",
+       "ref add@oblivious/radix.py:_rank_pass — the same partition_rank positions "
+       "widened to int64 indices: a permutation of [0, n), below 2^31 at every "
+       "certified n (2^31 only in interval arithmetic)", wraps=False),
+    _R("aten.index_put", "oblivious/radix.py:_passes",
+       "ref add@oblivious/radix.py:_rank_pass — each counting pass scatters by its "
+       "stable ranks, offset + within-bin rank: a permutation of [0, B) (below B "
+       "pointwise, up to 2B only in interval arithmetic)", wraps=False),
+    _R("aten.index", "oblivious/segmented.py:segment_bounds",
+       "no ref entry (the reference takes a cummax/cummin): seg_id = cumsum(seg_start) "
+       "- 1 reads its segment's ends; element 0 always starts a segment, so every "
+       "seg_id is >= 0 (-1 only in interval arithmetic)", wraps=False),
+    # the owner-masked sharded write-back (parallel/mesh.py): each shard
+    # rebases global heap rows into its own range before the scatter
+    _R("aten.sub", "oram/path_oram.py:_path_scatter_",
+       "ref sub@oram/path_oram.py:_path_scatter — path_b - i*n_local rebase: rows "
+       "another shard owns wrap mod 2^32 by construction, and the (loc >= 0) & "
+       "(loc < n_local) & owner mask sends exactly those to the scratch row — a "
+       "wrapped value is never a landing address"),
+)

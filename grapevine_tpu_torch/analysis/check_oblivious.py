@@ -26,8 +26,9 @@ Every run also requires each seeded mutant (:mod:`.mutants`) to FAIL,
 and runs locklint and importlint over the port.
 
 Run: ``python -m grapevine_tpu_torch.analysis.check_oblivious
-[--smoke|--full] [--jobs N]`` on the CPU; ``chip_smoke.py`` phase 19
-calls the audits with ``device="cuda"``.
+[--smoke|--full] [--jobs N] [--device D]`` — on the card unless
+``--device cpu`` is given (no card: it raises). Every builder below takes
+``device`` the same way: None is the card.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import os
 import sys
 
 import torch
+
+from ..device import resolve_device
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,12 +80,13 @@ def small_engine(vp: str, srt: str, pmi: str, k: int, ee: int = 1, **kw):
     return EngineConfig.from_config(cfg)
 
 
-def batch_spec(ecfg, device="cpu") -> dict:
+def batch_spec(ecfg, device=None) -> dict:
     """Zero batch columns of one round (shapes are what a fake capture
     needs)."""
     from ..engine.state import ID_WORDS, KEY_WORDS, PAYLOAD_WORDS
 
     b = ecfg.batch_size
+    device = resolve_device(device)
 
     def z(*sh):
         return torch.zeros(sh, dtype=torch.int32, device=device)
@@ -92,11 +96,12 @@ def batch_spec(ecfg, device="cpu") -> dict:
             "now": z(), "now_hi": z()}
 
 
-def engine_draws(ecfg, state, device="cpu"):
+def engine_draws(ecfg, state, device=None):
     """One round's draws as inputs (``draws.pm`` under a recursive map)."""
     from ..engine.round_step import pm_draws, round_draws
 
     b = ecfg.batch_size
+    device = resolve_device(device)
     d = round_draws(ecfg, state.rng, b, device)
     if ecfg.posmap_impl == "recursive":
         d = d._replace(pm=pm_draws(ecfg, state.pm_rng, b, device))
@@ -104,7 +109,7 @@ def engine_draws(ecfg, state, device="cpu"):
 
 
 def audit_engine_round(ecfg, allowlist, name: str, fast_ok: bool = True,
-                       device="cpu", state=None):
+                       device=None, state=None):
     """Taint-audit one full engine round at one admission branch."""
     from ..engine import round_step
     from ..engine.state import init_engine
@@ -121,11 +126,12 @@ def audit_engine_round(ecfg, allowlist, name: str, fast_ok: bool = True,
     )
 
 
-def audit_expiry_sweep(ecfg, allowlist, name: str, device="cpu", state=None):
+def audit_expiry_sweep(ecfg, allowlist, name: str, device=None, state=None):
     from ..engine import expiry
     from ..engine.state import init_engine
     from .oblint import analyze
 
+    device = resolve_device(device)
     state = state if state is not None else init_engine(ecfg, 0, device=device)
 
     def scalar():
@@ -138,7 +144,7 @@ def audit_expiry_sweep(ecfg, allowlist, name: str, device="cpu", state=None):
     )
 
 
-def audit_engine_flush(ecfg, allowlist, name: str, device="cpu", state=None):
+def audit_engine_flush(ecfg, allowlist, name: str, device=None, state=None):
     """Taint-audit the delayed-eviction flush program (E > 1): its
     bucket targets must derive only from the public window ledger."""
     from ..engine import round_step
@@ -168,9 +174,11 @@ def small_oram_cfg(recursive: bool, k: int, ee: int = 1, b: int = 4,
     )
 
 
-def _oram_state(cfg, device):
+def oram_state(cfg, device):
+    """A fresh state of ``cfg``'s tree (seeds 0 and 1) on ``device``."""
     from ..oram.path_oram import init_oram
 
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     side = torch.Generator(device=device)
@@ -179,11 +187,11 @@ def _oram_state(cfg, device):
 
 
 def _leaves(n: int, device):
-    return torch.zeros(n, dtype=torch.int32, device=device)
+    return torch.zeros(n, dtype=torch.int32, device=resolve_device(device))
 
 
 def audit_oram_round(allowlist, occ_impl: str, sort_impl: str, recursive: bool, k: int,
-                     ee: int = 1, device="cpu"):
+                     ee: int = 1, device=None):
     """Taint-audit ``oram_round`` standalone (``ee > 1``: the fetch-only
     round)."""
     from ..oram import round as oround
@@ -203,7 +211,7 @@ def audit_oram_round(allowlist, occ_impl: str, sort_impl: str, recursive: bool, 
 
     return analyze(
         run,
-        {"state": _oram_state(cfg, device), "idxs": _leaves(b, device),
+        {"state": oram_state(cfg, device), "idxs": _leaves(b, device),
          "new_leaves": _leaves(b, device), "dummy_leaves": _leaves(b, device),
          "pm_new_leaves": _leaves(b, device), "pm_dummy_leaves": _leaves(b, device)},
         secrets=oround.OBLINT_SECRETS, allowlist=allowlist,
@@ -212,7 +220,7 @@ def audit_oram_round(allowlist, occ_impl: str, sort_impl: str, recursive: bool, 
 
 
 def audit_oram_flush(allowlist, sort_impl: str, recursive: bool, k: int, ee: int = 2,
-                     shards: int = 1, device="cpu", cipher_impl: str = "jnp"):
+                     shards: int = 1, device=None, cipher_impl: str = "jnp"):
     """Taint-audit ``oram_flush`` standalone against the round's anchors;
     ``shards > 1`` runs it over a virtual mesh of that many shards (the
     owner-masked sharded flush: every shard's targets must derive only
@@ -222,11 +230,11 @@ def audit_oram_flush(allowlist, sort_impl: str, recursive: bool, k: int, ee: int
     from .oblint import analyze
 
     cfg = small_oram_cfg(recursive, k, ee=ee, cipher_impl=cipher_impl)
-    state, mesh = _oram_state(cfg, device), None
+    state, mesh = oram_state(cfg, device), None
     if shards > 1:
         from ..parallel.mesh import _shard_oram, make_mesh
 
-        mesh = make_mesh([torch.device(device)] * shards)
+        mesh = make_mesh([resolve_device(device)] * shards)
         state = _shard_oram(state, mesh)
     tag = f"{sort_impl}_{'rec' if recursive else 'flat'}_k{k}_e{ee}"
     return analyze(
@@ -237,7 +245,7 @@ def audit_oram_flush(allowlist, sort_impl: str, recursive: bool, k: int, ee: int
 
 
 def audit_lookup_remap(allowlist, occ_impl: str, sort_impl: str, recursive: bool,
-                       device="cpu"):
+                       device=None):
     """Taint-audit ``lookup_remap_round`` against its own anchors."""
     from ..oram import posmap as pmod
     from ..oram.path_oram import OramConfig
@@ -258,11 +266,11 @@ def audit_lookup_remap(allowlist, occ_impl: str, sort_impl: str, recursive: bool
         )
 
     def flags():
-        return torch.zeros(b, dtype=torch.bool, device=device)
+        return torch.zeros(b, dtype=torch.bool, device=resolve_device(device))
 
     return analyze(
         run,
-        {"pm_state": _oram_state(cfg, device).posmap, "idxs": _leaves(b, device),
+        {"pm_state": oram_state(cfg, device).posmap, "idxs": _leaves(b, device),
          "new_leaves": _leaves(b, device), "dummy_leaves": _leaves(b, device),
          "first_occ": flags(), "last_occ": flags(), "pm_new_leaves": _leaves(b, device),
          "pm_dummy_leaves": _leaves(b, device)},
@@ -271,7 +279,7 @@ def audit_lookup_remap(allowlist, occ_impl: str, sort_impl: str, recursive: bool
     )
 
 
-def census_variants(ecfg, device="cpu") -> dict:
+def census_variants(ecfg, device=None) -> dict:
     """Adversarially different concrete batches: the engine round must
     capture to the identical program whatever the ops are (the
     reference's variants: all padding, all creates, every op on one
@@ -302,11 +310,12 @@ def census_variants(ecfg, device="cpu") -> dict:
         "all_read_dup_ids": dup,
         "mixed": {**batch(2, fill=2), "req_type": (np.arange(b) % 5).astype(np.int32)},
     }
+    device = resolve_device(device)
     return {v: {k: torch.as_tensor(x).to(device) for k, x in bt.items()}
             for v, bt in out.items()}
 
 
-def census_equal_engine(ecfg, name: str, device="cpu"):
+def census_equal_engine(ecfg, name: str, device=None):
     """Capture the engine round (real mode: the round runs) at each
     concrete batch from one state and one set of draws, and require one
     program."""
@@ -352,7 +361,7 @@ def run_importlint() -> list:
     return out
 
 
-def combo_reports(combo, allowlist, device="cpu", cipher_impl: str = "jnp"):
+def combo_reports(combo, allowlist, device=None, cipher_impl: str = "jnp"):
     """Every audit of one knob combination, as reports."""
     vp, srt, pmi, k, ee = combo
     name = f"{combo_name(combo)}_{cipher_impl}"
@@ -372,9 +381,9 @@ def combo_reports(combo, allowlist, device="cpu", cipher_impl: str = "jnp"):
     return reps
 
 
-def _combo_outcome(combo, cipher_impl, allowlist, verbose):
+def _combo_outcome(combo, cipher_impl, allowlist, verbose, device):
     problems, hits = [], {}
-    for rep in combo_reports(combo, allowlist, cipher_impl=cipher_impl):
+    for rep in combo_reports(combo, allowlist, device=device, cipher_impl=cipher_impl):
         for k, n in rep.allowed.items():
             hits[k] = hits.get(k, 0) + n
         if verbose or rep.violations:
@@ -384,7 +393,7 @@ def _combo_outcome(combo, cipher_impl, allowlist, verbose):
 
 
 def run_audit(combos, allowlist=None, with_census="first", verbose: bool = False,
-              cipher_impls=None, jobs: int = 1):
+              cipher_impls=None, jobs: int = 1, device=None):
     """Sweep the taint audit; returns (problems, allowlist_hits).
 
     ``cipher_impls`` pairs a bucket cipher with each combo (default: the
@@ -396,7 +405,8 @@ def run_audit(combos, allowlist=None, with_census="first", verbose: bool = False
 
     allowlist = ENGINE_ALLOWLIST if allowlist is None else allowlist
     cipher_impls = cipher_impls or ("jnp",) * len(combos)
-    work = [(c, ci, allowlist, verbose) for c, ci in zip(combos, cipher_impls)]
+    dev = None if device is None else str(device)
+    work = [(c, ci, allowlist, verbose, dev) for c, ci in zip(combos, cipher_impls)]
     if jobs > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -414,7 +424,7 @@ def run_audit(combos, allowlist=None, with_census="first", verbose: bool = False
     if with_census:
         for combo in (combos if with_census == "all" else combos[:1]):
             problems.extend(str(v) for v in census_equal_engine(
-                small_engine(*combo), combo_name(combo)))
+                small_engine(*combo), combo_name(combo), device=device))
     return problems, hits
 
 
@@ -441,9 +451,12 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="the full knob cross-product, census equality on every combo")
     ap.add_argument("--jobs", type=int, default=1, help="processes for the combo sweep")
+    ap.add_argument("--device", default=None,
+                    help="device of the audited tensors (default: the CUDA card)")
     ap.add_argument("--skip-mutants", action="store_true")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)
 
     from .allowlist import ENGINE_ALLOWLIST
 
@@ -452,7 +465,7 @@ def main(argv=None) -> int:
         ecfg = small_engine(*SMOKE_COMBO)
         for fast_ok in (True, False):
             rep = audit_engine_round(ecfg, ENGINE_ALLOWLIST, combo_name(SMOKE_COMBO),
-                                     fast_ok=fast_ok)
+                                     fast_ok=fast_ok, device=device)
             print(rep.summary())
             problems.extend(f"{rep.name}: {v}" for v in rep.violations)
     else:
@@ -461,7 +474,7 @@ def main(argv=None) -> int:
                   if args.full else DEFAULT_COMBOS)
         swept, hits = run_audit(
             combos, with_census="all" if args.full else "first", verbose=args.verbose,
-            jobs=args.jobs,
+            jobs=args.jobs, device=device,
             cipher_impls=[DEFAULT_CIPHER_IMPLS[i % len(DEFAULT_CIPHER_IMPLS)]
                           for i in range(len(combos))])
         problems.extend(swept)

@@ -57,7 +57,8 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: frames of the analyzer itself, never a site
-_SELF = tuple(os.path.join(_PKG_DIR, "analysis", f) for f in ("fx_walk.py", "oblint.py"))
+_SELF = tuple(os.path.join(_PKG_DIR, "analysis", f)
+              for f in ("fx_walk.py", "oblint.py", "rangelint.py"))
 #: exception type names that mean "the program branched or shaped itself
 #: on a value the capture cannot know"
 DEPENDENCE_ERRORS = ("GuardOnDataDependentSymNode", "DataDependentOutputException",
@@ -136,12 +137,15 @@ def _tensor_leaves(value) -> list:
 
 
 #: helpers that stand for one JAX primitive (a drop-mode or
-#: fresh-row scatter, a 1-element index) and the kernels' wrappers: their
-#: caller is the site, as the primitive's would be in the reference
+#: fresh-row scatter, a 1-element index, a u32 one-hot sum, the u32
+#: lane helpers of ``u32.py``) and the kernels' wrappers: their caller is
+#: the site, as the primitive's would be in the reference
 _TRANSPARENT = {("oblivious/primitives.py", "scatter_drop"),
                 ("oblivious/primitives.py", "scatter_fresh"),
-                ("oblivious/primitives.py", "index1")}
-_TRANSPARENT_MODULES = ("oblivious/gather_kernels.py", "oblivious/cipher_kernels.py")
+                ("oblivious/primitives.py", "index1"),
+                ("oblivious/primitives.py", "onehot_select"),
+                ("engine/vphases.py", "_narrow_sum")}
+_TRANSPARENT_MODULES = ("oblivious/gather_kernels.py", "oblivious/cipher_kernels.py", "u32.py")
 
 
 def _site_of_frames(frames) -> str:
@@ -242,6 +246,16 @@ class Capture:
     labels: list
     seconds: float
     dependence: tuple | None = None
+
+
+def fake_inputs(build: Callable):
+    """``build()``'s tensors made under a fake tensor mode: shapes and
+    dtypes, no storage — the capture's own ``fake`` mode accepts them, so
+    a 2^30-record engine is captured without allocating it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return build()
 
 
 def capture(fn: Callable, *args, names=None, tracing_mode: str = "fake",
@@ -419,32 +433,96 @@ _KERNEL_ROWS = ("gather_decrypt_rows", "gather_decrypt_rows_tiled",
                 "scatter_encrypt_rows", "scatter_encrypt_rows_tiled")
 
 
-def plane_rows(gm, planes: dict) -> dict:
+def _spill_base(node):
+    """A scatter target made by ``primitives.scatter_drop`` is its plane
+    with one spill row appended (``cat([plane, empty(1, ...)])``): the
+    scatter writes that plane, as the reference's drop-mode scatter does."""
+    if isinstance(node, torch.fx.Node) and op_name(node.target) == "aten.cat.default":
+        parts = node.args[0]
+        if len(parts) == 2 and all(isinstance(p, torch.fx.Node) for p in parts):
+            a, b = (_val_shape(p) for p in parts)
+            if a and b and b[0] == 1 and a[1:] == b[1:] and \
+                    op_name(parts[1].target) in ("aten.new_empty.default", "aten.empty.memory_format"):
+                return parts[0]
+    return node
+
+
+#: ops whose output is their first operand's plane (a view, a copy, or
+#: its functional update)
+_CARRIES = ("aten.view.", "aten._unsafe_view.", "aten.reshape.", "aten.alias.",
+            "aten.slice.", "aten.clone.", "aten.detach.", "aten.index_put.",
+            "aten._unsafe_index_put.", "aten.index_copy.", "aten.scatter.",
+            "aten.scatter_add.", "aten.scatter_reduce.", "aten.slice_scatter.",
+            "aten.select_scatter.", "aten.copy.", "aten.contiguous.")
+
+
+def derived_planes(gm, sources) -> set:
+    """The nodes of ``gm`` holding one of the ``sources`` placeholders'
+    planes: the sources, their views and copies, their functional updates
+    (a scatter's result, a ``scatter_drop`` buffer, a kernel's updated
+    bases)."""
+    out = set(sources)
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        name = op_name(node.target)
+        first = node.args[0] if node.args else None
+        if name.startswith(_CARRIES) and first in out:
+            out.add(node)
+        elif name == "aten.cat.default" and _spill_base(node) in out:
+            out.add(node)
+        elif name == "getitem" and inner_op(first) is not None and node.args[1] >= 1:
+            bases = first.kwargs.get("_all_bases") or []
+            if node.args[1] - 1 < len(bases) and bases[node.args[1] - 1] in out:
+                out.add(node)
+    return out
+
+
+def plane_rows(gm, planes: dict, sources=None) -> dict:
     """Rows moved per named plane by every gather/scatter in the graph.
 
     ``planes`` maps name -> ``(shape, divisor)``: an operand whose shape
     equals ``shape`` is that plane; the moved leading dim is divided by
-    ``divisor``. A gather's rows are its output's leading dim, a
-    scatter's its updates' leading dim; a kernel node moves ``flat_b``'s
-    length of ``tree_val`` rows. Entries are ``(op name, rows)``."""
+    ``divisor``. With ``sources`` (placeholder nodes) the operand must
+    also hold one of their planes (:func:`derived_planes`), so a private
+    array that happens to share a plane's shape is not counted. A
+    gather's rows are its output's leading dim, a scatter's its updates'
+    leading dim; a kernel node moves ``flat_b``'s length of rows of the
+    ``(n, Z*V)`` value, ``(n, Z)`` slot and ``(n, 2)`` nonce planes.
+    Entries are ``(op name, rows)``."""
     out: dict = {k: [] for k in planes}
+    keep = derived_planes(gm, sources) if sources is not None else None
     for node in walk_nodes(gm):
         name = op_name(node.target)
         kern = op_name(inner_op(node) or node.target)
         args = bound_args(node)
         if kern.startswith("gv.") and kern.split(".")[1] in _KERNEL_ROWS:
+            if keep is not None and args.get("tree_val") not in keep:
+                continue
             name = kern.rsplit(".", 1)[0]
-            op_shape = _val_shape(args.get("tree_val"))
             rows = (_val_shape(args.get("flat_b")) or (0,))[0]
+            n, zv = _val_shape(args.get("tree_val"))
+            z = int(args["z"])
+            # one kernel node moves flat_b's rows of the slot, value and
+            # nonce planes: the (n, Z), (n, Z*V) and (n, 2) shapes the
+            # plain path's three gathers (or scatters) move
+            for shape in {(n, zv), (n, z), tuple(_val_shape(args.get("nonces")))}:
+                for pname, (pshape, div) in planes.items():
+                    if shape == tuple(pshape):
+                        out[pname].append((name, rows // div))
+            continue
         elif name in _GATHERS:
-            op_shape = _val_shape(args.get("self"))
+            target = args.get("self")
             moved = node.meta.get("val")
             rows = moved.shape[0] if isinstance(moved, torch.Tensor) and moved.dim() else 0
         elif name in _SCATTERS:
-            op_shape = _val_shape(args.get("self"))
+            target = _spill_base(args.get("self"))
             rows = (_val_shape(args.get(_SCATTERS[name])) or (0,))[0]
         else:
             continue
+        if keep is not None and target not in keep:
+            continue
+        op_shape = _val_shape(target)
         for pname, (pshape, div) in planes.items():
             if op_shape == tuple(pshape):
                 out[pname].append((name, rows // div))

@@ -1,5 +1,5 @@
-"""Seeded mutants: the taint analyzer's positive controls (counterpart of
-the obliviousness half of ``grapevine_tpu/analysis/mutants.py``).
+"""Seeded mutants: the analyzers' positive controls (counterpart of
+``grapevine_tpu/analysis/mutants.py``).
 
 Each mutant is a small torch program with ONE deliberate defect of a
 distinct class, under the reference's name. The gate
@@ -16,6 +16,14 @@ analyzer reports, and two concrete secrets capture different programs),
 un-allowlisted scatter, leaky debug print (a host read of a formatted
 secret), python-level branch, flush on buffer contents, and an adaptive
 batch window sized from queue contents.
+
+The range mutants (:data:`_RANGE_REGISTRY`, the reference's six, run by
+:mod:`.check_ranges` under the production ``RANGE_ALLOWLIST``): each one
+deliberate lane escape of a distinct class — u32 heap-id arithmetic past
+the lane, a sign-extending ``.long()`` of an unbounded u32 lane, an index
+bound equal to its axis, a ``while_loop`` counter the widen-to-lane rule
+must flag, an unreset eviction-buffer cursor, and a byte-size product in
+an i32 lane.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import io
 import torch
 
 from .oblint import analyze, census_equal
+from .rangelint import analyze_ranges
 
 #: every mutant: name -> (maker returning (fn, args, secrets),
 #: expected violation kind)
@@ -166,6 +175,111 @@ def _python_level_branch():
     return fn, {"secret": _t(4)}, ("secret",)
 
 
+# ----------------------------------------------------------------------
+# range mutants: name -> (maker returning (fn, args, bounds), kind)
+# ----------------------------------------------------------------------
+
+_RANGE_REGISTRY: dict = {}
+
+
+def _range_mutant(name: str, kind: str):
+    def deco(make):
+        _RANGE_REGISTRY[name] = (make, kind)
+        return make
+    return deco
+
+
+@_range_mutant("u32_leaf_arith_wrap", "overflow")
+def _u32_leaf_arith_wrap():
+    """Heap-bucket-id arithmetic one recursion level past the certified
+    geometry: (2^31 - 1) + 4·leaf at 2^30 leaves wraps the u32 lane."""
+    def fn(leaf):
+        return leaf * 4 + ((1 << 31) - 1)
+
+    return fn, {"leaf": _t(8)}, {"leaf": (0, (1 << 30) - 1)}
+
+
+@_range_mutant("truncating_cast", "trunc-cast")
+def _truncating_cast():
+    """An unbounded u32 lane sign-extended by ``.long()`` into an index:
+    every value >= 2^31 turns negative on the way into what it indexes
+    (the port's form of the reference's u32->int32 cast)."""
+    def fn(x):
+        return x.long()
+
+    return fn, {"x": _t(8)}, {}
+
+
+@_range_mutant("off_by_one_axis_bound", "oob-index")
+def _off_by_one_axis_bound():
+    """A gather whose declared index bound equals the axis extent — the
+    <= vs < slip; a CUDA kernel would read past the table."""
+    def fn(idx, table):
+        return table[idx.long()]
+
+    return fn, {"idx": _t(4), "table": _t(16)}, {"idx": (0, 16)}
+
+
+@_range_mutant("unbounded_scan_counter", "overflow")
+def _unbounded_scan_counter():
+    """A u32 accumulator gaining up to 2^16 an iteration over a 2^20-trip
+    ``while_loop``: fine for one step, 2^36 by the end — the carry that
+    reaches no fixpoint widens to its lane and the add flags."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def fn(inc):
+        def cond(i, c):
+            return i < (1 << 20)
+
+        def body(i, c):
+            return i + 1, c + inc[0]
+
+        return while_loop(cond, body, (torch.zeros((), dtype=torch.int32),
+                                       torch.zeros((), dtype=torch.int32)))
+
+    return fn, {"inc": _t(2)}, {"inc": (0, 1 << 16)}
+
+
+@_range_mutant("ebuf_index_overflow", "overflow")
+def _ebuf_index_overflow():
+    """The delayed-eviction buffer cursor without its window reset:
+    ``rounds · window_rows`` with a counter that never resets walks past
+    2^32 and the append cursor wraps onto live rows. The production
+    program resets ``ebuf_rounds`` at every flush and declares its
+    [0, W] budget (``path_oram.RANGELINT_BOUNDS``)."""
+    def fn(rounds, leaves):
+        return rounds[0] * (1 << 20) + leaves
+
+    return fn, {"rounds": _t(2), "leaves": _t(8)}, {
+        "rounds": (0, (1 << 32) - (1 << 16)), "leaves": (0, (1 << 14) - 1)}
+
+
+@_range_mutant("int32_byte_size_product", "overflow")
+def _int32_byte_size_product():
+    """A byte length computed in a signed i32 lane: 2^20 rows of a 4 KiB
+    row is 2^32 bytes — positive sizes multiply into a negative length."""
+    def fn(rows):
+        return rows * 4096
+
+    return fn, {"rows": _t(4)}, {"rows": (0, 1 << 20, "i32")}
+
+
+def range_mutant_names() -> tuple:
+    return tuple(_RANGE_REGISTRY)
+
+
+def run_range_mutants(allowlist=()) -> dict:
+    """Analyze every range mutant under ``allowlist``; returns name ->
+    (report, expected_kind, failed_as_expected)."""
+    out = {}
+    for name, (make, kind) in _RANGE_REGISTRY.items():
+        fn, args, bounds = make()
+        rep = analyze_ranges(fn, args, bounds, allowlist=allowlist,
+                             name=f"range_mutant/{name}")
+        out[name] = (rep, kind, any(f.kind == kind for f in rep.findings))
+    return out
+
+
 def mutant_names() -> tuple:
     return tuple(_REGISTRY)
 
@@ -190,11 +304,14 @@ def run_mutants(allowlist=()) -> dict:
 
 def control_failures(results: dict, flavor: str, log=print) -> list:
     """Print one status line per mutant via ``log`` and return the
-    not-caught failures."""
+    not-caught failures; reads oblint reports (``violations``), rangelint
+    reports and cost-model mismatches (``findings``)."""
     failures = []
     for name, (rep, kind, hit) in results.items():
         log(f"{flavor} {name}: {'FAIL (expected)' if hit else 'PASSED — NO TEETH'}")
         if not hit:
+            got = [v.kind for v in getattr(rep, "violations", None)
+                   or getattr(rep, "findings", [])]
             failures.append(f"{flavor} {name!r} was NOT caught (expected a {kind}; got "
-                            f"{[v.kind for v in rep.violations]})")
+                            f"{got})")
     return failures

@@ -76,6 +76,19 @@ OBLINT_SECRETS = (
 )
 
 
+def RANGELINT_BOUNDS(ecfg: EngineConfig) -> dict:
+    """Rangelint input-interval anchors for ``expiry_sweep(ecfg, state, now,
+    period, now_hi)`` (the reference's ``grapevine_tpu/engine/expiry.py:62``):
+    the engine round's state anchors, imported so a plane cannot be bounded
+    in one audit and forgotten in the other. ``now``/``period`` are the
+    untrusted host clock, the full lane. The sweep's own counters (chunk
+    liveness, the recipient recount) are derived bounded: each chunk pass
+    adds at most its rows' slots, and the passes sum to the tree's slots."""
+    from .round_step import RANGELINT_BOUNDS as _rs_bounds
+
+    return {k: v for k, v in _rs_bounds(ecfg).items() if not k.startswith("draws.")}
+
+
 def _expired(ts_lo, ts_hi, now_lo, now_hi, period) -> torch.Tensor:
     """Strict '>' age test over u64 lane pairs (now - ts > period).
 

@@ -78,6 +78,46 @@ FLUSH_OBLINT_SECRETS = (
 )
 
 
+def RANGELINT_BOUNDS(ecfg: EngineConfig) -> dict:
+    """Rangelint input-interval anchors (``analysis/rangelint.py``) for one
+    round ``engine_round_step(ecfg, state, batch, draws=draws)``: the
+    reference's (``grapevine_tpu/engine/round_step.py:99``) value for value
+    — both trees' planes as :func:`..oram.path_oram.RANGELINT_BOUNDS`
+    declares them (with a round's drops, which move the overflow budget
+    past the reference's 2^16 only at large B), the freelist's block ids, ``free_top`` at most
+    ``max_messages``, ``recipients`` capped by admission; batch columns,
+    the clock lanes and ``seq`` stay the full u32 lane (untrusted inputs
+    and two-lane counters) — and the round's draws, which the port takes
+    as inputs where the reference draws them inside its round with the
+    same bounds: every leaf below its tree's leaf count (``random_below``),
+    ``id_rand`` the full lane."""
+    from ..oram.path_oram import RANGELINT_BOUNDS as tree_bounds
+    from ..oram.path_oram import round_drops
+
+    ops = ecfg.batch_size
+    b = {
+        **tree_bounds(ecfg.rec, prefix="state.rec", drops=round_drops(ecfg.rec, ops)),
+        # two mailbox rounds (A and C) a round
+        **tree_bounds(ecfg.mb, prefix="state.mb",
+                      drops=2 * round_drops(ecfg.mb, ops * ecfg.mb_choices)),
+        "state.freelist": (0, ecfg.max_messages - 1),
+        "state.free_top": (0, ecfg.max_messages),
+        "state.recipients": (0, ecfg.max_recipients),
+    }
+    mbl, recl = ecfg.mb.leaves - 1, ecfg.rec.leaves - 1
+    for f in ("nl_a", "nl_c", "dl_a", "dl_c"):
+        b[f"draws.{f}"] = (0, mbl)
+    for f in ("nl_b", "dl_b"):
+        b[f"draws.{f}"] = (0, recl)
+    if ecfg.posmap_impl == "recursive":
+        mbi, reci = ecfg.mb.posmap.inner_leaves - 1, ecfg.rec.posmap.inner_leaves - 1
+        for f in ("new_a", "dummy_a", "new_c", "dummy_c"):
+            b[f"draws.pm.{f}"] = (0, mbi)
+        for f in ("new_b", "dummy_b"):
+            b[f"draws.pm.{f}"] = (0, reci)
+    return b
+
+
 class PosmapDraws(NamedTuple):
     """One round's internal-ORAM leaves under a recursive position map
     (the reference's ``round_step.py:224-240``): remap and dummy leaves

@@ -183,6 +183,75 @@ class OramState(NamedTuple):
     epoch: torch.Tensor  # int32[2] (lo, hi), next write epoch
 
 
+def RANGELINT_BOUNDS(cfg: "OramConfig", prefix: str = "state", drops: int = 0) -> dict:
+    """Rangelint input-interval anchors (``analysis/rangelint.py``) for one
+    ``OramState`` under ``prefix``, value for value the reference's
+    (``grapevine_tpu/oram/path_oram.py:73``). Every int32 plane is a u32
+    lane; the declared ones:
+
+    - position values (stash/cache/buffer leaf mirrors, the flat table,
+      the recursive map's internal table and packed entries) are leaves,
+      ``< cfg.leaves``;
+    - ``overflow`` carries the sticky-counter increment budget: 2^16
+      below the lane, the reference's, or the power of two covering
+      ``drops`` (the most blocks one call can drop, its working set
+      beyond the stash) where that is more — at B=2048 one round can
+      drop ~1.7e5 blocks, past the reference's 2^16; the generation
+      counters step once a flush within 2^16; ``ebuf_rounds`` resets at
+      every flush and counts within ``[0, evict_window]``;
+    - ciphertext and sentinel-bearing planes (tree planes under the
+      cipher, stash/cache/buffer idx) stay the full lane.
+
+    Each bound is an invariant an existing test pins; the rest of the
+    round is certified against them."""
+    lv = cfg.leaves - 1
+    budget = 1 << max(16, (max(drops, 1) - 1).bit_length())
+    b = {
+        f"{prefix}.stash_leaf": (0, lv),
+        f"{prefix}.cache_leaf": (0, lv),
+        f"{prefix}.overflow": (0, 2**32 - budget),
+    }
+    if cfg.delayed_eviction:
+        b[f"{prefix}.ebuf_leaf"] = (0, lv)
+        b[f"{prefix}.ebuf_paths"] = (0, lv)
+        b[f"{prefix}.ebuf_rounds"] = (0, cfg.evict_window)
+        b[f"{prefix}.ebuf_gen"] = (0, 2**32 - 2**16)
+        b[f"{prefix}.fetch_tag"] = (0, 2**32 - 2**16)
+    if not cfg.encrypted:
+        b[f"{prefix}.tree_leaf"] = (0, lv)
+    if cfg.posmap is None:
+        b[f"{prefix}.posmap"] = (0, lv)
+    else:
+        from .posmap import inner_oram_config
+
+        icfg = inner_oram_config(cfg.posmap)
+        inner = f"{prefix}.posmap.inner"
+        # the internal ORAM's block values are packed OUTER leaf entries;
+        # its own flat map holds INTERNAL leaves
+        b[f"{inner}.posmap"] = (0, icfg.leaves - 1)
+        b[f"{inner}.stash_val"] = (0, lv)
+        b[f"{inner}.cache_val"] = (0, lv)
+        b[f"{inner}.overflow"] = (0, 2**32 - budget)
+        if icfg.delayed_eviction:
+            b[f"{inner}.ebuf_val"] = (0, lv)
+            b[f"{inner}.ebuf_leaf"] = (0, icfg.leaves - 1)
+            b[f"{inner}.ebuf_paths"] = (0, icfg.leaves - 1)
+            b[f"{inner}.ebuf_rounds"] = (0, icfg.evict_window)
+            b[f"{inner}.ebuf_gen"] = (0, 2**32 - 2**16)
+            b[f"{inner}.fetch_tag"] = (0, 2**32 - 2**16)
+        if not icfg.encrypted:
+            b[f"{inner}.tree_val"] = (0, lv)
+        b[f"{prefix}.posmap.dummy_entry"] = (0, lv)
+    return b
+
+
+def round_drops(cfg: OramConfig, ops: int) -> int:
+    """The most blocks one ``oram_round``/``oram_flush`` of ``ops``
+    accesses can drop: its working set (stash, buffer, the fetched paths'
+    slots, the new blocks) beyond the stash."""
+    return cfg.evict_buffer_slots + ops * (cfg.path_len * cfg.bucket_slots + 1)
+
+
 def oram_leaf_shapes(cfg: OramConfig) -> dict:
     """Each ``OramState`` leaf's shape for this geometry (what
     :func:`init_oram` builds), by dotted name in the reference's pytree

@@ -244,6 +244,37 @@ def _group_last_slot(idxs, dummy_index: int, occ_impl: str = "dense",
     return torch.where(is_real, last, slot_iota)
 
 
+def RANGELINT_BOUNDS(cfg, prefix: str = "pm_state") -> dict:
+    """Rangelint input-interval anchors (``analysis/rangelint.py``) for one
+    ``lookup_remap_round`` argument set at geometry ``cfg``, value for value
+    the reference's (``grapevine_tpu/oram/posmap.py:317``): queried indices
+    are block ids or the dummy, every leaf argument is a fresh uniform draw
+    below its tree's leaf count, and the map state carries the per-plane
+    invariants of :func:`.path_oram.RANGELINT_BOUNDS`. The k-entry packing
+    offsets (``shr(idx, lg k)``, ``idx & (k-1)``) are then derived clean."""
+    lv = cfg.leaves - 1
+    b = {
+        "idxs": (0, cfg.dummy_index),
+        "new_leaves": (0, lv),
+        "dummy_leaves": (0, lv),
+    }
+    if cfg.posmap is None:
+        b[prefix] = (0, lv)
+    else:
+        icfg = inner_oram_config(cfg.posmap)
+        il = icfg.leaves - 1
+        b["pm_new_leaves"] = (0, il)
+        b["pm_dummy_leaves"] = (0, il)
+        b[f"{prefix}.inner.posmap"] = (0, il)
+        b[f"{prefix}.inner.stash_val"] = (0, lv)
+        b[f"{prefix}.inner.cache_val"] = (0, lv)
+        b[f"{prefix}.inner.overflow"] = (0, 2**32 - 2**16)
+        if not icfg.encrypted:
+            b[f"{prefix}.inner.tree_val"] = (0, lv)
+        b[f"{prefix}.dummy_entry"] = (0, lv)
+    return b
+
+
 def lookup_remap_round(cfg, pm_state, idxs, new_leaves, dummy_leaves, first_occ,
                        last_occ, pm_new_leaves=None, pm_dummy_leaves=None,
                        sort_impl: str = "xla", occ_impl: str = "dense"):

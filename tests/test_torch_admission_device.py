@@ -111,7 +111,8 @@ def test_slow_branch_round_captures_and_audits_clean():
     it), its graph holds no read of a value by the host, and the walk's
     sinks are the reviewed ones."""
     ecfg = co.small_engine(*co.SMOKE_COMBO)
-    rep = co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, "slow", fast_ok=False)
+    rep = co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, "slow", fast_ok=False,
+                                 device="cpu")
     assert rep.capture.gm is not None and rep.ok, rep.summary()
     ops = {fx_walk.op_name(n.target) for n in fx_walk.walk_nodes(rep.capture.gm)}
     assert not ops & {"gv_analysis.host_read.default", "aten._local_scalar_dense.default"}

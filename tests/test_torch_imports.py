@@ -78,17 +78,18 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
 
 
 def test_import_scan_covers_the_analyzer():
-    """The obliviousness analyzer is a port of its own (the capture layer
-    in place of the jaxpr walk, own copies of the allowlist, mutants,
-    lints and gate), so the boundary scan reads each module of
-    ``analysis/``; importing the package or its cost model imports no
-    torch, and the gate runs where ``import jax`` fails."""
+    """The analyzers are a port of their own (the capture layer in place
+    of the jaxpr walk, own copies of the allowlists, mutants, lints,
+    range analyzer, cost model and gates), so the boundary scan reads
+    each module of ``analysis/``; importing the package or its cost model
+    imports no torch, and the gates run where ``import jax`` fails."""
     import subprocess
     import sys
 
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     mods = ("__init__", "fx_walk", "oblint", "allowlist", "mutants", "check_oblivious",
-            "locklint", "importlint", "costmodel")
+            "locklint", "importlint", "costmodel", "rangelint", "check_ranges",
+            "check_cost_model")
     for mod in mods:
         path = f"grapevine_tpu_torch/analysis/{mod}.py"
         assert path in scanned, path
@@ -98,6 +99,8 @@ def test_import_scan_covers_the_analyzer():
             "import grapevine_tpu_torch.analysis, grapevine_tpu_torch.analysis.costmodel\n"
             "assert 'torch' not in sys.modules\n"
             "from grapevine_tpu_torch.analysis import check_oblivious, mutants, analyze\n"
+            "from grapevine_tpu_torch.analysis import check_ranges, check_cost_model\n"
+            "from grapevine_tpu_torch.analysis import analyze_ranges, cross_validate_round\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'grapevine_tpu')"
             " and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")

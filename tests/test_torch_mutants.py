@@ -56,4 +56,4 @@ def test_check_oblivious_smoke_gate():
     both admission branches, every mutant, locklint and importlint."""
     from grapevine_tpu_torch.analysis import check_oblivious
 
-    assert check_oblivious.main(["--smoke"]) == 0
+    assert check_oblivious.main(["--smoke", "--device", "cpu"]) == 0

@@ -24,10 +24,12 @@ def _reports():
     ecfg = co.small_engine(*co.SMOKE_COMBO)
     name = co.combo_name(co.SMOKE_COMBO)
     return {
-        "round_fast": co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, name, fast_ok=True),
-        "round_slow": co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, name, fast_ok=False),
-        "flush": co.audit_engine_flush(ecfg, ENGINE_ALLOWLIST, name),
-        "sweep": co.audit_expiry_sweep(ecfg, ENGINE_ALLOWLIST, name),
+        "round_fast": co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, name, fast_ok=True,
+                                            device="cpu"),
+        "round_slow": co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, name, fast_ok=False,
+                                            device="cpu"),
+        "flush": co.audit_engine_flush(ecfg, ENGINE_ALLOWLIST, name, device="cpu"),
+        "sweep": co.audit_expiry_sweep(ecfg, ENGINE_ALLOWLIST, name, device="cpu"),
     }
 
 

@@ -15,7 +15,7 @@ from grapevine_tpu_torch.analysis.allowlist import ENGINE_ALLOWLIST
 def test_default_sweep_is_violation_free_and_reaches_every_entry():
     problems, hits = co.run_audit(co.DEFAULT_COMBOS, with_census=False,
                                   cipher_impls=co.DEFAULT_CIPHER_IMPLS,
-                                  jobs=len(co.DEFAULT_COMBOS))
+                                  jobs=len(co.DEFAULT_COMBOS), device="cpu")
     assert problems == []
     assert co.check_allowlist_reachability(hits) == []
     assert set(hits) == {e.key for e in ENGINE_ALLOWLIST}

@@ -14,7 +14,7 @@ from grapevine_tpu_torch.analysis.oblint import census_equal
 
 def test_round_censuses_equal_over_adversarial_batches():
     ecfg = co.small_engine(*co.SMOKE_COMBO)
-    assert co.census_equal_engine(ecfg, co.combo_name(co.SMOKE_COMBO)) == []
+    assert co.census_equal_engine(ecfg, co.combo_name(co.SMOKE_COMBO), device="cpu") == []
 
 
 def test_census_equal_catches_a_batch_dependent_program():

@@ -58,16 +58,16 @@ def test_capture_shows_one_node_per_eager_launch(case, monkeypatch):
     impl, ee, prog = case
     ecfg = co.small_engine("dense", "xla", "flat", 0, ee, bucket_cipher_impl=impl)
     state = init_engine(ecfg, 0, device="cpu")
-    rep = (co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, impl, state=state)
+    rep = (co.audit_engine_round(ecfg, ENGINE_ALLOWLIST, impl, state=state, device="cpu")
            if prog == "round" else co.audit_engine_flush(ecfg, ENGINE_ALLOWLIST, impl,
-                                                          state=state))
+                                                          state=state, device="cpu"))
     assert rep.ok, rep.summary()
     nodes = dict(fx_walk.kernel_nodes(rep.capture.gm))
     assert nodes == CASES[case]
     calls = _wrapper_calls(monkeypatch)
     if prog == "round":
-        round_step.engine_round_step(ecfg, state, co.batch_spec(ecfg),
-                                     draws=co.engine_draws(ecfg, state), fast_ok=True)
+        round_step.engine_round_step(ecfg, state, co.batch_spec(ecfg, "cpu"),
+                                     draws=co.engine_draws(ecfg, state, "cpu"), fast_ok=True)
     else:
         round_step.engine_flush_step(ecfg, state)
     assert dict(calls) == nodes
@@ -127,6 +127,6 @@ def test_outside_a_capture_the_op_is_never_entered():
     state = init_engine(ecfg, 0, device="cpu")
     with Ops():
         assert not gk.capturing()
-        round_step.engine_round_step(ecfg, state, co.batch_spec(ecfg),
-                                     draws=co.engine_draws(ecfg, state), fast_ok=True)
+        round_step.engine_round_step(ecfg, state, co.batch_spec(ecfg, "cpu"),
+                                     draws=co.engine_draws(ecfg, state, "cpu"), fast_ok=True)
     assert seen["aten"] > 100 and seen["gv"] == 0, dict(seen)
