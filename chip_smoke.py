@@ -272,7 +272,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    E=4, flush, sweep, the records flush on a 2-shard virtual mesh), and
    the ledger's bytes per kernel path beside phase 3's kernel ms; (e)
    ``check_ranges --smoke`` and ``check_cost_model --smoke`` where
-   ``import jax`` fails, exit 0 (the nine cost mutants are (e)'s).
+   ``import jax`` fails, exit 0 (the nine cost mutants are (e)'s);
+21. the census gates (``grapevine_tpu_torch/analysis``) at the production
+   point, k=4: (a) real captures of the records and mailbox
+   ``oram_round`` (``"pallas_fused_tiled"``) with each of four
+   adversarial index sets closed over as constants — one census, output
+   shapes included, no control node, each tree plane ``B·(path_len−4)``
+   rows and the cache planes ``B·4``, one B4 and one B6 node a capture —
+   and a fake capture at k=0 moving ``B·path_len``; (b) at E=4
+   (``"pallas_fused"``) both trees' fetch rounds index-blind and
+   read-only on the trees, one real flush scattering ``t`` rows a plane,
+   and on a 2-shard virtual mesh of the card the records tree's per-shard
+   shapes, the owner partition of a window's flush at run time and the
+   unmasked-scatter mutant caught; (c) the records tree's position-map
+   lookup at phase 14's knobs index-blind, the flat map's as the control;
+   (d) the radix records round capturing no sort node against the xla
+   one's, and the scan engine round's radix residue at the reference's
+   wide-key sites; (e) ``check_telemetry_policy`` where ``import jax``
+   fails, exit 0, and its namespace rules on the live registry of a
+   production engine with every round observer attached, after two
+   rounds (B4, B6).
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -307,6 +326,10 @@ runs phase 19 alone after the kernel build.
     python3 chip_smoke.py --range-phase
 
 runs phase 20 alone after the kernel build.
+
+    python3 chip_smoke.py --census-phase
+
+runs phase 21 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -5242,6 +5265,265 @@ def range_phase_alone() -> int:
     return 0
 
 
+#: phase 21: the census gates at the production point (k=4)
+CENSUS_TILED = dict(ANALYSIS_GEO, bucket_cipher_impl="pallas_fused_tiled")
+CENSUS_EVICT = dict(ANALYSIS_GEO, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY)
+
+
+def _census_trees(ecfg, state) -> list:
+    """(tree, ORAM config, ORAM state, indices a round) of both trees."""
+    b = ecfg.batch_size
+    return [("records", ecfg.rec, state.rec, b),
+            ("mailbox", ecfg.mb, state.mb, b * ecfg.mb_choices)]
+
+
+def _require_kernels(launches: dict, some: tuple, where: str) -> None:
+    """Each kernel of ``some`` launched, and no other."""
+    for name, n in launches.items():
+        if (n > 0) != (name in some):
+            raise AssertionError(f"{where}: {name} launched {n} times, want "
+                                 f"{'some' if name in some else 'none'}")
+
+
+def census_rounds(GrapevineConfig, gk, ck) -> dict:
+    """Phase 21a: real captures of the records and mailbox ``oram_round``
+    for each of the four index sets — one census, no control node, each
+    tree plane ``B·(path_len−4)`` rows, the cache planes ``B·4`` — and a
+    fake capture at k=0 moving ``B·path_len``."""
+    from grapevine_tpu_torch.analysis import check_tree_cache_oblivious as ctc
+    from grapevine_tpu_torch.analysis.costmodel import trace_oram_round
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    ecfg = EngineConfig.from_config(GrapevineConfig(**CENSUS_TILED))
+    state = init_engine(ecfg, SEED, device="cuda")
+    _reset_launches(gk, ck)
+    lines = []
+    for tree, cfg, st, n in _census_trees(ecfg, state):
+        if cfg.top_cache_levels != min(4, cfg.height):
+            raise AssertionError(f"phase 21a {tree}: k={cfg.top_cache_levels}")
+        acc = ctc.round_accounting(cfg, n, "cuda", state=st, what=f"phase 21a {tree}")
+        if "cache_idx" not in acc["rows"] or acc["kernel_nodes"] != {
+                "gather_decrypt_rows_tiled": 1, "scatter_encrypt_rows_tiled": 1}:
+            raise AssertionError(f"phase 21a {tree}: {acc['rows']} {acc['kernel_nodes']}")
+        k0 = dataclasses.replace(cfg, top_cache_levels=0)
+        cap0 = trace_oram_round(k0, n, "cuda")
+        rows0 = ctc.capture_rows(cap0, ctc.tree_planes(k0), root="arg0")
+        full = n * cfg.path_len
+        if any(not r or {x for _, x in r} != {full} for r in rows0.values()):
+            raise AssertionError(f"phase 21a {tree} k=0: {rows0}, want {full} rows a plane")
+        lines.append(dict(tree=tree, b=n, path_len=cfg.path_len, k=cfg.top_cache_levels,
+                          want_rows=acc["want"],
+                          rows=acc["rows"], nodes=acc["info"]["nodes"],
+                          census_ops=acc["info"]["census_size"],
+                          capture_s=acc["info"]["capture_s"], kernel_nodes=acc["kernel_nodes"],
+                          k0_rows={p: sorted({x for _, x in r}) for p, r in rows0.items()},
+                          k0_capture_s=cap0.seconds))
+    torch.cuda.synchronize()
+    launches = _launches(gk, ck)
+    # each real capture runs the round: one B4 and one B6 launch
+    require_launches(launches, {"gather_decrypt_rows_tiled": 8,
+                                "scatter_encrypt_rows_tiled": 8}, "phase 21a")
+    return dict(lines=lines, launches=launches)
+
+
+def census_evict(GrapevineConfig, gk, ck) -> dict:
+    """Phase 21b: at E=4 (``"pallas_fused"``) each tree's fetch round is
+    index-blind and read-only on the trees and one real flush scatters
+    ``t`` rows a plane; on a 2-shard virtual mesh of the card the records
+    tree's per-shard shapes hold, the owner partition holds at run time
+    and the unmasked-scatter mutant is caught."""
+    from grapevine_tpu_torch.analysis import check_tree_cache_oblivious as ctc
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+    from grapevine_tpu_torch.parallel.mesh import make_mesh
+
+    ecfg = EngineConfig.from_config(GrapevineConfig(**CENSUS_EVICT))
+    state = init_engine(ecfg, SEED, device="cuda")
+    _reset_launches(gk, ck)
+    lines = []
+    for tree, cfg, st, n in _census_trees(ecfg, state):
+        acc = ctc.evict_accounting(cfg, n, "cuda", state=st, flush_state=st,
+                                   what=f"phase 21b {tree}")
+        lines.append(dict(tree=tree, b=n, window=cfg.evict_window, fetch=acc["fetch"],
+                          flush=acc["flush"], t=acc["want_flush_rows"],
+                          nodes=acc["info"]["nodes"], flush_nodes=acc["info"]["flush_nodes"],
+                          capture_s=acc["info"]["capture_s"],
+                          flush_capture_s=acc["info"]["flush_capture_s"]))
+    torch.cuda.synchronize()
+    launches = _launches(gk, ck)
+    # a real fetch capture launches B3 once; a real flush B5 once
+    require_launches(launches, {"gather_decrypt_rows": 8, "scatter_encrypt_rows": 2},
+                     "phase 21b")
+    b, cfg = ecfg.batch_size, ecfg.rec
+    mesh = make_mesh(["cuda", "cuda"])
+    del st
+    _reset_launches(gk, ck)
+    t0 = time.perf_counter()
+    sh = ctc.sharded_accounting(cfg, b, mesh, "cuda", state=ctc.clone_state(state.rec),
+                                what="phase 21b")
+    part = ctc.owner_partition(cfg, b, mesh, "cuda", state=ctc.clone_state(state.rec))
+    try:
+        ctc.owner_partition(cfg, b, mesh, "cuda", state=state.rec, _unmasked_scatter=True)
+    except AssertionError as exc:
+        if "owner partition violated" not in str(exc):
+            raise
+        caught = str(exc)[:160]
+    else:
+        raise AssertionError("phase 21b: the unmasked-scatter mutant passed the owner "
+                             "partition check")
+    torch.cuda.synchronize()
+    sharded_launches = _launches(gk, ck)
+    # the sharded path decrypts and encrypts through B2; its one-device
+    # twin runs B3 and B5
+    _require_kernels(sharded_launches, ("cipher_rows_pallas", "gather_decrypt_rows",
+                                        "scatter_encrypt_rows"), "phase 21b sharded")
+    sharded = dict(shards=sh["shards"], fetch=sh["fetch"], flush=sh["flush"],
+                   t=sh["want_flush_rows"], nodes=sh["info"]["nodes"],
+                   capture_s=sh["info"]["capture_s"], **part, mutants_caught=1,
+                   mutant=caught, s=time.perf_counter() - t0)
+    total = {k: launches[k] + sharded_launches[k] for k in KERNELS}
+    return dict(lines=lines, sharded=sharded, launches=total)
+
+
+def census_posmap(GrapevineConfig, gk, ck) -> dict:
+    """Phase 21c: the records tree's position-map lookup at phase 14's
+    knobs (recursive map, radix) is index-blind, with the flat map's
+    lookup as the positive control."""
+    from grapevine_tpu_torch.analysis import check_posmap_oblivious as cpo
+    from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+
+    out = {}
+    _reset_launches(gk, ck)
+    for name, knobs in (("flat", dict(sort_impl="radix")), ("recursive", POSMAP_KNOBS)):
+        ecfg = EngineConfig.from_config(GrapevineConfig(**CENSUS_TILED, **knobs))
+        state = init_engine(ecfg, SEED, device="cuda")
+        out[name] = cpo.schedule_census(ecfg.rec, ecfg.batch_size, "dense", "radix", "cuda",
+                                        f"phase 21c {name}", pm_state=state.rec.posmap)
+        del state
+        torch.cuda.empty_cache()
+    cpo.positive_control(out)
+    torch.cuda.synchronize()
+    return dict(lines=out, launches=_launches(gk, ck))
+
+
+def census_sorts(GrapevineConfig) -> dict:
+    """Phase 21d: fake captures at the production point — the radix
+    records round holds no sort node, the xla one some; the scan engine
+    round's radix residue is the reference's wide-key sites."""
+    from grapevine_tpu_torch.analysis import check_sort_radix as csr
+    from grapevine_tpu_torch.analysis.costmodel import trace_engine_round
+    from grapevine_tpu_torch.analysis.fx_walk import sort_census
+    from grapevine_tpu_torch.engine.state import EngineConfig
+
+    ecfg = EngineConfig.from_config(GrapevineConfig(**CENSUS_TILED))
+    t0 = time.perf_counter()
+    oram = {impl: sum(sort_census(csr.capture_oram_round(ecfg.rec, ecfg.batch_size, impl,
+                                                         "cuda").gm).values())
+            for impl in ("radix", "xla")}
+    if oram["radix"] != 0 or oram["xla"] == 0:
+        raise AssertionError(f"phase 21d: records round sorts {oram}")
+    caps = {impl: trace_engine_round(EngineConfig.from_config(GrapevineConfig(
+        **dict(CENSUS_TILED, vphases_impl="scan"), sort_impl=impl)), "cuda")
+        for impl in ("radix", "xla")}
+    engine = csr.engine_sort_residue(caps["radix"].gm, caps["xla"].gm)
+    return dict(oram_round=oram, engine_round=engine,
+                capture_s={k: c.seconds for k, c in caps.items()}, s=time.perf_counter() - t0)
+
+
+def census_telemetry(GrapevineConfig, GrapevineEngine, gk, ck, gate) -> dict:
+    """Phase 21e: the telemetry gate where ``import jax`` fails (exit 0),
+    then its namespace rules on the live registry of a production engine
+    that served two rounds with every round observer attached."""
+    from grapevine_tpu_torch.analysis import check_telemetry_policy as ctp
+    from grapevine_tpu_torch.obs import attach_round_observability
+
+    eng = GrapevineEngine(GrapevineConfig(**CENSUS_TILED), seed=SEED)
+    attach_round_observability(eng, eng.metrics.registry)
+    _reset_launches(gk, ck)
+    run_slice(eng, 2, writes=False, profile_last=False)
+    launches = _launches(gk, ck)
+    # three B4 and three B6 an engine round (the slice's two, and any the
+    # observers add)
+    b4, b6 = launches["gather_decrypt_rows_tiled"], launches["scatter_encrypt_rows_tiled"]
+    _require_kernels(launches, ("gather_decrypt_rows_tiled", "scatter_encrypt_rows_tiled"),
+                     "phase 21e engine")
+    if b4 != b6 or b4 < 6 or b4 % 3:
+        raise AssertionError(f"phase 21e engine: {b4} B4 and {b6} B6 launches")
+    live = ctp.audit_live_registry(eng.metrics.registry)
+    scan = ctp.scan_call_sites()
+    if scan:
+        raise AssertionError(f"phase 21e: {scan}")
+    eng.close()
+    d = _gate_result(gate, "check_telemetry_policy", 0, "phase 21e")
+    return dict(gate=d, live=dict(metrics=live["metrics"], series=live["series"],
+                                  namespaces=live["namespaces"]),
+                scan_violations=0, launches=launches)
+
+
+def run_census_phase(GrapevineConfig, GrapevineEngine, gk, ck, card) -> dict:
+    """Phase 21: (a) the tree-top cache's census and rows, (b) delayed
+    eviction and the sharded flush, (c) the position map, (d) the radix
+    audit, (e) the telemetry gate (its process beside the rest)."""
+    t_phase = time.perf_counter()
+    gate = _gate("check_telemetry_policy")
+    try:
+        return _census_parts(GrapevineConfig, GrapevineEngine, gk, ck, card, gate, t_phase)
+    except BaseException:
+        gate.kill()
+        gate.wait()
+        raise
+
+
+def _census_parts(GrapevineConfig, GrapevineEngine, gk, ck, card, gate, t_phase) -> dict:
+    split, parts = {}, {}
+    for key, fn in (("a", lambda: census_rounds(GrapevineConfig, gk, ck)),
+                    ("b", lambda: census_evict(GrapevineConfig, gk, ck)),
+                    ("c", lambda: census_posmap(GrapevineConfig, gk, ck)),
+                    ("d", lambda: census_sorts(GrapevineConfig)),
+                    ("e", lambda: census_telemetry(GrapevineConfig, GrapevineEngine, gk, ck,
+                                                   gate))):
+        t0 = time.perf_counter()
+        parts[key] = fn()
+        split[key] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k: sum(parts[p].get("launches", {}).get(k, 0) for p in parts) for k in KERNELS}
+    return dict(**parts, launches=launches, card=card, split_s=split,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def emit_census_lines(cz: dict) -> None:
+    card = cz["card"]
+    emit({"census_rounds": cz["a"]["lines"], "card": card})
+    emit({"census_evict": cz["b"]["lines"], "card": card})
+    emit({"census_sharded": cz["b"]["sharded"], "card": card})
+    emit({"census_posmap": cz["c"]["lines"], "card": card})
+    emit({"census_sorts": {k: v for k, v in cz["d"].items()}, "card": card})
+    emit({"census_telemetry": {k: v for k, v in cz["e"].items() if k != "launches"},
+          "card": card})
+    emit({"census_phase_s": cz["phase_s"], "split_s": cz["split_s"],
+          "census_launches": cz["launches"]})
+
+
+def census_phase_alone() -> int:
+    """Phase 21 alone: the card line, the kernel build, then the census
+    phase."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    cz = run_census_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    emit_census_lines(cz)
+    emit({"census_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def repeat_standby_runbook(n: int) -> int:
     """Phase 12b alone, ``n`` times: each run's outcome on a line of its
     own, then the count; 1 if any run failed."""
@@ -5277,6 +5559,8 @@ def main() -> int:
                     help="run phase 19 alone (after the kernel build)")
     ap.add_argument("--range-phase", action="store_true",
                     help="run phase 20 alone (after the kernel build)")
+    ap.add_argument("--census-phase", action="store_true",
+                    help="run phase 21 alone (after the kernel build)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -5294,6 +5578,8 @@ def main() -> int:
         return analysis_phase_alone()
     if args.range_phase:
         return range_phase_alone()
+    if args.census_phase:
+        return census_phase_alone()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -5476,6 +5762,14 @@ def main() -> int:
     rp = run_range_phase(GrapevineConfig, gk, ck, card, shapes)
     split("range")
 
+    # phase 21: the census gates at the production point — real captures
+    # of both trees' rounds per index set (B4, B6 through their ops), E=4
+    # fetch rounds and flushes (B3, B5), the sharded flush on a virtual
+    # mesh with its mutant (B2; the twin B3, B5), the position map, the
+    # radix audit, the telemetry gate and a live registry (B4, B6)
+    cz = run_census_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    split("census")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -5520,7 +5814,7 @@ def main() -> int:
     }
     for k in KERNELS:
         launches_by_kernel[k] += (mesh["launches"].get(k, 0) + an["launches"][k]
-                                  + rp["launches"][k])
+                                  + rp["launches"][k] + cz["launches"][k])
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -5547,6 +5841,7 @@ def main() -> int:
     emit_mesh_lines(mesh)
     emit_analysis_lines(an)
     emit_range_lines(rp)
+    emit_census_lines(cz)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
                                     op["launches"]["cipher_rows_pallas"]), "card": card})

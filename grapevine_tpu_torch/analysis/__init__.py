@@ -20,9 +20,18 @@
 - :mod:`locklint` — AST lock-discipline lint for the pipelined host path;
   :mod:`importlint` — the stdlib import lint.
 
-The census gates (``check_posmap_oblivious``,
-``check_tree_cache_oblivious``), the telemetry policy check and
-``check_cost_model --grade`` are ROADMAP.md queue A item 17's rest.
+- The census gates, on the same captures: :mod:`check_posmap_oblivious`
+  (the position map's lookup captures one program whatever indices are
+  asked) and :mod:`check_tree_cache_oblivious` (the cached round reads
+  only the bottom ``path_len − k`` levels of each tree plane, a
+  delayed-eviction flush writes exactly its window, the sharded flush
+  owner-partitions it); :mod:`check_sort_radix`, the radix knob's
+  zero-sort audit (``fx_walk.sort_census``); :mod:`check_telemetry_policy`,
+  the static scan of the instrumentation call sites and the registry
+  audits.
+
+``check_cost_model --grade`` waits for the benchmark (ROADMAP.md queue A,
+item 17e).
 """
 
 import importlib
@@ -31,7 +40,15 @@ import importlib
 #: its torch-free cost model) does not import torch
 _EXPORTS = {
     "capture": "fx_walk", "census": "fx_walk", "plane_rows": "fx_walk",
-    "site_of": "fx_walk", "walk_nodes": "fx_walk",
+    "site_of": "fx_walk", "walk_nodes": "fx_walk", "sort_census": "fx_walk",
+    "check_posmap_access_schedule": "check_posmap_oblivious",
+    "check_tree_cache_schedule": "check_tree_cache_oblivious",
+    "check_k0_recursive_census": "check_tree_cache_oblivious",
+    "check_evict_round_accounting": "check_tree_cache_oblivious",
+    "check_sharded_evict_accounting": "check_tree_cache_oblivious",
+    "check_radix_zero_sort": "check_sort_radix",
+    "scan_call_sites": "check_telemetry_policy",
+    "audit_live_registry": "check_telemetry_policy",
     "AllowEntry": "oblint", "OblintReport": "oblint", "Violation": "oblint",
     "analyze": "oblint", "census_equal": "oblint",
     "RangeFinding": "rangelint", "RangeReport": "rangelint",

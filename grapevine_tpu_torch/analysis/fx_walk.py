@@ -38,8 +38,9 @@ Capture API used, present in torch 2.11 and 2.13:
 ``torch.fx.experimental.proxy_tensor.make_fx`` (``tracing_mode`` "fake"
 or "real") and ``get_proxy_mode``,
 ``torch._subclasses.functional_tensor.dispatch_functionalize`` with a
-fresh ``FunctionalTensorMode``, ``torch.overrides.TorchFunctionMode``
-and ``torch.library.custom_op``.
+fresh ``FunctionalTensorMode``, ``torch.overrides.TorchFunctionMode``,
+``torch.library.custom_op``, and ``torch._guards.tracing`` /
+``TracingContext`` (one fake mode for a real capture's metadata).
 """
 
 from __future__ import annotations
@@ -258,6 +259,20 @@ def fake_inputs(build: Callable):
         return build()
 
 
+def _one_fake_mode(tracing_mode: str):
+    """In real mode each node's metadata is a fake tensor made under a new
+    ``FakeTensorMode`` unless a tracing context holds one; one mode for the
+    whole capture makes a real capture about three times quicker."""
+    import contextlib
+
+    if tracing_mode != "real":
+        return contextlib.nullcontext()
+    from torch._guards import TracingContext, tracing
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return tracing(TracingContext(FakeTensorMode(allow_fallback_kernels=True)))
+
+
 def capture(fn: Callable, *args, names=None, tracing_mode: str = "fake",
             name: str = "program") -> Capture:
     """Capture ``fn(*args)`` as a functional FX graph of aten ops.
@@ -302,7 +317,8 @@ def capture(fn: Callable, *args, names=None, tracing_mode: str = "fake",
 
     t0 = time.perf_counter()
     try:
-        gm = make_fx(traced, tracing_mode=tracing_mode)(*tensors)
+        with _one_fake_mode(tracing_mode):
+            gm = make_fx(traced, tracing_mode=tracing_mode)(*tensors)
     except Exception as exc:  # a data-dependent capture is a finding
         if type(exc).__name__ not in DEPENDENCE_ERRORS \
                 and _REAL_MODE_DEPENDENCE not in str(exc):
@@ -416,6 +432,56 @@ def kernel_nodes(gm) -> Counter:
     """Nodes of the port's kernel ops (namespace ``gv``), by kernel name."""
     return Counter(nm.split(".")[1] for node in walk_nodes(gm) for nm in node_ops(node)
                    if nm.startswith("gv."))
+
+
+#: ops that move data between arrays at tensor-valued addresses — the
+#: access schedule the transcript argument is about (the reference's
+#: ``jaxpr_walk.ACCESS_PRIMS``: gather, every scatter). A slice or select
+#: at Python-int bounds is a constant of the program, not an access; its
+#: counterpart of JAX's ``dynamic_slice`` (a start read from a tensor) is
+#: a host read first. The gather and scatter kernel ops count too
+#: (:func:`is_access`); B2 (``gv.cipher_rows_pallas``) addresses no row.
+GATHER_OPS = ("aten.index.Tensor", "aten.index_select.default", "aten.gather.default")
+SCATTER_OPS = ("aten.index_put.default", "aten._unsafe_index_put.default",
+               "aten.index_copy.default", "aten.index_add.default", "aten.scatter.src",
+               "aten.scatter.value", "aten.scatter_add.default", "aten.scatter_reduce.two")
+ACCESS_OPS = GATHER_OPS + SCATTER_OPS
+#: data-dependent control: a host read of a value (``fx_walk.host_read``,
+#: ``_local_scalar_dense``) or a ``cond``/``while_loop`` — forbidden
+#: anywhere in a captured round (the reference's ``CONTROL_PRIMS``)
+CONTROL_OPS = ("gv_analysis.host_read.default", "aten._local_scalar_dense.default",
+               "higher_order.cond", "higher_order.while_loop")
+#: sort-family ops (the reference counts the one ``sort`` primitive)
+SORT_OPS = ("aten.sort.", "aten.argsort.", "aten.msort.", "aten.topk.", "aten.kthvalue.")
+
+
+def is_access(name: str) -> bool:
+    """Is this census key an access op (a gather, a scatter, or a kernel
+    op that gathers or scatters rows)?"""
+    return name in ACCESS_OPS or name.startswith(("gv.gather", "gv.scatter"))
+
+
+def access_counts(c: Counter) -> dict:
+    """``{"accesses", "gathers", "scatters"}`` of a census: a kernel op
+    counts with the gathers or the scatters by its name."""
+    def kern(prefix):
+        return sum(v for k, v in c.items() if k.startswith(f"gv.{prefix}"))
+
+    g = sum(c[k] for k in GATHER_OPS) + kern("gather")
+    s = sum(c[k] for k in SCATTER_OPS) + kern("scatter")
+    return {"accesses": sum(v for k, v in c.items() if is_access(k)), "gathers": g,
+            "scatters": s}
+
+
+def control_counts(c: Counter) -> dict:
+    """The census's control ops and their counts (empty when oblivious)."""
+    return {k: c[k] for k in CONTROL_OPS if c[k]}
+
+
+def sort_census(gm) -> Counter:
+    """Sort-family nodes of a captured graph, by site (``file.py:function``)."""
+    return Counter(site_of(node) for node in walk_nodes(gm)
+                   if any(nm.startswith(SORT_OPS) for nm in node_ops(node)))
 
 
 def _val_shape(a):

@@ -60,6 +60,32 @@ from .uri import SERVICE_NAME  # noqa: E402  (re-export, see uri.py)
 SESSION_TOKEN_SIZE = 16
 
 
+#: seconds past its grace a stopping gRPC server, and then its handler
+#: pool, may take before the stop returns regardless
+STOP_SLACK_S = 5.0
+
+
+def grpc_server(workers: int):
+    """A gRPC server and the thread pool that runs its handlers."""
+    pool = futures.ThreadPoolExecutor(max_workers=workers, thread_name_prefix="grapevine-rpc")
+    return grpc.server(pool), pool
+
+
+def stop_grpc(server, pool, grace: float) -> None:
+    """Stop ``server`` (calls still running after ``grace`` are cancelled),
+    then its handler pool, each wait bounded. The pool's threads end here,
+    not at interpreter exit, where ``concurrent.futures`` joins every pool
+    thread without a timeout; a handler still running past the slack is
+    logged by name, since that join would wait for it."""
+    server.stop(grace).wait(grace + STOP_SLACK_S)
+    pool.shutdown(wait=False, cancel_futures=True)
+    deadline = time.monotonic() + STOP_SLACK_S
+    for t in list(getattr(pool, "_threads", ())):
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+        if t.is_alive():
+            log.warning("gRPC handler thread %s still running after stop", t.name)
+
+
 def run_expiry_loop(engine, config, stop_event, clock, health=None):
     """The expiry-sweep loop, shared by the monolithic server and the
     engine tier (server/tier.py) — whoever owns the device owns this."""
@@ -512,9 +538,7 @@ class GrapevineServer:
             if isinstance(listen_uri, GrapevineUri)
             else GrapevineUri.parse(listen_uri)
         )
-        self._grpc_server = grpc.server(
-            futures.ThreadPoolExecutor(max_workers=max(8, 2 * self.config.batch_size))
-        )
+        self._grpc_server, self._grpc_pool = grpc_server(max(8, 2 * self.config.batch_size))
         self._grpc_server.add_generic_rpc_handlers((self._handlers(),))
         if uri.use_tls:
             if not (tls_cert and tls_key):
@@ -656,7 +680,7 @@ class GrapevineServer:
             self._metrics_server.stop()
             self._metrics_server = None
         if self._grpc_server is not None:
-            self._grpc_server.stop(grace).wait()
+            stop_grpc(self._grpc_server, self._grpc_pool, grace)
         if self.shipper is not None:
             self.shipper.close()
         self.scheduler.close()

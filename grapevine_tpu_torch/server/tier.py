@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import logging
 import threading
-from concurrent import futures
 
 import grpc
 
@@ -46,6 +45,7 @@ from ..wire import constants as C
 from ..wire.records import QueryRequest, QueryResponse
 from ..wire.validate import HardProtocolError, validate_request
 from .scheduler import AuthFailure, SchedulerShutdown
+from .service import grpc_server, stop_grpc
 
 log = logging.getLogger("grapevine_tpu_torch.tier")
 
@@ -199,10 +199,7 @@ class EngineServer:
                 self._submit, request_deserializer=identity,
                 response_serializer=identity)},
         )
-        self._grpc_server = grpc.server(
-            futures.ThreadPoolExecutor(
-                max_workers=max(8, 2 * self.config.batch_size))
-        )
+        self._grpc_server, self._grpc_pool = grpc_server(max(8, 2 * self.config.batch_size))
         self._grpc_server.add_generic_rpc_handlers((handler,))
         port = self._grpc_server.add_insecure_port(address)
         if port == 0:
@@ -309,7 +306,7 @@ class EngineServer:
             self._metrics_server.stop()
             self._metrics_server = None
         if self._grpc_server is not None:
-            self._grpc_server.stop(grace).wait()
+            stop_grpc(self._grpc_server, self._grpc_pool, grace)
         if self.shipper is not None:
             self.shipper.close()
         self.scheduler.close()

@@ -281,3 +281,29 @@ def test_op_commit_resolves_as_the_reference():
     phase = EngineConfig.from_config(GrapevineConfig(**prod))
     assert phase.rec.top_cache_levels == 4 and phase.mb_choices == 2
     assert phase.mb_table_buckets == 2048
+
+
+def test_import_scan_covers_the_census_gates():
+    """The census gates, the radix audit and the telemetry gate are port
+    modules of their own (ports of ``tools/check_posmap_oblivious.py``,
+    ``check_tree_cache_oblivious.py``, ``check_telemetry_policy.py`` and of
+    the sort audit of ``tests/test_sort_radix.py``): the boundary scan reads
+    each, and each imports where ``import jax`` fails."""
+    import subprocess
+    import sys
+
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    mods = ("check_posmap_oblivious", "check_tree_cache_oblivious", "check_sort_radix",
+            "check_telemetry_policy")
+    for mod in mods:
+        path = f"grapevine_tpu_torch/analysis/{mod}.py"
+        assert path in scanned, path
+        assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    __import__('grapevine_tpu_torch.analysis.' + m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'grapevine_tpu')"
+            " and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
