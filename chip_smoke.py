@@ -291,7 +291,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    wide-key sites; (e) ``check_telemetry_policy`` where ``import jax``
    fails, exit 0, and its namespace rules on the live registry of a
    production engine with every round observer attached, after two
-   rounds (B4, B6).
+   rounds (B4, B6);
+22. the crash-recovery chaos harness
+   (``grapevine_tpu_torch/testing/chaos_run.py``) on the card, every
+   child process on the card, no CPU fallback: (c) first, a child with
+   ``GRAPEVINE_RECORD_SIZE=2048`` runs phase 3's checks of B2-B6 at the
+   production point with 2 KB record rows (2052 words; tolerance 0, junk
+   masked; the ``ptxas`` report; each ring launch's shared memory), the
+   row's words, each kernel's path (vector or word), ms a call and bound,
+   then serves 4 rounds of ``"pallas_fused_tiled"`` at E=1 and 2 windows
+   of ``"pallas_fused"`` at E=4, every response checked against the dict
+   model; (a) the production point, E=4 ``"pallas_fused"``, k=4, depth 2,
+   durable with an fsync a frame and no checkpoint, 12 events of 256-2048
+   requests (a sweep at the 6th): one trial each killed at
+   ``round.post_dispatch``, ``flush.pre_dispatch``, ``flush.post_dispatch``,
+   ``journal.append.torn`` and by a timer within the schedule, each
+   restarted until it completes; (b) at 2^14, B=64, E=2, depth 2,
+   ``checkpoint_every`` 5: one trial for every fault site and a timer,
+   the round and flush sites again on a 2-shard virtual mesh of the card,
+   and the standby takeover (the replica in this process, the primary
+   child killed at ``round.post_dispatch`` and ``flush.pre_dispatch``).
+   Every incarnation's response hashes and the final state hash equal an
+   uninterrupted depth-1 oracle child's on the card (junk masked for the
+   sharded children: a mesh bypasses the fused kernels), the leak monitor
+   says PASS, and every fault site is killed at least once. Each part's
+   line: trials and incarnations, kills by site and where the timer kills
+   landed, frames replayed and each incarnation's start-up and recovery
+   seconds, hashes matched, leak verdicts, launches, the part's seconds.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -330,6 +356,10 @@ runs phase 20 alone after the kernel build.
     python3 chip_smoke.py --census-phase
 
 runs phase 21 alone after the kernel build.
+
+    python3 chip_smoke.py --chaos-phase
+
+runs phase 22 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -344,6 +374,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -525,10 +556,11 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod, expiry):
         for name in ("gather_decrypt_rows", "gather_decrypt_rows_tiled"):
             fn = getattr(gk, name)
             ki, kv = fn(*g_args, z=z, rounds=rounds)
+            path = gk.last_copy_path()
             torch.cuda.synchronize()
             launch = ({"launch": gk.ring_launch_config(name, r, z, zv)}
                       if name in RING.values() else {})
-            shapes.append(dict(common, kernel=name, shape="round", rows=r,
+            shapes.append(dict(common, kernel=name, shape="round", rows=r, path=path,
                                unique_rows=uniq_rows, unique_written_rows=uniq_written,
                                never_written_rows=unwritten,
                                max_abs_err=max(max_err(ki, pi), max_err(kv, pv)),
@@ -561,6 +593,7 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod, expiry):
                 got = [tree_idx.clone(), tree_val.clone(), nonces.clone()]
                 s_args = (key, *got, fb, own, epoch, new_pidx, new_pval)
                 fn(*s_args, z=z, rounds=rounds)
+                path = gk.last_copy_path()
                 torch.cuda.synchronize()
                 err = max(max_err(got[0][:-z], want[0][:-z]),
                           max_err(got[1][:-1], want[1][:-1]),
@@ -572,7 +605,7 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod, expiry):
                     raise AssertionError(f"{name} wrote the junk bucket at the "
                                          f"{tree} {shape} shape")
                 shapes.append(dict(common, kernel=name, shape=shape, rows=rr,
-                                   owned_rows=n_owned, max_abs_err=err,
+                                   owned_rows=n_owned, max_abs_err=err, path=path,
                                    launch=gk.ring_launch_config(name, rr, z, zv),
                                    ms=cuda_ms(lambda: fn(*s_args, z=z, rounds=rounds), 20),
                                    plain_ms=s_plain, bytes=s_bytes, ops=s_ops))
@@ -593,11 +626,12 @@ def kernel_checks(ecfg, gk, ck, path_oram, round_mod, expiry):
             out = ((torch.empty_like(pidx), torch.empty_like(pval)) if shape == "sweep"
                    else None)
             ki, kv = ck.cipher_rows_pallas(*c_args, rounds=rounds, out=out)
+            path = gk.last_copy_path()
             qi, qv = ck.cipher_rows_pallas_plain(*c_args, rounds=rounds)
             torch.cuda.synchronize()
             shapes.append(dict(
                 common, kernel="cipher_rows_pallas", shape=shape, rows=rr,
-                never_written_rows=rr - written,
+                never_written_rows=rr - written, path=path,
                 max_abs_err=max(max_err(ki, qi), max_err(kv, qv)),
                 launch=gk.ring_launch_config("cipher_rows_pallas", rr, z, zv),
                 ms=cuda_ms(lambda: ck.cipher_rows_pallas(*c_args, rounds=rounds, out=out), 20),
@@ -5524,6 +5558,237 @@ def census_phase_alone() -> int:
     return 0
 
 
+#: phase 22: the crash-recovery chaos harness on the card. (a) the
+#: production point, durable, no checkpoint (as phase 9a at 2^20)
+CHAOS_PROD = ["--geometry", "prod", "--bucket-cipher-impl", "pallas_fused",
+              "--tree-top-cache-levels", "4", "--evict-every", str(EVICT_EVERY),
+              "--pipeline-depth", "2", "--checkpoint-every", str(1 << 20),
+              "--events", "12", "--reqs", "256", "2048", "--users", "1024",
+              "--seed", "22", "--jobs", "5"]
+CHAOS_PROD_MODES = ("round.post_dispatch", "flush.pre_dispatch", "flush.post_dispatch",
+                    "journal.append.torn", "timer")
+#: (b) phase 9b's geometry at E=2 with checkpoints, so every site fires
+CHAOS_SMALL = ["--geometry", "small", "--bucket-cipher-impl", "pallas_fused",
+               "--evict-every", "2", "--pipeline-depth", "2", "--checkpoint-every", "5",
+               "--events", "16", "--reqs", "16", "64", "--users", "256", "--seed", "23",
+               "--jobs", "12"]
+CHAOS_SHARDED_MODES = ("round.pre_dispatch", "round.post_dispatch", "flush.pre_dispatch",
+                       "flush.post_dispatch")
+CHAOS_STANDBY_MODES = ("round.post_dispatch", "flush.pre_dispatch")
+
+
+def chaos_campaign(chaos, argv: list, modes, orc=None, where: str = "") -> tuple[list, dict]:
+    """One campaign of ``chaos_run`` on the card; raises with every
+    failure line. Returns the trial reports and the oracle."""
+    args = chaos.parse_args(["--device", "cuda", *argv])
+    reports: list = []
+    failures = chaos.run_trials(0, args, modes=list(modes), reports=reports, orc=orc)
+    if failures:
+        raise AssertionError(f"phase 22{where}: " + "\n".join(failures))
+    orc_rep, reps = reports[0]["oracle"], reports[1:]
+    for r in reps:
+        if r["mode"] != "timer" and r["kills"] < 1:
+            raise AssertionError(f"phase 22{where}: the {r['mode']} trial was never killed")
+    return reps, orc_rep
+
+
+def chaos_line(reps: list, orc: dict, seconds: float) -> dict:
+    """A part's line: trials, incarnations, kills by site, timer landings,
+    frames replayed and each incarnation's start-up and recovery seconds,
+    hashes matched, leak verdicts and the children's launches."""
+    incs = [i for r in reps for i in r["incarnations"]]
+    kills: dict = {}
+    for r in reps:
+        kills[r["mode"]] = kills.get(r["mode"], 0) + r["kills"]
+    launches: dict = {}
+    for i in incs:
+        for k, v in i.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(
+        trials=len(reps), incarnations=len(incs), kills_by_site=kills,
+        timer_kills=[r["timer"] for r in reps if r["mode"] == "timer"],
+        replayed=[i.get("replayed") for i in incs],
+        startup_s=[i["startup_s"] for i in incs if not i.get("promoted")],
+        recovery_s=[i.get("recovery_s") for i in incs],
+        promotions=[r["promote"] for r in reps if "promote" in r],
+        hashes_matched=sum(r["matched"] for r in reps),
+        hashes_recorded=sum(r["recorded"] for r in reps),
+        final_states_equal=len(reps), leakmon=["PASS"] * len(reps),
+        child_launches=launches,
+        oracle={k: orc.get(k) for k in ("startup_s", "build_s", "wall_s", "total_s")},
+        trial_s=[r["s"] for r in reps], phase_s=seconds)
+
+
+def record2048_child() -> int:
+    """Phase 22c, in a process started with ``GRAPEVINE_RECORD_SIZE=2048``:
+    B2-B6 against their plain versions at 2 KB record rows, then the
+    E=1 tiled slice and the E=4 fused slice against the dict model. Prints
+    one JSON line."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine import expiry
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.engine.state import EngineConfig
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+    from grapevine_tpu_torch.oram import path_oram, round as round_mod
+    from grapevine_tpu_torch.wire import constants as C
+
+    if C.RECORD_SIZE != 2048:
+        raise AssertionError(f"record size {C.RECORD_SIZE}, want 2048")
+    card = card_line()
+    t0 = time.perf_counter()
+    gk.load_library()
+    ptxas = ptxas_report(gk.ptxas_log())
+    geo = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048,
+               vphases_impl="dense")
+    ecfg = EngineConfig.from_config(GrapevineConfig(**geo,
+                                                    bucket_cipher_impl="pallas_fused_tiled"))
+    shapes = kernel_checks(ecfg, gk, ck, path_oram, round_mod, expiry)
+    widths = {t: (c.bucket_slots, c.bucket_slots * c.value_words)
+              for t, c in (("records", ecfg.rec), ("mailbox", ecfg.mb))}
+    # the opt-in shared memory a block may have (227 KB on Hopper)
+    smem_cap = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                       227 * 1024)
+    rows = []
+    for s in shapes:
+        smem = s.get("launch", {}).get("smem_bytes")
+        if smem is not None and smem > smem_cap:
+            raise AssertionError(f"{s['kernel']} at the {s['tree']} {s['shape']} shape "
+                                 f"needs {smem} bytes of shared memory, the card {smem_cap}")
+        rows.append(dict(kernel=s["kernel"], tree=s["tree"], shape=s["shape"],
+                         row_words=s["row_words"], rows=s["rows"],
+                         path=s["path"], max_abs_err=s["max_abs_err"],
+                         ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                         bound_by="bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
+                         smem_bytes=smem))
+    check_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    tiled = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
+    eng = GrapevineEngine(tiled, seed=SEED)
+    _reset_launches(gk, ck)
+    rounds, *_ = run_slice(eng, 4, writes=True, profile_last=False)
+    tiled_launches = _launches(gk, ck)
+    require_launches(tiled_launches, {"gather_decrypt_rows_tiled": 12,
+                                      "scatter_encrypt_rows_tiled": 12}, "22c tiled slice")
+    tiled_ms = [r["s"] * 1e3 for r in rounds]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    evict = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused", evict_every=EVICT_EVERY)
+    evict_line, _, evict_launches, eng, *_ = run_evict_slice(GrapevineEngine, evict, gk, ck,
+                                                             card, windows=2)
+    del eng
+    served = {k: tiled_launches[k] + evict_launches[k] for k in KERNELS}
+    emit({"record2048": dict(
+        record_size=C.RECORD_SIZE, payload_size=C.PAYLOAD_SIZE,
+        row_words={t: sum(w) for t, w in widths.items()}, ptxas=ptxas, kernels=rows,
+        tiled_e1=dict(rounds=len(rounds), round_ms=tiled_ms, launches=tiled_launches),
+        fused_e4=dict(rounds=evict_line["rounds_total"], flushes=evict_line["flushes"],
+                      median_fetch_round_ms=evict_line["median_fetch_round_ms"],
+                      flush_ms=evict_line["flush_ms"], launches=evict_launches),
+        responses_checked=True, launches=served, check_s=check_s,
+        serve_s=time.perf_counter() - t1, card=card)})
+    return 0
+
+
+def run_chaos_phase(gk, ck, card) -> dict:
+    """Phase 22: (c) B2-B6 and two slices at 2 KB records in a child of
+    their own, (a) the chaos campaign at the production point, (b) every
+    fault site, the sharded campaign and the standby takeover at 2^14.
+    The launches are this process's (the standby replica) plus those the
+    children's completed incarnations and 22c's slices report."""
+    from grapevine_tpu_torch.testing import chaos_run as chaos
+    from grapevine_tpu_torch.testing.faults import ALL_POINTS
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gk.build_library()  # the children load it; none of them builds
+    out: dict = {}
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, GRAPEVINE_RECORD_SIZE="2048")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--record2048-child"],
+                         env=env, capture_output=True, text=True, timeout=900,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"record2048"')]
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"phase 22c: the 2 KB child exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    out["c"] = json.loads(lines[-1])["record2048"]
+    out["c"]["phase_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reps, orc = chaos_campaign(chaos, CHAOS_PROD, CHAOS_PROD_MODES, where="a")
+    out["a"] = chaos_line(reps, orc, time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _reset_launches(gk, ck)
+    # one oracle, then the three campaigns at once: 16 restart chains and
+    # the standby trials. The oracle ignores the shard count; asked for
+    # the sharded campaign it also hashes the final state with the junk
+    # bucket masked, which the sharded children are held to
+    orc_b = chaos.run_oracle(chaos.parse_args(["--device", "cuda", *CHAOS_SMALL,
+                                               "--shards", "2"]))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        runs = [pool.submit(chaos_campaign, chaos, argv, modes, orc_b, where)
+                for argv, modes, where in (
+                    (CHAOS_SMALL, list(ALL_POINTS) + ["timer"], "b"),
+                    (CHAOS_SMALL + ["--shards", "2", "--seed", "24"], CHAOS_SHARDED_MODES,
+                     "b sharded"),
+                    (CHAOS_SMALL + ["--standby", "--seed", "25"], CHAOS_STANDBY_MODES,
+                     "b standby"))]
+        (reps, orc), (sharded, _), (standby, _) = [r.result() for r in runs]
+    parent = _launches(gk, ck)
+    killed = {r["mode"] for r in reps + sharded + standby if r["kills"]}
+    missing = set(ALL_POINTS) - killed
+    if missing:
+        raise AssertionError(f"phase 22b: fault sites never killed on the card: {missing}")
+    out["b"] = dict(chaos_line(reps, orc, 0.0), sharded=chaos_line(sharded, orc, 0.0),
+                    standby=chaos_line(standby, orc, 0.0), parent_launches=parent,
+                    phase_s=time.perf_counter() - t0)
+    launches = {k: (out["c"]["launches"].get(k, 0) + parent.get(k, 0)
+                    + sum(p["child_launches"].get(k, 0)
+                          for p in (out["a"], out["b"], out["b"]["sharded"],
+                                    out["b"]["standby"])))
+                for k in KERNELS}
+    return dict(out, launches=launches, card=card, phase_s=time.perf_counter() - t_phase)
+
+
+def emit_chaos_lines(ch: dict) -> None:
+    card = ch["card"]
+    emit({"chaos_record2048": ch["c"], "card": card})
+    emit({"chaos_prod": ch["a"], "card": card})
+    emit({"chaos_small": {k: v for k, v in ch["b"].items() if k not in ("sharded", "standby")},
+          "card": card})
+    emit({"chaos_sharded": ch["b"]["sharded"], "card": card})
+    emit({"chaos_standby": ch["b"]["standby"], "card": card})
+    emit({"chaos_phase_s": ch["phase_s"], "chaos_launches": ch["launches"], "card": card})
+
+
+def chaos_phase_alone() -> int:
+    """Phase 22 alone: the card line, the kernel build, then the chaos
+    phase."""
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    ch = run_chaos_phase(gk, ck, card)
+    emit_chaos_lines(ch)
+    emit({"chaos_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def repeat_standby_runbook(n: int) -> int:
     """Phase 12b alone, ``n`` times: each run's outcome on a line of its
     own, then the count; 1 if any run failed."""
@@ -5561,6 +5826,10 @@ def main() -> int:
                     help="run phase 20 alone (after the kernel build)")
     ap.add_argument("--census-phase", action="store_true",
                     help="run phase 21 alone (after the kernel build)")
+    ap.add_argument("--chaos-phase", action="store_true",
+                    help="run phase 22 alone (after the kernel build)")
+    ap.add_argument("--record2048-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -5580,6 +5849,10 @@ def main() -> int:
         return range_phase_alone()
     if args.census_phase:
         return census_phase_alone()
+    if args.chaos_phase:
+        return chaos_phase_alone()
+    if args.record2048_child:
+        return record2048_child()
     t_start = time.perf_counter()
     #: seconds each group of phases took, in order
     phase_s: dict = {}
@@ -5770,6 +6043,13 @@ def main() -> int:
     cz = run_census_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
     split("census")
 
+    # phase 22: the chaos harness — B2-B6 and two slices at 2 KB records
+    # (B2-B6), kill, recover and compare at the production point (B3, B5,
+    # B2 in the children) and at 2^14 (B3, B5, B2; the standby replica in
+    # this process)
+    ch = run_chaos_phase(gk, ck, card)
+    split("chaos")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -5814,7 +6094,8 @@ def main() -> int:
     }
     for k in KERNELS:
         launches_by_kernel[k] += (mesh["launches"].get(k, 0) + an["launches"][k]
-                                  + rp["launches"][k] + cz["launches"][k])
+                                  + rp["launches"][k] + cz["launches"][k]
+                                  + ch["launches"][k])
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -5842,6 +6123,7 @@ def main() -> int:
     emit_analysis_lines(an)
     emit_range_lines(rp)
     emit_census_lines(cz)
+    emit_chaos_lines(ch)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
                                     op["launches"]["cipher_rows_pallas"]), "card": card})

@@ -117,6 +117,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 }  // namespace
 
+thread_local int gv_copy_path = -1;
+
 extern "C" {
 
 // Returns the cudaError_t of the launch (0 = launched).
@@ -137,7 +139,9 @@ int gv_gather_decrypt_rows_tiled(const void* key, const void* tree_idx,
       (const uint32_t*)tree_val, (const uint32_t*)nonces,
       (const int32_t*)flat_b, (uint32_t*)out_idx, (uint32_t*)out_val, z, zv,
       rounds, vec);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) gv_copy_path = vec ? 1 : 0;
+  return (int)err;
 }
 
 int gv_gather_decrypt_rows(const void* key, const void* tree_idx,
@@ -161,5 +165,9 @@ int gv_gather_decrypt_rows(const void* key, const void* tree_idx,
 int gv_gather_launch_config(int64_t rows, int z, int zv, int* out) {
   return ring_launch_config<kRowThreads, 1, kGather>(rows, z, zv, out);
 }
+
+// 1 if the calling thread's latest launch (any kernel of this library)
+// moved 16-byte vectors, 0 if 4-byte words, -1 if it launched none.
+int gv_last_copy_path(void) { return gv_copy_path; }
 
 }  // extern "C"

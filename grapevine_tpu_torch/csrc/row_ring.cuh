@@ -62,6 +62,12 @@
 
 #include "chacha.cuh"
 
+// The copy path the calling thread's latest launch took: 1 for 16-byte
+// vectors (TMA bulk copies in a ring launch), 0 for 4-byte words, -1
+// before any launch. Each launch sets it from its own choice; read with
+// gv_last_copy_path. Defined in gather_kernels.cu.
+extern thread_local int gv_copy_path;
+
 namespace {
 
 constexpr int kScatter = 0;
@@ -453,7 +459,9 @@ int ring_launch(const RingArgs& a, int64_t rows, int z, int zv, int rounds,
   ring_kernel<kCta, kMaxRows, kDir>
       <<<p.grid, kCta, p.smem_bytes, (cudaStream_t)stream>>>(
           a, rows, z, zv, rounds, p.rows_per_step, bulk);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) gv_copy_path = bulk ? 1 : 0;
+  return (int)err;
 }
 
 // out[4] = {grid, rows per step, dynamic shared memory bytes a CTA, CTAs

@@ -28,7 +28,8 @@ The one-row gather, both scatters and the row cipher
 (``cipher_kernels.py``) are four launches of one kernel body, the row
 ring (``csrc/row_ring.cuh``): persistent CTAs stream whole rows through
 a shared-memory ring with TMA bulk copies and XOR the keystream in on
-the way; :func:`ring_launch_config` says how each launches.
+the way; :func:`ring_launch_config` says how each launches, and
+:func:`last_copy_path` which copy path a launch took.
 
 ``bucket_cipher_impl="pallas_fused"`` runs the one-row pair and
 ``"pallas_fused_tiled"`` the tiled pair, as in the reference. A wrapper
@@ -169,6 +170,8 @@ def load_library():
         for name in ("gv_scatter_launch_config", "gv_gather_launch_config",
                      "gv_cipher_launch_config"):
             getattr(lib, name).restype = i32
+        lib.gv_last_copy_path.argtypes = []
+        lib.gv_last_copy_path.restype = i32
         _lib = lib
     return _lib
 
@@ -415,3 +418,14 @@ def ring_launch_config(kernel: str, rows: int, z: int, zv: int) -> dict:
         raise RuntimeError(f"{kernel} launch config failed: cudaError {err}")
     return dict(grid=out[0], rows_per_step=out[1], smem_bytes=out[2],
                 ctas_per_sm=out[3])
+
+
+def last_copy_path() -> str:
+    """The copy path the calling thread's latest kernel launch took, as the
+    launch chose it from the row widths and its pointers' alignment:
+    ``"vector"`` (16-byte vectors; TMA bulk copies in a row-ring launch)
+    or ``"word"`` (4-byte words)."""
+    v = load_library().gv_last_copy_path()
+    if v < 0:
+        raise RuntimeError("no kernel was launched on this thread")
+    return "vector" if v else "word"

@@ -26,6 +26,7 @@ from grapevine_tpu_torch.analysis.allowlist import ENGINE_ALLOWLIST
 from grapevine_tpu_torch.config import GrapevineConfig
 from grapevine_tpu_torch.engine import vphases
 from grapevine_tpu_torch.engine.state import EngineConfig
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 GEOMETRIES = [dict(max_messages=64, max_recipients=16, batch_size=8),
               dict(max_messages=256, max_recipients=32, batch_size=32)]

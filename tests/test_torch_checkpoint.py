@@ -35,6 +35,7 @@ from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 from test_torch_engine import jax_leaves
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 SMALL = dict(max_messages=64, max_recipients=8, mailbox_cap=4, batch_size=4,
              stash_size=64)

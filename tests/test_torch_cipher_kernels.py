@@ -288,12 +288,16 @@ def test_cuda_gather_rows_duplicates(cuda_device, z, zv, n, dups, rounds):
 @pytest.mark.parametrize("z,zv", [(4, 1024), (4, 6080)])
 def test_cuda_cipher_rows_misaligned_plane(cuda_device, z, zv):
     """A ``pval`` that is a contiguous view 4 bytes past a 16-byte
-    boundary takes the ring's word path, with the same result."""
+    boundary takes the ring's word path, with the same result; the
+    aligned plane takes the vector path. The launch reports its path."""
     c = _cuda(_share_cipher_inputs(17, z, zv, 1 / 8, r=301))
+    check_cuda_cipher(c)
+    assert gk.last_copy_path() == "vector"
     base = torch.empty(301 * zv + 1, dtype=torch.int32, device=cuda_device)
     c["pval"] = base[1:].view(301, zv).copy_(c["pval"])
     assert c["pval"].is_contiguous() and c["pval"].data_ptr() % 16 == 4
     check_cuda_cipher(c)
+    assert gk.last_copy_path() == "word"
 
 
 def test_cuda_gather_and_cipher_refuse_row_wider_than_the_ring(cuda_device):

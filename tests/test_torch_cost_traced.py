@@ -11,6 +11,7 @@ import pytest
 
 from grapevine_tpu.analysis import costmodel as rcm
 from grapevine_tpu_torch.analysis import costmodel as cm
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def twin(height, blocks, k, *, cipher=8, recursive=False, e=1, f=0, buf=0):

@@ -11,6 +11,7 @@ import pytest
 
 from grapevine_tpu.analysis import costmodel as rcm
 from grapevine_tpu_torch.analysis import costmodel as cm
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 #: (max_messages log2, max_recipients log2, B, E): the reference's two
 #: audit engines and a second geometry of each

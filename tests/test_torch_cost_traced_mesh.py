@@ -16,6 +16,7 @@ import pytest
 
 from grapevine_tpu.analysis import costmodel as rcm
 from grapevine_tpu_torch.analysis import costmodel as cm
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -36,6 +36,7 @@ from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 NOW = 1_700_000_000

@@ -48,6 +48,7 @@ from test_torch_engine import (
     jax_draws,
     jax_leaves,
 )
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 #: jitted as the reference's GrapevineEngine jits its flush
 _jax_flush = jax.jit(jax_flush, static_argnums=(0,), donate_argnums=(1,))

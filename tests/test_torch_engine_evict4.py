@@ -8,6 +8,7 @@ import pytest
 
 from test_torch_engine import GEOMETRIES
 from test_torch_engine_evict import run_evict_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [3, 4])

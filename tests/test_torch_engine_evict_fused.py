@@ -8,6 +8,7 @@ state too with the padded junk bucket masked. Kept in its own file so the
 interpret-mode compiles run beside the other campaigns."""
 
 from test_torch_engine_evict import run_evict_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def test_campaign_e2_matches_jax_pallas_fused():

@@ -9,6 +9,7 @@ file so the interpret-mode compiles run beside the jnp campaigns."""
 import pytest
 
 from test_torch_engine import GEOMETRIES, run_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [3, 4])

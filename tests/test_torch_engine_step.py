@@ -34,6 +34,7 @@ from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import crud_batches, jax_leaves
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 

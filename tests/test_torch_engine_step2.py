@@ -9,6 +9,7 @@ reference runs its Pallas row cipher in interpret mode, the port's
 import pytest
 
 from test_torch_engine_step import _check_coverage, run_step_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [5, 6])

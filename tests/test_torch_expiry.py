@@ -44,6 +44,7 @@ from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import GEOMETRIES, NOW, _jax_step, crud_batches, jax_draws, jax_leaves
 from test_torch_engine_evict import _jax_flush
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 #: jitted as the reference's GrapevineEngine jits its sweep
 _jax_sweep = jax.jit(jax_sweep, static_argnums=(0,), donate_argnums=(1,))

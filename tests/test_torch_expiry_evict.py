@@ -6,6 +6,7 @@ empty
 import pytest
 
 from test_torch_expiry import run_expiry_case
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [2, 3])

@@ -28,6 +28,7 @@ from grapevine_tpu.obs import leakmon as ref_leakmon
 from grapevine_tpu.obs import registry as ref_registry
 from grapevine_tpu.obs import workload as ref_workload
 from grapevine_tpu_torch.obs import fleet, httpd, leakmon, registry, workload
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -147,7 +148,18 @@ def test_cli_fleet_role_serves_the_merged_view(members):
             time.sleep(0.1)  # the process scrapes on its own cadence
         assert 'grapevine_rounds_total{shard="0"} 20' in body
         assert 'grapevine_fleet_members 2' in body
-        hz = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz").read())
+        # /healthz is 503 until a cycle has read each member's /healthz
+        # (it follows that member's /metrics) and while a scrape times out
+        hz = None
+        for _ in range(100):
+            try:
+                hz = json.loads(
+                    urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz").read())
+                break
+            except urllib.error.HTTPError as exc:
+                assert exc.code == 503, exc.code
+                time.sleep(0.1)
+        assert hz is not None, "the fleet's /healthz stayed 503 for 10 s"
         assert hz["role"] == "fleet" and hz["n_members"] == 2
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"http://127.0.0.1:{port}/leakaudit")

@@ -10,6 +10,7 @@ import pytest
 
 from grapevine_tpu.analysis import importlint as ref
 from grapevine_tpu_torch.analysis import importlint as port
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

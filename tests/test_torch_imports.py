@@ -55,7 +55,8 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     the seal scan), and the op-major engine and its oracle (own copies of
     the reference's jax-free ``testing/reference.py``, ``ref_oram.py``,
     ``fixtures.py``, a torch port of ``compare.py``), and so is the device
-    mesh (a port of ``parallel/``), so the boundary scan reads each of
+    mesh (a port of ``parallel/``) and the crash-recovery chaos harness (a
+    port of ``tools/chaos_run.py``), so the boundary scan reads each of
     them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
@@ -71,7 +72,8 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
                 "load/capacity.py", "load/harness.py", "testing/checkpoint_seal.py",
                 "engine/vphases.py", "oblivious/prp.py", "engine/step.py",
                 "testing/reference.py", "testing/ref_oram.py", "testing/fixtures.py",
-                "testing/compare.py", "parallel/__init__.py", "parallel/mesh.py"):
+                "testing/compare.py", "parallel/__init__.py", "parallel/mesh.py",
+                "testing/chaos_run.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]

@@ -29,6 +29,7 @@ from grapevine_tpu_torch.engine.round_step import transcript_key_groups
 from grapevine_tpu_torch.obs import exporter, flightrec, leakmon, registry
 from grapevine_tpu_torch.testing import leakcheck as lc
 from grapevine_tpu_torch.wire import constants as C
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 SEEDS = (3, 11)
 

@@ -28,6 +28,7 @@ from grapevine_tpu_torch.load import generators as tgen
 from grapevine_tpu_torch.load import harness as th
 from grapevine_tpu_torch.obs.fleet import FleetUniformityMonitor
 from grapevine_tpu_torch.wire import constants as C
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 GENERATORS = {
     "steady": lambda g, seed: g.steady_poisson(200.0, 4.0, seed),

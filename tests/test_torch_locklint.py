@@ -9,6 +9,7 @@ import pytest
 
 from grapevine_tpu.analysis import locklint as ref
 from grapevine_tpu_torch.analysis import locklint as port
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 _FAKE_OK = '''
 import threading

@@ -43,6 +43,7 @@ from grapevine_tpu_torch.parallel import (
     shard_engine_state,
     unshard_engine_state,
 )
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 KW = dict(max_messages=64, max_recipients=8, mailbox_cap=4, batch_size=4, stash_size=64)
 

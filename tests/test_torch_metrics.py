@@ -48,6 +48,7 @@ from grapevine_tpu_torch.obs import (
 from grapevine_tpu_torch.obs.registry import _CounterChild
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 NOW = 1_700_000_000
 TOY = dict(max_messages=64, max_recipients=8, mailbox_cap=4, batch_size=4,

@@ -13,6 +13,7 @@ import pytest
 from grapevine_tpu.analysis.mutants import mutant_names as ref_mutant_names
 from grapevine_tpu_torch.analysis.allowlist import ENGINE_ALLOWLIST
 from grapevine_tpu_torch.analysis.mutants import control_failures, mutant_names, run_mutants
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

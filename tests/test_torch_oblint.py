@@ -26,6 +26,7 @@ from torch._higher_order_ops.while_loop import while_loop
 from grapevine_tpu.analysis.oblint import AllowEntry as RefAllowEntry
 from grapevine_tpu.analysis.oblint import analyze as ref_analyze
 from grapevine_tpu_torch.analysis.oblint import AllowEntry, analyze
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 I32 = torch.int32

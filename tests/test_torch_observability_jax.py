@@ -50,6 +50,7 @@ from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 from test_torch_engine import jax_draws, jax_leaves
 from test_torch_pipeline_jax import NOW, _plan, _reqs
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 PAIR = dict(max_messages=64, max_recipients=16, mailbox_cap=8, batch_size=4,
             stash_size=64, vphases_impl="dense", pipeline_depth=2, evict_every=2)

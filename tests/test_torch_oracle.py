@@ -49,6 +49,7 @@ from test_torch_engine import jax_leaves
 from test_torch_engine_step import _jax_step
 from test_torch_posmap import jflat
 from test_torch_round import _batches, jax_kv_apply
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 NOW = 1_700_000_000
 ORACLE_CFG = dict(max_messages=16, max_recipients=4, mailbox_cap=3, batch_size=4,

@@ -31,6 +31,7 @@ from grapevine_tpu_torch.testing.compare import logical_block_map
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
 from test_torch_posmap import jflat
 from test_torch_round import OP_DELETE, OP_READ, OP_WRITE, _batches, torch_kv_apply
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 B = 10
 

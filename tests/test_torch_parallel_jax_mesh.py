@@ -34,6 +34,7 @@ from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import crud_batches, jax_draws, jax_leaves
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 KW = dict(max_messages=64, max_recipients=8, mailbox_cap=4, batch_size=4, stash_size=64,
           bucket_cipher_rounds=0, evict_every=2, vphases_impl="dense")

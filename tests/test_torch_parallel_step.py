@@ -49,6 +49,7 @@ from test_torch_posmap_engine_jax import (
     injected_draws,
     jax_state_leaves,
 )
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def _check(tst, jst, where):

@@ -6,6 +6,7 @@ choice): shards 2 and 4, ``"pallas"`` and ``"pallas_fused"``, two seeds
 import pytest
 
 from test_torch_parallel_step import run_sharded_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("impl,shards", [("pallas_fused", 2), ("pallas", 4)])

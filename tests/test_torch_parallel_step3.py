@@ -8,6 +8,7 @@ compares)."""
 import pytest
 
 from test_torch_parallel_step import run_sharded_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed,impl,shards", [(2, "pallas", 2), (7, "pallas_fused", 4)])

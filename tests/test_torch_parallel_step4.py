@@ -7,6 +7,7 @@ each campaign compares)."""
 import pytest
 
 from test_torch_parallel_step import run_sharded_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("impl,shards", [("pallas_fused", 2), ("pallas", 4)])

@@ -41,6 +41,7 @@ from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 from test_torch_engine import jax_draws, jax_leaves
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 NOW = 1_700_000_000
 #: 16 mailboxes of 8 hold more than the 64 messages: a create-heavy campaign

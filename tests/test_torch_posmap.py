@@ -33,6 +33,7 @@ from grapevine_tpu_torch.oram import path_oram as tpo
 from grapevine_tpu_torch.oram import posmap as tpm
 from grapevine_tpu_torch.oram.round import occurrence_masks as t_occ
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 

@@ -44,6 +44,7 @@ from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import GEOMETRIES, NOW, _jax_step, crud_batches, jax_draws
 from test_torch_posmap import jflat
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 

@@ -6,6 +6,7 @@ checks are ``test_torch_posmap_engine_jax.py``'s)."""
 import pytest
 
 from test_torch_posmap_engine_jax import run_recursive_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [2, 7])

@@ -26,6 +26,7 @@ from grapevine_tpu_torch.oram import round as tround
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
 from test_torch_posmap import jflat
 from test_torch_round import _batches, jax_kv_apply, torch_kv_apply
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 B = 12
 

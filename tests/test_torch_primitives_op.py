@@ -15,6 +15,7 @@ import torch
 from grapevine_tpu.oblivious import primitives as jp
 from grapevine_tpu_torch.oblivious import primitives as tp
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def _words(rng, shape, top: bool):

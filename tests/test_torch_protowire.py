@@ -13,6 +13,7 @@ from grapevine_tpu.wire import records as ref_rec
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire import protowire as pw
 from grapevine_tpu_torch.wire import records as rec
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 SEEDS = range(6)
 

@@ -12,6 +12,7 @@ from grapevine_tpu.oblivious import prp as jprp
 from grapevine_tpu_torch.oblivious import prp as tprp
 from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.u32 import to_numpy as t2n
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 7, 13, 16, 21, 31, 32])

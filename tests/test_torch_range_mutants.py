@@ -13,6 +13,7 @@ from grapevine_tpu_torch.analysis.mutants import (
     range_mutant_names,
     run_range_mutants,
 )
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def test_names_are_the_references():

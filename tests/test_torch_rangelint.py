@@ -28,6 +28,7 @@ from grapevine_tpu_torch.analysis.oblint import AllowEntry
 from grapevine_tpu_torch.analysis.rangelint import analyze_ranges, dtype_range
 from grapevine_tpu_torch.oblivious.primitives import scatter_drop
 from grapevine_tpu_torch.u32 import ult, widen
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 I32 = torch.int32

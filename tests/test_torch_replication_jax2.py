@@ -7,6 +7,7 @@ responses and transcripts equal, at tolerance 0."""
 import pytest
 
 from test_torch_replication_jax import run_drill
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 GEO = dict(max_messages=256, max_recipients=32, mailbox_cap=8, batch_size=16,
            stash_size=96, evict_every=2, vphases_impl="dense", pipeline_depth=2,

@@ -21,6 +21,7 @@ from grapevine_tpu_torch.oram import round as tround
 from grapevine_tpu_torch.oram.path_oram import OramConfig, OramState, path_bucket_indices
 from grapevine_tpu_torch.oram.round import oram_round
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 U32 = jnp.uint32
 OP_READ, OP_WRITE, OP_DELETE = 1, 2, 3

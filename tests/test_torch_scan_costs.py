@@ -28,6 +28,7 @@ from grapevine_tpu_torch.config import GrapevineConfig
 from grapevine_tpu_torch.engine.state import EngineConfig
 from grapevine_tpu_torch.oram import path_oram as tpo
 from grapevine_tpu_torch.u32 import from_numpy
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 GEOS = [
     dict(max_messages=2**10, max_recipients=64, batch_size=8, tree_top_cache_levels=0),

@@ -14,6 +14,7 @@ import torch
 from grapevine_tpu.oblivious import segmented as js
 from grapevine_tpu_torch.oblivious import segmented as ts
 from grapevine_tpu_torch.u32 import from_numpy
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 SIZES = [1, 2, 3, 7, 16, 33, 64]
 

@@ -28,6 +28,7 @@ from grapevine_tpu_torch import native
 from grapevine_tpu_torch import session
 from grapevine_tpu_torch.session import chacha, channel, merlin, ristretto, schnorrkel, stdcrypto
 from grapevine_tpu_torch.wire import constants as C
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 CTX = C.GRAPEVINE_CHALLENGE_SIGNING_CONTEXT
 SCHEMES = {"schnorrkel": (schnorrkel, ref_sk), "rfc9496": (ristretto, ref_r)}

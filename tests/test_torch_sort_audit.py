@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from grapevine_tpu_torch.analysis import check_sort_radix as csr
 from grapevine_tpu_torch.analysis.fx_walk import sort_census
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def reference_sort_sites(sort_impl: str, b: int = 32) -> Counter:

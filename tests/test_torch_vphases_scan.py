@@ -38,6 +38,7 @@ from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import GEOMETRIES, crud_batches
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 def _impl(v, s="xla"):

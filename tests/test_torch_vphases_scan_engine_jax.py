@@ -37,6 +37,7 @@ from grapevine_tpu_torch.u32 import to_numpy as t2n
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import _jax_step, crud_batches, jax_draws
 from test_torch_posmap_engine_jax import injected_draws, jax_state_leaves
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 _jax_flush = jax.jit(jax_flush, static_argnums=(0,), donate_argnums=(1,))
 

@@ -8,6 +8,7 @@ import pytest
 
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_vphases_scan_engine_jax import SCAN_GEOS, run_scan_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("seed,impl", [(2, "jnp"), (6, "pallas_fused")])

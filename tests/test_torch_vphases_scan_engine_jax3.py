@@ -11,6 +11,7 @@ import pytest
 from grapevine_tpu_torch.wire import constants as C
 from test_torch_engine import NOW, PW
 from test_torch_vphases_scan_engine_jax import SCAN_GEOS, run_scan_campaign
+from _torch_jax_cache import shared_jax_compile_cache  # noqa: F401
 
 #: the bus within B of full after one round of creates; mailbox_cap
 #: raised so the bus quota binds before the per-recipient cap
