@@ -317,7 +317,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    says PASS, and every fault site is killed at least once. Each part's
    line: trials and incarnations, kills by site and where the timer kills
    landed, frames replayed and each incarnation's start-up and recovery
-   seconds, hashes matched, leak verdicts, launches, the part's seconds.
+   seconds, hashes matched, leak verdicts, launches, the part's seconds;
+23. the reference's test-only contracts at the production point (ChaCha8,
+   k=4), each part one line with its checks, launches per kernel, rounds
+   and seconds: (a) u64 lanes, on E=1 ``"pallas_fused_tiled"`` then E=4
+   ``"pallas_fused"``: ``seq`` set to (2^32 - B/2, 0), one round of B
+   creates at a post-2106 clock over 64 recipients (every mailbox
+   straddles the wrap), then pops by zero-id DELETE in creation order,
+   each equal to a dict model; in a fresh engine, one round stamped at
+   2^32 - 50 and one at 2^32 + 20, swept at 2^32 + 50 with period 60
+   (B2): the first round all expires, the second stays; (b) same-key
+   hazards on each kernel impl at E=1, one engine at a time: the 33
+   (ordering, fill) cases of the reference as 33 recipient groups in one
+   hazard round after a setup round, the two-recipient case beside them,
+   then a drain, every response and count equal to the port's oracle with
+   forced ids; (c) the two-choice mailbox table: 75% of ``max_recipients``
+   at the default load 0.5 (the early TOO_MANY_RECIPIENTS count), and a
+   fill at load 1.0 until the early path fires, with the reference's
+   consistency checks, slots per recipient for both; (d) the leak
+   canaries through the records tree's ``oram_round`` on each kernel
+   impl at B (no-dedup, no-remap, biased dummy, honest and leaky), then 8
+   mixed CRUD rounds with their transcripts (uniformity and the R/U/D
+   two-sample statistic with its op-type-bias canary); (e) R/U/D round
+   walls on E=1 ``"pallas_fused_tiled"`` at the default depth: 30
+   interleaved rounds a kind over 2B live records (DELETE of absent ids),
+   the pairwise Mann-Whitney z, a canary with DELETE rounds slowed by one
+   round's cost, and the launches of one profiled round of each kind,
+   which must be equal; (f) 8 randomized soak campaigns on the card
+   against the oracle (``testing/soak.py``, the reference's variants with
+   ``"pallas"`` on each kernel impl in turn), then 30 s of the server
+   stress workload through a ``GrapevineServer`` on the card, ChaCha8 on.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -360,6 +389,10 @@ runs phase 21 alone after the kernel build.
     python3 chip_smoke.py --chaos-phase
 
 runs phase 22 alone after the kernel build.
+
+    python3 chip_smoke.py --contracts-phase
+
+runs phase 23 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -367,8 +400,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
+import math
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -5789,6 +5825,757 @@ def chaos_phase_alone() -> int:
     return 0
 
 
+#: phase 23: the reference's test-only contracts, at the production point
+CONTRACT_GEO = dict(max_messages=2**20, max_recipients=2**12, batch_size=2048,
+                    vphases_impl="dense")
+#: a post-2106 clock (u32 seconds wrap at 2^32)
+FUTURE = (1 << 32) + 12_345
+#: 23a: the recipients a round of B creates is spread over
+U64_RECIPIENTS = 64
+#: 23d: mixed CRUD rounds with transcripts
+CANARY_ENGINE_ROUNDS = 8
+#: 23e: timed rounds a kind, the honest cut and the canary's (the rank
+#: statistic saturates at sqrt(3 N^2 / (2N + 1)) ~ 6.65 for N = 30)
+TIMING_ROUNDS = 30
+TIMING_HONEST_Z = 4.5
+TIMING_CANARY_Z = 5.5
+#: 23f: soak campaigns, and the stress workload's seconds
+SOAK_CAMPAIGNS = 8
+STRESS_S = 30.0
+
+
+class Admissions:
+    """The admission branch of each round ``eng`` dispatches (True: the
+    fast branch), recorded around the facade's own decision."""
+
+    def __init__(self, eng):
+        self.fast: list[bool] = []
+        decide = eng._admission
+
+        def recording(creates: int) -> bool:
+            ok = decide(creates)
+            self.fast.append(bool(ok))
+            return ok
+
+        eng._admission = recording
+
+    def summary(self) -> dict:
+        return {"rounds": len(self.fast), "fast": sum(self.fast),
+                "slow_rounds": [i for i, f in enumerate(self.fast) if not f]}
+
+
+def _free(dev) -> None:
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _need(launches: dict, some: tuple, where: str, dev) -> None:
+    """On the card, each kernel of ``some`` launched and no other."""
+    if torch.device(dev).type == "cuda":
+        _require_kernels(launches, some, where)
+
+
+#: the kernels each impl's rounds launch (E=1; E=4 ``"pallas_fused"`` the same)
+IMPL_KERNELS = {"pallas": ("cipher_rows_pallas",),
+                "pallas_fused": ("gather_decrypt_rows", "scatter_encrypt_rows"),
+                "pallas_fused_tiled": ("gather_decrypt_rows_tiled",
+                                       "scatter_encrypt_rows_tiled")}
+
+
+def contracts_u64(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, dev) -> dict:
+    """23a: the u64 lanes at the production point (``tests/test_u64_lanes.py``),
+    on E=1 ``"pallas_fused_tiled"`` then E=4 ``"pallas_fused"``."""
+    import numpy as np
+
+    from grapevine_tpu_torch.engine import expiry
+    from grapevine_tpu_torch.u32 import from_numpy, to_numpy
+    from grapevine_tpu_torch.wire import constants as C
+
+    CREATE, READ, DELETE = C.REQUEST_TYPE_CREATE, C.REQUEST_TYPE_READ, C.REQUEST_TYPE_DELETE
+    OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+    t_part = time.perf_counter()
+    b, nr = geo["batch_size"], U64_RECIPIENTS
+    per = b // nr
+    sender = _key("u64s", 0)
+    rcps = [_key("u64r", r) for r in range(nr)]
+    passes = []
+    checks = 0
+    for impl, e in (("pallas_fused_tiled", 1), ("pallas_fused", EVICT_EVERY)):
+        cfg = GrapevineConfig(**geo, bucket_cipher_impl=impl, evict_every=e)
+        _free(dev)
+        _reset_launches(gk, ck)
+        eng = GrapevineEngine(cfg, seed=SEED, device=dev)
+        adm = Admissions(eng)
+        seq0 = (1 << 32) - b // 2
+        eng.state = eng.state._replace(
+            seq=from_numpy(np.asarray([seq0, 0], np.uint32), eng.device))
+        t0 = time.perf_counter()
+        pays = [_payload(23, i) for i in range(b)]
+        resp = eng.handle_queries([_req(CREATE, sender, rcps[i % nr], payload=pays[i])
+                                   for i in range(b)], FUTURE)
+        check_responses(resp, [(OK, None)] * b, f"23a {impl} creates")
+        if {r.record.timestamp for r in resp} != {FUTURE}:
+            raise AssertionError(f"23a {impl}: a create's timestamp is not {FUTURE}")
+        seq = to_numpy(eng.state.seq).tolist()
+        if seq != [(seq0 + b) & 0xFFFFFFFF, 1]:
+            raise AssertionError(f"23a {impl}: seq {seq} after the wrap")
+        # recipient r's messages in creation (slot) order: r, r + nr, ...;
+        # the first half of the slots got seq hi 0, the second hi 1
+        queue = {r: [(resp[i].record.msg_id, pays[i]) for i in range(r, b, nr)]
+                 for r in range(nr)}
+        checks += b
+        for k in range(per):
+            pops = eng.handle_queries([_req(DELETE, rcps[r]) for r in range(nr)],
+                                      FUTURE + 1 + k)
+            check_responses(pops, [(OK, (queue[r][k][0], sender, rcps[r], queue[r][k][1]))
+                                   for r in range(nr)], f"23a {impl} pop round {k}")
+            if {p.record.timestamp for p in pops} != {FUTURE}:
+                raise AssertionError(f"23a {impl} pop round {k}: a stored timestamp changed")
+            checks += nr
+        empty = eng.handle_queries([_req(DELETE, rcps[r]) for r in range(nr)], FUTURE + 99)
+        check_responses(empty, [(NF, None)] * nr, f"23a {impl} empty pop")
+        if eng.message_count() != 0:
+            raise AssertionError(f"23a {impl}: {eng.message_count()} messages after the pops")
+        checks += nr
+        wrap_s = time.perf_counter() - t0
+        wrap_launches = _launches(gk, ck)
+        _need(wrap_launches, IMPL_KERNELS[impl], f"23a {impl} wrap", dev)
+        del eng
+        _free(dev)
+
+        # expiry across 2^32 in a fresh engine: one round at 2^32 - 50, one
+        # at 2^32 + 20, the sweep at 2^32 + 50 with period 60
+        t0 = time.perf_counter()
+        eng = GrapevineEngine(cfg, seed=SEED + 1, device=dev)
+        adm2 = Admissions(eng)
+        half = b // 2
+        stamps = ((1 << 32) - 50, (1 << 32) + 20)
+        rounds = []
+        for j, ts in enumerate(stamps):
+            reqs = [_req(CREATE, sender, rcps[i % nr], payload=_payload(24 + j, i))
+                    for i in range(half)]
+            got = eng.handle_queries(reqs, ts)
+            check_responses(got, [(OK, None)] * half, f"23a {impl} stamp {ts}")
+            rounds.append([(r.record.msg_id, q.record.recipient, q.record.payload)
+                           for r, q in zip(got, reqs)])
+        _reset_launches(gk, ck)
+        evicted = eng.expire((1 << 32) + 50, period=60)
+        sweep_launches = _launches(gk, ck)
+        if evicted != half:
+            raise AssertionError(f"23a {impl}: the sweep evicted {evicted}, expected {half}")
+        b2 = 2 * sum(c.n_buckets_padded // expiry._chunk_rows(c)
+                     for c in (eng.ecfg.rec, eng.ecfg.mb))
+        if torch.device(dev).type == "cuda":
+            require_launches(sweep_launches, {"cipher_rows_pallas": b2}, f"23a {impl} sweep")
+        reads = eng.handle_queries([_req(READ, sender, mid=m) for m, _, _ in rounds[0] + rounds[1]],
+                                   (1 << 32) + 51)
+        check_responses(reads, [(NF, None)] * half
+                        + [(OK, (m, sender, r, p)) for m, r, p in rounds[1]],
+                        f"23a {impl} read-back")
+        if eng.message_count() != half:
+            raise AssertionError(f"23a {impl}: {eng.message_count()} messages after the sweep")
+        checks += 2 * half + 1
+        passes.append(dict(
+            impl=impl, evict_every=e, seq_start=[seq0, 0], seq_after=seq,
+            creates=b, pop_rounds=per, wrap_s=wrap_s, wrap_launches=wrap_launches,
+            wrap_admission=adm.summary(), evicted=evicted, kept=half,
+            sweep_launches=sweep_launches, expiry_s=time.perf_counter() - t0,
+            expiry_admission=adm2.summary()))
+        del eng
+    _free(dev)
+    return dict(passes=passes, checks=checks, rounds=sum(
+        p["wrap_admission"]["rounds"] + p["expiry_admission"]["rounds"] for p in passes),
+        launches=_sum_launches([p["wrap_launches"] for p in passes]
+                               + [p["sweep_launches"] for p in passes]),
+        s=time.perf_counter() - t_part)
+
+
+def _sum_launches(parts: list) -> dict:
+    return {k: sum(p.get(k, 0) for p in parts) for k in KERNELS}
+
+
+def contracts_same_key(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, dev) -> dict:
+    """23b: the 33 same-key (ordering, fill) cases and the two-recipient
+    case of ``tests/test_same_key_ordering.py`` as recipient groups of one
+    hazard round, then a drain, each kernel impl at E=1 against the port's
+    oracle with forced ids."""
+    from grapevine_tpu_torch.testing.reference import ReferenceEngine
+    from grapevine_tpu_torch.testing.soak import HAZARD_PERMS, KERNEL_IMPLS, req, run_pair
+    from grapevine_tpu_torch.wire import constants as C
+
+    CREATE, READ, DELETE = C.REQUEST_TYPE_CREATE, C.REQUEST_TYPE_READ, C.REQUEST_TYPE_DELETE
+    t_part = time.perf_counter()
+    s = _key("sks", 0)
+    groups = [(_key("skx", len(HAZARD_PERMS) * pre + i), pre, perm)
+              for pre in (0, 1, 2) for i, perm in enumerate(HAZARD_PERMS)]
+    x, y = _key("sky", 0), _key("sky", 1)
+    every = [g[0] for g in groups] + [x, y]
+    drains = 2 + max(len(p) for p in HAZARD_PERMS) + 1
+
+    def op(kind, rcp, tag):
+        if kind == "create":
+            return req(CREATE, s, recipient=rcp, tag=tag)
+        return req(READ if kind == "zread" else DELETE, rcp)
+
+    out = []
+    for impl in KERNEL_IMPLS:
+        _free(dev)
+        _reset_launches(gk, ck)
+        t0 = time.perf_counter()
+        cfg = GrapevineConfig(**geo, bucket_cipher_impl=impl)
+        eng = GrapevineEngine(cfg, seed=11, device=dev)
+        adm = Admissions(eng)
+        oracle = ReferenceEngine(config=cfg, rng=random.Random(42))
+        n = {"responses": 0, "rounds": 0}
+
+        def pair(reqs, t):
+            got = run_pair(eng, oracle, reqs, t, f"23b {impl} round {n['rounds']}")
+            n["responses"] += len(reqs)
+            n["rounds"] += 1
+            return got
+
+        t = NOW
+        pair([req(CREATE, s, recipient=g, tag=100 + i)
+              for g, pre, _ in groups for i in range(pre)], t)
+        hazard = [op(kind, g, 10 + i) for g, _, perm in groups for i, kind in enumerate(perm)]
+        hazard += [req(READ, x), req(DELETE, y), req(CREATE, s, recipient=y, tag=1),
+                   req(CREATE, s, recipient=x, tag=2)]
+        got = pair(hazard, t + 1)
+        created = sum(r.request_type == CREATE and d.status_code == C.STATUS_CODE_SUCCESS
+                      for r, d in zip(hazard, got))
+        for k in range(drains):
+            pair([req(READ, g) for g in every], t + 2 + k)
+            pair([req(DELETE, g) for g in every], t + 2 + k)
+        if eng.message_count() != 0:
+            raise AssertionError(f"23b {impl}: {eng.message_count()} messages after the drain")
+        launches = _launches(gk, ck)
+        _need(launches, IMPL_KERNELS[impl], f"23b {impl}", dev)
+        out.append(dict(impl=impl, groups=len(groups) + 2, hazard_ops=len(hazard),
+                        hazard_creates_ok=created, responses_equal=n["responses"],
+                        rounds=n["rounds"], admission=adm.summary(), launches=launches,
+                        s=time.perf_counter() - t0))
+        del eng
+    _free(dev)
+    return dict(impls=out, checks=sum(o["responses_equal"] for o in out),
+                rounds=sum(o["rounds"] for o in out),
+                launches=_sum_launches([o["launches"] for o in out]),
+                s=time.perf_counter() - t_part)
+
+
+def contracts_mailbox(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, dev) -> dict:
+    """23c: the two-choice mailbox table (``tests/test_mailbox_load.py``) at
+    the production point, E=1 ``"pallas_fused_tiled"``."""
+    from grapevine_tpu_torch.wire import constants as C
+
+    CREATE, READ = C.REQUEST_TYPE_CREATE, C.REQUEST_TYPE_READ
+    OK, NF, TMR = (C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND,
+                   C.STATUS_CODE_TOO_MANY_RECIPIENTS)
+    t_part = time.perf_counter()
+    b, cap = geo["batch_size"], geo["max_recipients"]
+    sender = _key("mbs", 0)
+    out: dict = {}
+    _reset_launches(gk, ck)
+    rounds = 0
+    checks = 0
+
+    def fill(eng, lo: int, hi: int, tag: str, now: int) -> dict:
+        """Creates from ``sender`` to recipients ``lo..hi-1``, one each."""
+        reqs = [_req(CREATE, sender, _key(tag, i), payload=_payload(7, i))
+                for i in range(lo, hi)]
+        got = eng.handle_queries(reqs, now)
+        return {i: (r.status_code, r.record.msg_id, q.record.payload)
+                for i, r, q in zip(range(lo, hi), got, reqs)}
+
+    # (a) the default load 0.5: 75% of max_recipients in 2 rounds
+    _free(dev)
+    t0 = time.perf_counter()
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
+    eng = GrapevineEngine(cfg, seed=SEED, device=dev)
+    adm = Admissions(eng)
+    n = 3 * cap // 4
+    st: dict = {}
+    for lo, hi in ((0, n // 2), (n // 2, n)):
+        st.update(fill(eng, lo, hi, "mbd", NOW))
+    codes = [v[0] for v in st.values()]
+    if not set(codes) <= {OK, TMR}:
+        raise AssertionError(f"23c default load: statuses {sorted(set(codes))}")
+    ok = codes.count(OK)
+    if not eng.recipient_count() == eng.message_count() == ok:
+        raise AssertionError("23c default load: recipients, messages and successes differ")
+    checks += len(codes) + 1
+    rounds += len(adm.fast)
+    out["default_load"] = dict(
+        mailbox_load=cfg.resolved_mailbox_load, recipients=n, rounds=len(adm.fast),
+        early_too_many_recipients=codes.count(TMR),
+        slots_per_recipient=eng.ecfg.mb_table_buckets * eng.ecfg.mb_slots / cap,
+        table=[eng.ecfg.mb_table_buckets, eng.ecfg.mb_slots], admission=adm.summary(),
+        s=time.perf_counter() - t0)
+    del eng
+    _free(dev)
+
+    # (b) load 1.0: rounds of B distinct recipients until the early path fires
+    t0 = time.perf_counter()
+    cfg1 = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled", mailbox_load=1.0)
+    eng = GrapevineEngine(cfg1, seed=SEED, device=dev)
+    adm = Admissions(eng)
+    st = {}
+    while TMR not in (v[0] for v in st.values()) and len(st) < cap:
+        st.update(fill(eng, len(st), min(len(st) + b, cap), "mbf", NOW))
+    codes = [v[0] for v in st.values()]
+    if not set(codes) <= {OK, TMR} or TMR not in codes:
+        raise AssertionError(f"23c load 1.0: statuses {sorted(set(codes))}")
+    good = [i for i, v in st.items() if v[0] == OK]
+    early = [i for i, v in st.items() if v[0] == TMR]
+    if not eng.recipient_count() == eng.message_count() == len(good):
+        raise AssertionError("23c load 1.0: recipients, messages and successes differ")
+    fill_rounds = len(adm.fast)
+    # every success drains; every early failure left no trace
+    every = sorted(st)
+    for lo in range(0, len(every), b):
+        part = every[lo:lo + b]
+        got = eng.handle_queries([_req(READ, _key("mbf", i)) for i in part], NOW + 1)
+        check_responses(got, [(OK, (st[i][1], sender, _key("mbf", i), st[i][2]))
+                              if st[i][0] == OK else (NF, None) for i in part],
+                        "23c load 1.0 read-back")
+    checks += 2 * len(codes) + 1
+    rounds += len(adm.fast)
+    out["load_1"] = dict(
+        mailbox_load=cfg1.resolved_mailbox_load, recipients_tried=len(st),
+        fill_rounds=fill_rounds, successes=len(good), early_too_many_recipients=len(early),
+        first_early=early[0], read_back=len(every),
+        slots_per_recipient=eng.ecfg.mb_table_buckets * eng.ecfg.mb_slots / cap,
+        table=[eng.ecfg.mb_table_buckets, eng.ecfg.mb_slots], admission=adm.summary(),
+        s=time.perf_counter() - t0)
+    del eng
+    _free(dev)
+    launches = _launches(gk, ck)
+    _need(launches, IMPL_KERNELS["pallas_fused_tiled"], "23c", dev)
+    return dict(out, checks=checks, rounds=rounds, launches=launches,
+                s=time.perf_counter() - t_part)
+
+
+def contracts_canaries(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, dev) -> dict:
+    """23d: the leak canaries (``tests/test_leak_canary.py``) through the
+    records tree's production ``oram_round`` on each kernel impl at B, then
+    mixed CRUD engine rounds with their transcripts."""
+    import numpy as np
+
+    from grapevine_tpu_torch.engine.state import EngineConfig
+    from grapevine_tpu_torch.oram.path_oram import OramState, init_oram, random_below
+    from grapevine_tpu_torch.oram.round import oram_round
+    from grapevine_tpu_torch.testing import leakcheck as lc
+    from grapevine_tpu_torch.testing.soak import KERNEL_IMPLS
+    from grapevine_tpu_torch.u32 import to_numpy
+    from grapevine_tpu_torch.wire import constants as C
+
+    t_part = time.perf_counter()
+    b = geo["batch_size"]
+    out: dict = {"impls": []}
+    rounds = 0
+
+    def passthrough(vals0, present0):
+        return {}, vals0, present0
+
+    def insert(vals0, present0):
+        return {}, torch.ones_like(vals0), torch.ones_like(present0)
+
+    for impl in KERNEL_IMPLS:
+        _free(dev)
+        _reset_launches(gk, ck)
+        t0 = time.perf_counter()
+        rcfg = EngineConfig.from_config(GrapevineConfig(**geo, bucket_cipher_impl=impl)).rec
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+
+        def uniform():
+            return random_below(gen, rcfg.leaves, (b,), dev)
+
+        st0 = init_oram(rcfg, gen, dev)
+        st0, _, _ = oram_round(rcfg, st0, torch.arange(b, dtype=torch.int32, device=dev),
+                               uniform(), uniform(), insert)
+        n = {"rounds": 1}
+
+        def step(state, idxs, nl, dl):
+            state, _, leaves = oram_round(rcfg, state, idxs, nl, dl, passthrough)
+            n["rounds"] += 1
+            return state, to_numpy(leaves)
+
+        def start():
+            return OramState(*(t.clone() for t in st0))
+
+        # no-dedup: B ops on one key; honest dummies are uniform, leaky ones
+        # fetch the key's real leaf
+        idxs = torch.zeros(b, dtype=torch.int32, device=dev)
+        nl, dl = uniform(), uniform()
+        keys = np.zeros(b, np.int64)
+        honest = lc.samekey_leaf_collisions(keys, step(start(), idxs, nl, dl)[1])
+        leaky = lc.samekey_leaf_collisions(
+            keys, step(start(), idxs, nl, st0.posmap[:1].expand(b).contiguous())[1])
+        pairs = b * (b - 1) // 2
+        lam = pairs / rcfg.leaves
+        if abs(honest - lam) > 6 * math.sqrt(lam) or leaky != pairs:
+            raise AssertionError(f"23d {impl} no-dedup: honest {honest} (expected {lam:.2f}), "
+                                 f"leaky {leaky} of {pairs}")
+
+        # no-remap: key 3 in slot 0, padding elsewhere, 12 rounds
+        idxs = torch.full((b,), rcfg.dummy_index, dtype=torch.int32, device=dev)
+        idxs[0] = 3
+
+        def remap_run(leaky_run: bool):
+            state, seq = start(), []
+            for _ in range(12):
+                nl = state.posmap[idxs.long()].clone() if leaky_run else uniform()
+                state, leaves = step(state, idxs, nl, uniform())
+                seq.append(int(leaves[0]))
+            return lc.cross_round_repeat_rate(np.asarray(seq))
+
+        rep_honest, rep_leaky = remap_run(False), remap_run(True)
+        if not (rep_honest < 0.2 and rep_leaky == 1.0):
+            raise AssertionError(f"23d {impl} no-remap: honest {rep_honest}, leaky {rep_leaky}")
+
+        # biased dummy: 24 all-padding rounds
+        idxs = torch.full((b,), rcfg.dummy_index, dtype=torch.int32, device=dev)
+
+        def biased_run(leaky_run: bool):
+            state, pool = start(), []
+            for _ in range(24):
+                dl = torch.zeros(b, dtype=torch.int32, device=dev) if leaky_run else uniform()
+                state, leaves = step(state, idxs, uniform(), dl)
+                pool.append(leaves)
+            return lc.uniformity_z(np.concatenate(pool), rcfg.leaves)
+
+        z_honest, z_leaky = biased_run(False), biased_run(True)
+        if not (abs(z_honest) < 6 and z_leaky > 50):
+            raise AssertionError(f"23d {impl} biased dummy: z honest {z_honest}, "
+                                 f"leaky {z_leaky}")
+        del st0
+        launches = _launches(gk, ck)
+        _need(launches, IMPL_KERNELS[impl], f"23d {impl}", dev)
+        rounds += n["rounds"]
+        out["impls"].append(dict(
+            impl=impl, tree=dict(height=rcfg.height, leaves=rcfg.leaves,
+                                 cipher_rounds=rcfg.cipher_rounds,
+                                 top_cache_levels=rcfg.top_cache_levels),
+            no_dedup=dict(honest=honest, expected=lam, leaky=leaky, pairs=pairs),
+            no_remap=dict(honest=rep_honest, leaky=rep_leaky),
+            biased_dummy=dict(z_honest=z_honest, z_leaky=z_leaky),
+            oram_rounds=n["rounds"], launches=launches, s=time.perf_counter() - t0))
+
+    # mixed CRUD engine rounds with transcripts
+    _free(dev)
+    _reset_launches(gk, ck)
+    t0 = time.perf_counter()
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
+    eng = GrapevineEngine(cfg, seed=SEED, device=dev)
+    adm = Admissions(eng)
+    rng = random.Random(9)
+    CREATE, READ, UPDATE, DELETE = (C.REQUEST_TYPE_CREATE, C.REQUEST_TYPE_READ,
+                                    C.REQUEST_TYPE_UPDATE, C.REQUEST_TYPE_DELETE)
+    nrc = max(8, b // 8)
+    sender = _key("cns", 0)
+    rcp = [_key("cnr", i) for i in range(nrc)]
+    setup = [_req(CREATE, sender, rcp[i % nrc], payload=_payload(9, i)) for i in range(b)]
+    got = eng.handle_queries(setup, NOW)
+    check_responses(got, [(C.STATUS_CODE_SUCCESS, None)] * b, "23d setup")
+    live = [(r.record.msg_id, q.record.recipient) for r, q in zip(got, setup)]
+    d = eng.ecfg.mb_choices
+    mb_cols = list(range(d)) + list(range(d + 1, 2 * d + 1))
+    mb_pool, rec_pool = [], []
+    by_kind: dict = {READ: [], UPDATE: [], DELETE: []}
+    q = b // 4
+    for t in range(CANARY_ENGINE_ROUNDS):
+        rng.shuffle(live)
+        targets, live = live[:3 * q], live[3 * q:]
+        kinds = [READ] * q + [UPDATE] * q + [DELETE] * q
+        reqs = [_req(k, sender, r, mid=m, payload=_payload(10, t))
+                for k, (m, r) in zip(kinds, targets)]
+        reqs += [_req(CREATE, sender, rcp[rng.randrange(nrc)], payload=_payload(11, i))
+                 for i in range(b - 3 * q)]
+        order = list(range(b))
+        rng.shuffle(order)
+        reqs = [reqs[i] for i in order]
+        resps, tr = eng.handle_queries_with_transcript(reqs, NOW + 1 + t)
+        tr = np.asarray(tr)
+        for j, (rq, rs) in enumerate(zip(reqs, resps)):
+            if rs.status_code != C.STATUS_CODE_SUCCESS:
+                raise AssertionError(f"23d mixed round {t} slot {j}: status {rs.status_code}")
+            if rq.request_type == CREATE:
+                live.append((rs.record.msg_id, rq.record.recipient))
+            elif rq.request_type != DELETE:
+                live.append((rq.record.msg_id, rq.record.recipient))
+            if rq.request_type in by_kind:
+                by_kind[rq.request_type].append(int(tr[j, d]))
+        mb_pool.append(tr[:, mb_cols].ravel())
+        rec_pool.append(tr[:, d])
+    ecfg = eng.ecfg
+    z_mb = lc.uniformity_z(np.concatenate(mb_pool), ecfg.mb.leaves, bins=8)
+    z_rec = lc.uniformity_z(np.concatenate(rec_pool), ecfg.rec.leaves, bins=8)
+    pools = {k: np.asarray(v) for k, v in by_kind.items()}
+    n_leaves = ecfg.rec.leaves
+    z_rud = {f"{a}_{c}": lc.twosample_z(pools[x], pools[y], n_leaves, bins=8)
+             for (a, x), (c, y) in itertools.combinations(
+                 (("read", READ), ("update", UPDATE), ("delete", DELETE)), 2)}
+    z_bias = lc.twosample_z(pools[READ], pools[DELETE] % (n_leaves // 8), n_leaves, bins=8)
+    if not (abs(z_mb) < 6 and abs(z_rec) < 6 and all(abs(z) < 6 for z in z_rud.values())
+            and z_bias > 20):
+        raise AssertionError(f"23d mixed rounds: z mailbox {z_mb}, records {z_rec}, "
+                             f"R/U/D {z_rud}, op-type bias {z_bias}")
+    launches = _launches(gk, ck)
+    _need(launches, IMPL_KERNELS["pallas_fused_tiled"], "23d mixed rounds", dev)
+    del eng
+    _free(dev)
+    out["engine"] = dict(rounds=1 + CANARY_ENGINE_ROUNDS, uniformity_z_mailbox=z_mb,
+                         uniformity_z_records=z_rec, rud_twosample_z=z_rud,
+                         op_type_bias_z=z_bias,
+                         samples=dict(zip(("read", "update", "delete"),
+                                          (len(v) for v in by_kind.values()))),
+                         admission=adm.summary(), launches=launches,
+                         s=time.perf_counter() - t0)
+    rounds += 1 + CANARY_ENGINE_ROUNDS
+    # six detector checks an impl, six over the mixed rounds, and every
+    # response of the setup and mixed rounds
+    return dict(out, checks=6 * len(KERNEL_IMPLS) + 6 + (1 + CANARY_ENGINE_ROUNDS) * b,
+                rounds=rounds,
+                launches=_sum_launches([o["launches"] for o in out["impls"]]
+                                       + [launches]),
+                s=time.perf_counter() - t_part)
+
+
+def contracts_timing(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, dev) -> dict:
+    """23e: READ, UPDATE and DELETE round walls (``tests/test_timing_uniformity.py``)
+    on E=1 ``"pallas_fused_tiled"`` at the default pipeline depth."""
+    import numpy as np
+
+    from grapevine_tpu_torch.testing.leakcheck import timing_twosample_z
+    from grapevine_tpu_torch.wire import constants as C
+
+    CREATE, READ, UPDATE, DELETE = (C.REQUEST_TYPE_CREATE, C.REQUEST_TYPE_READ,
+                                    C.REQUEST_TYPE_UPDATE, C.REQUEST_TYPE_DELETE)
+    OK, NF = C.STATUS_CODE_SUCCESS, C.STATUS_CODE_NOT_FOUND
+    t_part = time.perf_counter()
+    b = geo["batch_size"]
+    cuda = torch.device(dev).type == "cuda"
+    _free(dev)
+    cfg = GrapevineConfig(**geo, bucket_cipher_impl="pallas_fused_tiled")
+    eng = GrapevineEngine(cfg, seed=3, device=dev)
+    adm = Admissions(eng)
+    sender = _key("tms", 0)
+    nrc = max(4, b // 16)
+    rcp = [_key("tmr", i) for i in range(nrc)]
+    ids, rcps = [], []
+    for j in range(2):  # 2B records
+        reqs = [_req(CREATE, sender, rcp[i % nrc], payload=_payload(12, j * b + i))
+                for i in range(b)]
+        got = eng.handle_queries(reqs, NOW)
+        check_responses(got, [(OK, None)] * b, f"23e populate {j}")
+        ids += [r.record.msg_id for r in got]
+        rcps += [q.record.recipient for q in reqs]
+    rng = random.Random(23)
+    absent = set()
+    while len(absent) < b:
+        m = rng.randbytes(16)
+        if m not in ids and m != bytes(16):
+            absent.add(m)
+    reqs = {
+        "read": [_req(READ, sender, mid=ids[i]) for i in range(b)],
+        "update": [_req(UPDATE, sender, rcps[b + i], mid=ids[b + i], payload=_payload(13, i))
+                   for i in range(b)],
+        "delete": [_req(DELETE, sender, rcps[0], mid=m) for m in sorted(absent)],
+    }
+    want = {"read": OK, "update": OK, "delete": NF}
+    kinds = ("read", "update", "delete")
+    n_before = eng.message_count()
+
+    checked = [0]
+
+    def run(kind: str):
+        got = eng.handle_queries(reqs[kind], NOW)
+        if {r.status_code for r in got} != {want[kind]}:
+            raise AssertionError(f"23e {kind}: statuses {sorted({r.status_code for r in got})}")
+        checked[0] += len(got)
+        return got
+
+    for k in kinds:  # warm-up: one round of each kind
+        run(k)
+
+    def measure(slow_delete_s: float = 0.0) -> dict:
+        gc.collect()
+        times: dict = {k: [] for k in kinds}
+        gen2: dict = {k: [] for k in kinds}
+        for _ in range(TIMING_ROUNDS):
+            for k in kinds:
+                g0 = gc.get_stats()[2]["collections"]
+                t0 = time.perf_counter()
+                run(k)
+                if k == "delete" and slow_delete_s:
+                    time.sleep(slow_delete_s)  # the canary: an op-keyed slowdown
+                times[k].append(time.perf_counter() - t0)
+                gen2[k].append(gc.get_stats()[2]["collections"] - g0)
+        return {k: np.asarray(v) for k, v in times.items()}, gen2
+
+    first = len(adm.fast)
+    times, gen2 = measure()
+    z = {"read_update": timing_twosample_z(times["read"], times["update"]),
+         "read_delete": timing_twosample_z(times["read"], times["delete"]),
+         "update_delete": timing_twosample_z(times["update"], times["delete"])}
+    per_round = float(np.median(np.concatenate(list(times.values()))))
+    c_times, _ = measure(slow_delete_s=per_round)
+    z_canary = timing_twosample_z(c_times["read"], c_times["delete"])
+    timed_fast = adm.fast[first:]
+    if not all(timed_fast):
+        raise AssertionError("23e: a timed round took the slow admission walk")
+    if eng.message_count() != n_before:
+        raise AssertionError("23e: the stored records changed")
+
+    # one profiled round of each kind: its launches and its kernels
+    prof = {}
+    for k in kinds:
+        _reset_launches(gk, ck)
+        if cuda:
+            p = profile_round(lambda: run(k))
+            prof[k] = dict(launches=_launches(gk, ck), device_kernels=p["device_kernels"],
+                           device_ms=p["device_ms"], wall_ms=p["wall_ms"])
+        else:
+            run(k)
+            prof[k] = dict(launches=_launches(gk, ck))
+    if cuda:
+        _require_kernels(prof["read"]["launches"], IMPL_KERNELS["pallas_fused_tiled"], "23e")
+    for k in ("update", "delete"):
+        for field in ("launches", "device_kernels"):
+            if prof[k].get(field) != prof["read"].get(field):
+                raise AssertionError(f"23e: the profiled {k} round's {field} "
+                                     f"{prof[k].get(field)} differ from read's "
+                                     f"{prof['read'].get(field)}")
+    fails = [f"{p} |z| {v:.2f}" for p, v in z.items() if abs(v) >= TIMING_HONEST_Z]
+    if fails or abs(z_canary) <= TIMING_CANARY_Z:
+        raise AssertionError(f"23e: honest {z}, canary {z_canary}")
+
+    def stats(a):
+        ms = np.sort(a) * 1e3
+        return dict(median_ms=float(np.median(ms)), p90_ms=float(np.quantile(ms, 0.9)),
+                    max_ms=float(ms[-1]), min_ms=float(ms[0]))
+
+    line = dict(
+        pipeline_depth=eng.pipeline_depth, rounds_a_kind=TIMING_ROUNDS, records=n_before,
+        honest_z=z, canary_z=z_canary, canary_sleep_ms=per_round * 1e3,
+        by_kind={k: dict(stats(times[k]), gc_gen2_rounds=sum(1 for g in gen2[k] if g))
+                 for k in kinds},
+        canary_by_kind={k: stats(c_times[k]) for k in kinds},
+        profiled=prof, admission=dict(adm.summary(), timed_all_fast=True),
+        launches=_sum_launches([p["launches"] for p in prof.values()]))
+    rounds = len(adm.fast)
+    del eng
+    _free(dev)
+    # the four z cuts, launches and kernels of two kinds against read's,
+    # the stored count, and every response's status
+    return dict(line, checks=4 + 2 * 2 + 1 + checked[0], rounds=rounds,
+                s=time.perf_counter() - t_part)
+
+
+def contracts_soaks(GrapevineConfig, gk, ck, dev, stress_s: float = STRESS_S) -> dict:
+    """23f: randomized soak campaigns against the port's oracle on the card,
+    then the stress workload through a ``GrapevineServer`` on the card."""
+    from grapevine_tpu_torch.server.service import GrapevineServer
+    from grapevine_tpu_torch.testing import soak
+
+    t_part = time.perf_counter()
+    _free(dev)
+    _reset_launches(gk, ck)
+    camps = []
+    for i in range(SOAK_CAMPAIGNS):
+        cfg = soak.variant_config(i)
+        t0 = time.perf_counter()
+        got = soak.campaign(cfg, seed=1000 + i, device=dev)
+        camps.append(dict(got, impl=cfg.bucket_cipher_impl, cipher=cfg.bucket_cipher_rounds,
+                          batch_size=cfg.batch_size, density=cfg.tree_density,
+                          s=time.perf_counter() - t0))
+    soak_launches = _launches(gk, ck)
+    _free(dev)
+
+    _reset_launches(gk, ck)
+    t0 = time.perf_counter()
+    cfg = GrapevineConfig(bucket_cipher_rounds=8, bucket_cipher_impl="pallas_fused_tiled",
+                          max_messages=1 << 10, max_recipients=64, batch_size=8,
+                          stash_size=128)
+    srv = GrapevineServer(config=cfg, seed=1, device=dev)
+    try:
+        port = srv.start("insecure-grapevine://127.0.0.1:0")
+        tallies = soak.stress(f"insecure-grapevine://127.0.0.1:{port}", stress_s)
+        h = srv.health()
+    finally:
+        srv.stop()
+    if not (h["stash_overflow"] == 0 and h["auth_failures"] >= tallies["bad_sig"] > 0
+            and 0 <= h["messages"] <= cfg.max_messages and h["real_ops"] > 0):
+        raise AssertionError(f"23f stress: health {h}, tallies {tallies}")
+    stress_launches = _launches(gk, ck)
+    _need(stress_launches, IMPL_KERNELS["pallas_fused_tiled"], "23f stress", dev)
+    stress = dict(seconds=stress_s, threads=soak.STRESS_THREADS, client_tallies=tallies,
+                  real_ops=h["real_ops"], rounds=h["rounds"],
+                  batch_occupancy=h["batch_occupancy"], auth_failures=h["auth_failures"],
+                  messages=h["messages"], launches=stress_launches,
+                  s=time.perf_counter() - t0)
+    _free(dev)
+    return dict(campaigns=camps,
+                soak_ops=sum(c["ops"] for c in camps), soak_rounds=sum(c["rounds"] for c in camps),
+                soak_launches=soak_launches, stress=stress,
+                checks=sum(c["ops"] for c in camps) + tallies["ops"] + tallies["bad_sig"],
+                rounds=sum(c["rounds"] for c in camps) + h["rounds"],
+                launches=_sum_launches([soak_launches, stress_launches]),
+                s=time.perf_counter() - t_part)
+
+
+def run_contracts_phase(GrapevineConfig, GrapevineEngine, gk, ck, card) -> dict:
+    """Phase 23: the reference's test-only contracts (A20) at
+    ``CONTRACT_GEO`` on the card."""
+    t_phase = time.perf_counter()
+    dev, geo = "cuda", CONTRACT_GEO
+    parts = {
+        "a": contracts_u64(GrapevineConfig, GrapevineEngine, geo, gk, ck, dev),
+        "b": contracts_same_key(GrapevineConfig, GrapevineEngine, geo, gk, ck, dev),
+        "c": contracts_mailbox(GrapevineConfig, GrapevineEngine, geo, gk, ck, dev),
+        "d": contracts_canaries(GrapevineConfig, GrapevineEngine, geo, gk, ck, dev),
+        "e": contracts_timing(GrapevineConfig, GrapevineEngine, geo, gk, ck, dev),
+        "f": contracts_soaks(GrapevineConfig, gk, ck, dev),
+    }
+    launches = _sum_launches([p["launches"] for p in parts.values()])
+    missing = [k for k in KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 23: kernels never launched: {missing}")
+    return dict(parts, launches=launches, card=card, phase_s=time.perf_counter() - t_phase)
+
+
+CONTRACT_LINES = {"a": "contracts_u64", "b": "contracts_same_key", "c": "contracts_mailbox",
+                  "d": "contracts_canaries", "e": "contracts_timing", "f": "contracts_soaks"}
+
+
+def emit_contracts_lines(ct: dict) -> None:
+    for part, name in CONTRACT_LINES.items():
+        emit({name: ct[part], "card": ct["card"]})
+    emit({"contracts_phase_s": ct["phase_s"], "contracts_launches": ct["launches"],
+          "card": ct["card"]})
+
+
+def contracts_phase_alone() -> int:
+    """Phase 23 alone: the card line, the kernel build, then the contracts
+    phase."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    ct = run_contracts_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    emit_contracts_lines(ct)
+    emit({"contracts_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def repeat_standby_runbook(n: int) -> int:
     """Phase 12b alone, ``n`` times: each run's outcome on a line of its
     own, then the count; 1 if any run failed."""
@@ -5828,6 +6615,8 @@ def main() -> int:
                     help="run phase 21 alone (after the kernel build)")
     ap.add_argument("--chaos-phase", action="store_true",
                     help="run phase 22 alone (after the kernel build)")
+    ap.add_argument("--contracts-phase", action="store_true",
+                    help="run phase 23 alone (after the kernel build)")
     ap.add_argument("--record2048-child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5851,6 +6640,8 @@ def main() -> int:
         return census_phase_alone()
     if args.chaos_phase:
         return chaos_phase_alone()
+    if args.contracts_phase:
+        return contracts_phase_alone()
     if args.record2048_child:
         return record2048_child()
     t_start = time.perf_counter()
@@ -6050,6 +6841,13 @@ def main() -> int:
     ch = run_chaos_phase(gk, ck, card)
     split("chaos")
 
+    # phase 23: the reference's test-only contracts — u64 lanes (B4, B6;
+    # B3, B5; B2 in the sweeps), same-key hazards on each impl (B2; B3, B5;
+    # B4, B6), the mailbox table (B4, B6), the leak canaries on each impl
+    # and mixed rounds (B2-B6), R/U/D timing (B4, B6), the soaks (B2-B6)
+    ct = run_contracts_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    split("contracts")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -6095,7 +6893,7 @@ def main() -> int:
     for k in KERNELS:
         launches_by_kernel[k] += (mesh["launches"].get(k, 0) + an["launches"][k]
                                   + rp["launches"][k] + cz["launches"][k]
-                                  + ch["launches"][k])
+                                  + ch["launches"][k] + ct["launches"][k])
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -6124,6 +6922,7 @@ def main() -> int:
     emit_range_lines(rp)
     emit_census_lines(cz)
     emit_chaos_lines(ch)
+    emit_contracts_lines(ct)
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
                                     op["launches"]["cipher_rows_pallas"]), "card": card})

@@ -19,6 +19,9 @@ The same fixture compiles those programs with
 without LLVM's expensive passes): the same programs, less codegen work.
 The port's tests compare integer states and responses, which are exact
 at any optimization level.
+
+While the file's tests run, PyTorch also uses one intra-op CPU thread
+(``tests/_torch_threads.py`` says why), restored when the file ends.
 """
 
 import os
@@ -28,6 +31,7 @@ import time
 
 import jax
 import pytest
+import torch
 from jax.experimental.compilation_cache import compilation_cache as _cc
 
 _PREFIX = "grapevine-torch-jax-cache-"
@@ -63,9 +67,12 @@ def shared_jax_compile_cache():
     jax.config.update("jax_compilation_cache_max_size", _MAX_BYTES)
     jax.config.update("jax_disable_most_optimizations", True)
     _cc.reset_cache()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
         yield
     finally:
         for k, v in before.items():
             jax.config.update(k, v)
         _cc.reset_cache()
+        torch.set_num_threads(threads)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from grapevine_tpu_torch.analysis import check_posmap_oblivious as cpo
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

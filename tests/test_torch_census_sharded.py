@@ -8,6 +8,7 @@ import pytest
 from test_torch_census_posmap import reference_tool
 
 from grapevine_tpu_torch.analysis import check_tree_cache_oblivious as ctc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_sharded_trace_accounting_equals_the_reference():

@@ -26,6 +26,7 @@ import pytest
 
 from grapevine_tpu_torch.testing import chaos_run as chaos
 from grapevine_tpu_torch.testing.faults import ALL_POINTS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

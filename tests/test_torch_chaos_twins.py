@@ -22,6 +22,7 @@ import pytest
 
 from grapevine_tpu_torch.testing import chaos_run as chaos
 from grapevine_tpu_torch.testing.faults import ALL_POINTS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 E1_ARGS = ["--device", "cpu", "--events", "8", "--seed", "5"]
 

@@ -10,6 +10,7 @@ import pytest
 
 from grapevine_tpu_torch.analysis import check_ranges as cr
 from grapevine_tpu_torch.analysis.allowlist import RANGE_ALLOWLIST
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_smoke_gate_on_the_cpu():

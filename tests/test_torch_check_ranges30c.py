@@ -10,6 +10,7 @@ from __future__ import annotations
 import pytest
 
 from grapevine_tpu_torch.analysis import check_ranges as cr
+from _torch_threads import one_torch_thread  # noqa: F401
 
 IDX = (0, 2)
 

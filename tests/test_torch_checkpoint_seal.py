@@ -6,6 +6,7 @@ dir, and the scan does see a marker where one is planted."""
 import os
 
 from grapevine_tpu_torch.testing import checkpoint_seal as cs
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_port_checkpoint_seal_scan_is_clean(capsys):

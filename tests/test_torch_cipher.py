@@ -17,6 +17,7 @@ import torch
 from grapevine_tpu_torch.oblivious import bucket_cipher as tbc
 from grapevine_tpu_torch.oblivious import gather_kernels as gk
 from grapevine_tpu_torch.u32 import from_numpy, to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: (z, z*v, tree buckets): a small bucket and a records-width row
 #: (z=4, v=256 → 1028 row words, 65 ChaCha blocks)

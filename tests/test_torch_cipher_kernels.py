@@ -38,6 +38,7 @@ from test_torch_cipher import (
     check_cuda_scatter,
     cuda_device,  # noqa: F401  (fixture)
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 _G = ("key", "tree_idx", "tree_val", "nonces", "flat_b")
 

@@ -22,6 +22,7 @@ from grapevine_tpu_torch.engine.step import engine_step
 from grapevine_tpu_torch.testing.reference import ReferenceEngine
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NOW = 1_700_000_000
 

@@ -12,6 +12,7 @@ import torch
 
 from grapevine_tpu_torch.analysis import fx_walk
 from grapevine_tpu_torch.analysis.oblint import analyze
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(*shape):

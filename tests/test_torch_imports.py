@@ -8,6 +8,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "grapevine_tpu")
@@ -56,8 +57,9 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
     the reference's jax-free ``testing/reference.py``, ``ref_oram.py``,
     ``fixtures.py``, a torch port of ``compare.py``), and so is the device
     mesh (a port of ``parallel/``) and the crash-recovery chaos harness (a
-    port of ``tools/chaos_run.py``), so the boundary scan reads each of
-    them."""
+    port of ``tools/chaos_run.py``) and the soak workloads (the port's copy
+    of the reference's soak and server-stress workloads), so the boundary
+    scan reads each of them."""
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     for mod in ("engine/expiry.py", "engine/checkpoint.py", "engine/journal.py",
                 "engine/replication.py",
@@ -73,7 +75,7 @@ def test_import_scan_covers_the_expiry_and_durability_modules():
                 "engine/vphases.py", "oblivious/prp.py", "engine/step.py",
                 "testing/reference.py", "testing/ref_oram.py", "testing/fixtures.py",
                 "testing/compare.py", "parallel/__init__.py", "parallel/mesh.py",
-                "testing/chaos_run.py"):
+                "testing/chaos_run.py", "testing/soak.py"):
         path = f"grapevine_tpu_torch/{mod}"
         assert path in scanned, path
         assert not [m for m in _imports(ROOT / path) if m.split(".")[0] in FORBIDDEN]

@@ -28,6 +28,7 @@ from grapevine_tpu_torch.load.harness import OK_STATUSES
 from grapevine_tpu_torch.obs.leakmon import PASS, SUSPECT, EngineLeakMonitor
 from grapevine_tpu_torch.obs.workload import WorkloadTelemetry
 from grapevine_tpu_torch.server.scheduler import BatchScheduler
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NOW = 1_700_000_000
 

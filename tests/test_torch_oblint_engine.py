@@ -16,6 +16,7 @@ import pytest
 from grapevine_tpu_torch.analysis import check_oblivious as co
 from grapevine_tpu_torch.analysis import fx_walk
 from grapevine_tpu_torch.analysis.allowlist import ENGINE_ALLOWLIST
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from grapevine_tpu_torch.analysis import check_oblivious as co
 from grapevine_tpu_torch.analysis.allowlist import ENGINE_ALLOWLIST
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_default_sweep_is_violation_free_and_reaches_every_entry():

@@ -10,6 +10,7 @@ import torch
 
 from grapevine_tpu_torch.analysis import check_oblivious as co
 from grapevine_tpu_torch.analysis.oblint import census_equal
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_round_censuses_equal_over_adversarial_batches():

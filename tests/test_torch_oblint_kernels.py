@@ -20,6 +20,7 @@ from grapevine_tpu_torch.engine import round_step
 from grapevine_tpu_torch.engine.state import init_engine
 from grapevine_tpu_torch.oblivious import cipher_kernels as ck
 from grapevine_tpu_torch.oblivious import gather_kernels as gk
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: (impl, evict_every, program): the kernel launches of one eager call
 CASES = {

@@ -40,6 +40,7 @@ from grapevine_tpu_torch.engine.state import EngineConfig
 from grapevine_tpu_torch.obs import costmon, exporter, registry, slo, tracer, workload
 from grapevine_tpu_torch.obs.profiler import ProfilerBusy, ProfilerGate, exclusive_profile
 from grapevine_tpu_torch.server import adaptive
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPAN_NAMES = ("assembly", "verify", "dispatch", "journal", "checkpoint", "evict", "demux",
               "flush", "device")

@@ -28,6 +28,7 @@ from grapevine_tpu_torch.oram.path_oram import ShardedPlane
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 from test_torch_replication import NOW, _plant_key, _req
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(max_messages=64, max_recipients=8, mailbox_cap=4, batch_size=4, stash_size=64,
           bucket_cipher_rounds=8, bucket_cipher_impl="pallas", evict_every=2,

@@ -34,6 +34,7 @@ from grapevine_tpu_torch.engine.checkpoint import state_to_bytes
 from grapevine_tpu_torch.engine.journal import KIND_ROUND, BatchJournal
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NOW0 = 1_700_000_000
 TOY = dict(max_messages=64, max_recipients=8, mailbox_cap=4, batch_size=4,

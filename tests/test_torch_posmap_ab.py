@@ -43,6 +43,7 @@ from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
 from grapevine_tpu_torch.oram.posmap import read_table
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NOW = 1_700_000_000
 ROOT = bytes(range(32))

@@ -16,6 +16,7 @@ import torch
 from grapevine_tpu_torch.oblivious import radix as tradix
 from grapevine_tpu_torch.oblivious.segmented import group_sort
 from grapevine_tpu_torch.u32 import from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LENGTHS = (1, 2, 7, 64, 513, 3000)
 BITS = (1, 3, 8, 9, 16, 21, 32)

@@ -17,6 +17,7 @@ from grapevine_tpu_torch.analysis.allowlist import RANGE_ALLOWLIST
 from grapevine_tpu_torch.config import GrapevineConfig
 from grapevine_tpu_torch.engine import round_step
 from grapevine_tpu_torch.engine.state import EngineConfig, init_engine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _round(impl: str):

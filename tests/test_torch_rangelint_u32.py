@@ -15,6 +15,7 @@ from grapevine_tpu_torch.analysis.rangelint import analyze_ranges
 from grapevine_tpu_torch.oblivious import gather_kernels as gk
 from grapevine_tpu_torch.oblivious.primitives import scatter_drop
 from grapevine_tpu_torch.u32 import c32, narrow, rotl, shr, ule, ult, widen
+from _torch_threads import one_torch_thread  # noqa: F401
 
 I32 = torch.int32
 FULL = (0, 2**32 - 1)

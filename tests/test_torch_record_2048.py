@@ -26,6 +26,7 @@ import subprocess
 import sys
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

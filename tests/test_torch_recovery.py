@@ -31,6 +31,7 @@ from grapevine_tpu_torch.engine.state import EngineConfig
 from grapevine_tpu_torch.testing import faults
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOW = 1_700_000_000

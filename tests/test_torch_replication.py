@@ -48,6 +48,7 @@ from grapevine_tpu_torch.engine.replication import (
 from grapevine_tpu_torch.engine.state import EngineConfig
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = bytes(range(32))
 NOW = 1_700_000_000

@@ -33,6 +33,7 @@ from grapevine_tpu_torch.session import schnorrkel
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire import protowire as pw
 from grapevine_tpu_torch.wire.records import QueryRequest, QueryResponse, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(bucket_cipher_rounds=0, max_messages=64, max_recipients=8, mailbox_cap=8,
            batch_size=4, stash_size=64)

@@ -17,6 +17,7 @@ from grapevine_tpu_torch.server.scheduler import SchedulerShutdown
 from grapevine_tpu_torch.server.service import GrapevineServer
 from grapevine_tpu_torch.server.tier import EngineServer, FrontendServer
 from grapevine_tpu_torch.wire import constants as C
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = GrapevineConfig(max_messages=64, max_recipients=8, batch_size=4)
 PAYLOAD = b"stop".ljust(C.PAYLOAD_SIZE, b"\x00")

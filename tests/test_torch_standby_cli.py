@@ -35,6 +35,7 @@ from grapevine_tpu_torch.server.tier import _EngineStub
 from grapevine_tpu_torch.session import get_signature_scheme
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = bytes(range(32))

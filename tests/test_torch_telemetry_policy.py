@@ -20,6 +20,7 @@ from grapevine_tpu_torch.obs.registry import (
     TelemetryLeakError,
     TelemetryRegistry,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,7 @@ from grapevine_tpu_torch.server import cli
 from grapevine_tpu_torch.server.client import GrapevineClient as PortClient
 from grapevine_tpu_torch.server.tier import ENGINE_SERVICE_NAME, EngineServer, FrontendServer
 from grapevine_tpu_torch.wire import constants as C
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from grapevine_tpu_torch import u32 as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 EDGES = np.array([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFE,
                   0xFFFFFFFF], np.uint32)
