@@ -175,13 +175,14 @@ def audit_leakmon_registry() -> dict:
 
 def audit_trace_slo_registry() -> dict:
     """The tracer's and SLO tracker's families and the bubble gauge carry
-    no label key; the span allowlist is the phase vocabulary; the ring
-    refuses a per-op span name and a malformed span."""
+    no label key; the span allowlist is the phase vocabulary, the two
+    derived windows and the facade's declared stages; the ring refuses a
+    per-op span name and a malformed span."""
     from ..engine.metrics import EngineMetrics
     from ..obs.phases import PHASES
     from ..obs.registry import TelemetryLeakError
     from ..obs.slo import SloTracker
-    from ..obs.tracer import ALLOWED_SPAN_NAMES, RoundTracer
+    from ..obs.tracer import ALLOWED_SPAN_NAMES, STAGE_SPANS, RoundTracer
 
     em = EngineMetrics()
     tracer = RoundTracer(capacity=8, registry=em.registry)
@@ -191,7 +192,7 @@ def audit_trace_slo_registry() -> dict:
             for m in check_namespace(em.registry, p)]
     if len(fams) < 3:
         _fail(f"trace/slo namespace missing: registered only {[m.name for m in fams]}")
-    stray = ALLOWED_SPAN_NAMES - set(PHASES) - {"device", "round"}
+    stray = ALLOWED_SPAN_NAMES - set(PHASES) - {"device", "round"} - set(STAGE_SPANS)
     if stray:
         _fail(f"tracer span allowlist drifted outside the phase vocabulary: {sorted(stray)}")
     for bad_ledger, why in (({"op_read": (0.0, 1.0)}, "per-op span name"),

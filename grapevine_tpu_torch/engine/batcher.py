@@ -24,7 +24,10 @@ Dispatch makes no host synchronization on the card:
   buffers, enqueued right behind the round and followed by a CUDA event;
   ``resolve`` waits on that event only, never on the device or the
   stream, so a later round already dispatched keeps running and
-  ``resolve`` may run on another thread;
+  ``resolve`` may run on another thread; that event and one recorded
+  before the upload are timing events, so once the wait is over they
+  give the round's device span (``PendingRound.device_span_s``) with no
+  wait of their own;
 - the admission branch (the reference's ``lax.cond`` on ``free_top`` and
   ``recipients``) is decided on the host from a bound (``_admission``)
   instead of a read of the state, whenever the bound decides it.
@@ -63,6 +66,7 @@ import torch
 
 from ..config import DurabilityConfig, GrapevineConfig
 from ..device import resolve_device
+from ..obs.flightrec import ALLOWED_PHASE_KEYS
 from ..parallel import (
     init_sharded_engine,
     make_mesh,
@@ -175,13 +179,23 @@ def unpack_responses(resp: dict, n: int) -> list[QueryResponse]:
     ]
 
 
+def _timing_event(device) -> torch.cuda.Event | None:
+    """A timing CUDA event recorded on the current stream now (None off
+    the card): where the stream reaches it, by the device's own clock."""
+    if torch.device(device).type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 def _stage_to_host(outs: dict):
     """Enqueue copies of a round's output tensors to the host behind the
     round; returns ``(host tensors, event or None)``. On the card each
-    goes into a fresh pinned buffer by an asynchronous copy and a CUDA
-    event is recorded after the last one: the host values are valid once
-    the event has completed. On the CPU the outputs are the host values
-    (fresh tensors each round, never updated in place afterwards)."""
+    goes into a fresh pinned buffer by an asynchronous copy and a timing
+    CUDA event is recorded after the last one: the host values are valid
+    once the event has completed. On the CPU the outputs are the host
+    values (fresh tensors each round, never updated in place afterwards)."""
     first = next(iter(outs.values()))
     if first.device.type != "cuda":
         return outs, None
@@ -189,20 +203,18 @@ def _stage_to_host(outs: dict):
     for k, v in outs.items():
         host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
         host[k].copy_(v, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
+    return host, _timing_event(first.device)
 
 
 class PendingRound:
     """Handle to a dispatched-but-unresolved round; ``resolve()`` blocks
     until the round's own outputs are on the host."""
 
-    __slots__ = ("_engine", "_host", "_done", "_staging", "_tag", "_n", "_t0",
-                 "_spans", "_enq", "_qdepth", "_batch")
+    __slots__ = ("_engine", "_host", "_done", "_start", "_device_span_s", "_staging",
+                 "_tag", "_n", "_t0", "_spans", "_enq", "_qdepth", "_batch")
 
     def __init__(self, engine, host, done, staging, tag, n, t0, spans=None,
-                 batch=None):
+                 batch=None, start=None):
         self._engine = engine
         #: the round's outputs on the host (pinned copies in flight on the
         #: card): responses, the state's free_top and recipients, and the
@@ -211,8 +223,11 @@ class PendingRound:
         #: leak-monitor hand-off (engine.leakmon set): the batch's key
         #: columns (numpy) the transcript's key groups derive from
         self._batch = batch
-        #: CUDA event recorded after the copies (None on the CPU)
+        #: timing CUDA events recorded before the batch's upload and after
+        #: the output copies (None on the CPU)
         self._done = done
+        self._start = start
+        self._device_span_s = None
         #: the batch's pinned staging buffer, alive until the round is done
         self._staging = staging
         #: the round's dispatch number (the admission bound's clock)
@@ -248,6 +263,15 @@ class PendingRound:
         """The round's span ledger (complete after ``resolve()``)."""
         return dict(self._spans or {})
 
+    @property
+    def device_span_s(self) -> float | None:
+        """Seconds, by the card's own clock, from the stream reaching the
+        round's upload to the end of its output copies; set once the
+        round's outputs are waited for, None on the CPU. At depth 2 it
+        less the round's kernel time is how long the card starved inside
+        the round, waiting for launches."""
+        return self._device_span_s
+
     def running(self) -> bool:
         """Whether the round's device work (through its output copies) is
         still running; never waits. False on the CPU."""
@@ -259,6 +283,8 @@ class PendingRound:
         and return them as numpy u32 arrays."""
         if self._done is not None:
             self._done.synchronize()
+            if self._start is not None:
+                self._device_span_s = 1e-3 * self._start.elapsed_time(self._done)
         out = {k: to_numpy(v) for k, v in self._host.items()}
         self._engine._note_bound(self._tag, int(out.pop("free_top")),
                                  int(out.pop("recipients")))
@@ -300,12 +326,13 @@ class PendingRound:
         if eng.workload is not None:
             eng.workload.observe_round(self._n, eng.ecfg.batch_size, self._qdepth, spans)
         if eng.costmon is not None:
-            eng.costmon.observe_round(spans)
+            eng.costmon.observe_round(spans, device_span_s=self._device_span_s)
         if eng.leakmon is not None and "transcript" in host:
             # one non-blocking queue put; the detectors run on the
-            # monitor's own thread. "device" stays tracer-only: the
-            # flight recorder's phase schema is the canonical PHASES
-            phases = {k: d for k, (_, d) in spans.items() if k != "device"}
+            # monitor's own thread. "device" and the stages stay
+            # tracer-only: the flight recorder's phase schema is the
+            # canonical PHASES and "round"
+            phases = {k: d for k, (_, d) in spans.items() if k in ALLOWED_PHASE_KEYS}
             eng.leakmon.submit_round(self._batch, host["transcript"], self._n,
                                      eng.ecfg.batch_size, phases,
                                      queue_depth=self._qdepth)
@@ -638,16 +665,22 @@ class GrapevineEngine:
         """Stage 3 — dispatch: upload the batch, enqueue the round and
         chain ``self.state`` onto its output, then enqueue the copies of
         the round's outputs to the host and the event ``resolve`` waits
-        on. Returns at enqueue; the caller holds the lock."""
+        on. Returns at enqueue; the caller holds the lock. Its four
+        stages (``obs/tracer.py:STAGE_SPANS``) go into ``spans`` back to
+        back: ``upload``, ``admit``, ``launch`` and ``download``."""
         t0 = time.perf_counter()
+        start = _timing_event(self.device)
         dev_batch, staging = upload_batch(batch, self.device)
+        t_admit = time.perf_counter()
         creates = int(np.count_nonzero(batch["req_type"] == C.REQUEST_TYPE_CREATE))
         self._fold_resolved()
         # the op-major step has no admission branch (each op checks its
         # own quota inside the program)
         kw = {} if self._op_major else {"fast_ok": self._admission(creates)}
+        t_launch = time.perf_counter()
         self.state, resp, tr = self._round_program()(self.ecfg, self.state, dev_batch,
                                                      **kw)
+        t_down = time.perf_counter()
         self._dispatched += 1
         self._inflight.append((self._dispatched, creates))
         self._bound_ref = self.state.free_top
@@ -660,8 +693,13 @@ class GrapevineEngine:
             outs["transcript"] = tr
             key_cols = {k: batch[k] for k in ("req_type", "auth", "msg_id", "recipient")}
         host, done = _stage_to_host(outs)
+        t_end = time.perf_counter()
+        spans["upload"] = (t0, t_admit - t0)
+        spans["admit"] = (t_admit, t_launch - t_admit)
+        spans["launch"] = (t_launch, t_down - t_launch)
+        spans["download"] = (t_down, t_end - t_down)
         return PendingRound(self, host, done, staging, self._dispatched, n_real, t0,
-                            spans=spans, batch=key_cols)
+                            spans=spans, batch=key_cols, start=start)
 
     def handle_queries_async(self, reqs: list[QueryRequest], now: int) -> PendingRound:
         """Dispatch one round without waiting for the device.
@@ -669,11 +707,13 @@ class GrapevineEngine:
         Stages 1-3 (assemble → journal + fsync → dispatch); the returned
         handle's ``resolve()`` is stage 4. The window's flush and a due
         checkpoint run in the same lock hold; their spans land on this
-        (the window-closing) round."""
+        (the window-closing) round. The round's ledger opens with
+        ``pack``, stage 1's span."""
+        t_p0 = time.perf_counter()
         batch = self._assemble_round(reqs, now)
+        spans: dict = {"pack": (t_p0, time.perf_counter() - t_p0)}
         with self._lock:
             t_d0 = time.perf_counter()
-            spans: dict = {}
             # "dispatch" spans the journal barrier (append-before-dispatch
             # is the crash-safety contract) and the round's enqueue; the
             # device round itself lands in "evict" at resolve

@@ -88,7 +88,8 @@ def attach_round_observability(engine, registry, *, trace_ring_size=512,
         WorkloadTelemetry(registry, batch_size=engine.ecfg.batch_size)
     )
     # the static grapevine_cost_* ledger plus the per-round roofline
-    # residual against the tracer's device span, at the bandwidth of the
+    # residual against the round's device span (CUDA events on the card,
+    # the tracer's host-observed one elsewhere), at the bandwidth of the
     # engine's device type
     engine.attach_costmon(CostMonitor(engine.ecfg, registry,
                                       device_type=engine.device.type))

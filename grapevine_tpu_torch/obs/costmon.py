@@ -10,8 +10,9 @@ Two halves, both riding :mod:`..analysis.costmodel`:
   numbers any observer could derive from the config — so they are
   trivially leak-free (``phase`` is the only label key, and its values
   are the fixed phase names, never geometry).
-- **roofline residual** (runtime): each resolved round pairs the
-  tracer's host-observed device span against the modeled floor
+- **roofline residual** (runtime): each resolved round pairs its
+  device span (timed by CUDA events on the card, the tracer's
+  host-observed ``device`` span elsewhere) against the modeled floor
   (steady-state bytes ÷ achieved bandwidth). The exported ratio
   ``measured / floor`` reads as "how far off the bandwidth roofline this
   round ran": residual DRIFT is the alert signal — a regressed knob, a
@@ -133,15 +134,22 @@ class CostMonitor:
             "Worst roofline residual observed since attach",
         )
 
-    def observe_round(self, spans: dict) -> None:
+    def observe_round(self, spans: dict, device_span_s: float | None = None) -> None:
         """Score one resolved round's device span against the floor.
 
-        ``spans`` is the round's span ledger (name -> (start_s,
-        dur_s)); the ``device`` span is the host-observed upper bound
-        on device-busy time the tracer records."""
-        dev = spans.get("device")
-        if dev is None or self.floor_ms <= 0.0:
+        ``device_span_s`` is the round's span by the card's own clock
+        (``PendingRound.device_span_s``: from the stream reaching the
+        round's upload to the end of its output copies). Without it (on
+        the CPU) the score falls back to ``spans``' ``device`` span, the
+        host-observed upper bound the tracer records, which at depth 2
+        also holds the previous round's tail and the host's lateness."""
+        if device_span_s is None:
+            dev = spans.get("device")
+            if dev is None:
+                return
+            device_span_s = dev[1]
+        if self.floor_ms <= 0.0:
             return
-        residual = (dev[1] * 1e3) / self.floor_ms
+        residual = (device_span_s * 1e3) / self.floor_ms
         self._g_residual.set(residual)
         self._g_residual_max.set_max(residual)

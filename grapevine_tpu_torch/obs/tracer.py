@@ -6,8 +6,9 @@ doing (fill, detector stats); this module answers *where the time went*
 — the question that sizes ROADMAP items 1-2 (tree-top caching, pipelined
 rounds) before anyone builds them. Each committed round contributes one
 span ledger assembled from the phase timers the engine already runs
-(assembly/verify/dispatch/journal/checkpoint/evict/demux plus the
-host-observed device window), kept in a fixed ring like the flight
+(assembly/verify/dispatch/journal/checkpoint/evict/demux, the facade's
+stages inside and before dispatch, plus the host-observed device
+window), kept in a fixed ring like the flight
 recorder and exported two ways:
 
 - ``chrome_trace()`` — Chrome trace-event JSON (the ``/trace`` endpoint,
@@ -34,8 +35,9 @@ recorder and exported two ways:
 
 Leak stance — the registry's contract, enforced structurally: a span is a
 *phase*, never an operation. ``record_round()`` validates every ledger
-against the fixed span-name allowlist (the canonical phases plus the
-derived ``device``/``round`` windows) and rejects anything else with
+against the fixed span-name allowlist (the canonical phases, the
+derived ``device``/``round`` windows and the facade's :data:`STAGE_SPANS`)
+and rejects anything else with
 :class:`TelemetryLeakError`; a span value is exactly a ``(start,
 duration)`` pair of floats. There is no field in which an op type, a
 client identity, or a per-op timestamp *could* travel — every span
@@ -82,9 +84,22 @@ HOST_SPANS = (
 #: contract consumers rely on across durability/impl configs
 STABLE_SPANS = HOST_SPANS + ("device", "round")
 
-#: names a ledger may mention at all: the stable set plus any canonical
-#: phase (sweep/replay/sort appear in calibration or recovery ledgers)
-ALLOWED_SPAN_NAMES = frozenset(STABLE_SPANS) | frozenset(PHASES)
+#: the stages of a round on the facade's direct path
+#: (engine/batcher.py), each with the span it nests in: ``pack`` (validate
+#: and pack the wire records, before the engine lock) opens the round, and
+#: the other four split ``dispatch`` in order (the pinned upload, the
+#: admission bound, the enqueue of the round's kernels, the enqueue of the
+#: copies of its outputs and their event). A stage, like a phase, covers
+#: the whole fixed-size round. Not in STABLE_SPANS: a ledger without them
+#: keeps the reference's shape
+STAGE_PARENTS = {"pack": "round", "upload": "dispatch", "admit": "dispatch",
+                 "launch": "dispatch", "download": "dispatch"}
+STAGE_SPANS = tuple(STAGE_PARENTS)
+
+#: names a ledger may mention at all: the stable set, the stages, plus any
+#: canonical phase (sweep/replay/sort appear in calibration or recovery
+#: ledgers)
+ALLOWED_SPAN_NAMES = frozenset(STABLE_SPANS) | frozenset(STAGE_SPANS) | frozenset(PHASES)
 
 
 def _check_span(name: str, value) -> tuple[float, float]:

@@ -20,8 +20,9 @@ tolerance 0 (pure Python and numpy on the same inputs):
 The reference modules are imported inside the tests, so the card tests
 at the end run without JAX: ``python -m pytest --noconftest
 tests/test_torch_obs.py -k cuda`` (a depth-2 round with the leak monitor
-on under ``set_sync_debug_mode("error")``, and a profiler capture from
-another thread holding the collector thread's B3 and B5 kernels).
+on under ``set_sync_debug_mode("error")``, the rounds' device spans from
+CUDA events, and a profiler capture from another thread holding the
+collector thread's B3 and B5 kernels).
 """
 
 import json
@@ -91,12 +92,15 @@ def test_round_tracer_equals_reference(capacity, window):
     for name in ("evict", "journal", "round"):
         assert ours.span_durations_ms(name) == theirs.span_durations_ms(name)
     _renders_equal(reg, jreg)
+    # the port's allowlist is the reference's and the facade's five stages
+    assert tracer.ALLOWED_SPAN_NAMES == rtr.ALLOWED_SPAN_NAMES | set(tracer.STAGE_SPANS)
+    allowed = (str(sorted(tracer.ALLOWED_SPAN_NAMES)), str(sorted(rtr.ALLOWED_SPAN_NAMES)))
     for bad in ({"op_read": (0.0, 1.0)}, {"evict": "x"}, {"evict": (0.0, -1.0)}, [1]):
         with pytest.raises(registry.TelemetryLeakError) as e1:
             ours.record_round(bad)
         with pytest.raises(rreg.TelemetryLeakError) as e2:
             theirs.record_round(bad)
-        assert str(e1.value) == str(e2.value)
+        assert str(e1.value).replace(*allowed) == str(e2.value)
     with pytest.raises(ValueError):
         ours.span_durations_ms("op")
 
@@ -370,6 +374,36 @@ def test_cuda_depth2_dispatch_with_the_leak_monitor_makes_no_host_sync(cuda_devi
         lm.close()
     assert got == want
     assert v["verdict"] == "PASS" and v["rounds_observed"] == 10 and v["rounds_dropped"] == 0
+
+
+def test_cuda_device_span_from_events_lies_within_the_host_observed_span(cuda_device):
+    """A round's device span, timed by the CUDA events recorded before its
+    upload and after its output copies, is positive and at most the
+    host-observed ``device`` span; recording the events adds no host
+    synchronization (depth-2 dispatches under ``set_sync_debug_mode
+    ("error")`` raise nothing)."""
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+
+    geo = dict(max_messages=2**12, max_recipients=2**8, batch_size=32, mailbox_cap=8,
+               vphases_impl="dense", bucket_cipher_impl="pallas_fused_tiled")
+    eng = GrapevineEngine(GrapevineConfig(pipeline_depth=2, **geo), seed=8, device=cuda_device)
+    rng = random.Random(5)
+    rounds, pending = [], []
+    for i in range(8):
+        if i >= 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending.append(eng.handle_queries_async(_creates(rng, 32, i), 10 + i))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if len(pending) >= 2:
+            rounds.append(pending.pop(0))
+            rounds[-1].resolve()
+    for p in pending:
+        p.resolve()
+        rounds.append(p)
+    for p in rounds:
+        assert 0.0 < p.device_span_s <= p.spans["device"][1]
 
 
 def test_cuda_profiler_capture_from_another_thread_sees_collector_kernels(cuda_device,

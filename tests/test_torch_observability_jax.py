@@ -16,7 +16,8 @@ same multi-round calls:
   threshold and sample count, the flush-cadence detector included), their
   windowed stats and their flight recorder dumps (but for the monotonic
   stamp and the phase seconds, which are wall-clock times) are equal;
-- both tracers hold the same rounds with the same span names, and both
+- both tracers hold the same rounds with the same span names, the port's
+  five facade stages a round besides (``obs/tracer.py:STAGE_SPANS``), and both
   registries export the same metric families, the leak monitor's, the
   cost, load, SLO and trace families included; ``chip_smoke.py``'s
   ``OBS_FAMILIES`` (what phase 13 requires on ``/metrics``) is exactly
@@ -45,6 +46,7 @@ from grapevine_tpu_torch.engine.round_step import RoundDraws
 from grapevine_tpu_torch.obs import SloConfig, attach_round_observability, parse_exposition
 from grapevine_tpu_torch.obs.exporter import render_prometheus
 from grapevine_tpu_torch.obs.leakmon import EngineLeakMonitor, LeakMonitorConfig
+from grapevine_tpu_torch.obs.tracer import STAGE_SPANS
 from grapevine_tpu_torch.u32 import from_numpy
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
@@ -153,8 +155,10 @@ def test_observed_depth2_facade_matches_reference(monkeypatch):
         tt, jt = ttr.chrome_trace(), jtr.chrome_trace()
         assert tt["otherData"]["rounds_recorded_total"] == \
             jt["otherData"]["rounds_recorded_total"] == 24
+        # the reference's span names, and the port's five stages a round
         assert sorted(e["name"] for e in tt["traceEvents"]) == \
-            sorted(e["name"] for e in jt["traceEvents"])
+            sorted([e["name"] for e in jt["traceEvents"]]
+                   + [f"grapevine/{s}" for s in STAGE_SPANS] * 24)
         assert tslo.verdict()["ok"] and jslo.verdict()["ok"]
         tfam = set(parse_exposition(render_prometheus(teng.metrics.registry)))
         jfam = set(parse_exposition(jax_render(jeng.metrics.registry)))

@@ -32,6 +32,7 @@ from grapevine_tpu_torch.engine import batcher
 from grapevine_tpu_torch.engine.batcher import GrapevineEngine, PendingRound
 from grapevine_tpu_torch.engine.checkpoint import state_to_bytes
 from grapevine_tpu_torch.engine.journal import KIND_ROUND, BatchJournal
+from grapevine_tpu_torch.obs.tracer import STAGE_SPANS
 from grapevine_tpu_torch.wire import constants as C
 from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -256,7 +257,8 @@ def test_resolve_on_another_thread():
     t.start()
     t.join(timeout=60)
     assert not t.is_alive() and got == want
-    assert set(pending.spans) >= {"dispatch", "evict", "demux", "device", "round"}
+    assert set(pending.spans) == {"dispatch", "evict", "demux", "device", "round"} | \
+        set(STAGE_SPANS)
 
 
 def test_health_and_stash_sampling():

@@ -3,6 +3,7 @@ against the reference tool (``tools/check_telemetry_policy.py``): the
 static scan flags what the reference's flags, at the same ``file:line``;
 each of the eight registry audits counts the families and series the
 reference's counts; a forbidden key is refused by a port registry; the
+span allowlist admits the facade's declared stages and no other name; the
 gate exits 0 where ``import jax`` fails."""
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import pytest
 from test_torch_census_posmap import reference_tool
 
 from grapevine_tpu_torch.analysis import check_telemetry_policy as ctp
+from grapevine_tpu_torch.obs import tracer
+from grapevine_tpu_torch.obs.tracer import STAGE_SPANS
+from grapevine_tpu_torch.obs.phases import PHASES
 from grapevine_tpu_torch.obs.registry import (
     FORBIDDEN_LABEL_KEYS,
     TelemetryLeakError,
@@ -89,6 +93,18 @@ AUDITS = {
 def test_each_audit_counts_what_the_reference_counts(audit, ref):
     port, want = getattr(ctp, audit)(), getattr(ref, audit)()
     assert {k: port[k] for k in AUDITS[audit]} == {k: want[k] for k in AUDITS[audit]}
+
+
+def test_the_telemetry_gate_admits_exactly_the_declared_stages(monkeypatch):
+    """The policy gate passes with the stages declared, and flags a name
+    outside the phases, the two windows and STAGE_SPANS."""
+    assert tracer.ALLOWED_SPAN_NAMES == \
+        set(PHASES) | {"device", "round"} | set(STAGE_SPANS)
+    ctp.audit_trace_slo_registry()
+    monkeypatch.setattr(tracer, "ALLOWED_SPAN_NAMES",
+                        tracer.ALLOWED_SPAN_NAMES | {"launch_op_read"})
+    with pytest.raises(ctp.PolicyViolation, match="launch_op_read"):
+        ctp.audit_trace_slo_registry()
 
 
 def test_a_namespace_rule_is_enforced():
