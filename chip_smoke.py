@@ -346,7 +346,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    which must be equal; (f) 8 randomized soak campaigns on the card
    against the oracle (``testing/soak.py``, the reference's variants with
    ``"pallas"`` on each kernel impl in turn), then 30 s of the server
-   stress workload through a ``GrapevineServer`` on the card, ChaCha8 on.
+   stress workload through a ``GrapevineServer`` on the card, ChaCha8 on;
+24. the round graph at the ``bus_1kb`` benchmark cell's geometry
+   (``gvbench/configs/bus_1kb.json``'s engine: 2^23 records, B=2048): a
+   graphed engine's 8 rounds of mixed CRUD (eager, capture, 6 replays),
+   then an engine of the same seed run op by op over the same requests,
+   the first's final state held on the host meanwhile: responses,
+   transcripts, every state leaf and the generator's state bit-identical,
+   fresh draws on every replay, B4 and B6 in the profiled replay's trace.
+
+A launch check counts the wrappers' calls: a round run op by op, and a
+round graph's capture, call each wrapper once a launch; a round replayed
+from the graph launches its kernels from the graph, and the check leaves
+it out, reading the engine's own count of replays
+(``health()["round_graph"]``); the ``kernels`` line sums those replays.
 
 Before each slice every launch count is set to 0, and read just after.
 Each earlier line of output is one JSON object; the last line is
@@ -393,6 +406,10 @@ runs phase 22 alone after the kernel build.
     python3 chip_smoke.py --contracts-phase
 
 runs phase 23 alone after the kernel build.
+
+    python3 chip_smoke.py --graph-phase
+
+runs phase 24 alone after the kernel build.
 """
 
 from __future__ import annotations
@@ -445,6 +462,9 @@ SCATTERS = ("scatter_encrypt_rows", "scatter_encrypt_rows_tiled")
 #: instance ring_kernel<threads, rows a step, direction>
 RING = {(128, 1, 0): "scatter_encrypt_rows", (256, 8, 0): "scatter_encrypt_rows_tiled",
         (128, 1, 1): "gather_decrypt_rows", (256, 8, 2): "cipher_rows_pallas"}
+#: kernel name → what its device kernel's name holds in a profiler trace
+TRACE_NAMES = {"gather_decrypt_rows_tiled": "gather_tiled_kernel(",
+               **{name: "ring_kernel<{}, {}, {}>".format(*inst) for inst, name in RING.items()}}
 
 
 def emit(obj) -> None:
@@ -1027,6 +1047,10 @@ def profile_round(fn, all_threads: bool = False) -> dict:
         wall_ms=wall_ms, device_ms=device_ms,
         device_busy_share=device_ms / wall_ms,
         device_kernels=sum(e.count for e in kernels),
+        # the hand-written kernels the card ran, counted by name in the
+        # trace: a replayed round's too, which the wrappers do not count
+        traced_launches={name: sum(e.count for e in kernels if part in e.key)
+                         for name, part in TRACE_NAMES.items()},
         span_device_ms=spans,
         top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3,
                           count=e.count) for e in kernels[:12]],
@@ -1085,6 +1109,28 @@ def require_launches(launches: dict, want: dict, path: str) -> None:
                                  f"expected {want.get(name, 0)}")
 
 
+#: rounds replayed from an engine's round graph inside the launch checks
+#: (``counted_rounds``); the ``kernels`` line reports them
+GRAPH_REPLAYS = {"rounds": 0}
+
+
+def graph_replays(eng) -> int:
+    """Rounds ``eng`` has replayed from its round graph so far."""
+    return eng.health()["round_graph"]["replayed"]
+
+
+def counted_rounds(eng, rounds: int, replayed0: int = 0) -> int:
+    """Of the last ``rounds`` rounds of ``eng``, which had replayed
+    ``replayed0`` rounds before them, those whose kernels the wrappers'
+    ``LAUNCHES`` count: each round run op by op, and the round graph's
+    capture, which calls the wrappers once (the round that captures then
+    replays). A replay launches the graph, not the wrappers: the replays
+    are read from the engine's counter and added to ``GRAPH_REPLAYS``."""
+    replayed = graph_replays(eng) - replayed0
+    GRAPH_REPLAYS["rounds"] += replayed
+    return rounds - replayed + (1 if replayed and not replayed0 else 0)
+
+
 def run_evict_slice(GrapevineEngine, cfg, gk, ck, card, windows: int = 4):
     """Phase 5: ``windows`` windows of mixed CRUD at ``evict_every=EVICT_EVERY``;
     fetch rounds and flushes timed apart (each flush between two
@@ -1113,7 +1159,7 @@ def run_evict_slice(GrapevineEngine, cfg, gk, ck, card, windows: int = 4):
     rounds, health, prof, model, gone = run_slice(eng, n_rounds, writes=True,
                                                   profile_last=True)
     launches = _launches(gk, ck)
-    require_launches(launches, {"gather_decrypt_rows": 3 * n_rounds,
+    require_launches(launches, {"gather_decrypt_rows": 3 * counted_rounds(eng, n_rounds),
                                 "scatter_encrypt_rows": 2 * (n_rounds // EVICT_EVERY)},
                      "evict slice")
     if eng.flushes != n_rounds // EVICT_EVERY or len(flush_s) != eng.flushes:
@@ -1521,7 +1567,13 @@ def run_durability_prod(GrapevineEngine, cfg, gk, ck, card) -> dict:
         records = rec.durability.replayed
         if records != eng.durability.seq:
             raise AssertionError(f"replayed {records} of {eng.durability.seq} records")
-        require_launches(replay_launches, {k: v for k, v in live_launches.items() if v},
+        # the journal replays every round op by op; the live engine's
+        # wrappers saw its eager rounds and the graph's capture
+        n_rounds = 4 * EVICT_EVERY
+        want = {k: v for k, v in live_launches.items() if v}
+        require_launches(live_launches, dict(
+            want, gather_decrypt_rows=3 * counted_rounds(eng, n_rounds)), "durable live run")
+        require_launches(replay_launches, dict(want, gather_decrypt_rows=3 * n_rounds),
                          "journal replay")
         diff = states_differ(eng.ecfg, eng.state, rec.state)
         if diff is not None:
@@ -1832,7 +1884,7 @@ def run_pipeline_phase(GrapevineConfig, GrapevineEngine, geo: dict, impl: str,
                 raise AssertionError(f"engine runs depth {eng.pipeline_depth}")
             run = drive_pipeline(eng, depth, gk, ck, profile=depth == 2)
             rounds, flushes = run["rounds"], run["flushes"]
-            expect = {k: v * rounds for k, v in want.items()}
+            expect = {k: v * counted_rounds(eng, rounds) for k, v in want.items()}
             if evict_every > 1:
                 expect["scatter_encrypt_rows"] = 2 * flushes
                 if flushes != rounds // evict_every:
@@ -2212,6 +2264,7 @@ def serve_rounds(eng, gk, ck, card, sched=None, on_dispatch=None) -> dict:
 
     eng.handle_queries_async = watched_dispatch
     rounds0, flushes0 = eng.metrics.snapshot()["rounds"], eng.flushes
+    replayed0 = graph_replays(eng)
     gc.collect()
     with eng._lock:  # an expiry sweep holds the lock through all its launches
         _reset_launches(gk, ck)
@@ -2261,8 +2314,9 @@ def serve_rounds(eng, gk, ck, card, sched=None, on_dispatch=None) -> dict:
     flushes = eng.flushes - flushes0
     if rounds != SERVE_ROUNDS + 1 or len(pendings) != rounds:
         raise AssertionError(f"phase 11b: {rounds} rounds for {SERVE_ROUNDS + 1} full batches")
+    counted = counted_rounds(eng, rounds, replayed0)
     if own:  # phase 13a's expiry thread also launches B2: it checks its own
-        require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+        require_launches(launches, {"gather_decrypt_rows": 3 * counted,
                                     "scatter_encrypt_rows": 2 * flushes}, "phase 11b")
     if flushes != (rounds0 + rounds) // EVICT_EVERY - rounds0 // EVICT_EVERY:
         raise AssertionError(f"phase 11b: {flushes} flushes in rounds {rounds0 + 1}-"
@@ -2282,8 +2336,8 @@ def serve_rounds(eng, gk, ck, card, sched=None, on_dispatch=None) -> dict:
     steady = per[1:-1]
     med = {k: statistics.median(x[k] for x in steady)
            for k in ("assembly_ms", "verify_ms", "dispatch_ms", "settle_ms", "wall_ms")}
-    return dict(rounds=rounds, flushes=flushes, batch_size=b, ops=b * SERVE_ROUNDS,
-                pool=SERVE_POOL, lookahead_rounds=SERVE_LOOKAHEAD,
+    return dict(rounds=rounds, counted_rounds=counted, flushes=flushes, batch_size=b,
+                ops=b * SERVE_ROUNDS, pool=SERVE_POOL, lookahead_rounds=SERVE_LOOKAHEAD,
                 pipeline_depth=sched.pipeline_depth, wall_s=wall_s,
                 ops_per_s=b * SERVE_ROUNDS / wall_s,
                 median=med, max_wall_ms=max(x["wall_ms"] for x in steady),
@@ -2360,6 +2414,7 @@ def serve_tier(GrapevineConfig, geo, gk, ck, card, engine_kw=None, before_stop=N
     serve_s = time.perf_counter() - t0
     launches = _launches(gk, ck)
     rounds = engine.engine.metrics.snapshot()["rounds"]
+    counted = counted_rounds(engine.engine, rounds)
     for c in clients:
         c.close()
     extra = {}
@@ -2371,10 +2426,11 @@ def serve_tier(GrapevineConfig, geo, gk, ck, card, engine_kw=None, before_stop=N
         engine.stop()
     if errors:
         raise errors[0]
-    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * rounds,
-                                "scatter_encrypt_rows_tiled": 3 * rounds}, where)
+    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * counted,
+                                "scatter_encrypt_rows_tiled": 3 * counted}, where)
     out = dict(bucket_cipher_impl="pallas_fused_tiled", evict_every=1, clients=n,
-               ops=n * TIER_OPS, rounds=rounds, init_s=init_s, serve_s=serve_s,
+               ops=n * TIER_OPS, rounds=rounds, counted_rounds=counted, init_s=init_s,
+               serve_s=serve_s,
                launches=launches, responses_checked=n * TIER_OPS, **extra, card=card)
     del engine, fe
     torch.cuda.empty_cache()
@@ -2439,7 +2495,7 @@ def run_serving_phase(GrapevineConfig, geo: dict, gk, ck, card) -> dict:
         rounds_a, sweeps = s["rounds"], s["sweeps"]
         per_sweep = 2 * sum(t.n_buckets_padded // expiry._chunk_rows(t)
                             for t in (eng.ecfg.rec, eng.ecfg.mb))
-        require_launches(launches_a, {"gather_decrypt_rows": 3 * rounds_a,
+        require_launches(launches_a, {"gather_decrypt_rows": 3 * counted_rounds(eng, rounds_a),
                                       "scatter_encrypt_rows": 2 * eng.flushes,
                                       "cipher_rows_pallas": per_sweep * sweeps},
                          "phase 11a")
@@ -2618,6 +2674,7 @@ def serve_promoted(eng, model: dict, seeds, gk, ck) -> dict:
         raise AssertionError(f"phase 12a: mailboxes of {list(map(len, mine))} messages")
     errors, counts = [], [0] * n
     rounds0, flushes0 = eng.metrics.snapshot()["rounds"], eng.flushes
+    replayed0 = graph_replays(eng)
     _reset_launches(gk, ck)
 
     def expect(r, status, want, where):
@@ -2664,7 +2721,7 @@ def serve_promoted(eng, model: dict, seeds, gk, ck) -> dict:
     engine.stop()
     if errors:
         raise errors[0]
-    require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+    require_launches(launches, {"gather_decrypt_rows": 3 * counted_rounds(eng, rounds, replayed0),
                                 "scatter_encrypt_rows": 2 * flushes}, "phase 12a serving")
     return dict(clients=n, read_back=sum(map(len, mine)), ops=sum(counts),
                 responses_checked=sum(counts), rounds=rounds, flushes=flushes,
@@ -2777,7 +2834,10 @@ def run_standby_prod(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card) 
                   "cipher_rows_pallas": per_sweep}
         live = {"primary": _thread_launches(gk, ck, "MainThread"),
                 "standby": _thread_launches(gk, ck, "standby-listener")}
-        require_launches(live["primary"], want_l, "phase 12a primary")
+        # the standby applies every round op by op
+        require_launches(live["primary"], dict(
+            want_l, gather_decrypt_rows=3 * counted_rounds(primary, n_rounds)),
+            "phase 12a primary")
         require_launches(live["standby"], want_l, "phase 12a standby applies")
         if evicted or primary.flushes != flushes:
             raise AssertionError(f"phase 12a: {evicted} evicted, {primary.flushes} flushes")
@@ -3501,9 +3561,12 @@ def run_observability_phase(GrapevineConfig, geo: dict, gk, ck, card, serve_b: d
         device_ms: list = []  # each round's device span, which the monitor scores
         observe = eng.costmon.observe_round
 
-        def scored(spans):
-            observe(spans)
-            device_ms.append(spans["device"][1] * 1e3)
+        def scored(spans, device_span_s=None):
+            observe(spans, device_span_s=device_span_s)
+            # the span the monitor scores: the card's own clock where the
+            # round has it, else the host-observed one
+            device_ms.append((device_span_s if device_span_s is not None
+                              else spans["device"][1]) * 1e3)
 
         eng.costmon.observe_round = scored
         cap, waiters = {}, []
@@ -3550,7 +3613,7 @@ def run_observability_phase(GrapevineConfig, geo: dict, gk, ck, card, serve_b: d
         sweep_s = snap["grapevine_phase_seconds{phase=sweep}_sum"] - sweep_s0
         per_sweep = 2 * sum(t.n_buckets_padded // expiry._chunk_rows(t)
                             for t in (eng.ecfg.rec, eng.ecfg.mb))
-        require_launches(launches, {"gather_decrypt_rows": 3 * rounds,
+        require_launches(launches, {"gather_decrypt_rows": 3 * part["counted_rounds"],
                                     "scatter_encrypt_rows": 2 * flushes,
                                     "cipher_rows_pallas": per_sweep * sweeps}, "phase 13a")
         if guard.guarded != OBS_GUARD[1] - OBS_GUARD[0]:
@@ -3784,8 +3847,9 @@ def run_posmap_phase(GrapevineConfig, GrapevineEngine, convert, geo: dict, gk, c
     rounds, health, prof, *_ = run_slice(eng, 7, writes=True, profile_last=True)
     launches_a = _launches(gk, ck)
     guard.remove()
-    require_launches(launches_a, {"gather_decrypt_rows_tiled": 21,
-                                  "scatter_encrypt_rows_tiled": 21}, "phase 14a")
+    n_a = counted_rounds(eng, 7)
+    require_launches(launches_a, {"gather_decrypt_rows_tiled": 3 * n_a,
+                                  "scatter_encrypt_rows_tiled": 3 * n_a}, "phase 14a")
     # the admission bound's exact read is the one sync a dispatch may make
     # (a fresh engine's first); none of the guarded ones may
     guarded_reads = [i for i in guard.fallback_reads if guard.first <= i < guard.last]
@@ -3903,12 +3967,16 @@ def _scan_pair_e1(GrapevineConfig, GrapevineEngine, convert, geo: dict, n_rounds
                             bucket_cipher_impl="pallas_fused_tiled")
     cfg_s = GrapevineConfig(**dict(geo, vphases_impl="scan"),
                             bucket_cipher_impl="pallas_fused_tiled")
-    want = {"gather_decrypt_rows_tiled": 3 * n_rounds, "scatter_encrypt_rows_tiled": 3 * n_rounds}
+
+    def want(eng):
+        n = counted_rounds(eng, n_rounds)
+        return {"gather_decrypt_rows_tiled": 3 * n, "scatter_encrypt_rows_tiled": 3 * n}
+
     twin, _, twin_mem = _new_engine(GrapevineEngine, cfg_d, logs)
     _reset_launches(gk, ck)
     (t_rounds, _, t_prof, *_), t_peak = _peak_run(
         lambda: run_slice(twin, n_rounds, writes=True, profile_last=True))
-    require_launches(_launches(gk, ck), want, f"{where} twin")
+    require_launches(_launches(gk, ck), want(twin), f"{where} twin")
     eng, init_s, scan_mem = _new_engine(GrapevineEngine, cfg_s, logs)
     if eng.ecfg.vphases_impl != "scan" or twin.ecfg.vphases_impl != "dense":
         raise AssertionError(f"{where}: the engines run {eng.ecfg.vphases_impl} and "
@@ -3922,7 +3990,7 @@ def _scan_pair_e1(GrapevineConfig, GrapevineEngine, convert, geo: dict, n_rounds
     launches = _launches(gk, ck)
     if guard:
         g.remove()
-    require_launches(launches, want, where)
+    require_launches(launches, want(eng), where)
     guarded_reads = [i for i in g.fallback_reads if g.first <= i < g.last]
     if guard and (g.guarded != 4 or guarded_reads):
         raise AssertionError(f"{where}: {g.guarded} guarded dispatches, exact reads in "
@@ -4046,7 +4114,7 @@ def run_load_phase(eng, gk, ck, card) -> dict:
     gc.collect()
     t_round, est, target_ms = calibrate_unloaded_round(eng, NOW + 50, reps=3)
     schedule = ramp_to_saturation(0.25 * est, 2.0, 4, 2.0, SEED, n_idents=64)
-    d0 = eng._dispatched
+    d0, replayed0 = eng._dispatched, graph_replays(eng)
     sched = BatchScheduler(eng, clock=lambda: NOW + 60)
     _reset_launches(gk, ck)
     try:
@@ -4055,8 +4123,9 @@ def run_load_phase(eng, gk, ck, card) -> dict:
         sched.close()
     launches = _launches(gk, ck)
     rounds = eng._dispatched - d0
-    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * rounds,
-                                "scatter_encrypt_rows_tiled": 3 * rounds}, "phase 16")
+    counted = counted_rounds(eng, rounds, replayed0)
+    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * counted,
+                                "scatter_encrypt_rows_tiled": 3 * counted}, "phase 16")
     ramp = analyze_ramp(schedule, res, target_ms=target_ms)
     settled = ~np.isnan(res.latency_s)
     bad = sorted(set(res.status[settled].tolist()) - set(OK_STATUSES))
@@ -4320,22 +4389,18 @@ MESH_ROUNDS = 7
 
 
 def _record_transcripts(eng) -> list:
-    """Keep every round's transcript tensor (on the device; compared after
-    the run, so the dispatch reads nothing back)."""
+    """Keep every round's handle, each dispatched asking for its
+    transcript (it rides the round's output copies); read each one's
+    ``transcript`` once the run has resolved them."""
     log: list = []
-    program = eng._round_program
+    dispatch = eng._dispatch_round
 
-    def wrapped():
-        fn = program()
+    def dispatched(*a, **k):
+        pending = dispatch(*a, **dict(k, transcript=True))
+        log.append(pending)
+        return pending
 
-        def run(*a, **k):
-            out = fn(*a, **k)
-            log.append(out[2])
-            return out
-
-        return run
-
-    eng._round_program = wrapped
+    eng._dispatch_round = dispatched
     return log
 
 
@@ -4437,6 +4502,8 @@ def _mesh_pair(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card, twin_l
     equal to the twin's; B2 6 a round and nothing else."""
     import functools
 
+    import numpy as np
+
     from grapevine_tpu_torch.analysis.costmodel import engine_cost_ledger
     from grapevine_tpu_torch.oram import round as round_mod
 
@@ -4464,8 +4531,8 @@ def _mesh_pair(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card, twin_l
                              f"dispatches {guard.fallback_reads}")
     if logs[0] != t_logs:
         raise AssertionError(f"{where}: the responses differ from the twin's")
-    if len(trs) != len(t_trs) or not all(torch.equal(a.to(b.device), b)
-                                         for a, b in zip(trs, t_trs)):
+    trs = [p.transcript for p in trs]
+    if len(trs) != len(t_trs) or not all(np.array_equal(a, b) for a, b in zip(trs, t_trs)):
         raise AssertionError(f"{where}: the transcripts differ from the twin's")
     mesh_twin_check(eng, twin, where)
     ledger = engine_cost_ledger(eng.ecfg, shards=n)
@@ -4510,7 +4577,9 @@ def run_mesh_e1(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card, meshe
     (t_rounds, _, t_prof, *_), t_peak = _peak_run(
         lambda: run_slice(twin, MESH_ROUNDS, writes=True, profile_last=True))
     twin_launches = _launches(gk, ck)
-    require_launches(twin_launches, {"cipher_rows_pallas": 6 * MESH_ROUNDS}, "phase 18 twin")
+    require_launches(twin_launches, {"cipher_rows_pallas": 6 * counted_rounds(twin, MESH_ROUNDS)},
+                     "phase 18 twin")
+    t_trs = [p.transcript for p in t_trs]
     t_ms = sorted(r["s"] * 1e3 for r in t_rounds[1:] if not r.get("profiled"))
     twin_line = dict(median_round_ms=statistics.median(t_ms), max_round_ms=max(t_ms),
                      round_device_ms=t_prof["device_ms"],
@@ -4580,6 +4649,7 @@ def run_mesh_e4(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card,
             calls.append(dict(twin_s=t_s, mesh_s=e_s))
         if (eng.flushes, twin.flushes) != (2, 2):
             raise AssertionError(f"phase 18b: {eng.flushes} / {twin.flushes} flushes")
+        twin_counted = counted_rounds(twin, 2 * PIPE_CHUNKS)
         t_ev, t_sweep = counted("twin", lambda: twin.expire(SWEEP_NOW, SWEEP_PERIOD))
         e_ev, e_sweep = counted("mesh", lambda: eng.expire(SWEEP_NOW, SWEEP_PERIOD))
         if e_ev != t_ev or not e_ev:
@@ -4603,7 +4673,7 @@ def run_mesh_e4(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, card,
     rounds = 2 * PIPE_CHUNKS
     require_launches(acc["mesh"], {"cipher_rows_pallas": 3 * rounds + 2 * 2 + chunks},
                      "phase 18b sharded")
-    require_launches(acc["twin"], {"gather_decrypt_rows": 3 * rounds,
+    require_launches(acc["twin"], {"gather_decrypt_rows": 3 * twin_counted,
                                    "scatter_encrypt_rows": 2 * 2,
                                    "cipher_rows_pallas": twin_chunks}, "phase 18b twin")
     line = dict(shards=n, evict_every=EVICT_EVERY, bucket_cipher_impl="pallas_fused",
@@ -5707,8 +5777,10 @@ def record2048_child() -> int:
     _reset_launches(gk, ck)
     rounds, *_ = run_slice(eng, 4, writes=True, profile_last=False)
     tiled_launches = _launches(gk, ck)
-    require_launches(tiled_launches, {"gather_decrypt_rows_tiled": 12,
-                                      "scatter_encrypt_rows_tiled": 12}, "22c tiled slice")
+    n_tiled = counted_rounds(eng, 4)
+    require_launches(tiled_launches, {"gather_decrypt_rows_tiled": 3 * n_tiled,
+                                      "scatter_encrypt_rows_tiled": 3 * n_tiled},
+                     "22c tiled slice")
     tiled_ms = [r["s"] * 1e3 for r in rounds]
     del eng
     gc.collect()
@@ -6434,15 +6506,19 @@ def contracts_timing(GrapevineConfig, GrapevineEngine, geo: dict, gk, ck, dev) -
         _reset_launches(gk, ck)
         if cuda:
             p = profile_round(lambda: run(k))
-            prof[k] = dict(launches=_launches(gk, ck), device_kernels=p["device_kernels"],
+            prof[k] = dict(launches=_launches(gk, ck), traced_launches=p["traced_launches"],
+                           device_kernels=p["device_kernels"],
                            device_ms=p["device_ms"], wall_ms=p["wall_ms"])
         else:
             run(k)
             prof[k] = dict(launches=_launches(gk, ck))
     if cuda:
-        _require_kernels(prof["read"]["launches"], IMPL_KERNELS["pallas_fused_tiled"], "23e")
+        # the profiled rounds replay the round graph: the trace counts
+        # their kernels, the wrappers none
+        _require_kernels(prof["read"]["traced_launches"], IMPL_KERNELS["pallas_fused_tiled"],
+                         "23e")
     for k in ("update", "delete"):
-        for field in ("launches", "device_kernels"):
+        for field in ("launches", "traced_launches", "device_kernels"):
             if prof[k].get(field) != prof["read"].get(field):
                 raise AssertionError(f"23e: the profiled {k} round's {field} "
                                      f"{prof[k].get(field)} differ from read's "
@@ -6576,6 +6652,165 @@ def contracts_phase_alone() -> int:
     return 0
 
 
+#: phase 24: the cell configuration whose engine the graphed engine and its
+#: eager twin are built from, and the rounds each runs
+GRAPH_CELL_CONFIG = "gvbench/configs/bus_1kb.json"
+GRAPH_ROUNDS = 8
+
+
+def _state_tensors(state, prefix: str = ""):
+    """``(name, tensor)`` over an engine state's tensors, the nested named
+    tuples flattened; the generators left out."""
+    for name, value in zip(state._fields, state):
+        if hasattr(value, "_fields"):
+            yield from _state_tensors(value, f"{prefix}{name}.")
+        elif isinstance(value, torch.Tensor):
+            yield prefix + name, value
+
+
+def _equal_to_host(dev: torch.Tensor, host: torch.Tensor, chunk: int = 1 << 28) -> bool:
+    """A device tensor bit-equal to a host copy, compared ``chunk``
+    elements at a time (a tree has room on the host once, not twice)."""
+    if dev.shape != host.shape or dev.dtype != host.dtype:
+        return False
+    a, h = dev.reshape(-1), host.reshape(-1)
+    return all(torch.equal(a[i:i + chunk].cpu(), h[i:i + chunk])
+               for i in range(0, a.numel(), chunk))
+
+
+def run_graph_phase(GrapevineConfig, GrapevineEngine, gk, ck, card) -> dict:
+    """Phase 24: the round graph at a benchmark cell's geometry
+    (``GRAPH_CELL_CONFIG``'s engine: 2^23 records, 2^17 recipients,
+    B=2048, ``"pallas_fused_tiled"``, depth 2). A graphed engine runs
+    GRAPH_ROUNDS rounds of mixed CRUD through
+    ``handle_queries_with_transcript`` (the first eager, the second
+    captures, the rest replay); its final state goes to the host and the
+    engine is freed (two such engines do not fit on the card); then an
+    engine of the same seed that runs every round op by op runs the same
+    requests. Every round's responses and transcript, every state leaf
+    (junk included) and the generator's state are bit-identical; each
+    replay's transcript differs from the round's before (fresh draws); the
+    wrappers launch 3 B4 and 3 B6 a round run op by op or captured, and
+    the profiled last replay runs them as well, counted by name in the
+    trace."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, GRAPH_CELL_CONFIG)) as fh:
+        cfg = GrapevineConfig(**json.load(fh)["engine"])
+    b = cfg.batch_size
+    rng = np.random.default_rng(SEED)
+    users = [_key("gph", i) for i in range(512)]
+    created: list = []
+    rounds: list = []  # each round's requests, made as the graphed run goes
+    runs: dict = {}
+    saved: dict = {}
+    for kind in ("graphed", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = GrapevineEngine(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if kind == "eager":
+            eng._eager_reason = lambda fast_ok: "warmup" if fast_ok else "slow_branch"
+        _reset_launches(gk, ck)
+        got, ms = [], []
+        for rnd in range(GRAPH_ROUNDS):
+            if kind == "graphed":
+                rounds.append(mixed_requests(rng, users, created, rnd, n=b))
+            reqs = rounds[rnd]
+
+            def one():
+                return eng.handle_queries_with_transcript(reqs, NOW + rnd)
+
+            t0 = time.perf_counter()
+            if rnd == GRAPH_ROUNDS - 1:
+                prof = profile_round(one)
+                resp, tr = prof.pop("result")
+            else:
+                resp, tr = one()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if kind == "graphed":
+                note_created(reqs, resp, created)
+            got.append(([r.pack() for r in resp], np.asarray(tr)))
+        launches = _launches(gk, ck)
+        counts = eng.health()["round_graph"]
+        n = counted_rounds(eng, GRAPH_ROUNDS)
+        require_launches(launches, {"gather_decrypt_rows_tiled": 3 * n,
+                                    "scatter_encrypt_rows_tiled": 3 * n}, f"phase 24 {kind}")
+        traced = prof["traced_launches"]
+        require_launches(traced, {"gather_decrypt_rows_tiled": 3,
+                                  "scatter_encrypt_rows_tiled": 3},
+                         f"phase 24 {kind} profiled round, by name in the trace")
+        want = (GRAPH_ROUNDS - 1, 1) if kind == "graphed" else (0, GRAPH_ROUNDS)
+        if (counts["replayed"], counts["eager"]["warmup"]) != want:
+            raise AssertionError(f"phase 24 {kind}: round graph counts {counts}")
+        runs[kind] = dict(init_s=init_s, round_ms=ms, counts=counts, launches=launches,
+                          profiled_round=dict(wall_ms=prof["wall_ms"],
+                                              device_ms=prof["device_ms"],
+                                              device_kernels=prof["device_kernels"],
+                                              traced_launches=traced),
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        if kind == "graphed":
+            for rnd in range(2, GRAPH_ROUNDS):
+                if np.array_equal(got[rnd][1], got[rnd - 1][1]):
+                    raise AssertionError(f"phase 24: replay {rnd} drew round {rnd - 1}'s "
+                                         f"transcript again")
+            t0 = time.perf_counter()
+            saved = {name: t.cpu() for name, t in _state_tensors(eng.state)}
+            saved_rng = eng.state.rng.get_state()
+            runs[kind]["to_host_s"] = time.perf_counter() - t0
+            graphed_got = got
+            del eng
+            continue
+        for rnd, ((ra, ta), (rb, tb)) in enumerate(zip(graphed_got, got)):
+            if ra != rb:
+                raise AssertionError(f"phase 24 round {rnd}: the responses differ")
+            if not np.array_equal(ta, tb):
+                raise AssertionError(f"phase 24 round {rnd}: the transcripts differ")
+        t0 = time.perf_counter()
+        leaves = dict(_state_tensors(eng.state))
+        if set(leaves) != set(saved):
+            raise AssertionError(f"phase 24: state leaves {sorted(set(leaves) ^ set(saved))}")
+        for name, t in leaves.items():
+            if not _equal_to_host(t, saved[name]):
+                raise AssertionError(f"phase 24: the state differs at {name}")
+        if not torch.equal(eng.state.rng.get_state(), saved_rng):
+            raise AssertionError("phase 24: the generator's state differs")
+        compared = sum(t.numel() for t in saved.values())
+        runs[kind]["compare_s"] = time.perf_counter() - t0
+        del eng, leaves
+    saved.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config=GRAPH_CELL_CONFIG, batch_size=b, rounds=GRAPH_ROUNDS, **runs,
+                responses_equal=True, transcripts_equal=True, state_words_equal=compared,
+                generator_equal=True, fresh_draws=True, card=card,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def graph_phase_alone() -> int:
+    """Phase 24 alone: the card line, the kernel build, then the round
+    graph phase."""
+    from grapevine_tpu_torch.config import GrapevineConfig
+    from grapevine_tpu_torch.engine.batcher import GrapevineEngine
+    from grapevine_tpu_torch.oblivious import cipher_kernels as ck
+    from grapevine_tpu_torch.oblivious import gather_kernels as gk
+
+    card = card_line()
+    emit({"card": card})
+    t0 = time.perf_counter()
+    gk.build_library()
+    gk.load_library()
+    emit({"build_s": time.perf_counter() - t0})
+    emit({"round_graph_cell": run_graph_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)})
+    emit({"graph_phase_alone_s": time.perf_counter() - t0, "card": card})
+    return 0
+
+
 def repeat_standby_runbook(n: int) -> int:
     """Phase 12b alone, ``n`` times: each run's outcome on a line of its
     own, then the count; 1 if any run failed."""
@@ -6617,6 +6852,8 @@ def main() -> int:
                     help="run phase 22 alone (after the kernel build)")
     ap.add_argument("--contracts-phase", action="store_true",
                     help="run phase 23 alone (after the kernel build)")
+    ap.add_argument("--graph-phase", action="store_true",
+                    help="run phase 24 alone (after the kernel build)")
     ap.add_argument("--record2048-child", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6642,6 +6879,8 @@ def main() -> int:
         return chaos_phase_alone()
     if args.contracts_phase:
         return contracts_phase_alone()
+    if args.graph_phase:
+        return graph_phase_alone()
     if args.record2048_child:
         return record2048_child()
     t_start = time.perf_counter()
@@ -6696,8 +6935,9 @@ def main() -> int:
     _reset_launches(gk, ck)
     rounds, health, prof, model, gone = run_slice(eng, 7, writes=False, profile_last=True)
     launches = _launches(gk, ck)
-    require_launches(launches, {"gather_decrypt_rows_tiled": 21,
-                                "scatter_encrypt_rows_tiled": 21}, "per-round slice")
+    n4 = counted_rounds(eng, 7)
+    require_launches(launches, {"gather_decrypt_rows_tiled": 3 * n4,
+                                "scatter_encrypt_rows_tiled": 3 * n4}, "per-round slice")
     slice_line = slice_stats(prod, rounds, health, init_s, launches, card)
     # phase 8 (E=1): the expiry sweep on this slice's engine (B2)
     exp1 = run_expiry_phase(eng, model, gone, gk, ck, card, "per-round slice")
@@ -6727,7 +6967,8 @@ def main() -> int:
     _reset_launches(gk, ck)
     rounds, health, *_ = run_slice(eng, 5, writes=True, profile_last=False)
     pallas_launches = _launches(gk, ck)
-    require_launches(pallas_launches, {"cipher_rows_pallas": 6 * 5}, "'pallas' path")
+    require_launches(pallas_launches, {"cipher_rows_pallas": 6 * counted_rounds(eng, 5)},
+                     "'pallas' path")
     pallas_line = slice_stats(unfused, rounds, health, init_s, pallas_launches, card)
     del eng
     torch.cuda.empty_cache()
@@ -6848,6 +7089,11 @@ def main() -> int:
     ct = run_contracts_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
     split("contracts")
 
+    # phase 24: the round graph at a benchmark cell's geometry against an
+    # eager twin (B4, B6)
+    rg = run_graph_phase(GrapevineConfig, GrapevineEngine, gk, ck, card)
+    split("round_graph")
+
     launches_by_kernel = {
         "cipher_rows_pallas": (op["launches"]["cipher_rows_pallas"]
                                + pm["launches"]["cipher_rows_pallas"]
@@ -6893,7 +7139,9 @@ def main() -> int:
     for k in KERNELS:
         launches_by_kernel[k] += (mesh["launches"].get(k, 0) + an["launches"][k]
                                   + rp["launches"][k] + cz["launches"][k]
-                                  + ch["launches"][k] + ct["launches"][k])
+                                  + ch["launches"][k] + ct["launches"][k]
+                                  + rg["graphed"]["launches"].get(k, 0)
+                                  + rg["eager"]["launches"].get(k, 0))
     emit(slice_line)
     emit({"profile": prof, "card": card})
     emit({"evict_slice": evict_line})
@@ -6923,9 +7171,13 @@ def main() -> int:
     emit_census_lines(cz)
     emit_chaos_lines(ch)
     emit_contracts_lines(ct)
+    emit({"round_graph_cell": rg})
     emit({"wall_s": time.perf_counter() - t_start, "phase_s": phase_s, "card": card})
+    # the launches are the wrappers' calls; the rounds replayed from a
+    # round graph launched their kernels from the graph
     emit({"kernels": kernel_entries(shapes, launches_by_kernel, sweep_chunks,
-                                    op["launches"]["cipher_rows_pallas"]), "card": card})
+                                    op["launches"]["cipher_rows_pallas"]),
+          "graph_replayed_rounds": GRAPH_REPLAYS["rounds"], "card": card})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

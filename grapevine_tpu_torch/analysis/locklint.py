@@ -127,9 +127,27 @@ LOCK_ALLOW: tuple = (
               "and _admission run only inside the lock-held dispatch "
               "stage, and _read_bound_locked inside it, inside expire's "
               "hold, or in __init__ before any thread exists"),
-    LockAllow("GrapevineEngine", "_bound_ref",
-              "the free_top tensor the bound belongs to: written with "
+    LockAllow("GrapevineEngine", "_bound_version",
+              "the state version the bound belongs to: written with "
               "_known, under the engine lock (same argument)"),
+    LockAllow("GrapevineEngine", "_state_version",
+              "bumped only by _set_state, which runs under the engine "
+              "lock (the dispatch stage, the flush, the sweep, a "
+              "standby's apply and install) or in __init__ before any "
+              "thread exists; read with _known (same argument)"),
+    # the round graph (engine/round_graph.py): the state behind the
+    # ``state`` property and the graph are written through methods the
+    # lint cannot see into, each called under the engine lock
+    LockAllow("GrapevineEngine", "_state",
+              "rebound only by _set_state (under the engine lock or in "
+              "__init__, as _state_version), never once the round graph "
+              "exists (copied into instead); the property's unlocked "
+              "reads are the reference snapshots the 'state' entry "
+              "argues"),
+    LockAllow("GrapevineEngine", "_graph",
+              "set once, in the lock-held dispatch stage; read by "
+              "_eager_reason inside that stage and by _set_state under "
+              "the same lock"),
     LockAllow("GrapevineEngine", "_dispatched",
               "the dispatch counter: incremented only in the lock-held "
               "dispatch stage; _read_bound_locked's read runs under the "

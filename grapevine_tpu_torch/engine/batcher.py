@@ -32,6 +32,17 @@ Dispatch makes no host synchronization on the card:
   ``recipients``) is decided on the host from a bound (``_admission``)
   instead of a read of the state, whenever the bound decides it.
 
+On the card the fast-branch round is replayed from one CUDA graph
+(``engine/round_graph.py``), one launch where the eager round enqueues
+some 3,500. Each round decides it from what the engine observes: a round
+on a CUDA device, with no mesh, not op-major, whose admission took the
+fast branch, replays; the first such round runs eagerly as the warm-up and
+the second captures. Every other round runs ``engine_round_step`` (or the
+op-major or sharded step) op by op, as does journal replay. The graph
+reads and writes the state in place, so the state's tensors keep their
+addresses once it exists: every write of ``state`` from outside the
+graphed round goes through one setter, which copies it into them.
+
 Under ``commit="op"`` the round program is the op-major
 ``engine/step.py:engine_step`` (the reference's choice, for dispatch and
 journal replay alike); it has no admission branch to decide. At
@@ -81,6 +92,7 @@ from ..wire.records import QueryRequest, QueryResponse, Record
 from ..wire.validate import validate_request
 from .expiry import expiry_sweep
 from .metrics import EngineMetrics
+from .round_graph import EAGER_REASONS, RoundGraph, copy_state_
 from .round_step import admission_fast_ok, engine_flush_step, engine_round_step
 from .step import engine_step
 from .state import (
@@ -120,17 +132,20 @@ def pack_batch(reqs: list[QueryRequest], batch_size: int, now: int) -> dict:
     }
 
 
-def upload_batch(batch: dict, device) -> tuple[dict, torch.Tensor | None]:
+def upload_batch(batch: dict, device, out: torch.Tensor | None = None
+                 ) -> tuple[dict, torch.Tensor | None]:
     """numpy batch columns → int32 tensors on ``device``, and the host
     buffer the copy reads.
 
     On the card every column goes into one pinned staging buffer and up
     by one asynchronous copy; the columns are views of the one device
-    buffer. The staging buffer is returned so the caller can keep it
-    until the copy has run (the round's ``PendingRound`` holds it; PyTorch's
-    pinned-memory cache also withholds a block from reuse until the copies
-    that read it are done). On the CPU each column is a plain copy and
-    the buffer is None."""
+    buffer: ``out`` (int32, the batch's size) where given, so that every
+    round's batch lands at the same addresses (the graphed round reads
+    them), else a fresh one. The staging buffer is returned so the caller
+    can keep it until the copy has run (the round's ``PendingRound`` holds
+    it; PyTorch's pinned-memory cache also withholds a block from reuse
+    until the copies that read it are done). On the CPU each column is a
+    plain copy and the buffer is None."""
     dev = torch.device(device)
     arrs = {k: np.asarray(v, np.uint32) for k, v in batch.items()}
     if dev.type != "cuda":
@@ -143,7 +158,8 @@ def upload_batch(batch: dict, device) -> tuple[dict, torch.Tensor | None]:
         flat[off:off + a.size] = a.reshape(-1)
         spans[k] = (off, a.size, a.shape)
         off += a.size
-    up = staging.to(dev, non_blocking=True)
+    up = staging.to(dev, non_blocking=True) if out is None else out.copy_(staging,
+                                                                          non_blocking=True)
     return {k: up[o:o + n].view(shape) for k, (o, n, shape) in spans.items()}, staging
 
 
@@ -211,11 +227,14 @@ class PendingRound:
     until the round's own outputs are on the host."""
 
     __slots__ = ("_engine", "_host", "_done", "_start", "_device_span_s", "_staging",
-                 "_tag", "_n", "_t0", "_spans", "_enq", "_qdepth", "_batch")
+                 "_tag", "_n", "_t0", "_spans", "_enq", "_qdepth", "_batch", "replayed")
 
     def __init__(self, engine, host, done, staging, tag, n, t0, spans=None,
-                 batch=None, start=None):
+                 batch=None, start=None, replayed=False):
         self._engine = engine
+        #: whether the round ran as a replay of the engine's round graph
+        #: (``engine/round_graph.py``), not op by op
+        self.replayed = replayed
         #: the round's outputs on the host (pinned copies in flight on the
         #: card): responses, the state's free_top and recipients, and the
         #: transcript when asked for
@@ -262,6 +281,14 @@ class PendingRound:
     def spans(self) -> dict:
         """The round's span ledger (complete after ``resolve()``)."""
         return dict(self._spans or {})
+
+    @property
+    def transcript(self):
+        """The round's transcript (numpy u32) where its dispatch asked for
+        it (a leak monitor attached, ``handle_queries_with_transcript``),
+        else None; read after ``resolve()``."""
+        t = self._host.get("transcript")
+        return None if t is None else to_numpy(t)
 
     @property
     def device_span_s(self) -> float | None:
@@ -356,6 +383,14 @@ class GrapevineEngine:
         self.config = config or GrapevineConfig()
         self.device = resolve_device(device)
         self.ecfg = EngineConfig.from_config(self.config)
+        #: the fast-branch round graph (``_dispatch_round``), captured on
+        #: the second fast round; None until then
+        self._graph: RoundGraph | None = None
+        #: the state, behind the ``state`` property; and the count of
+        #: writes from outside a round that replaced its free_top or
+        #: recipients (the admission bound's clock, ``_admission``)
+        self._state: EngineState | None = None
+        self._state_version = 0
         #: bucket-axis sharding (config ``shards``; parallel/mesh.py): at
         #: shards > 1 the round, flush and replay run the sharded step and
         #: flush on a mesh, the first N CUDA cards (``device="cpu"``: a
@@ -376,6 +411,17 @@ class GrapevineEngine:
         #: ``commit="op"``, the phase-major round otherwise (the
         #: reference's choice); dispatch and journal replay both run it
         self._op_major = self.config.commit == "op"
+        #: why no round of this engine can replay the graph (one of
+        #: ``EAGER_REASONS``), or None: one CUDA device, phase-major
+        self._graph_block = ("mesh" if self._mesh is not None else
+                             "op_major" if self._op_major else
+                             "not_cuda" if self.device.type != "cuda" else None)
+        #: the device buffer every round's batch is uploaded into (where a
+        #: round may replay), allocated at the first dispatch
+        self._batch_buf: torch.Tensor | None = None
+        #: rounds replayed from the graph, and rounds run op by op by
+        #: reason (``health()["round_graph"]``)
+        self._graph_counts = {"replayed": 0, "eager": dict.fromkeys(EAGER_REASONS, 0)}
         self._lock = threading.Lock()
         #: delayed eviction: the flush runs strictly every E rounds — a
         #: pure function of the round count, never of buffer contents
@@ -422,18 +468,19 @@ class GrapevineEngine:
         self.costmon = None
         #: the admission bound (``_admission``): exact (free_top,
         #: recipients) after dispatch number ``_known[0]``, the CREATE
-        #: count of every round dispatched since, and the state's
-        #: free_top tensor the bound belongs to (a state set from outside
-        #: is a different tensor, and the next round reads instead). All
-        #: of it runs under the engine lock; a round resolved on another
-        #: thread hands its exact values over through ``_resolved`` (a
-        #: deque: append and popleft are atomic), folded in at the next
-        #: dispatch, so the dispatch stage takes no lock of its own.
+        #: count of every round dispatched since, and the state version
+        #: the bound belongs to (a state set from outside with another
+        #: free_top or recipients bumps ``_state_version``, and the next
+        #: round reads instead). All of it runs under the engine lock; a
+        #: round resolved on another thread hands its exact values over
+        #: through ``_resolved`` (a deque: append and popleft are atomic),
+        #: folded in at the next dispatch, so the dispatch stage takes no
+        #: lock of its own.
         self._dispatched = 0
         self._known: tuple[int, int, int] | None = None
         self._inflight: deque[tuple[int, int]] = deque()
         self._resolved: deque[tuple[int, int, int]] = deque()
-        self._bound_ref = None
+        self._bound_version = None
         self.durability = None
         if durability is not None:
             from .checkpoint import DurabilityManager
@@ -459,6 +506,34 @@ class GrapevineEngine:
                 # uninterrupted run writes
                 with self._lock:
                     self._flush_window_locked(min_rounds=self.evict_every)
+
+    @property
+    def state(self) -> EngineState:
+        """The engine's state. Once the round graph exists its tensors and
+        generators keep their addresses (the graph reads and writes them)."""
+        return self._state
+
+    @state.setter
+    def state(self, new: EngineState) -> None:
+        """Set the state from outside a round (construction, recovery, the
+        flush, the sweep, a standby's apply or install, a caller): the one
+        way, besides the rounds themselves, that the state changes."""
+        self._set_state(new, by_round=False)
+
+    def _set_state(self, new: EngineState, by_round: bool) -> None:
+        """Make ``new`` the state: copied into the graph's static state
+        once the graph exists, else taken as it is. A write from outside
+        a round (``by_round`` False) that brings another free_top or
+        recipients tensor bumps the state version, so the admission bound,
+        which counts only rounds, reads the state before it decides again."""
+        old = self._state
+        if not by_round and (old is None or new.free_top is not old.free_top
+                             or new.recipients is not old.recipients):
+            self._state_version += 1
+        if self._graph is None:
+            self._state = new
+        else:
+            copy_state_(old, new)
 
     def _replay_record(self, state: EngineState, rec) -> EngineState:
         """Apply one journal record through the programs the live path
@@ -543,7 +618,7 @@ class GrapevineEngine:
         ft, rc = torch.stack([st.free_top, st.recipients]).tolist()
         self._known = (self._dispatched, ft, rc)
         self._inflight.clear()
-        self._bound_ref = st.free_top
+        self._bound_version = self._state_version
         return ft, rc
 
     def _admission(self, creates: int) -> bool:
@@ -571,7 +646,7 @@ class GrapevineEngine:
         unchanged."""
         b = self.ecfg.batch_size
         kn = self._known
-        if kn is not None and self.state.free_top is self._bound_ref:
+        if kn is not None and self._bound_version == self._state_version:
             pending = [c for tag, c in self._inflight if tag > kn[0]]
             s = sum(pending)
             if not pending or admission_fast_ok(self.ecfg, kn[1] - s, kn[2] + s, b):
@@ -662,28 +737,42 @@ class GrapevineEngine:
 
     def _dispatch_round(self, batch: dict, n_real: int, spans: dict,
                         transcript: bool = False) -> PendingRound:
-        """Stage 3 — dispatch: upload the batch, enqueue the round and
-        chain ``self.state`` onto its output, then enqueue the copies of
-        the round's outputs to the host and the event ``resolve`` waits
-        on. Returns at enqueue; the caller holds the lock. Its four
-        stages (``obs/tracer.py:STAGE_SPANS``) go into ``spans`` back to
-        back: ``upload``, ``admit``, ``launch`` and ``download``."""
+        """Stage 3 — dispatch: upload the batch, enqueue the round (a
+        replay of the round graph, or the round program op by op, its
+        output state made ``self.state``), then enqueue the copies of the
+        round's outputs to the host and the event ``resolve`` waits on.
+        Returns at enqueue; the caller holds the lock. Its four stages
+        (``obs/tracer.py:STAGE_SPANS``) go into ``spans`` back to back:
+        ``upload``, ``admit``, ``launch`` (the replay, or the round's
+        enqueue op by op) and ``download``."""
         t0 = time.perf_counter()
         start = _timing_event(self.device)
-        dev_batch, staging = upload_batch(batch, self.device)
+        if self._batch_buf is None and self._graph_block is None \
+                and self.device.type == "cuda":
+            self._batch_buf = torch.empty(sum(np.size(v) for v in batch.values()),
+                                          dtype=torch.int32, device=self.device)
+        dev_batch, staging = upload_batch(batch, self.device, out=self._batch_buf)
         t_admit = time.perf_counter()
         creates = int(np.count_nonzero(batch["req_type"] == C.REQUEST_TYPE_CREATE))
         self._fold_resolved()
         # the op-major step has no admission branch (each op checks its
         # own quota inside the program)
-        kw = {} if self._op_major else {"fast_ok": self._admission(creates)}
+        fast_ok = None if self._op_major else self._admission(creates)
+        eager = self._eager_reason(fast_ok)
         t_launch = time.perf_counter()
-        self.state, resp, tr = self._round_program()(self.ecfg, self.state, dev_batch,
-                                                     **kw)
+        if eager is None:
+            if self._graph is None:
+                self._graph = RoundGraph(self.ecfg, self.state, dev_batch)
+            resp, tr = self._graph.replay()
+            self._graph_counts["replayed"] += 1
+        else:
+            kw = {} if fast_ok is None else {"fast_ok": fast_ok}
+            new, resp, tr = self._round_program()(self.ecfg, self.state, dev_batch, **kw)
+            self._set_state(new, by_round=True)
+            self._graph_counts["eager"][eager] += 1
         t_down = time.perf_counter()
         self._dispatched += 1
         self._inflight.append((self._dispatched, creates))
-        self._bound_ref = self.state.free_top
         outs = dict(resp, free_top=self.state.free_top, recipients=self.state.recipients)
         key_cols = None
         if transcript:
@@ -699,7 +788,21 @@ class GrapevineEngine:
         spans["launch"] = (t_launch, t_down - t_launch)
         spans["download"] = (t_down, t_end - t_down)
         return PendingRound(self, host, done, staging, self._dispatched, n_real, t0,
-                            spans=spans, batch=key_cols, start=start)
+                            spans=spans, batch=key_cols, start=start,
+                            replayed=eager is None)
+
+    def _eager_reason(self, fast_ok: bool | None) -> str | None:
+        """Why this round runs op by op (one of ``EAGER_REASONS``), or
+        None where it replays the round graph: only the fast branch is
+        captured, and the first fast round, which warms up what the
+        capture needs, runs eagerly."""
+        if self._graph_block is not None:
+            return self._graph_block
+        if not fast_ok:
+            return "slow_branch"
+        if self._graph is None and not self._graph_counts["eager"]["warmup"]:
+            return "warmup"
+        return None
 
     def handle_queries_async(self, reqs: list[QueryRequest], now: int) -> PendingRound:
         """Dispatch one round without waiting for the device.
@@ -1055,8 +1158,10 @@ class GrapevineEngine:
 
     def health(self) -> dict:
         """Aggregate state + batch-level counters (never per-client): the
-        reference's keys, and ``durability`` (the durability manager's
-        status) when a state dir is configured."""
+        reference's keys, ``durability`` (the durability manager's status)
+        when a state dir is configured, and ``round_graph``: the rounds
+        replayed from the round graph and those run op by op, by reason
+        (``EAGER_REASONS``)."""
         occupancy = self.sample_stash()
         with self._lock:
             st = self.state
@@ -1076,4 +1181,6 @@ class GrapevineEngine:
                 out["evict_rounds_since_flush"] = self._rounds_since_flush
             if self.durability is not None:
                 out["durability"] = self.durability.status()
+            out["round_graph"] = {"replayed": self._graph_counts["replayed"],
+                                  "eager": dict(self._graph_counts["eager"])}
             return out

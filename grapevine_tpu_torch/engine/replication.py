@@ -440,8 +440,9 @@ class StandbyReplica:
         """Install a sealed checkpoint as the engine's state; the caller
         holds the engine lock. The state is set from outside: the replay
         cadence audit restarts from the new state's window counter, and
-        the admission bound, which belongs to the old ``free_top`` tensor,
-        reads the new state exactly before the next round decides."""
+        the admission bound, which belongs to the old state's version
+        (``GrapevineEngine.state``'s setter bumps it), reads the new state
+        exactly before the next round decides."""
         eng = self.engine
         eng.state = eng._shard_state(self.dm.install_checkpoint(seq, blob))
         eng._replay_since = None

@@ -615,7 +615,7 @@ def test_checkpoint_bootstrap_installs_and_reanchors(tmp_path, monkeypatch):
     checkpoint (MSG_CKPT), installs it, follows the frames past it and
     equals the primary. The install restarts the replay cadence audit from
     the installed window, and the admission bound, which belonged to the
-    old state's ``free_top`` tensor, reads the new state exactly."""
+    old state's version, reads the new state exactly."""
     primary_dir, standby_dir = str(tmp_path / "primary"), str(tmp_path / "standby")
     _plant_key(primary_dir)
     _plant_key(standby_dir)
@@ -627,7 +627,7 @@ def test_checkpoint_bootstrap_installs_and_reanchors(tmp_path, monkeypatch):
         f"journal-{ck + 1:016d}.wal") == 1
     replica = _replica(SMALL_E2, standby_dir)
     eng = replica.engine
-    old_ref = eng._bound_ref
+    old_version = eng._state_version
     installs = []
     real = replica.dm.install_checkpoint
     monkeypatch.setattr(replica.dm, "install_checkpoint",
@@ -639,7 +639,7 @@ def test_checkpoint_bootstrap_installs_and_reanchors(tmp_path, monkeypatch):
         with eng._lock:
             assert installs == [ck] and replica.dm.ckpt_seq == ck
             assert eng._replay_since is None
-            assert eng.state.free_top is not old_ref
+            assert eng._state_version != old_version
             reads = []
             read = eng._read_bound_locked
             monkeypatch.setattr(eng, "_read_bound_locked", lambda: reads.append(1) or read())

@@ -305,14 +305,15 @@ def test_port_client_against_reference_server(ref_server):
 def test_health_keys_equal_reference(server, ref_server):
     """``health()`` and ``healthz()`` have the reference server's keys,
     the round observability's metric families and the SLO verdict
-    included."""
+    included; ``health()`` adds the port's round-graph counter."""
     srv, _ = server
     ref, _ = ref_server
     want = set(ref.health())
     assert len(want) > 60
     assert any(k.startswith(("grapevine_cost_", "grapevine_load_", "grapevine_slo_",
                              "grapevine_trace_")) for k in want)
-    assert set(srv.health()) == want
+    # the port's engine adds its round-graph counter (engine/round_graph.py)
+    assert set(srv.health()) == want | {"round_graph"}
     ok, detail = srv.healthz()
     ref_ok, ref_detail = ref.healthz()
     assert ok and ref_ok

@@ -233,8 +233,13 @@ def test_cuda_standby_promotes_bit_equal(cuda_device, tmp_path):
         while replica.dm.applied_seq < primary.durability.seq:
             assert time.monotonic() < deadline, "the standby never caught up"
             time.sleep(0.05)
-        # both engines: 3 B3 a round, 2 B5 a flush, one sweep's B2 each
-        assert gk.LAUNCHES["gather_decrypt_rows"] == 2 * 3 * 8
+        # both engines: 3 B3 a round the wrappers launch (the standby's
+        # every round; the primary's warm-up and its round graph's capture,
+        # whose 7 replays launch from the graph), 2 B5 a flush, one sweep's
+        # B2 each
+        replayed = primary.health()["round_graph"]["replayed"]
+        assert replayed == 7
+        assert gk.LAUNCHES["gather_decrypt_rows"] == 3 * 8 + 3 * (8 - replayed + 1)
         assert gk.LAUNCHES["scatter_encrypt_rows"] == 2 * 2 * 2
         assert ck.LAUNCHES["cipher_rows_pallas"] % 2 == 0 < ck.LAUNCHES["cipher_rows_pallas"]
         with replica.engine._lock:
