@@ -42,7 +42,17 @@ class Newest(reference.Bus):
         return box.pop()
 
 
-BROKEN = {"no_cap": NoCap, "newest_first": Newest}
+class PopNotKept(reference.Bus):
+    """A zero-id DELETE answers its message but leaves it in the mailbox:
+    a delete the bus does not keep. (A mailbox that never holds two
+    messages, as a lone client's, cannot tell the two above.)"""
+
+    @staticmethod
+    def pop(box):
+        return box[0]
+
+
+BROKEN = {"no_cap": NoCap, "newest_first": Newest, "pop_not_kept": PopNotKept}
 
 
 def control_reading(cell: dict, bench: dict, seed: int, rounds: int, broken: str,

@@ -28,6 +28,17 @@ that several paths share once a path, as the program addresses it; the
 card's cache serves the repeats, so the ledger's bytes over the kernels'
 time would read above the memory's peak.) Distinct rows at level ``l``
 for ``b`` paths are ``2**l * (1 - (1 - 2**-l) ** b)``, their expectation.
+
+A recursive position map (``posmap_impl: "recursive"``, upstream's
+mechanism) leaves the two trees' geometry, and so :func:`kernel_bytes`,
+as they are. It adds, as ``grapevine_tpu_torch/oram/posmap.py`` derives
+them, one smaller internal tree a payload tree (:func:`posmap_trees`:
+``entries_per_block`` positions packed into each internal block, the
+internal round fetching as many paths as the payload round, on the
+plain keystream) and a per-slot leaf plane beside each payload tree's
+rows, ``Z`` words a bucket row, encrypted. :func:`posmap_bytes` counts
+their bytes a round as :func:`kernel_bytes` counts the payload trees'.
+Delayed eviction (``evict_every`` > 1) is outside this arithmetic.
 """
 
 from __future__ import annotations
@@ -38,6 +49,11 @@ WORD = 4
 ENTRY_WORDS = 6
 KEY_WORDS = 8
 RECORD_HEAD_WORDS = 22
+#: the program's cap on positions packed into one internal block (2**10)
+#: and the internal trees' bucket slots, whatever the payload trees' Z
+MAX_ENTRIES_PER_BLOCK_LOG2 = 10
+INNER_Z = 4
+MIN_RECURSIVE_BLOCKS = 8
 
 
 def _log2_ceil(n: int) -> int:
@@ -47,7 +63,13 @@ def _log2_ceil(n: int) -> int:
 def trees(engine: dict, record_size: int) -> dict:
     """The two trees' geometry and paths a round from a configuration's
     ``engine`` knobs: name -> dict(height, k, z, value_words, paths,
-    rounds, encrypted)."""
+    rounds, encrypted, blocks); ``k`` is the cached top levels, ``blocks``
+    the block space a position map covers. Refuses knobs the arithmetic
+    does not cover."""
+    if int(engine["evict_every"]) != 1:
+        raise ValueError("the frozen arithmetic covers evict_every=1 rounds")
+    if engine["posmap_impl"] not in ("flat", "recursive"):
+        raise ValueError(f"unknown position map {engine['posmap_impl']!r}")
     density_shift = int(engine["tree_density"]).bit_length() - 1
     z = int(engine["bucket_slots"])
     b = int(engine["batch_size"])
@@ -61,17 +83,44 @@ def trees(engine: dict, record_size: int) -> dict:
     table = 1 << max(1, _log2_ceil(want))
     mb_h = max(1, _log2_ceil(table) - density_shift)
     choices = int(engine["mailbox_choices"])
-    if int(engine["evict_every"]) != 1:
-        raise ValueError("the frozen arithmetic covers evict_every=1 rounds")
-    if engine["posmap_impl"] != "flat":
-        raise ValueError("the frozen arithmetic covers the flat position map")
     return {
         "rec": dict(height=rec_h, k=min(k_top, rec_h), z=z, encrypted=encrypted,
-                    value_words=RECORD_HEAD_WORDS + payload_words, paths=b, rounds=1),
+                    value_words=RECORD_HEAD_WORDS + payload_words, paths=b, rounds=1,
+                    blocks=int(engine["max_messages"])),
         "mb": dict(height=mb_h, k=min(k_top, mb_h), z=z, encrypted=encrypted,
                    value_words=slots * (KEY_WORDS + ENTRY_WORDS * int(engine["mailbox_cap"])),
-                   paths=b * choices, rounds=2),
+                   paths=b * choices, rounds=2, blocks=table),
     }
+
+
+def posmap_trees(engine: dict, record_size: int) -> dict:
+    """The internal trees of a recursive position map, one a payload tree
+    (none for the flat map): name -> dict(entries_per_block, blocks,
+    height, k, z, value_words, paths, rounds, encrypted), with ``k`` the
+    cached top levels as in :func:`trees`. ``entries_per_block`` is about
+    the square root of the payload tree's blocks, at most ``2**10`` and
+    halved while fewer than 4 internal blocks would hold them; two
+    internal blocks a leaf; the internal round fetches as many paths as
+    the payload tree's round."""
+    if engine["posmap_impl"] != "recursive":
+        return {}
+    k_top = int(engine["tree_top_cache_levels"])
+    out = {}
+    for name, t in trees(engine, record_size).items():
+        blocks = t["blocks"]
+        if blocks < MIN_RECURSIVE_BLOCKS or blocks & (blocks - 1):
+            raise ValueError(f"a recursive position map needs a power-of-two block space "
+                             f">= {MIN_RECURSIVE_BLOCKS}, got {blocks}")
+        k = 1 << max(1, min(MAX_ENTRIES_PER_BLOCK_LOG2, (blocks.bit_length() - 1) // 2))
+        while blocks // k < 4:
+            k >>= 1
+        inner = blocks // k
+        h = max(1, inner.bit_length() - 2)
+        out[f"{name}_pm"] = dict(entries_per_block=k, blocks=inner, height=h,
+                                 k=min(k_top, h), z=INNER_Z, value_words=k,
+                                 paths=t["paths"], rounds=t["rounds"],
+                                 encrypted=t["encrypted"])
+    return out
 
 
 def _fetched_rows(t: dict) -> int:
@@ -82,13 +131,20 @@ def round_rows(engine: dict, record_size: int) -> dict:
     """Rows per device-memory plane one engine round gathers and scatters:
     plane -> (row_words, gather_rows, scatter_rows), the cost model's
     ``engine_round_rows`` for the planes in device memory."""
+    recursive = engine["posmap_impl"] == "recursive"
+    ts = trees(engine, record_size)
     out = {}
-    for name, t in trees(engine, record_size).items():
+    for name, t in {**ts, **posmap_trees(engine, record_size)}.items():
         r = _fetched_rows(t) * t["rounds"]
         z = t["z"]
+        # a payload tree's leaf plane, whose keystream gathers the nonces a
+        # second time
+        leaf = recursive and name in ts
         out[f"{name}_tree_idx"] = (z, r, r)
         out[f"{name}_tree_val"] = (z * t["value_words"], r, r)
-        out[f"{name}_nonces"] = (2, r, r if t["encrypted"] else 0)
+        out[f"{name}_nonces"] = (2, 2 * r if leaf else r, r if t["encrypted"] else 0)
+        if leaf:
+            out[f"{name}_tree_leaf"] = (z, r, r)
     return out
 
 
@@ -99,26 +155,56 @@ def distinct_rows(t: dict) -> float:
                for lv in range(t["k"], t["height"] + 1))
 
 
-def kernel_bytes(engine: dict, record_size: int) -> dict:
-    """Bytes one engine round's fetch kernels and write-back kernels need:
-    {"fetch": ..., "writeback": ...} (see the module docstring)."""
-    rows = round_rows(engine, record_size)
+def _path_bytes(ts: dict) -> dict:
+    """Bytes the fetches and write-backs of the trees ``ts`` need in one
+    engine round (see the module docstring)."""
     fetch = writeback = 0.0
-    for name, t in trees(engine, record_size).items():
-        idx_words, fetched, _ = rows[f"{name}_tree_idx"]
-        row = (idx_words + rows[f"{name}_tree_val"][0]) * WORD
-        nonce = rows[f"{name}_nonces"][0] * WORD
-        r = fetched // t["rounds"]
+    for t in ts.values():
+        row = (t["z"] + t["z"] * t["value_words"]) * WORD
+        nonce = 2 * WORD
+        r = _fetched_rows(t)
         d = distinct_rows(t)
         fetch += t["rounds"] * (d * (row + nonce) + r * WORD + r * row)
         writeback += t["rounds"] * (r * (WORD + 1) + d * row + d * (row + nonce))
     return {"fetch": fetch, "writeback": writeback}
 
 
+def kernel_bytes(engine: dict, record_size: int) -> dict:
+    """Bytes one engine round's fetch kernels and write-back kernels need:
+    {"fetch": ..., "writeback": ...} (see the module docstring)."""
+    return _path_bytes(trees(engine, record_size))
+
+
+def posmap_bytes(engine: dict, record_size: int) -> dict:
+    """Bytes a recursive position map's work needs in one engine round,
+    counted as :func:`kernel_bytes` counts: {"fetch", "writeback"} of the
+    internal trees' paths, and "leaf_plane", the payload trees' leaf
+    planes: each distinct leaf row read once and every fetched row's
+    plaintext leaves written, then each owner's plaintext leaves read and
+    each distinct leaf row written once. The bucket ids, the owner flags
+    and the nonces the leaf plane's keystream takes are the payload
+    fetch's own bytes, in :func:`kernel_bytes`. All 0 for the flat map."""
+    out = _path_bytes(posmap_trees(engine, record_size))
+    leaf = 0.0
+    if engine["posmap_impl"] == "recursive":
+        for t in trees(engine, record_size).values():
+            row = t["z"] * WORD
+            d = distinct_rows(t)
+            leaf += t["rounds"] * (d * row + _fetched_rows(t) * row + 2 * d * row)
+    out["leaf_plane"] = leaf
+    return out
+
+
 def tree_bytes(engine: dict, record_size: int) -> dict:
-    """Resident bytes of each tree's row and nonce planes."""
+    """Resident bytes of each tree's row and nonce planes; under a
+    recursive map also each internal tree's (``<tree>_pm``) and each
+    payload tree's leaf plane (``<tree>_leaf``)."""
     out = {}
-    for name, t in trees(engine, record_size).items():
+    ts = trees(engine, record_size)
+    for name, t in {**ts, **posmap_trees(engine, record_size)}.items():
         n = 1 << (t["height"] + 1)
         out[name] = n * (t["z"] + t["z"] * t["value_words"] + 2) * WORD
+    if engine["posmap_impl"] == "recursive":
+        for name, t in ts.items():
+            out[f"{name}_leaf"] = (1 << (t["height"] + 1)) * t["z"] * WORD
     return out

@@ -126,9 +126,10 @@ class GcClock:
 class Loop:
     """The closed loop over the facade: dispatch a round, and once
     ``in_flight`` rounds are outstanding resolve the oldest. Every executed
-    round is logged as ``(label, ops, now, answers)``. While
-    ``host`` is a list, the host's intervals are noted in it for the trace
-    (``gvbench.trace.reduce``)."""
+    round is logged as ``(label, ops, now, answers)``, and every timed
+    round's span ledger is kept in ``spans``: ``{"host": PendingRound.spans,
+    "device": PendingRound.device_span_s}``. While ``host`` is a list, the
+    host's intervals are noted in it for the trace (``gvbench.trace.reduce``)."""
 
     def __init__(self, eng, in_flight: int):
         self.eng = eng
@@ -137,6 +138,7 @@ class Loop:
         self.log: list = []
         self.dispatch_s: list = []
         self.latency: list = []
+        self.spans: list = []
         self.timing = False
         self.host: list | None = None
 
@@ -158,6 +160,7 @@ class Loop:
         t = time.perf_counter()
         if timed:
             self.latency.append((t - t0, len(ops)))
+            self.spans.append({"host": p.spans, "device": p.device_span_s})
         self.log.append((label, ops, now, answers(resp)))
         if self.host is not None:
             spans = p.spans
@@ -178,13 +181,17 @@ class Loop:
 
 class Prepared:
     """A cell's configuration, its traffic's rounds and their requests, made
-    from the seed before the program is imported (only its wire types are)."""
+    from the seed before the program is imported (only its wire types are).
+    Knobs outside the byte arithmetic (``gvbench.costbytes``) are refused
+    here, before the program loads."""
 
     def __init__(self, bench: dict, cell: dict, seed: int, engine_overrides: dict | None):
         t0 = time.perf_counter()
         config = find(bench["configs"], cell["config"], "configuration")
         cfile = json.loads((ROOT / config["file"]).read_text())
         self.record_size = int(cfile["record_size"])
+        self.knobs = dict(cfile["engine"], **(engine_overrides or {}))
+        self.trees_bytes = costbytes.tree_bytes(self.knobs, self.record_size)
         os.environ["GRAPEVINE_RECORD_SIZE"] = str(self.record_size)
         from grapevine_tpu_torch.wire import constants as C
         from grapevine_tpu_torch.wire.records import QueryRequest, RequestRecord
@@ -193,7 +200,6 @@ class Prepared:
             raise RuntimeError(f"the program was loaded with {C.RECORD_SIZE} B records, "
                                f"the configuration runs {self.record_size} B")
         self.payload_size = C.PAYLOAD_SIZE
-        self.knobs = dict(cfile["engine"], **(engine_overrides or {}))
         self.mix = traffic.Traffic(traffic.load(cell["traffic"]),
                                    batch_size=self.knobs["batch_size"],
                                    max_recipients=self.knobs["max_recipients"],
@@ -340,7 +346,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
         "dispatch_s": loop.dispatch_s, "gc_s": clock.seconds, "window_s": window_s,
         "window_rounds": len(window),
         "trace": summary, "trace_rounds": TRACE_ROUNDS, "engine": knobs,
-        "record_size": record_size,
+        "record_size": record_size, "spans": loop.spans, "health": health,
         "peak": json.loads((HERE / "peaks.json").read_text()).get(kind),
     }
     if trace:
@@ -378,7 +384,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
         "memory_peak_bytes": peak,
         "setup_stages": stages, "traced_round_s": traced_s / TRACE_ROUNDS,
         "window_round_s": window_s / max(1, len(window)),
-        "trees_bytes": costbytes.tree_bytes(knobs, record_size),
+        "trees_bytes": prep.trees_bytes, "round_graph": health.get("round_graph"),
         "judged": j.judged, "examples": j.examples,
         "cpu_s_per_round": cpu_s / max(1, len(window)),
         "dispatch_s_mean": sum(loop.dispatch_s) / max(1, len(loop.dispatch_s)),

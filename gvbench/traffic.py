@@ -15,9 +15,14 @@ program and the reference reads it as it is. Keys:
   over the identity pool, or ``"zero"``; ``payload`` is ``"random"`` or
   ``"zero"``. Every message id sent is zero: a READ or DELETE takes the
   oldest message addressed to its auth identity;
-- ``zipf_theta``: the zipfian constant; rank ``r`` (from 1) is drawn with
-  weight ``r ** -theta``, and the ranks are dealt to identities in an
-  order drawn from the seed;
+- ``sequence`` (optional, in place of the shares): a list of kinds; every
+  op of round ``r`` is of kind ``sequence[r % len(sequence)]``, drawn as
+  that kind's ``mix`` entry says. ``distinct_rounds`` and
+  ``warmup_rounds`` are then multiples of its length, so the cycle and
+  the window both start at its head;
+- ``zipf_theta`` (where a ``mix`` entry draws ``"zipf"``): the zipfian
+  constant; rank ``r`` (from 1) is drawn with weight ``r ** -theta``, and
+  the ranks are dealt to identities in an order drawn from the seed;
 - ``identity_pool_share_of_max_recipients``: the identity pool's size as a
   share of the configuration's ``max_recipients``;
 - ``distinct_rounds``: rounds made before the run; the run cycles through
@@ -73,16 +78,27 @@ class Traffic:
         self.identities = [raw[i * 32:(i + 1) * 32] for i in range(pool)]
         if ZERO_KEY in self.identities:
             raise ValueError("the seed drew the zero identity")
-        theta = float(params["zipf_theta"])
-        self._cdf = list(itertools.accumulate(r ** -theta for r in range(1, pool + 1)))
+        self._cdf = None
+        if "zipf_theta" in params:
+            theta = float(params["zipf_theta"])
+            self._cdf = list(itertools.accumulate(r ** -theta for r in range(1, pool + 1)))
         self._rank_owner = list(range(pool))
         rng.shuffle(self._rank_owner)
         self._noise = rng.randbytes(1 << 16)
-        counts = [int(round(m["share"] * self.n)) for m in params["mix"]]
-        counts[counts.index(max(counts))] += self.n - sum(counts)
-        self._slots = [i for i, c in enumerate(counts) for _ in range(c)]
-        self.rounds = [self._round(r, rng) for r in range(int(params["distinct_rounds"]))]
-        self.warmup = int(params["warmup_rounds"])
+        n_rounds, self.warmup = int(params["distinct_rounds"]), int(params["warmup_rounds"])
+        self._sequence = None
+        if "sequence" in params:
+            names = [m["kind"] for m in params["mix"]]
+            self._sequence = [names.index(kd) for kd in params["sequence"]]
+            if n_rounds % len(self._sequence) or self.warmup % len(self._sequence):
+                raise ValueError(f"distinct_rounds ({n_rounds}) and warmup_rounds "
+                                 f"({self.warmup}) must be multiples of the sequence's "
+                                 f"length ({len(self._sequence)})")
+        else:
+            counts = [int(round(m["share"] * self.n)) for m in params["mix"]]
+            counts[counts.index(max(counts))] += self.n - sum(counts)
+            self._slots = [i for i, c in enumerate(counts) for _ in range(c)]
+        self.rounds = [self._round(r, rng) for r in range(n_rounds)]
 
     def _draw(self, how: str, rng, n: int) -> list:
         if how == "zero":
@@ -91,6 +107,8 @@ class Traffic:
         if how == "uniform":
             return [ids[rng.randrange(len(ids))] for _ in range(n)]
         if how == "zipf":
+            if self._cdf is None:
+                raise ValueError("a zipf draw needs zipf_theta")
             cdf, top, last = self._cdf, self._cdf[-1], len(ids) - 1
             return [ids[self._rank_owner[min(last, bisect.bisect_right(cdf, rng.random() * top))]]
                     for _ in range(n)]
@@ -109,8 +127,11 @@ class Traffic:
         return out
 
     def _round(self, r: int, rng) -> list:
-        kinds = list(self._slots)
-        rng.shuffle(kinds)
+        if self._sequence is not None:
+            kinds = [self._sequence[r % len(self._sequence)]] * self.n
+        else:
+            kinds = list(self._slots)
+            rng.shuffle(kinds)
         ops: list = [None] * self.n
         for i, m in enumerate(self.params["mix"]):
             slots = [j for j, kd in enumerate(kinds) if kd == i]
